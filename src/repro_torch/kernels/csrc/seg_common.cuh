@@ -1,0 +1,102 @@
+// Shared pieces of the two GAB segment kernels (segment_reduce.cu,
+// gab_fused.cu): the row-block layout, the per-row edge ranges found by
+// binary search on the dst-sorted edge list, the combine monoids and the
+// fixed-order warp reduction.
+//
+// Determinism: a row's edges are reduced by one warp, lane l taking edges
+// lo + l, lo + l + 32, ... in order, then a butterfly over the lanes in a
+// fixed pattern.  No atomics: every row is owned by exactly one warp.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace seg {
+
+constexpr int kWarps = 8;                  // warps per block
+constexpr int kThreads = kWarps * 32;
+constexpr int kRowsPerBlock = 256;         // rows owned by one block
+
+enum Combine { kSum = 0, kMin = 1, kMax = 2 };
+
+// First index i in dst[0, n) with dst[i] >= key; dst is ascending.
+__device__ __forceinline__ long long lower_bound(const int* __restrict__ dst,
+                                                 long long n, long long key) {
+  long long lo = 0, hi = n;
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    if (static_cast<long long>(dst[mid]) < key) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// bounds[t] = first edge of row r0 + t, for t in [0, kRowsPerBlock]; row
+// r0 + t owns edges [bounds[t], bounds[t + 1]).
+__device__ __forceinline__ void block_row_bounds(const int* __restrict__ dst,
+                                                 long long n, long long r0,
+                                                 long long* bounds) {
+  for (int t = threadIdx.x; t <= kRowsPerBlock; t += blockDim.x)
+    bounds[t] = lower_bound(dst, n, r0 + t);
+  __syncthreads();
+}
+
+// NaN-propagating min / max, as torch.minimum / jnp.minimum.
+__device__ __forceinline__ float min_nan(float x, float y) {
+  if (x != x || y != y) return CUDART_NAN_F;
+  return y < x ? y : x;
+}
+__device__ __forceinline__ float max_nan(float x, float y) {
+  if (x != x || y != y) return CUDART_NAN_F;
+  return y > x ? y : x;
+}
+
+template <int C> __device__ __forceinline__ float combine(float x, float y) {
+  if (C == kSum) return __fadd_rn(x, y);
+  if (C == kMin) return min_nan(x, y);
+  return max_nan(x, y);
+}
+template <int C>
+__device__ __forceinline__ long long combine(long long x, long long y) {
+  if (C == kSum) return x + y;
+  if (C == kMin) return y < x ? y : x;
+  return y > x ? y : x;
+}
+
+// Identity of the monoid, for the output type T.
+template <typename T, int C> struct Identity;
+template <int C> struct Identity<float, C> {
+  __device__ static float value() {
+    return C == kSum ? 0.0f : (C == kMin ? CUDART_INF_F : -CUDART_INF_F);
+  }
+};
+template <int C> struct Identity<int, C> {
+  __device__ static long long value() {
+    return C == kSum ? 0LL : (C == kMin ? 2147483647LL : -2147483648LL);
+  }
+};
+template <int C> struct Identity<long long, C> {
+  __device__ static long long value() {
+    return C == kSum ? 0LL
+                     : (C == kMin ? 9223372036854775807LL
+                                  : (-9223372036854775807LL - 1));
+  }
+};
+
+// Butterfly over the 32 lanes; every lane ends with the same value (each
+// step combines the same two operands on both partner lanes).
+template <int C, typename Acc>
+__device__ __forceinline__ Acc warp_reduce(Acc v) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1)
+    v = combine<C>(v, __shfl_xor_sync(0xffffffffu, v, m));
+  return v;
+}
+
+inline unsigned int num_row_blocks(long long rows) {
+  return static_cast<unsigned int>((rows + kRowsPerBlock - 1) / kRowsPerBlock);
+}
+
+}  // namespace seg
+
+extern "C" const char* repro_cuda_error_string(int code);

@@ -1,0 +1,55 @@
+"""Device dispatch for the GAB kernels.
+
+A CUDA tensor launches the hand-written kernel (``gab_gather``,
+``gab_fused``); a CPU tensor runs the plain PyTorch version (``ref``);
+any other device raises.  Nothing here falls back from the kernel: a
+kernel that cannot build or launch raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import gab_fused as _gf
+from repro_torch.kernels import gab_gather as _gg
+from repro_torch.kernels import ref as _ref
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no GAB kernel for device {t.device}")
+
+
+def segment_reduce(contrib: torch.Tensor, dst: torch.Tensor,
+                   num_segments: int, combine: str,
+                   sorted_ids: bool = True) -> torch.Tensor:
+    """``combine``-reduce contrib ``[E(, Q)]`` by dst ``[E]`` into
+    ``[R(, Q)]`` rows (R = num_segments); see ``gab_gather``."""
+    fn = _gg.segment_reduce if _on_card(contrib) else _ref.segment_reduce
+    return fn(contrib, dst, num_segments, combine, sorted_ids)
+
+
+def segment_sum(contrib, dst, num_segments, sorted_ids=True):
+    """Sum-reduce contrib ``[E(, Q)]`` by dst ``[E]`` into ``[R(, Q)]``."""
+    return segment_reduce(contrib, dst, num_segments, "sum", sorted_ids)
+
+
+def segment_min(contrib, dst, num_segments, sorted_ids=True):
+    """Min-reduce contrib ``[E(, Q)]`` by dst ``[E]`` into ``[R(, Q)]``
+    (+inf for empty segments)."""
+    return segment_reduce(contrib, dst, num_segments, "min", sorted_ids)
+
+
+def segment_max(contrib, dst, num_segments, sorted_ids=True):
+    """Max-reduce contrib ``[E(, Q)]`` by dst ``[E]`` into ``[R(, Q)]``
+    (-inf for empty segments)."""
+    return segment_reduce(contrib, dst, num_segments, "max", sorted_ids)
+
+
+def gab_fused(spec, src_vals, a, b, dst_local, old, base, num_rows, row_cap):
+    """One fused Gather+Apply tile step over src_vals ``[E(, Q)]`` and old
+    ``[R(, Q)]``; returns ``(new, updated)`` — see ``gab_fused``."""
+    fn = _gf.gab_fused if _on_card(src_vals) else _ref.gab_fused_ref
+    return fn(spec, src_vals, a, b, dst_local, old, base, num_rows, row_cap)

@@ -1,0 +1,146 @@
+"""Graph analytics driver for the port — run a GraphH app out of core.
+
+    PYTHONPATH=src python -m repro_torch.launch.graph --app pagerank \
+        --vertices 100000 --edges 1000000 --servers 4 --supersteps 20
+
+The batch flags of ``repro.launch.graph`` for the port's slice (the tiled,
+serial, in-process engine and the five single-query apps), plus
+``--device`` (default ``cuda``).  The reference's other flags are accepted
+and rejected with ``NotImplementedError`` naming their ROADMAP.md queue
+item.
+"""
+from __future__ import annotations
+
+import argparse
+import tempfile
+import time
+
+from repro_torch.core.apps import APPS, BATCHED_APPS
+from repro_torch.core.engine import EngineConfig, OutOfCoreEngine
+from repro_torch.core.gab import SEG_IMPLS
+from repro_torch.graphio import spe, synth
+from repro_torch.graphio.formats import TileStore
+
+# reference flags outside the slice -> the ROADMAP.md queue item bringing them
+_LATER_FLAGS = {
+    "pipeline": "A.5", "kernel_autotune": "A.5", "queries": "A.5",
+    "seeds": "A.5", "vertex_memory_budget": "A.6", "admit": "A.7",
+    "cluster": "A.9", "checkpoint_dir": "A.10", "resume": "A.10",
+    "preemptible": "A.10", "inject": "A.10", "serve": "A.11",
+    "serve_http": "A.11",
+}
+
+
+def build_store(args) -> TileStore:
+    """SPE-preprocess the synthetic graph selected by the CLI namespace
+    into a (new or ``--store``-named) TileStore; weighted edges are
+    generated iff the app consumes them (sssp)."""
+    store = TileStore(args.store or tempfile.mkdtemp(prefix="graphh_"),
+                      disk_mode=args.disk_mode)
+    gen = {"rmat": synth.rmat_edges, "uniform": synth.uniform_edges,
+           "banded": synth.banded_edges}[args.graph]
+    weighted = args.app == "sssp"
+    t0 = time.time()
+    spe.preprocess(
+        lambda: gen(args.vertices, args.edges, seed=args.seed,
+                    weighted=weighted),
+        args.vertices, store, tile_size=args.tile_size,
+        weighted=weighted,
+    )
+    print(f"SPE preprocessing: {time.time()-t0:.1f}s -> {store.root}")
+    return store
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """Parse the CLI flags; reject the reference's flags outside the slice
+    with ``NotImplementedError``."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--app", default="pagerank",
+                    choices=sorted(APPS) + sorted(BATCHED_APPS))
+    ap.add_argument("--graph", default="rmat",
+                    choices=["rmat", "uniform", "banded"])
+    ap.add_argument("--vertices", type=int, default=100_000)
+    ap.add_argument("--edges", type=int, default=1_000_000)
+    ap.add_argument("--tile-size", type=int, default=65536)
+    ap.add_argument("--servers", type=int, default=4)
+    ap.add_argument("--supersteps", type=int, default=30)
+    ap.add_argument("--cache-mb", type=float, default=1024)
+    ap.add_argument("--cache-mode", default="auto",
+                    choices=["auto", "1", "2", "3", "4"])
+    ap.add_argument("--comm-mode", default="hybrid",
+                    choices=["dense", "sparse", "hybrid"])
+    ap.add_argument("--disk-mode", type=int, default=1)
+    ap.add_argument("--store", default=None,
+                    help="reuse an existing tile store directory")
+    ap.add_argument("--reuse", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seg-impl", default="fused", choices=list(SEG_IMPLS),
+                    help="fused: the fused gather→combine→apply kernel (the "
+                         "segment kernel for apps without a fused form); "
+                         "segment: the app's gather/apply around the "
+                         "segment kernel")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device the tiles compute on (cpu runs the "
+                         "kernels' plain versions)")
+    for flag in ("--pipeline", "--kernel-autotune", "--cluster", "--resume",
+                 "--preemptible", "--serve", "--serve-http"):
+        ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+    for flag in ("--queries", "--seeds", "--vertex-memory-budget",
+                 "--checkpoint-dir"):
+        ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--cache-policy", default="lru", help=argparse.SUPPRESS)
+    for flag in ("--inject", "--admit"):
+        ap.add_argument(flag, action="append", default=None,
+                        help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    later = [f"--{k.replace('_', '-')} is ROADMAP.md queue {item}"
+             for k, item in _LATER_FLAGS.items() if getattr(args, k)]
+    if args.cache_policy != "lru":
+        later.append(f"--cache-policy {args.cache_policy} (tiered cache) is "
+                     f"ROADMAP.md queue A.5")
+    if args.app in BATCHED_APPS:
+        later.append(f"--app {args.app} (batched [V, Q] program) is "
+                     f"ROADMAP.md queue A.5")
+    if later:
+        raise NotImplementedError("; ".join(later))
+    return args
+
+
+def main(argv=None):
+    """Parse CLI flags, build or reuse a tile store, and run the selected
+    app through the port's out-of-core engine."""
+    args = parse_args(argv)
+    if args.reuse and args.store:
+        store = TileStore(args.store)
+        store.load_meta()
+    else:
+        store = build_store(args)
+
+    cfg = EngineConfig(
+        num_servers=args.servers,
+        cache_capacity_bytes=int(args.cache_mb * 1e6),
+        cache_mode=args.cache_mode if args.cache_mode == "auto"
+        else int(args.cache_mode),
+        comm_mode=args.comm_mode,
+        seg_impl=args.seg_impl,
+        max_supersteps=args.supersteps,
+        device=args.device,
+    )
+    eng = OutOfCoreEngine(store, cfg)
+    prog = APPS[args.app]()
+    t0 = time.time()
+    res = eng.run(prog)
+    dt = time.time() - t0
+    print(f"{args.app}: {res.supersteps} supersteps in {dt:.1f}s "
+          f"(mean {res.mean_superstep_seconds()*1000:.0f} ms/superstep, "
+          f"converged={res.converged}, device={eng.device})")
+    h = res.history[-1]
+    print(f"  cache hit ratio {h.cache_hit_ratio:.2f}, "
+          f"net {sum(x.network_bytes for x in res.history)/1e6:.1f} MB total, "
+          f"mode={eng.cache_mode}, "
+          f"disk-stall {res.disk_stall_fraction()*100:.0f}% of wall time")
+    return res
+
+
+if __name__ == "__main__":
+    main()
