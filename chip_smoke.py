@@ -4,32 +4,69 @@
     python3 chip_smoke.py
 
 1. Card: name and power limit (nvidia-smi), torch and CUDA versions.
-2. Build: the CUDA kernels from src/repro_torch/kernels/csrc with nvcc.
+2. Build: the three CUDA kernels from src/repro_torch/kernels/csrc, one
+   nvcc each, started together.
 3. Main-path store: SPE of an R-MAT graph (Graph500 a, b, c = 0.57, 0.19,
    0.19) at SCALE 22, edge factor 16 — 4,194,304 vertices, 67,108,864
    edges — in tiles of 2^20 edges, unweighted, disk mode 1.
-4. Kernels against their plain PyTorch versions on the card, at the shapes
-   of the store's largest tile: the segment kernel (sum/min/max, Q in
-   {1, 4}, sorted and unsorted dst, int32), the fused kernel (the four
-   fused apps' specs and a weighted spec with both edge streams, Q in
-   {1, 4}).  Min, max and integers must be equal, sums within
-   rtol=1e-5, atol=1e-6 (another order of summation); the fused kernel's
-   updated mask must equal the plain version's (for sums, on every row
-   whose change is farther than that tolerance from update_tol) and leave
-   rows past num_rows untouched.  Each is timed with
-   CUDA events (L2 flushed between launches) beside the plain version, one
-   scatter_reduce call where that computes the same function, and its
-   bound (bytes over 3.35 TB/s, flops over 67 TFLOP/s).
+4. Kernels against their plain PyTorch versions on the card:
+   - the segment kernel at the largest tile's shapes (sum/min/max, Q in
+     {1, 4, 8}, sorted and unsorted dst, int32) and once (sum) at the
+     merged mode's shape (the server's 67,108,864 real edges, V + 1 rows);
+   - the fused kernel at the largest tile's shapes (the four single-query
+     fused specs, PPR's spec with its per-query base, and a weighted spec
+     with both edge streams; Q in {1, 4, 8});
+   - the compact kernel at V = 4,194,304 with K = sparse_capacity(V)
+     (densities 0, 1e-3, 0.05, 0.399; 0.6, where more than K are set and
+     the first K are kept; int32 values; a fill index of 7) and at
+     V = 2^25, density 0.01 (past the TPU kernel's 2^24 bound).
+   Min, max, integers and compaction must be equal (compact: indices and
+   value bits), sums within rtol=1e-5, atol=1e-6 (another order of
+   summation); the fused kernel's updated mask must equal the plain
+   version's (for sums, on every entry whose change is farther than that
+   tolerance from update_tol) and leave rows past num_rows untouched.
+   Each case is timed with CUDA events (L2 flushed before each launch,
+   median of 10) beside the plain version, one PyTorch call that computes
+   the same function where there is one (scatter_reduce; for compact
+   torch.nonzero plus a gather, which synchronises with the host), and
+   its bound (bytes over 3.35 TB/s, flops over 67 TFLOP/s).
 5. Main path: OutOfCoreEngine(store, device="cuda", seg_impl="fused") runs
    PageRank for 5 supersteps (against a float64 numpy power iteration,
    rtol=1e-4: float32 against float64), BFS from vertex 0 to convergence
    (equal to a numpy level-synchronous BFS) and InDegree for 1 superstep
-   (equal to np.bincount), with both kernels' launch counters set to 0
-   before and read after.
-6. One PageRank superstep under torch.profiler: device busy share and the
+   (equal to np.bincount).
+6. Compact path: ops.compact over the sparse broadcast of each BFS
+   superstep of phase 5 (the vertices it updated, their levels),
+   K = sparse_capacity(V); equal to numpy's nonzero.
+7. One PageRank superstep under torch.profiler: device busy share and the
    kernels' device time.
+8. Batched apps at Q = 8 on the same store, seg_impl="fused": sources are
+   vertex 0 and seven vertices drawn with numpy from SEED among those with
+   out-degree > 0.  MultiSourceBFS to convergence (each column equal to a
+   numpy BFS from its source, column 0 equal to phase 5's BFS);
+   LandmarkDistances on the unweighted store (edge weight 1.0, the b
+   stream), equal to MultiSourceBFS with equal per-query supersteps;
+   PersonalizedPageRank for 5 supersteps against a float64 scipy.sparse
+   power iteration with the same update gate (|new - old| > update_tol):
+   relative error <= 1e-4 on entries >= 1e-6 and L1 error <= 1e-5 per
+   column.  An entry whose change in some superstep lies within float32
+   rounding of update_tol takes it in one iteration and not the other,
+   and differs by about update_tol (1e-9, which is 1e-3 of a 1e-6 entry):
+   such gate flips may exceed the relative limit, each by at most
+   update_tol per superstep, in at most 1e-4 of the entries.  Column 0
+   equal bit for bit to a Q = 1 PPR run.
+9. Modes: PageRank (5 supersteps) and MultiSourceBFS (Q = 8, to
+   convergence) with engine_mode "stacked", "merged" and pipeline=True,
+   tile skipping off so every superstep runs in the mode; each equal bit
+   for bit to the tiled runs of phases 5 and 8 (tile skipping never
+   changes a result).
+10. One MultiSourceBFS superstep at Q = 8 under torch.profiler.
 
-Prints a ``{"kernels": [...]}`` line, then as its last line
+Phases 5, 6, 8 and 9 each set every kernel's launch counter to 0 before
+and read it after; each must have launched the kernels it runs.  The
+``{"kernels": [...]}`` line gives, per kernel, the launches summed over
+those phases, and the times of one case: segment sum at Q = 1, the fused
+PageRank spec at Q = 1, compact at density 0.05.  Then, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failed check raises; without a CUDA
 device, or without the repository beside it, it exits non-zero before
 printing a result.  Details go to build/chip_smoke.json.
@@ -53,10 +90,15 @@ TILE_SIZE = 1 << 20
 SEED = 0
 PR_SUPERSTEPS = 5
 BFS_MAX_SUPERSTEPS = 40
+NUM_QUERIES = 8
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12      # H100 SXM data sheet, float32 outside tensor cores
 SUM_TOL = dict(rtol=1e-5, atol=1e-6)
 PR_RTOL = 1e-4
+PPR_MIN_ENTRY = 1e-6
+PPR_L1 = 1e-5
+PPR_MAX_FLIP_SHARE = 1e-4
+DEV = "cuda"
 
 
 def log(msg):
@@ -114,6 +156,28 @@ def check_equal_or_close(torch, got, want, exact, what):
         torch.testing.assert_close(got, want, **SUM_TOL, msg=what)
 
 
+def kernel_modules():
+    from repro_torch.kernels import compact, gab_fused, gab_gather
+    return {"segment_reduce": gab_gather, "gab_fused": gab_fused,
+            "compact": compact}
+
+
+def reset_launches():
+    for mod in kernel_modules().values():
+        mod.LAUNCHES = 0
+
+
+def read_launches():
+    return {name: mod.LAUNCHES for name, mod in kernel_modules().items()}
+
+
+def require_launches(launches, names, what):
+    log(f"{what} launches: {launches}")
+    missing = [n for n in names if not launches[n]]
+    if missing:
+        raise AssertionError(f"{what}: {missing} not launched: {launches}")
+
+
 def build_store(root):
     from repro_torch.graphio import spe, synth
     from repro_torch.graphio.formats import TileStore
@@ -138,12 +202,44 @@ def build_store(root):
                                        row_cap=plan.row_cap)
 
 
-def check_segment_kernel(torch, tile, plan, flush):
-    """Segment kernel against ref.segment_reduce at the main path's shapes
-    (InDegree: contrib [edge_cap], num_segments row_cap + 1)."""
+def segment_row(torch, flush, c, d, r, combine, what, reps=10):
+    """Time the segment kernel, its plain version and scatter_reduce on
+    contrib c [E(, Q)] and ascending dst d [E] into r rows."""
     from repro_torch.kernels import gab_gather, ref
 
-    dev = torch.device("cuda")
+    e = d.shape[0]
+    q = 1 if c.ndim == 1 else c.shape[1]
+    idx = d.long()
+    if q > 1:
+        idx = idx[:, None].expand(e, q).contiguous()
+    init = torch.full((r,) + tuple(c.shape[1:]),
+                      ref.identity(combine, c.dtype), dtype=c.dtype,
+                      device=c.device)
+    lib_reduce = {"sum": "sum", "min": "amin", "max": "amax"}[combine]
+    nbytes = e * 4 + e * 4 * q + r * 4 * q
+    b_ms, b_by = bound(nbytes, e * q)
+    row = dict(
+        combine=combine, q=q, edges=e, rows=r,
+        kernel_ms=time_ms(torch, lambda: gab_gather.segment_reduce(
+            c, d, r, combine), flush, reps),
+        plain_ms=time_ms(torch, lambda: ref.segment_reduce(
+            c, d, r, combine), flush, reps),
+        library_ms=time_ms(torch, lambda: torch.scatter_reduce(
+            init, 0, idx, c, lib_reduce), flush, reps),
+        bound_ms=b_ms, bound_by=b_by)
+    log(f"{what}: kernel {row['kernel_ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, scatter_reduce {row['library_ms']:.4f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by})")
+    return row
+
+
+def check_segment_kernel(torch, tile, plan, flush):
+    """Segment kernel against ref.segment_reduce at the tiles' shapes
+    (InDegree, the segment backend: contrib [edge_cap(, Q)],
+    num_segments row_cap + 1)."""
+    from repro_torch.kernels import gab_gather, ref
+
+    dev = torch.device(DEV)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     e, r = plan.edge_cap, plan.row_cap + 1
     dst_sorted = torch.from_numpy(tile.dst_local).to(dev)
@@ -151,7 +247,7 @@ def check_segment_kernel(torch, tile, plan, flush):
     rows = []
     err = 0.0
     for combine in ("sum", "min", "max"):
-        for q in (1, 4):
+        for q in (1, 4, NUM_QUERIES):
             shape = (e,) if q == 1 else (e, q)
             # positive messages for sums (as PageRank's): no cancellation
             c = (torch.rand(shape, generator=gen, device=dev)
@@ -165,27 +261,8 @@ def check_segment_kernel(torch, tile, plan, flush):
                                      f"segment {combine} Q={q} "
                                      f"sorted={sorted_ids}")
                 err = max(err, max_abs_err(torch, got, want))
-            idx = dst_sorted.long()
-            if q > 1:
-                idx = idx[:, None].expand(e, q).contiguous()
-            init = torch.full((r,) + shape[1:], ref.identity(combine, c.dtype),
-                              dtype=c.dtype, device=dev)
-            lib_reduce = {"sum": "sum", "min": "amin", "max": "amax"}[combine]
-            nbytes = e * 4 + e * 4 * q + r * 4 * q
-            b_ms, b_by = bound(nbytes, e * q)
-            row = dict(
-                combine=combine, q=q,
-                kernel_ms=time_ms(torch, lambda: gab_gather.segment_reduce(
-                    c, dst_sorted, r, combine), flush),
-                plain_ms=time_ms(torch, lambda: ref.segment_reduce(
-                    c, dst_sorted, r, combine), flush),
-                library_ms=time_ms(torch, lambda: torch.scatter_reduce(
-                    init, 0, idx, c, lib_reduce), flush),
-                bound_ms=b_ms, bound_by=b_by)
-            rows.append(row)
-            log(f"segment {combine} Q={q}: kernel {row['kernel_ms']:.4f} ms,"
-                f" plain {row['plain_ms']:.4f} ms, scatter_reduce "
-                f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            rows.append(segment_row(torch, flush, c, dst_sorted, r, combine,
+                                    f"segment {combine} Q={q}"))
     ci = torch.randint(-(1 << 30), 1 << 30, (e,), generator=gen, device=dev,
                        dtype=torch.int32)
     for combine in ("sum", "min", "max"):
@@ -194,6 +271,27 @@ def check_segment_kernel(torch, tile, plan, flush):
         check_equal_or_close(torch, got, want, True, f"segment int32 {combine}")
     log(f"segment kernel: all cases agree, max |err| {err:.3g}")
     return rows, err
+
+
+def check_merged_segment(torch, dst, nv, flush):
+    """Segment kernel (sum) at the merged mode's shape: the server's real
+    edges by ascending global dst into V + 1 rows."""
+    from repro_torch.kernels import gab_gather, ref
+
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    d = torch.from_numpy(np.sort(dst).astype(np.int32)).to(dev)
+    c = torch.rand(d.shape[0], generator=gen, device=dev)
+    got = gab_gather.segment_reduce(c, d, nv + 1, "sum")
+    want = ref.segment_reduce(c, d, nv + 1, "sum")
+    check_equal_or_close(torch, got, want, False, "segment sum merged shape")
+    err = max_abs_err(torch, got, want)
+    row = segment_row(torch, flush, c, d, nv + 1, "sum",
+                      f"segment sum merged shape E={d.shape[0]} R={nv + 1}",
+                      reps=5)
+    row["shape"] = "merged"
+    log(f"segment kernel at the merged shape agrees, max |err| {err:.3g}")
+    return row, err
 
 
 def check_fused_mask(torch, spec, new, upd, pnew, pupd, old, nr, what):
@@ -227,6 +325,7 @@ def fused_cases():
         "sssp": apps.SSSP().fused_spec(),
         "wcc": apps.WCC().fused_spec(),
         "bfs": apps.BFS().fused_spec(),
+        "ppr": apps.PersonalizedPageRank().fused_spec(),
         "weighted": FusedSpec(combine="sum", scale_aux="w", add_edge=True,
                               apply="affine", alpha=0.15, beta=0.85,
                               update_tol=1e-9),
@@ -234,11 +333,11 @@ def fused_cases():
 
 
 def check_fused_kernel(torch, tile, plan, flush):
-    """Fused kernel against ref.gab_fused_ref at the main path's shapes
-    (PageRank, BFS: src_vals [edge_cap], old [row_cap])."""
+    """Fused kernel against ref.gab_fused_ref at the tiles' shapes
+    (src_vals [edge_cap(, Q)], old [row_cap(, Q)])."""
     from repro_torch.kernels import gab_fused, ref
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEV)
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     e, r, nr = plan.edge_cap, plan.row_cap, tile.meta.num_rows
     dst = torch.from_numpy(tile.dst_local).to(dev)
@@ -249,7 +348,7 @@ def check_fused_kernel(torch, tile, plan, flush):
     rows = []
     err = 0.0
     for name, spec in fused_cases().items():
-        for q in (1, 4):
+        for q in (1, 4, NUM_QUERIES):
             tail = () if q == 1 else (q,)
             src = torch.rand((e,) + tail, generator=gen, device=dev) * 5
             if spec.combine == "min":
@@ -259,7 +358,9 @@ def check_fused_kernel(torch, tile, plan, flush):
             old = torch.rand((r,) + tail, generator=gen, device=dev) * 5
             a = (inv * ev) if spec.scale_aux else None
             b = ev if spec.add_edge else None
-            args = (spec, src, a, b, dst, old, None, nr, r)
+            base = (torch.rand((r,) + tail, generator=gen, device=dev)
+                    if spec.base_aux else None)
+            args = (spec, src, a, b, dst, old, base, nr, r)
             new, upd = gab_fused.gab_fused(*args)
             pnew, pupd = ref.gab_fused_ref(*args)
             what = f"fused {name} Q={q}"
@@ -268,7 +369,8 @@ def check_fused_kernel(torch, tile, plan, flush):
                                                pupd, old, nr, what)
             err = max(err, max_abs_err(torch, new, pnew))
             streams = int(a is not None) + int(b is not None)
-            nbytes = e * (4 + 4 * q + 4 * streams) + r * q * (4 + 4 + 1)
+            nbytes = (e * (4 + 4 * q + 4 * streams)
+                      + r * q * (4 + 4 + 1 + 4 * int(base is not None)))
             flops = e * q * (1 + streams + int(spec.add_const is not None))
             b_ms, b_by = bound(nbytes, flops + 3 * r * q)
             row = dict(
@@ -284,6 +386,55 @@ def check_fused_kernel(torch, tile, plan, flush):
                 f"mask equal on {n_clear} of {n_rows} entries")
     log(f"fused kernel: all cases agree, max |err| {err:.3g}")
     return rows, err
+
+
+def check_compact_kernel(torch, nv, flush):
+    """Compact kernel against ref.compact: indices equal, value bits equal."""
+    from repro_torch.core.comm import sparse_capacity
+    from repro_torch.kernels import compact, ref
+
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    big = 1 << 25
+    cases = [(nv, 0.0, torch.float32, None), (nv, 1e-3, torch.float32, None),
+             (nv, 0.05, torch.float32, None), (nv, 0.399, torch.float32, None),
+             (nv, 0.6, torch.float32, None), (big, 0.01, torch.float32, None),
+             (nv, 0.05, torch.int32, None), (nv, 0.05, torch.float32, 7)]
+    rows = []
+    for n, density, dtype, fill in cases:
+        k = sparse_capacity(n)
+        m = torch.rand(n, generator=gen, device=dev) < density
+        if dtype == torch.float32:
+            v = torch.randn(n, generator=gen, device=dev)
+        else:
+            v = torch.randint(-(1 << 31), (1 << 31) - 1, (n,), generator=gen,
+                              device=dev, dtype=torch.int32)
+        gi, gv = compact.compact(m, v, k, fill)
+        wi, wv = ref.compact(m, v, k, fill)
+        what = (f"compact V={n} density={density} K={k} {dtype} "
+                f"fill={'V' if fill is None else fill}")
+        if not (torch.equal(gi, wi)
+                and torch.equal(gv.view(torch.int32), wv.view(torch.int32))):
+            raise AssertionError(f"{what}: kernel differs from plain version")
+        pop = int(m.sum())
+        nbytes = n + 4 * min(pop, k) + 8 * k
+        b_ms, b_by = bound(nbytes, n)
+        row = dict(
+            n=n, density=density, capacity=k, popcount=pop,
+            dtype=str(dtype), fill=fill,
+            kernel_ms=time_ms(torch, lambda: compact.compact(m, v, k, fill),
+                              flush),
+            plain_ms=time_ms(torch, lambda: ref.compact(m, v, k, fill),
+                             flush),
+            library_ms=time_ms(torch, lambda: v[torch.nonzero(m).squeeze(1)
+                                                [:k]], flush),
+            bound_ms=b_ms, bound_by=b_by)
+        rows.append(row)
+        log(f"{what}: {pop} set, equal; kernel {row['kernel_ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, nonzero+gather "
+            f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    log("compact kernel: all cases equal")
+    return rows, 0.0
 
 
 def numpy_pagerank(src, dst, out_degree, nv, steps):
@@ -313,11 +464,32 @@ def numpy_bfs(src, dst, nv, source):
     return level
 
 
+def scipy_ppr(src, dst, out_degree, nv, seeds, steps, tol):
+    """float64 personalized PageRank with the engine's update gate: a cell
+    takes its new value only where it moved by more than ``tol``."""
+    import scipy.sparse as sp
+
+    inv = np.zeros(nv, dtype=np.float32)
+    nz = out_degree > 0
+    inv[nz] = 1.0 / out_degree[nz]
+    a = sp.csr_matrix((inv.astype(np.float64)[src], (dst, src)),
+                      shape=(nv, nv))
+    seed_mass = np.zeros((nv, len(seeds)))
+    seed_mass[np.asarray(seeds), np.arange(len(seeds))] = 1.0
+    x = seed_mass.copy()
+    for _ in range(steps):
+        new = 0.15 * seed_mass + 0.85 * (a @ x)
+        x = np.where(np.abs(new - x) > tol, new, x)
+    return x
+
+
 def app_summary(name, res):
     h = res.history
+    steady = h[1:] if len(h) > 1 else h
     s = dict(
         app=name, supersteps=res.supersteps, converged=res.converged,
         ms_per_superstep=1e3 * res.total_seconds() / max(len(h), 1),
+        steady_ms=1e3 * float(np.mean([x.seconds for x in steady])),
         seconds=res.total_seconds(),
         load_seconds=sum(x.load_seconds for x in h),
         compute_seconds=sum(x.compute_seconds for x in h),
@@ -328,33 +500,37 @@ def app_summary(name, res):
         per_superstep_ms=[1e3 * x.seconds for x in h],
         load_ms=[1e3 * x.load_seconds for x in h],
         compute_ms=[1e3 * x.compute_seconds for x in h],
-        updated=[x.updated_vertices for x in h])
+        updated=[x.updated_vertices for x in h],
+        updated_pairs=[x.updated_pairs for x in h],
+        per_query_supersteps=(None if res.per_query_supersteps is None
+                              else [int(x) for x in
+                                    res.per_query_supersteps]))
     log(f"{name}: {s['supersteps']} supersteps, {s['ms_per_superstep']:.1f} "
-        f"ms/superstep, load {s['load_seconds']:.2f} s, compute "
-        f"{s['compute_seconds']:.2f} s, tiles {s['tiles_processed']} run / "
-        f"{s['tiles_skipped']} skipped, broadcast {s['raw_bytes']} raw / "
-        f"{s['wire_bytes']} wire bytes")
+        f"ms/superstep ({s['steady_ms']:.1f} steady), load "
+        f"{s['load_seconds']:.2f} s, compute {s['compute_seconds']:.2f} s, "
+        f"tiles {s['tiles_processed']} run / {s['tiles_skipped']} skipped, "
+        f"broadcast {s['raw_bytes']} raw / {s['wire_bytes']} wire bytes")
     return s
+
+
+def engine(store, **kw):
+    from repro_torch.core.engine import EngineConfig, OutOfCoreEngine
+
+    return OutOfCoreEngine(store, EngineConfig(num_servers=1, device=DEV,
+                                               seg_impl="fused", **kw))
 
 
 def main_path(torch, store, src, dst):
     from repro_torch.core.apps import BFS, InDegree, PageRank
-    from repro_torch.core.engine import EngineConfig, OutOfCoreEngine
-    from repro_torch.kernels import gab_fused, gab_gather
 
-    eng = OutOfCoreEngine(store, EngineConfig(num_servers=1, device="cuda",
-                                              seg_impl="fused"))
+    eng = engine(store)
     nv = eng.plan.num_vertices
-    gab_gather.LAUNCHES = 0
-    gab_fused.LAUNCHES = 0
+    reset_launches()
     pr = eng.run(PageRank(), max_supersteps=PR_SUPERSTEPS)
     bfs = eng.run(BFS(source=0), max_supersteps=BFS_MAX_SUPERSTEPS)
     indeg = eng.run(InDegree(), max_supersteps=1)
-    launches = {"segment_reduce": gab_gather.LAUNCHES,
-                "gab_fused": gab_fused.LAUNCHES}
-    log(f"main path launches: {launches}")
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel was not launched: {launches}")
+    launches = read_launches()
+    require_launches(launches, ("segment_reduce", "gab_fused"), "main path")
 
     summaries = [app_summary("pagerank", pr), app_summary("bfs", bfs),
                  app_summary("indegree", indeg)]
@@ -379,17 +555,45 @@ def main_path(torch, store, src, dst):
     if not np.array_equal(indeg.values, np.bincount(dst, minlength=nv)):
         raise AssertionError("indegree differs from np.bincount")
     log("indegree equals np.bincount")
-    return eng, launches, summaries, rel
+    return eng, launches, summaries, rel, pr, bfs
 
 
-def profile_superstep(torch, eng):
-    """One PageRank superstep under torch.profiler: device busy share and
-    device time by kernel."""
+def compact_path(torch, bfs):
+    """ops.compact over each BFS superstep's sparse broadcast: the
+    vertices superstep k updated (level k + 1) and their levels."""
+    from repro_torch.core.comm import sparse_capacity
+    from repro_torch.kernels import ops
+
+    nv = bfs.values.shape[0]
+    k = sparse_capacity(nv)
+    values = torch.from_numpy(bfs.values).to(DEV)
+    reset_launches()
+    counts = []
+    for step in range(bfs.supersteps):
+        mask = bfs.values == step + 1
+        idx, vals = ops.compact(torch.from_numpy(mask).to(DEV), values, k)
+        want = np.nonzero(mask)[0][:k]
+        n = len(want)
+        gi, gv = idx.cpu().numpy(), vals.cpu().numpy()
+        if not (np.array_equal(gi[:n], want)
+                and np.array_equal(gv[:n], bfs.values[want])
+                and (gi[n:] == nv).all() and (gv[n:] == 0).all()):
+            raise AssertionError(f"compact path: superstep {step} differs "
+                                 "from numpy")
+        counts.append(int(mask.sum()))
+    launches = read_launches()
+    require_launches(launches, ("compact",), "compact path")
+    log(f"compact path: {bfs.supersteps} BFS payloads (K = {k}, "
+        f"{counts} set) equal numpy")
+    return launches, counts
+
+
+def profile_superstep(torch, eng, prog, name):
+    """One superstep (after a warm one) under torch.profiler: device busy
+    share and device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.apps import PageRank
-
-    session = eng.open_session(PageRank(), max_supersteps=2)
+    session = eng.open_session(prog, max_supersteps=2)
     session.step()          # warm: the first superstep
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -408,15 +612,126 @@ def profile_superstep(torch, eng):
                       and not e.key.startswith("Activity Buffer")),
                      reverse=True)
     busy = sum(t for t, _, _ in by_name) / 1e6
-    out = dict(wall_s=wall, device_busy_s=busy,
+    out = dict(app=name, wall_s=wall, device_busy_s=busy,
                device_busy_share=busy / wall if wall else 0.0,
                top=[dict(name=k[:80], device_ms=t / 1e3, count=c)
                     for t, k, c in by_name[:12]])
-    log(f"profiled pagerank superstep: wall {wall:.3f} s, device busy "
+    log(f"profiled {name} superstep: wall {wall:.3f} s, device busy "
         f"{busy:.4f} s ({100 * out['device_busy_share']:.1f}%)")
     for row in out["top"]:
         log(f"  {row['device_ms']:9.3f} ms  x{row['count']:<5d} {row['name']}")
     return out
+
+
+def pick_sources(out_degree):
+    """Vertex 0 and seven vertices with out-degree > 0 drawn from SEED."""
+    rng = np.random.default_rng(SEED)
+    cand = np.nonzero(out_degree > 0)[0]
+    cand = cand[cand != 0]
+    more = rng.choice(cand, NUM_QUERIES - 1, replace=False)
+    return (0,) + tuple(int(v) for v in more)
+
+
+def batched_apps(torch, store, src, dst, bfs):
+    from repro_torch.core.apps import (LandmarkDistances, MultiSourceBFS,
+                                       PersonalizedPageRank)
+
+    eng = engine(store)
+    nv = eng.plan.num_vertices
+    sources = pick_sources(eng.out_degree)
+    log(f"batched sources (Q = {len(sources)}): {sources}")
+    reset_launches()
+    msbfs = eng.run(MultiSourceBFS(sources=sources),
+                    max_supersteps=BFS_MAX_SUPERSTEPS)
+    lm = eng.run(LandmarkDistances(landmarks=sources),
+                 max_supersteps=BFS_MAX_SUPERSTEPS)
+    ppr = eng.run(PersonalizedPageRank(seeds=sources),
+                  max_supersteps=PR_SUPERSTEPS)
+    ppr1 = eng.run(PersonalizedPageRank(seeds=sources[:1]),
+                   max_supersteps=PR_SUPERSTEPS)
+    launches = read_launches()
+    require_launches(launches, ("gab_fused",), "batched apps")
+    summaries = [app_summary("msbfs", msbfs), app_summary("landmarks", lm),
+                 app_summary("ppr", ppr), app_summary("ppr_q1", ppr1)]
+
+    shape = (nv, len(sources))
+    for name, res in (("msbfs", msbfs), ("landmarks", lm), ("ppr", ppr)):
+        if res.values.shape != shape or res.values.dtype != np.float32:
+            raise AssertionError(f"{name}: bad result {res.values.shape} "
+                                 f"{res.values.dtype}")
+    if not msbfs.converged or not lm.converged:
+        raise AssertionError("msbfs / landmarks did not converge")
+    for q, s in enumerate(sources):
+        if not np.array_equal(msbfs.values[:, q], numpy_bfs(src, dst, nv, s)):
+            raise AssertionError(f"msbfs column {q} (source {s}) differs "
+                                 "from numpy BFS")
+    if not np.array_equal(msbfs.values[:, 0], bfs.values):
+        raise AssertionError("msbfs column 0 differs from the Q = 1 BFS")
+    log(f"msbfs equals numpy BFS in all {len(sources)} columns; column 0 "
+        f"equals the single-query BFS; per-query supersteps "
+        f"{list(msbfs.per_query_supersteps)}")
+    if not (np.array_equal(lm.values, msbfs.values)
+            and np.array_equal(lm.per_query_supersteps,
+                               msbfs.per_query_supersteps)):
+        raise AssertionError("landmarks differ from msbfs")
+    log("landmarks (edge weight 1.0) equal msbfs, per-query supersteps too")
+
+    tol = PersonalizedPageRank().update_tol
+    want = scipy_ppr(src, dst, eng.out_degree, nv, sources, PR_SUPERSTEPS,
+                     tol)
+    if not np.isfinite(ppr.values).all():
+        raise AssertionError("ppr: non-finite values")
+    big = want >= PPR_MIN_ENTRY
+    err = np.abs(ppr.values - want)[big]
+    rel_all = err / want[big]
+    over = rel_all > PR_RTOL
+    n_over = int(over.sum())
+    flip_err = float(err[over].max()) if n_over else 0.0
+    rel = float(rel_all[~over].max()) if n_over < rel_all.size else 0.0
+    l1 = float(np.max(np.abs(ppr.values - want).sum(axis=0)))
+    log(f"ppr vs float64 scipy: max rel err {rel:.3g} on {rel_all.size - n_over}"
+        f" entries >= {PPR_MIN_ENTRY} (limit {PR_RTOL}); {n_over} gate flips "
+        f"(max rel {float(rel_all.max()):.3g}, max abs err {flip_err:.3g}, "
+        f"limit {PR_SUPERSTEPS * tol:.3g}); max L1 per column {l1:.3g} "
+        f"(limit {PPR_L1})")
+    if (l1 > PPR_L1 or flip_err > PR_SUPERSTEPS * tol
+            or n_over > PPR_MAX_FLIP_SHARE * rel_all.size):
+        raise AssertionError("ppr disagrees with scipy")
+    if not np.array_equal(ppr.values[:, 0], ppr1.values[:, 0]):
+        raise AssertionError("ppr column 0 differs from the Q = 1 run")
+    log("ppr column 0 equals the Q = 1 PPR run")
+    return (sources, launches, summaries, msbfs,
+            dict(ppr_max_rel_err=rel, ppr_gate_flips=n_over,
+                 ppr_entries=int(rel_all.size),
+                 ppr_flip_max_abs_err=flip_err, ppr_max_l1=l1))
+
+
+def modes(torch, store, sources, pr, msbfs):
+    from repro_torch.core.apps import MultiSourceBFS, PageRank
+
+    out = []
+    reset_launches()
+    for mode in (dict(engine_mode="stacked"), dict(engine_mode="merged"),
+                 dict(pipeline=True)):
+        name = next(f"{k}={v}" for k, v in mode.items())
+        eng = engine(store, tile_skipping=False, **mode)
+        p = eng.run(PageRank(), max_supersteps=PR_SUPERSTEPS)
+        m = eng.run(MultiSourceBFS(sources=sources),
+                    max_supersteps=BFS_MAX_SUPERSTEPS)
+        if not np.array_equal(p.values, pr.values):
+            raise AssertionError(f"{name}: pagerank differs from tiled")
+        if not (np.array_equal(m.values, msbfs.values)
+                and np.array_equal(m.per_query_supersteps,
+                                   msbfs.per_query_supersteps)):
+            raise AssertionError(f"{name}: msbfs differs from tiled")
+        log(f"{name}: pagerank and msbfs equal the tiled runs bit for bit")
+        out.append(dict(mode=name, pagerank=app_summary(f"pagerank {name}", p),
+                        msbfs=app_summary(f"msbfs {name}", m)))
+        del eng
+        torch.cuda.empty_cache()
+    launches = read_launches()
+    require_launches(launches, ("segment_reduce", "gab_fused"), "modes")
+    return out, launches
 
 
 def kernel_entry(name, source, replaces, launches, err, row):
@@ -432,9 +747,16 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: PyTorch sees no CUDA device", file=sys.stderr)
         return 2
+    from repro_torch.core.apps import MultiSourceBFS, PageRank
     from repro_torch.kernels import _build
 
     t_all = time.perf_counter()
+    phase_s = {}
+
+    def mark(name, t0):
+        phase_s[name] = time.perf_counter() - t0
+        log(f"[phase {name}: {phase_s[name]:.1f} s]")
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = card_info(torch)
@@ -449,48 +771,98 @@ def main():
                                                 b["ptxas"]))
         log(f"  {name}: {len(regs)} kernels, at most {max(regs, default=0)} "
             f"registers a thread, {spills} bytes of spills")
+    mark("build", t0)
 
     store_root = os.path.join(ROOT, "build", "chip_smoke_store")
     shutil.rmtree(store_root, ignore_errors=True)
     try:
+        t0 = time.perf_counter()
         store, plan, src, dst, store_info = build_store(store_root)
+        nv = plan.num_vertices
+        mark("store", t0)
+
+        t0 = time.perf_counter()
         big = int(np.argmax(plan.edges_per_tile))
         tile = store.read_tile(big)
         log(f"kernel shapes from tile {big}: E {plan.edge_cap}, "
             f"R {plan.row_cap}, {tile.meta.num_edges} real edges, "
             f"{tile.meta.num_rows} rows")
-        flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
         seg_rows, seg_err = check_segment_kernel(torch, tile, plan, flush)
+        merged_row, merged_err = check_merged_segment(torch, dst, nv, flush)
+        seg_rows.append(merged_row)
+        seg_err = max(seg_err, merged_err)
         fused_rows, fused_err = check_fused_kernel(torch, tile, plan, flush)
+        compact_rows, compact_err = check_compact_kernel(torch, nv, flush)
         del flush
+        torch.cuda.empty_cache()
+        mark("kernels", t0)
 
-        eng, launches, summaries, pr_rel = main_path(torch, store, src, dst)
-        prof = profile_superstep(torch, eng)
+        t0 = time.perf_counter()
+        eng, main_launches, summaries, pr_rel, pr, bfs = main_path(
+            torch, store, src, dst)
+        mark("main path", t0)
+        t0 = time.perf_counter()
+        compact_launches, compact_counts = compact_path(torch, bfs)
+        mark("compact path", t0)
+        t0 = time.perf_counter()
+        prof = profile_superstep(torch, eng, PageRank(), "pagerank")
+        del eng
+        mark("profile pagerank", t0)
+
+        t0 = time.perf_counter()
+        sources, batched_launches, batched, msbfs, ppr_err = batched_apps(
+            torch, store, src, dst, bfs)
+        mark("batched apps", t0)
+        t0 = time.perf_counter()
+        mode_rows, mode_launches = modes(torch, store, sources, pr, msbfs)
+        mark("modes", t0)
+        t0 = time.perf_counter()
+        prof_q = profile_superstep(torch, engine(store),
+                                   MultiSourceBFS(sources=sources),
+                                   f"msbfs Q={len(sources)}")
+        mark("profile msbfs", t0)
     finally:
         shutil.rmtree(store_root, ignore_errors=True)
 
+    paths = {"main path": main_launches, "compact path": compact_launches,
+             "batched apps": batched_launches, "modes": mode_launches}
+    total = {k: sum(p[k] for p in paths.values()) for k in main_launches}
+    log(f"launches by path: {paths}; total {total}")
     kernels = [
         kernel_entry("segment_reduce",
                      "src/repro_torch/kernels/csrc/segment_reduce.cu",
                      "src/repro/kernels/gab_gather.py:127",
-                     launches["segment_reduce"], seg_err,
+                     total["segment_reduce"], seg_err,
                      next(r for r in seg_rows
                           if r["combine"] == "sum" and r["q"] == 1)),
         kernel_entry("gab_fused", "src/repro_torch/kernels/csrc/gab_fused.cu",
                      "src/repro/kernels/gab_fused.py:294",
-                     launches["gab_fused"], fused_err,
+                     total["gab_fused"], fused_err,
                      next(r for r in fused_rows
                           if r["spec"] == "pagerank" and r["q"] == 1)),
+        kernel_entry("compact", "src/repro_torch/kernels/csrc/compact.cu",
+                     "src/repro/kernels/compact.py:107",
+                     total["compact"], compact_err,
+                     next(r for r in compact_rows
+                          if r["n"] == nv and r["density"] == 0.05
+                          and r["fill"] is None
+                          and r["dtype"] == "torch.float32")),
     ]
+    seconds = time.perf_counter() - t_all
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, torch=torch.__version__,
                        cuda=torch.version.cuda, builds={
                            k: v["seconds"] for k, v in builds.items()},
                        store=store_info, segment=seg_rows, fused=fused_rows,
+                       compact=compact_rows, compact_path=compact_counts,
                        apps=summaries, pagerank_max_rel_err=pr_rel,
-                       profile=prof, kernels=kernels,
-                       seconds=time.perf_counter() - t_all), f, indent=1)
-    log(f"total {time.perf_counter() - t_all:.1f} s")
+                       sources=list(sources), batched=batched,
+                       batched_errors=ppr_err, modes=mode_rows,
+                       profile=prof, profile_msbfs=prof_q,
+                       launches_by_path=paths, kernels=kernels,
+                       phase_seconds=phase_s, seconds=seconds), f, indent=1)
+    log(f"total {seconds:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,14 +7,19 @@ payloads (snappy by default).
 
 This is the host accounting the out-of-core engine uses to measure real
 payload bytes per superstep, including real compression of the actual
-buffers (paper Fig. 9), plus the session admission records.  It is numpy
-throughout and matches ``repro/core/comm.py`` byte for byte.  The device
-collectives (``hybrid_broadcast`` and friends) are ROADMAP.md queue A.8,
-the 2-D ``[V, Q]`` payloads queue A.5, the per-interval payloads A.6.
+buffers (paper Fig. 9) — inline, or on a small executor that overlaps
+compression with the next server's compute (pipelined engine) — plus the
+session admission records.  It is numpy throughout and matches
+``repro/core/comm.py`` byte for byte, for ``[V]`` and multi-query
+``[V, Q]`` payloads alike.  The device collectives (``hybrid_broadcast``
+and friends) are ROADMAP.md queue A.8, the per-interval payloads A.6.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -105,6 +110,92 @@ def decode_sparse_payload(buf: bytes, dtype) -> tuple[np.ndarray, np.ndarray]:
     return idx, vals.copy()
 
 
+def multi_query_payload(
+    values: np.ndarray,          # [V, Q]
+    updated: np.ndarray,         # [V, Q] bool
+    threshold: float = DENSITY_THRESHOLD,
+    mode: str = "hybrid",
+) -> tuple[bytes, tuple]:
+    """2-D broadcast payload over values ``[V, Q]`` and the bool updated
+    mask ``[V, Q]``: density is measured *per query column*.  Dense columns
+    ship a ceil(V/8) bitvector + the full column; sparse columns pool their
+    updates into one packed section of (vertex: uint32, query: uint32)
+    pairs followed by the values.  Returns (payload bytes, per-column mode
+    tuple)."""
+    nv, nq = values.shape
+    parts: list[bytes] = []
+    modes: list[str] = []
+    sp_pairs: list[np.ndarray] = []
+    sp_vals: list[np.ndarray] = []
+    for q in range(nq):
+        col_upd = updated[:, q]
+        density_q = float(col_upd.mean()) if nv else 0.0
+        use_dense = mode == "dense" or (mode == "hybrid"
+                                        and density_q >= threshold)
+        if use_dense:
+            parts.append(dense_payload(values[:, q], col_upd))
+            modes.append("dense")
+        else:
+            idx = np.nonzero(col_upd)[0].astype(np.uint32)
+            sp_pairs.append(np.stack(
+                [idx, np.full(idx.shape, q, dtype=np.uint32)], axis=1))
+            sp_vals.append(values[idx, q])
+            modes.append("sparse")
+    if sp_pairs:
+        pairs = np.concatenate(sp_pairs, axis=0)
+        vals = np.concatenate(sp_vals, axis=0)
+        parts.append(pairs.tobytes() + vals.tobytes())
+    return b"".join(parts), tuple(modes)
+
+
+def decode_multi_query_payload(
+    buf: bytes, nv: int, qmodes: tuple, dtype,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Invert :func:`multi_query_payload` given the per-column mode tuple.
+
+    Returns (updated vertex ids ``[U]``, values ``[U, Q]``, per-query
+    updated mask ``[U, Q]``) — the sparse-update triple the engine's
+    barrier applies.  Cells where the mask is False hold zeros; the engine
+    only applies masked cells, so this is lossless."""
+    dtype = np.dtype(dtype)
+    nq = len(qmodes)
+    off = 0
+    cell_v: list[np.ndarray] = []
+    cell_q: list[np.ndarray] = []
+    cell_val: list[np.ndarray] = []
+    for q, m in enumerate(qmodes):
+        if m != "dense":
+            continue
+        nb = (nv + 7) // 8
+        col_idx, col_vals = decode_dense_payload(
+            buf[off: off + nb + nv * dtype.itemsize], nv, dtype)
+        off += nb + nv * dtype.itemsize
+        cell_v.append(col_idx)
+        cell_q.append(np.full(col_idx.shape, q, dtype=np.int64))
+        cell_val.append(col_vals)
+    if any(m == "sparse" for m in qmodes):
+        rest = buf[off:]
+        per = 8 + dtype.itemsize
+        count = len(rest) // per
+        pairs = np.frombuffer(rest, np.uint32, count=2 * count).reshape(-1, 2)
+        vals = np.frombuffer(rest, dtype, count=count, offset=8 * count)
+        cell_v.append(pairs[:, 0].astype(np.int64))
+        cell_q.append(pairs[:, 1].astype(np.int64))
+        cell_val.append(vals.copy())
+    if not cell_v:
+        return (np.zeros(0, np.int64), np.zeros((0, nq), dtype),
+                np.zeros((0, nq), dtype=bool))
+    v = np.concatenate(cell_v)
+    qcol = np.concatenate(cell_q)
+    cval = np.concatenate(cell_val)
+    idx, inv = np.unique(v, return_inverse=True)
+    vals_out = np.zeros((len(idx), nq), dtype)
+    mask_out = np.zeros((len(idx), nq), dtype=bool)
+    vals_out[inv, qcol] = cval
+    mask_out[inv, qcol] = True
+    return idx, vals_out, mask_out
+
+
 def plan_broadcast(
     values: np.ndarray,
     updated: np.ndarray,
@@ -112,23 +203,85 @@ def plan_broadcast(
     compressor: str = "zstd-1",       # paper default: snappy
     mode: str = "hybrid",             # "dense" | "sparse" | "hybrid"
 ) -> BroadcastRecord:
-    """Measure one server's broadcast payload over values ``[V]`` and the
-    updated mask ``[V]`` (the 2-D ``[V, Q]`` payloads are ROADMAP.md queue
-    A.5)."""
-    if values.ndim != 1:
-        raise NotImplementedError(
-            "[V, Q] broadcast payloads are ROADMAP.md queue A.5")
+    """Measure one server's broadcast payload.  ``values``/``updated`` are
+    ``[V]`` (classic) or ``[V, Q]`` (multi-query; per-column mode choice,
+    see :func:`multi_query_payload`)."""
     comp_mode, codec = resolve_compressor(compressor)
     density = float(updated.mean()) if updated.size else 0.0
-    use_dense = mode == "dense" or (mode == "hybrid" and density >= threshold)
-    payload = (dense_payload(values, updated) if use_dense
-               else sparse_payload(values, updated))
+    if values.ndim == 2:
+        payload, qmodes = multi_query_payload(values, updated, threshold,
+                                              mode)
+        uniq = set(qmodes)
+        rec_mode = "sparse" if not qmodes else (
+            qmodes[0] if len(uniq) == 1 else "mixed")
+    else:
+        use_dense = mode == "dense" or (mode == "hybrid"
+                                        and density >= threshold)
+        payload = (dense_payload(values, updated) if use_dense
+                   else sparse_payload(values, updated))
+        rec_mode, qmodes = ("dense" if use_dense else "sparse"), None
     raw = len(payload)
     wire = len(formats.compress_blob(payload, comp_mode))
     return BroadcastRecord(
-        mode="dense" if use_dense else "sparse", raw_bytes=raw,
-        wire_bytes=wire, density=density, compressor=codec,
+        mode=rec_mode, raw_bytes=raw, wire_bytes=wire, density=density,
+        compressor=codec, query_modes=qmodes,
     )
+
+
+# Payload compression is CPU-bound byte work with no dependence on the next
+# server's gather/apply, so the pipelined engine ships it to a small executor
+# and collects the BroadcastRecords at the superstep barrier.  Two workers:
+# one per in-flight payload is plenty, and zlib/zstd release the GIL.  The
+# executor starts at first use, never at import.
+_COMM_POOL: Optional[ThreadPoolExecutor] = None
+_COMM_POOL_LOCK = threading.Lock()
+
+
+def _comm_pool() -> ThreadPoolExecutor:
+    # Double-checked locking: concurrent first callers share ONE executor,
+    # shut down at interpreter exit instead of leaking its worker threads.
+    global _COMM_POOL
+    pool = _COMM_POOL
+    if pool is None:
+        with _COMM_POOL_LOCK:
+            if _COMM_POOL is None:
+                _COMM_POOL = ThreadPoolExecutor(
+                    max_workers=2, thread_name_prefix="graphh-comm")
+                atexit.register(_shutdown_comm_pool)
+            pool = _COMM_POOL
+    return pool
+
+
+def _shutdown_comm_pool() -> None:
+    global _COMM_POOL
+    with _COMM_POOL_LOCK:
+        pool, _COMM_POOL = _COMM_POOL, None
+    if pool is not None:
+        pool.shutdown(wait=False)
+
+
+def plan_broadcast_async(
+    values: np.ndarray,
+    updated: np.ndarray,
+    threshold: float = DENSITY_THRESHOLD,
+    compressor: str = "zstd-1",
+    mode: str = "hybrid",
+) -> "Future[BroadcastRecord]":
+    """Submit :func:`plan_broadcast` onto the comm executor over values
+    ``[V(, Q)]`` and the updated mask ``[V(, Q)]``.  The caller owns
+    ``values``/``updated`` after submission — pass freshly built arrays."""
+    return _comm_pool().submit(plan_broadcast, values, updated,
+                               threshold=threshold, compressor=compressor,
+                               mode=mode)
+
+
+def sparse_capacity(num_vertices: int, threshold: float = DENSITY_THRESHOLD,
+                    align: int = 128) -> int:
+    """Static capacity for the sparse branch: density < threshold by
+    construction, so ceil(threshold * V) entries always suffice (rounded
+    up to ``align``, at most V)."""
+    k = int(np.ceil(num_vertices * threshold))
+    return min(num_vertices, ((k + align - 1) // align) * align)
 
 
 def wire_bytes_estimate(num_vertices: int, density: float, itemsize: int = 4,

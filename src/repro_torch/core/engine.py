@@ -5,15 +5,28 @@ behaviour: tiles live in the TileStore (disk tier), each server owns a
 round-robin tile subset and an EdgeCache over "idle" memory, vertex state
 is fully replicated (All-in-All) on the host, and the per-superstep
 Broadcast payloads are measured (and actually compressed) through
-core.comm.  Each superstep copies the values to the device once; each
-tile's edge arrays go host→device once and its Gather+Apply runs as one
-kernel (``seg_impl="fused"``) or the program's gather and apply around
-the segment kernel (``"segment"``).
+core.comm.  Each superstep copies the values to the device once.
 
-This port covers the tiled, serial, in-process engine for single-query
-programs.  Every other knob of :class:`EngineConfig` keeps its field, and
-a non-default value raises ``NotImplementedError`` naming its ROADMAP.md
-queue item.
+Three engine modes compute a server's tiles, with identical results:
+
+* ``"tiled"`` — one tile at a time: its edge arrays go host→device once
+  and its Gather+Apply runs as one kernel (``seg_impl="fused"``) or the
+  program's gather and apply around the segment kernel (``"segment"``);
+* ``"stacked"`` — up to ``device_budget_bytes`` of a server's tiles stay on
+  the device and run as one stack per superstep (the rest stream tiled);
+* ``"merged"`` — a server's tiles merge into one device-resident edge list
+  reduced by the segment kernel straight into ``[V + 1]`` rows.
+
+``pipeline=True`` reads and decodes tiles ahead on worker threads
+(``TileStore.prefetch_iter``) while the main thread runs stacks of
+``stack_size`` of them, and compresses each server's payload on the comm
+executor while the next server computes.  Vertex values are ``[V]`` or,
+for batched programs, ``[V, Q]``; a query column with no updates in a
+superstep retires and is compacted out of the live state.
+
+The knobs of later queue items keep their :class:`EngineConfig` field,
+and a non-default value raises ``NotImplementedError`` naming its
+ROADMAP.md queue item.
 """
 from __future__ import annotations
 
@@ -27,23 +40,30 @@ import torch
 from repro_torch.core import comm
 from repro_torch.core.bloom import BloomFilter, SourceBlockBitmap
 from repro_torch.core.cache import EdgeCache, auto_select_mode
-from repro_torch.core.gab import SEG_IMPLS, VertexProgram, run_tile
+from repro_torch.core.distributed import pad_stack_to
+from repro_torch.core.gab import (SEG_IMPLS, VertexProgram,
+                                  merged_server_step, run_tile,
+                                  run_tile_stack, stack_to_device,
+                                  stacked_tiles_step)
 from repro_torch.core.partition import assign_tiles, assign_tiles_balanced
-from repro_torch.core.tiles import tile_edge_values
+from repro_torch.core.tiles import stack_tiles, tile_edge_values
 from repro_torch.graphio.formats import TileStore
+
+ENGINE_MODES = ("tiled", "stacked", "merged")
 
 
 @dataclasses.dataclass
 class EngineConfig:
     """All engine knobs, with the reference's names and defaults; the port
-    adds ``device`` and names its kernels in ``seg_impl``.  Knobs outside
-    the port's slice raise when set (see :meth:`unsupported`)."""
+    adds ``device`` and names its kernels in ``seg_impl``.  Knobs of later
+    queue items raise when set (see :meth:`unsupported`)."""
     num_servers: int = 1
     num_workers: int = 1                    # paper's T (accounting only here)
     cache_capacity_bytes: int = 1 << 30     # per server
-    cache_mode: int | str = "auto"          # 1..4 or "auto"
+    cache_mode: int | str = "auto"          # 1..4 or "auto" (lru policy)
     # "lru": paper-faithful whole-cache single mode + LRU eviction;
-    # "tiered" / "cost-aware" are ROADMAP.md A.5
+    # "tiered": per-tile hot/warm/cold ladder, demote-before-evict;
+    # "cost-aware": tiered with decompress-seconds-saved/byte victims
     cache_policy: str = "lru"
     cache_promote_hits: int = 2             # hits between tier promotions
     # cache-hit-first tile ordering (order never changes results)
@@ -59,22 +79,29 @@ class EngineConfig:
     # gather and apply around the segment kernel.  (The reference's "jnp"
     # XLA-scatter backend has no counterpart on the card.)
     seg_impl: str = "fused"
-    kernel_autotune: bool = False           # ROADMAP.md A.5
-    kernel_blocks: Optional[tuple] = None   # ROADMAP.md A.5
+    # the reference's Pallas (BE, BR) block choice from a TPU roofline:
+    # no kernel here takes blocks (ROADMAP.md A.12, roofline/kernel_tune.py)
+    kernel_autotune: bool = False
+    kernel_blocks: Optional[tuple] = None
     max_supersteps: int = 200
     balanced_assignment: bool = False       # beyond-paper LPT stage-2
     bloom_bits: int = 1 << 16
     block_shift: int = 8
-    engine_mode: str = "tiled"              # "stacked"/"merged": ROADMAP.md A.5
+    # "tiled" | "stacked" | "merged" (module docstring); stacked and merged
+    # run tiled in supersteps where tile skipping is on
+    engine_mode: str = "tiled"
     device_budget_bytes: int = 1 << 30      # per server, for "stacked"
     # wire accounting: "full" compresses every payload (measured bytes);
-    # "sampled" is ROADMAP.md A.5
+    # "sampled" compresses every 4th superstep and reuses the last ratio
     comm_accounting: str = "full"
-    pipeline: bool = False                  # ROADMAP.md A.5
-    prefetch_depth: int = 4
-    prefetch_workers: int = 2
-    stack_size: int = 4
-    debug_skip_log: bool = False            # ROADMAP.md A.5
+    # pipelined superstep: tile reads ahead of compute, payload compression
+    # behind it; pipeline=False keeps the paper-faithful serial loop
+    pipeline: bool = False
+    prefetch_depth: int = 4                 # tiles read+decompressed ahead
+    prefetch_workers: int = 2               # parallel read/decompress threads
+    stack_size: int = 4                     # tiles per pipelined stack
+    # record every tile-skip decision into engine.skip_log (test aid)
+    debug_skip_log: bool = False
     vertex_memory_budget: Optional[int] = None   # ROADMAP.md A.6
     num_intervals: int = 0
     interval_aware_order: bool = True
@@ -91,20 +118,14 @@ class EngineConfig:
     device: str = "cuda"
 
     def unsupported(self) -> list[str]:
-        """The knobs set outside the port's slice, each with the ROADMAP.md
+        """The knobs set outside the port so far, each with the ROADMAP.md
         queue item that will bring it."""
         out = []
         checks = (
-            (self.pipeline, "pipeline=True (pipelined engine)", "A.5"),
-            (self.engine_mode != "tiled",
-             f"engine_mode={self.engine_mode!r}", "A.5"),
-            (self.kernel_autotune, "kernel_autotune=True", "A.5"),
-            (self.kernel_blocks is not None, "kernel_blocks", "A.5"),
-            (self.cache_policy != "lru",
-             f"cache_policy={self.cache_policy!r} (tiered cache)", "A.5"),
-            (self.comm_accounting != "full",
-             f"comm_accounting={self.comm_accounting!r}", "A.5"),
-            (self.debug_skip_log, "debug_skip_log=True", "A.5"),
+            (self.kernel_autotune,
+             "kernel_autotune=True (roofline/kernel_tune.py)", "A.12"),
+            (self.kernel_blocks is not None,
+             "kernel_blocks (roofline/kernel_tune.py)", "A.12"),
             (self.vertex_memory_budget is not None,
              "vertex_memory_budget (out-of-core vertex state)", "A.6"),
             (self.admit_plan is not None, "admit_plan (admission)", "A.7"),
@@ -124,8 +145,8 @@ class EngineConfig:
 @dataclasses.dataclass
 class SuperstepStats:
     """Per-superstep measurements (bytes are real payload/compressed sizes,
-    seconds wall-clock) — the reference's fields for single-query,
-    in-memory runs."""
+    seconds wall-clock) — the reference's fields for in-memory runs in one
+    process."""
     superstep: int
     seconds: float
     load_seconds: float
@@ -139,26 +160,41 @@ class SuperstepStats:
     network_bytes: int        # wire * (N-1): each server ships to N-1 peers
     cache_hit_ratio: float
     disk_bytes_read: int      # bytes read from the disk tier THIS superstep
-    # time the compute loop spent blocked on tile data (serial: all of it)
+    # time the compute loop spent blocked on tile data: all of the load
+    # time in the serial loop, the residual wait behind prefetch when
+    # pipelined
     stall_seconds: float = 0.0
-    # disk read + (de)compress busy time this superstep
+    # disk read + (de)compress busy time this superstep, wherever it ran
     io_busy_seconds: float = 0.0
     # tiered-cache activity this superstep (zeros for policy="lru")
     cache_promotions: int = 0
     cache_demotions: int = 0
     # per-tier residency at the barrier: {tier: {tiles, bytes, hits}}
     cache_tiers: dict = dataclasses.field(default_factory=dict)
+    # --- multi-query accounting (trivial for 1-D runs) ---
+    # query columns still live when this superstep started
+    active_queries: int = 1
+    # updated (vertex, query) cells; == updated_vertices for 1-D runs
+    updated_pairs: int = 0
+    # {global query id: updated-cell count} for active queries
+    updated_per_query: dict = dataclasses.field(default_factory=dict)
+    # global query ids whose columns converged (and were compacted out)
+    # at the end of this superstep
+    retired_queries: tuple = ()
 
 
 @dataclasses.dataclass
 class RunResult:
-    """Final vertex values [V] + aux arrays + per-superstep history of one
-    engine run."""
+    """Final vertex values [V(, Q)] + aux arrays + per-superstep history of
+    one engine run."""
     values: np.ndarray
     aux: dict
     history: list[SuperstepStats]
     supersteps: int
     converged: bool
+    # multi-query runs: supersteps each query column took to converge
+    # (index = query id; -1 if it hit max_supersteps); None for 1-D runs
+    per_query_supersteps: Optional[np.ndarray] = None
 
     def total_seconds(self) -> float:
         """Wall-clock sum over all supersteps."""
@@ -195,6 +231,9 @@ class OutOfCoreEngine:
                 f"seg_impl {config.seg_impl!r}: the port has "
                 f"{', '.join(SEG_IMPLS)} (the reference's 'jnp' XLA "
                 f"scatter has no counterpart on the card)")
+        if config.engine_mode not in ENGINE_MODES:
+            raise ValueError(f"engine_mode {config.engine_mode!r}: one of "
+                             f"{', '.join(ENGINE_MODES)}")
         self.device = torch.device(config.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {config.device!r} requested but "
@@ -226,6 +265,16 @@ class OutOfCoreEngine:
             for s in self.exec_servers
         }
         self._filters: Optional[list] = None  # built during first superstep
+        # stacked/merged: per-server device-resident tiles, built at the
+        # first superstep that runs them; the tiles beyond the device budget
+        # stream tiled
+        self._stacks: Optional[dict] = None
+        self._streamed: dict[int, list[int]] = {s: [] for s in self.exec_servers}
+        #: filled when cfg.debug_skip_log: one dict per (superstep, server)
+        #: with the active source ids and the run/skipped tile partition
+        self.skip_log: list[dict] = []
+        # comm_accounting="sampled": wire/raw ratio of the last measured step
+        self._wire_ratio: Optional[float] = None
         # Per-superstep deltas are computed against these cumulative-counter
         # baselines; each session re-baselines them when it opens.
         self._io_busy_cum = 0.0
@@ -234,35 +283,201 @@ class OutOfCoreEngine:
         self._disk_cum = 0
 
     # ------------------------------------------------------------------
+    def kernel_plan(self, prog) -> tuple[str, int]:
+        """``(seg_impl, stack_size)`` for this program: the configured
+        backend and the pipelined stack length (at least 1)."""
+        return self.cfg.seg_impl, max(1, self.cfg.stack_size)
+
+    @staticmethod
+    def _split_updates(rows, new, upd):
+        """Per-tile (or per-server) update extraction, shape-polymorphic.
+
+        rows [R] global vertex ids; new/upd [R] or [R, Qa].  Returns
+        (vertex ids with any update, their value rows, per-query mask rows
+        or None for 1-D runs)."""
+        if upd.ndim == 2:
+            vmask = upd.any(axis=1)
+            return rows[vmask], new[vmask], upd[vmask]
+        return rows[upd], new[upd], None
+
     def open_session(self, prog: VertexProgram, *,
+                     q_slots: Optional[int] = None,
                      max_supersteps: Optional[int] = None) -> "EngineSession":
         """Open a step-driven session over ``prog``: one ``session.step()``
-        executes exactly one superstep."""
+        executes exactly one superstep.  ``q_slots`` (live query columns
+        under mid-run admission) is ROADMAP.md queue A.7."""
+        if q_slots is not None:
+            raise NotImplementedError(
+                "q_slots (mid-run query admission) is ROADMAP.md queue A.7")
         return EngineSession(self, prog, max_supersteps=max_supersteps)
 
     def run(self, prog: VertexProgram,
             max_supersteps: Optional[int] = None) -> RunResult:
-        """Run ``prog`` to convergence (no updated vertices) or
-        ``max_supersteps``."""
+        """Run ``prog`` to convergence (no updated cells) or
+        ``max_supersteps``; results are bit-identical across engine modes,
+        pipelining and cache policies."""
         session = self.open_session(prog, max_supersteps=max_supersteps)
         while not session.finished:
             session.step()
         return session.result()
 
     # ------------------------------------------------------------------
-    def _measure_broadcast(self, si, sv, nv, dtype):
-        """Build one server's broadcast payload from its update list and
-        measure its wire size (a BroadcastRecord)."""
+    def _measure_broadcast(self, si, sv, sm, nv, qa, dtype, background=False):
+        """Build one server's broadcast payload and measure its wire size —
+        inline (returns a BroadcastRecord) or on the comm executor
+        (returns a Future resolving to one).  ``sm`` is the per-query
+        updated mask ``[len(si), qa]`` of multi-query runs or None; the
+        2-D payload then covers the ``qa`` live query columns."""
         cfg = self.cfg
-        upd_mask = np.zeros(nv, dtype=bool)
-        upd_mask[si] = True
-        values = np.zeros(nv, dtype=dtype)
+        if sm is not None:
+            upd_mask = np.zeros((nv, qa), dtype=bool)
+            upd_mask[si] = sm
+            values = np.zeros((nv, qa), dtype=dtype)
+        else:
+            upd_mask = np.zeros(nv, dtype=bool)
+            upd_mask[si] = True
+            values = np.zeros(nv, dtype=dtype)
         values[si] = sv
-        return comm.plan_broadcast(values, upd_mask,
-                                   threshold=cfg.comm_threshold,
-                                   compressor=cfg.comm_compressor,
-                                   mode=cfg.comm_mode)
+        plan = comm.plan_broadcast_async if background else comm.plan_broadcast
+        return plan(values, upd_mask, threshold=cfg.comm_threshold,
+                    compressor=cfg.comm_compressor, mode=cfg.comm_mode)
 
+    # ------------------------------------------------------------------
+    # pipelined path (cfg.pipeline): prefetch threads + stacked dispatch
+    # ------------------------------------------------------------------
+    def _run_tiles_pipelined(self, s, tids, prog, values_dev, aux_dev,
+                             filters, nv):
+        """Overlapped tile processing for one server.
+
+        Background threads read + decompress up to ``prefetch_depth`` tiles
+        ahead through the server's EdgeCache (numpy tiles only: CUDA
+        tensors stay on this thread) while this thread stacks
+        ``stack_size`` tiles and runs them as one ``run_tile_stack`` call,
+        merging each stack's result on the device.  Its queue wait is the
+        disk stall the pipeline failed to hide.
+
+        Returns ([indices], [values], [query masks], load_s, compute_s,
+        stall_s), the per-row results of the serial per-tile loop (tiles
+        own disjoint row ranges).  The query-mask list is empty for 1-D
+        runs."""
+        cfg = self.cfg
+        if not tids:
+            return [], [], [], 0.0, 0.0, 0.0
+        row_cap = self.plan.row_cap
+        seg_impl, stack_k = self.kernel_plan(prog)
+        load_s = comp_s = stall_s = 0.0
+        masked_acc = upd_acc = None
+        batch: list = []
+
+        def flush():
+            nonlocal comp_s, masked_acc, upd_acc, batch
+            stk = stack_tiles(batch, row_cap)
+            if len(batch) < stack_k:
+                stk = pad_stack_to(stk, stack_k)  # every stack K tiles long
+            t0 = time.perf_counter()
+            new_masked, upd = run_tile_stack(prog, values_dev, aux_dev, stk,
+                                             row_cap, seg_impl)
+            if masked_acc is None:
+                masked_acc, upd_acc = new_masked, upd
+            else:  # disjoint row ranges: set-where-updated merge is exact
+                masked_acc = torch.where(upd, new_masked, masked_acc)
+                upd_acc = upd_acc | upd
+            comp_s += time.perf_counter() - t0
+            batch = []
+
+        it = self.store.prefetch_iter(tids, depth=cfg.prefetch_depth,
+                                      cache=self.caches[s],
+                                      workers=cfg.prefetch_workers)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    tid, tile = next(it)
+                except StopIteration:
+                    break
+                wait = time.perf_counter() - t0
+                load_s += wait
+                stall_s += wait
+                if filters is not None and filters[tid] is None:
+                    filters[tid] = self._make_filter(tile, nv)
+                batch.append(tile)
+                if len(batch) == stack_k:
+                    flush()
+            if batch:
+                flush()
+        finally:
+            it.close()
+
+        t0 = time.perf_counter()
+        si, sv, sm = self._split_updates(np.arange(nv),
+                                         masked_acc.cpu().numpy(),
+                                         upd_acc.cpu().numpy())
+        comp_s += time.perf_counter() - t0
+        return [si], [sv], [] if sm is None else [sm], load_s, comp_s, stall_s
+
+    # ------------------------------------------------------------------
+    # stacked / merged modes: device-resident tiles
+    # ------------------------------------------------------------------
+    def _build_stacks(self) -> None:
+        """Per-server device-resident tile stacks for
+        ``engine_mode="stacked"``: up to ``device_budget_bytes`` of tiles
+        per server live on the device; the rest stream per superstep."""
+        per_tile = self.plan.edge_cap * 12  # src + dst + val
+        fit = max(1, self.cfg.device_budget_bytes // per_tile)
+        self._stacks = {}
+        for s in self.exec_servers:
+            resident = self.assignment[s][:fit]
+            self._streamed[s] = self.assignment[s][fit:]
+            tiles = [self.caches[s].get(t) for t in resident]
+            self._stacks[s] = stack_to_device(
+                stack_tiles(tiles, self.plan.row_cap), self.device)
+
+    def _build_merged(self, nv: int) -> None:
+        """Per-server merged edge lists for ``engine_mode="merged"``: every
+        real edge of the server's tiles, dst global and ascending (the
+        segment kernel binary-searches it), plus the owned-row mask."""
+        self._stacks = {}
+        for s in self.exec_servers:
+            self._streamed[s] = []
+            srcs, dsts, vals = [], [], []
+            owned = np.zeros(nv, dtype=bool)
+            for tid in self.assignment[s]:
+                t = self.caches[s].get(tid)
+                n = t.meta.num_edges
+                srcs.append(t.src[:n])
+                dsts.append(t.dst_local[:n].astype(np.int64)
+                            + t.meta.row_start)
+                vals.append(tile_edge_values(t)[:n])
+                owned[t.meta.row_start: t.meta.row_end] = True
+            dst = np.concatenate(dsts) if dsts else np.zeros(0, np.int64)
+            # tiles own ascending, disjoint row ranges and each server's
+            # list is sorted (partition.assign_tiles*), so this holds; the
+            # kernel would silently misreduce if it did not
+            if not np.all(dst[1:] >= dst[:-1]):
+                raise ValueError(f"server {s}: merged dst list is not "
+                                 "ascending (tiles out of row order)")
+
+            def dev(x):
+                return torch.from_numpy(np.ascontiguousarray(x)).to(
+                    self.device)
+
+            self._stacks[s] = dict(
+                src=dev(np.concatenate(srcs).astype(np.int32)),
+                dst=dev(dst.astype(np.int32)),
+                val=dev(np.concatenate(vals).astype(np.float32)),
+                owned=dev(owned))
+
+    def _stack_step(self, prog, values_dev, aux_dev, stack):
+        seg_impl, _ = self.kernel_plan(prog)
+        return stacked_tiles_step(prog, values_dev, aux_dev, stack,
+                                  self.plan.row_cap, seg_impl)
+
+    def _merged_step(self, prog, values_dev, aux_dev, m):
+        seg_impl, _ = self.kernel_plan(prog)
+        return merged_server_step(prog, values_dev, aux_dev, m["src"],
+                                  m["dst"], m["val"], m["owned"], seg_impl)
+
+    # ------------------------------------------------------------------
     def _make_filter(self, tile, nv):
         srcs = tile.source_ids()
         if self.cfg.skip_filter == "bitmap":
@@ -309,9 +524,9 @@ class OutOfCoreEngine:
 class EngineSession:
     """Step-driven run state over one :class:`OutOfCoreEngine`: one
     ``step()`` call executes exactly one superstep (skip pre-pass, tile
-    compute, BSP barrier, update apply); ``result()`` returns the
-    :class:`RunResult` once the session is finished (converged or at
-    ``max_supersteps``)."""
+    compute, BSP barrier, update apply, query retirement); ``result()``
+    returns the :class:`RunResult` once the session is finished (converged
+    or at ``max_supersteps``)."""
 
     def __init__(self, engine: OutOfCoreEngine, prog: VertexProgram, *,
                  max_supersteps: Optional[int] = None):
@@ -324,6 +539,7 @@ class EngineSession:
         self.finished = False
         self._final_result: Optional[RunResult] = None
         self._ss = 0
+        self.engine_mode = cfg.engine_mode
 
         # Re-baseline the engine's cumulative-counter deltas, so cache
         # activity before this session does not leak into its first step.
@@ -336,13 +552,21 @@ class EngineSession:
         state = prog.init(nv, engine.out_degree.astype(np.float64),
                           engine.in_degree.astype(np.float64))
         self.values = np.asarray(state.pop("value"))
-        if self.values.ndim != 1 or getattr(prog, "num_queries", 1) != 1:
-            raise NotImplementedError(
-                "batched [V, Q] programs are ROADMAP.md queue A.5")
         self.aux_np = {k: np.asarray(v) for k, v in state.items()}
         self.vdtype = self.values.dtype
-        self.aux_dev = {k: torch.from_numpy(np.ascontiguousarray(v))
-                        .to(engine.device) for k, v in self.aux_np.items()}
+        self.aux_dev = {k: self._to_device(v) for k, v in self.aux_np.items()}
+
+        # Multi-query bookkeeping: values [V, Q] hold Q program instances.
+        # A query column with zero updates in a superstep has reached its
+        # fixpoint: it is written to final_values and compacted out of
+        # values and the per-query aux, so later supersteps no longer pay
+        # for it.
+        self.multi_q = self.values.ndim == 2
+        self.nq_total = self.values.shape[1] if self.multi_q else 1
+        self.active_q = np.arange(self.nq_total)  # query ids, live columns
+        self.final_values = self.values.copy() if self.multi_q else None
+        self.per_query_ss = (np.full(self.nq_total, -1, dtype=np.int64)
+                             if self.multi_q else None)
 
         self.max_ss = max_supersteps or cfg.max_supersteps
         self.updated_ids = np.arange(nv)  # everything "updated" pre step 0
@@ -350,15 +574,19 @@ class EngineSession:
         self.filters: list = ([None] * engine.plan.num_tiles
                               if self.building_filters else [])
 
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.eng.device)
+
     def step(self) -> SuperstepStats:
-        """Execute exactly one superstep (compute → barrier → apply) and
-        return its stats."""
+        """Execute exactly one superstep (compute → barrier → apply →
+        retirement) and return its stats."""
         if self.finished:
             raise RuntimeError("session is finished — open a new one")
         eng = self.eng
         cfg = eng.cfg
         prog = self.prog
         nv = self.nv
+        multi_q = self.multi_q
         vdtype = self.vdtype
         row_cap = eng.plan.row_cap
         filters = self.filters
@@ -366,14 +594,20 @@ class EngineSession:
         ss = self._ss
 
         t_start = time.perf_counter()
+        qa = len(self.active_q) if multi_q else 1  # live columns this step
         # the values go to the device once per superstep
-        values_dev = torch.from_numpy(self.values).to(eng.device)
+        values_dev = self._to_device(self.values)
         load_s = 0.0
         comp_s = 0.0
         stall_s = 0.0
         tiles_done = 0
         tiles_skipped = 0
         per_server_updates: list[tuple] = []
+        bcast_futures: dict[int, object] = {}
+        # "sampled": measure every 4th superstep, estimate the rest from
+        # the update count and the last measured wire/raw ratio
+        sample = not (cfg.comm_accounting == "sampled" and ss % 4 != 0
+                      and eng._wire_ratio is not None)
 
         skip_on = (
             cfg.tile_skipping
@@ -390,9 +624,43 @@ class EngineSession:
         for s in eng.exec_servers:
             s_idx: list[np.ndarray] = []
             s_val: list[np.ndarray] = []
+            s_msk: list[np.ndarray] = []
             server_tiles = eng.assignment[s]
+            if self.engine_mode in ("stacked", "merged") and not skip_on:
+                if eng._stacks is None:
+                    t0 = time.perf_counter()
+                    if self.engine_mode == "merged":
+                        eng._build_merged(nv)
+                    else:
+                        eng._build_stacks()
+                    if building_filters:
+                        for st in eng.exec_servers:
+                            n_res = (len(eng.assignment[st])
+                                     - len(eng._streamed[st]))
+                            for tid in eng.assignment[st][:n_res]:
+                                if filters[tid] is None:
+                                    filters[tid] = eng._make_filter(
+                                        eng.caches[st].get(tid), nv)
+                    load_s += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                step_fn = (eng._merged_step if self.engine_mode == "merged"
+                           else eng._stack_step)
+                new_masked, upd = step_fn(prog, values_dev, self.aux_dev,
+                                          eng._stacks[s])
+                si, sv, sm = eng._split_updates(
+                    np.arange(nv), new_masked.cpu().numpy(),
+                    upd.cpu().numpy())
+                comp_s += time.perf_counter() - t0
+                s_idx.append(si)
+                s_val.append(sv)
+                if sm is not None:
+                    s_msk.append(sm)
+                tiles_done += len(eng.assignment[s]) - len(eng._streamed[s])
+                server_tiles = eng._streamed[s]
+
             # Tile-skipping pre-pass: the filter set is fixed for the whole
-            # superstep, so the survivor list is computed up front.
+            # superstep, so the survivor list is computed up front (and
+            # handed to the prefetcher when pipelined).
             if skip_on:
                 run_list = []
                 for tid in server_tiles:
@@ -404,38 +672,71 @@ class EngineSession:
                         run_list.append(tid)
                     else:
                         tiles_skipped += 1
+                if cfg.debug_skip_log:
+                    eng.skip_log.append(dict(
+                        superstep=ss, server=s,
+                        active=np.asarray(self.updated_ids).copy(),
+                        run=list(run_list),
+                        skipped=[t for t in server_tiles
+                                 if t not in run_list]))
             else:
                 run_list = list(server_tiles)
             if cfg.cache_aware_order and len(run_list) > 1:
                 run_list = eng._order_cache_first(s, run_list)
 
-            for tid in run_list:
-                t0 = time.perf_counter()
-                tile = eng.caches[s].get(tid)
-                dt = time.perf_counter() - t0
-                load_s += dt
-                stall_s += dt   # serial: every load blocks compute
+            if cfg.pipeline:
+                p_idx, p_val, p_msk, ld, cp, stl = eng._run_tiles_pipelined(
+                    s, run_list, prog, values_dev, self.aux_dev,
+                    filters if building_filters else None, nv)
+                s_idx += p_idx
+                s_val += p_val
+                s_msk += p_msk
+                load_s += ld
+                comp_s += cp
+                stall_s += stl
+                tiles_done += len(run_list)
+            else:
+                seg_impl, _ = eng.kernel_plan(prog)
+                for tid in run_list:
+                    t0 = time.perf_counter()
+                    tile = eng.caches[s].get(tid)
+                    dt = time.perf_counter() - t0
+                    load_s += dt
+                    stall_s += dt   # serial: every load blocks compute
 
-                if building_filters and filters[tid] is None:
-                    filters[tid] = eng._make_filter(tile, nv)
+                    if building_filters and filters[tid] is None:
+                        filters[tid] = eng._make_filter(tile, nv)
 
-                t0 = time.perf_counter()
-                rows, new, upd = run_tile(
-                    prog, values_dev, self.aux_dev,
-                    (tile.src, tile.dst_local, tile_edge_values(tile)),
-                    tile.meta.row_start, tile.meta.num_rows, row_cap,
-                    cfg.seg_impl,
-                )
-                upd = upd.cpu().numpy()
-                ri, rv = rows.cpu().numpy()[upd], new.cpu().numpy()[upd]
-                comp_s += time.perf_counter() - t0
-                s_idx.append(ri)
-                s_val.append(rv)
-                tiles_done += 1
+                    t0 = time.perf_counter()
+                    rows, new, upd = run_tile(
+                        prog, values_dev, self.aux_dev,
+                        (tile.src, tile.dst_local, tile_edge_values(tile)),
+                        tile.meta.row_start, tile.meta.num_rows, row_cap,
+                        seg_impl,
+                    )
+                    ri, rv, rm = eng._split_updates(
+                        rows.cpu().numpy(), new.cpu().numpy(),
+                        upd.cpu().numpy())
+                    comp_s += time.perf_counter() - t0
+                    s_idx.append(ri)
+                    s_val.append(rv)
+                    if rm is not None:
+                        s_msk.append(rm)
+                    tiles_done += 1
+            val_shape = (0, qa) if multi_q else (0,)
             si = np.concatenate(s_idx) if s_idx else np.zeros(0, np.int64)
             sv = (np.concatenate(s_val) if s_val
-                  else np.zeros((0,), vdtype))
-            per_server_updates.append((si, sv))
+                  else np.zeros(val_shape, vdtype))
+            sm = None
+            if multi_q:
+                sm = (np.concatenate(s_msk) if s_msk
+                      else np.zeros(val_shape, dtype=bool))
+            per_server_updates.append((si, sv, sm))
+            if cfg.pipeline and sample:
+                # overlap this server's payload compression with the next
+                # server's compute; the records are collected at the barrier
+                bcast_futures[s] = eng._measure_broadcast(
+                    si, sv, sm, nv, qa, vdtype, background=True)
 
         if building_filters and all(filters[t] is not None
                                     for t in range(eng.plan.num_tiles)):
@@ -444,14 +745,45 @@ class EngineSession:
 
         # --- Broadcast (BSP barrier): measure payloads, apply updates ---
         raw_b = wire_b = 0
-        for si, sv in per_server_updates:
-            rec = eng._measure_broadcast(si, sv, nv, vdtype)
-            raw_b += rec.raw_bytes
-            wire_b += rec.wire_bytes
+        for s, (si, sv, sm) in zip(eng.exec_servers, per_server_updates):
+            if sample:
+                rec = (bcast_futures[s].result() if s in bcast_futures
+                       else eng._measure_broadcast(si, sv, sm, nv, qa,
+                                                   vdtype))
+                raw_b += rec.raw_bytes
+                wire_b += rec.wire_bytes
+            else:
+                pairs = int(sm.sum()) if sm is not None else len(si)
+                n_eff = nv * qa
+                est = comm.wire_bytes_estimate(
+                    n_eff, pairs / max(n_eff, 1),
+                    # 2-D sparse payloads pack (vertex, query) u32 pairs
+                    index_bytes=8 if sm is not None else 4)
+                raw_b += est
+                wire_b += int(est * eng._wire_ratio)
+        if sample and raw_b:
+            eng._wire_ratio = wire_b / raw_b
         all_idx = np.concatenate([u[0] for u in per_server_updates])
         all_val = np.concatenate([u[1] for u in per_server_updates])
-        self.values[all_idx] = all_val
+        if multi_q:
+            all_msk = np.concatenate([u[2] for u in per_server_updates])
+            upd_per_q = all_msk.sum(axis=0)
+            updated_pairs = int(all_msk.sum())
+            # per-cell application: a row touched by query A must not
+            # clobber query B's column with a masked zero / sub-tol value
+            cur = self.values[all_idx]
+            cur[all_msk] = all_val[all_msk]
+            self.values[all_idx] = cur
+        else:
+            updated_pairs = int(len(all_idx))
+            self.values[all_idx] = all_val
         self.updated_ids = all_idx
+
+        # Re-tier at the barrier: off the tile hot path, after this
+        # superstep's access pattern has updated the per-tile counters.
+        if cfg.cache_policy != "lru":
+            for c in eng.caches.values():
+                c.maintain()
 
         cache_stats = eng._agg_cache_stats()
         io_busy = cache_stats["io_seconds"] - eng._io_busy_cum
@@ -462,6 +794,17 @@ class EngineSession:
         eng._demo_cum = cache_stats["demotions"]
         disk_b = cache_stats["disk_bytes_read"] - eng._disk_cum
         eng._disk_cum = cache_stats["disk_bytes_read"]
+
+        # --- natural retirement: converged columns freeze and compact out
+        retired: tuple = ()
+        upd_map: dict = {}
+        if multi_q:
+            upd_map = {int(g): int(n)
+                       for g, n in zip(self.active_q, upd_per_q)}
+            done = np.nonzero(upd_per_q == 0)[0]
+            retired = tuple(int(self.active_q[c]) for c in done)
+            if len(done):
+                self._retire(done, ss, qa)
 
         stats = SuperstepStats(
             superstep=ss,
@@ -482,20 +825,49 @@ class EngineSession:
             cache_promotions=promo,
             cache_demotions=demo,
             cache_tiers=cache_stats["tiers"],
+            active_queries=qa,
+            updated_pairs=updated_pairs,
+            updated_per_query=upd_map,
+            retired_queries=retired,
         )
         self.history.append(stats)
-        self.converged = len(all_idx) == 0
+        self.converged = (len(self.active_q) == 0 if multi_q
+                          else len(all_idx) == 0)
         self._ss = ss + 1
         self.finished = self.converged or self._ss >= self.max_ss
         return stats
 
+    def _retire(self, done: np.ndarray, ss: int, qa: int) -> None:
+        """Freeze the live columns ``done`` into ``final_values`` (they
+        converged at superstep ``ss``) and compact them out of ``values``
+        and the per-query ``[V, qa]`` aux, on the host and the device."""
+        keep = np.ones(qa, dtype=bool)
+        keep[done] = False
+        for c in done:
+            gq = int(self.active_q[c])
+            self.final_values[:, gq] = self.values[:, c]
+            self.per_query_ss[gq] = ss + 1
+        self.values = np.ascontiguousarray(self.values[:, keep])
+        for k, a in self.aux_np.items():
+            if a.ndim == 2 and a.shape[1] == qa:  # per-query aux
+                self.aux_np[k] = np.ascontiguousarray(a[:, keep])
+                self.aux_dev[k] = self._to_device(self.aux_np[k])
+        self.active_q = self.active_q[keep]
+
     def result(self) -> RunResult:
-        """The session's RunResult; the session must be finished."""
+        """The session's RunResult; the session must be finished.  Columns
+        still live at ``max_supersteps`` are flushed into the result."""
         if self._final_result is None:
             if not self.finished:
                 raise RuntimeError("session still live — step() to "
                                    "completion first")
+            values = self.values
+            if self.multi_q:
+                for c, gq in enumerate(self.active_q):
+                    self.final_values[:, int(gq)] = values[:, c]
+                values = self.final_values
             self._final_result = RunResult(
-                values=self.values, aux=self.aux_np, history=self.history,
-                supersteps=len(self.history), converged=self.converged)
+                values=values, aux=self.aux_np, history=self.history,
+                supersteps=len(self.history), converged=self.converged,
+                per_query_supersteps=self.per_query_ss)
         return self._final_result

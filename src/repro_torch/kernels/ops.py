@@ -1,7 +1,8 @@
-"""Device dispatch for the GAB kernels.
+"""Device dispatch for the kernels.
 
 A CUDA tensor launches the hand-written kernel (``gab_gather``,
-``gab_fused``); a CPU tensor runs the plain PyTorch version (``ref``);
+``gab_fused``, ``compact``); a CPU tensor runs the plain PyTorch version
+(``ref``);
 any other device raises.  Nothing here falls back from the kernel: a
 kernel that cannot build or launch raises.
 """
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import compact as _cp
 from repro_torch.kernels import gab_fused as _gf
 from repro_torch.kernels import gab_gather as _gg
 from repro_torch.kernels import ref as _ref
@@ -19,7 +21,7 @@ def _on_card(t: torch.Tensor) -> bool:
         return True
     if t.device.type == "cpu":
         return False
-    raise ValueError(f"no GAB kernel for device {t.device}")
+    raise ValueError(f"no kernel for device {t.device}")
 
 
 def segment_reduce(contrib: torch.Tensor, dst: torch.Tensor,
@@ -53,3 +55,15 @@ def gab_fused(spec, src_vals, a, b, dst_local, old, base, num_rows, row_cap):
     ``[R(, Q)]``; returns ``(new, updated)`` — see ``gab_fused``."""
     fn = _gf.gab_fused if _on_card(src_vals) else _ref.gab_fused_ref
     return fn(spec, src_vals, a, b, dst_local, old, base, num_rows, row_cap)
+
+
+def compact(mask, values, capacity, fill_index=None):
+    """First ``capacity`` set indices of mask ``[V]`` (ascending) and their
+    values ``[V]``, as ``([K] int32, [K])``; unused slots hold
+    ``(fill_index, 0)`` (default V).  A mask of another dtype than bool
+    is read as ``mask != 0``.  The CUDA kernel has no bound on V below
+    2^31, so nothing here falls back to the plain version."""
+    if mask.dtype != torch.bool:
+        mask = mask != 0
+    fn = _cp.compact if _on_card(mask) else _ref.compact
+    return fn(mask, values, capacity, fill_index)

@@ -7,7 +7,8 @@ against them on the card.  They use no library reduction
 reduction is a segmented inclusive scan over dst-sorted edges (log-step
 doubling), read off at each row's last edge — the same "each row owns a
 contiguous edge range" structure the kernels use, in another order of
-summation.
+summation.  Compaction is positions from a ``cumsum`` plus an indexed
+store (no ``nonzero``, no ``masked_select``).
 """
 from __future__ import annotations
 
@@ -117,3 +118,25 @@ def gab_fused_ref(spec, src_vals, a, b, dst_local, old, base, num_rows,
     if squeeze:
         return new[:, 0], upd[:, 0]
     return new, upd
+
+
+def compact(mask: torch.Tensor, values: torch.Tensor, capacity: int,
+            fill_index: int | None = None):
+    """First ``capacity`` set indices of mask ``[V]`` (ascending) and their
+    values ``[V]``, as ``([K] int32, [K])`` with K = capacity; when more
+    than K entries are set, the first K.  Unused slots hold
+    ``(fill_index, 0)``; ``fill_index`` defaults to V.  A mask of another
+    dtype than bool reads as ``mask != 0``."""
+    n = mask.shape[0]
+    fill = n if fill_index is None else int(fill_index)
+    m = mask if mask.dtype == torch.bool else mask != 0
+    pos = torch.cumsum(m.to(torch.int64), 0) - 1
+    # kept entries store at their position; the rest at the dump slot K
+    slot = torch.where(m & (pos < capacity), pos,
+                       torch.full_like(pos, capacity))
+    idx = torch.full((capacity + 1,), fill, dtype=torch.int32,
+                     device=mask.device)
+    val = torch.zeros(capacity + 1, dtype=values.dtype, device=values.device)
+    idx[slot] = torch.arange(n, dtype=torch.int32, device=mask.device)
+    val[slot] = values
+    return idx[:capacity], val[:capacity]

@@ -3,11 +3,12 @@
     PYTHONPATH=src python -m repro_torch.launch.graph --app pagerank \
         --vertices 100000 --edges 1000000 --servers 4 --supersteps 20
 
-The batch flags of ``repro.launch.graph`` for the port's slice (the tiled,
-serial, in-process engine and the five single-query apps), plus
-``--device`` (default ``cuda``).  The reference's other flags are accepted
-and rejected with ``NotImplementedError`` naming their ROADMAP.md queue
-item.
+The batch flags of ``repro.launch.graph`` for the port so far — the
+in-process engine, serial or ``--pipeline``, all eight apps (``ppr``, ``msbfs`` and ``landmarks`` run
+``--queries``/``--seeds`` query columns in one edge pass), the cache
+policies — plus ``--device`` (default ``cuda``).  The reference's other
+flags are accepted and rejected with ``NotImplementedError`` naming their
+ROADMAP.md queue item.
 """
 from __future__ import annotations
 
@@ -15,7 +16,9 @@ import argparse
 import tempfile
 import time
 
-from repro_torch.core.apps import APPS, BATCHED_APPS
+import numpy as np
+
+from repro_torch.core.apps import APPS
 from repro_torch.core.engine import EngineConfig, OutOfCoreEngine
 from repro_torch.core.gab import SEG_IMPLS
 from repro_torch.graphio import spe, synth
@@ -23,23 +26,26 @@ from repro_torch.graphio.formats import TileStore
 
 # reference flags outside the slice -> the ROADMAP.md queue item bringing them
 _LATER_FLAGS = {
-    "pipeline": "A.5", "kernel_autotune": "A.5", "queries": "A.5",
-    "seeds": "A.5", "vertex_memory_budget": "A.6", "admit": "A.7",
+    "kernel_autotune": "A.12", "vertex_memory_budget": "A.6", "admit": "A.7",
     "cluster": "A.9", "checkpoint_dir": "A.10", "resume": "A.10",
     "preemptible": "A.10", "inject": "A.10", "serve": "A.11",
     "serve_http": "A.11",
 }
 
 
+# batched app -> its program's query field
+_QUERY_FIELD = {"ppr": "seeds", "msbfs": "sources", "landmarks": "landmarks"}
+
+
 def build_store(args) -> TileStore:
     """SPE-preprocess the synthetic graph selected by the CLI namespace
     into a (new or ``--store``-named) TileStore; weighted edges are
-    generated iff the app consumes them (sssp)."""
+    generated iff the app consumes them (sssp/landmarks)."""
     store = TileStore(args.store or tempfile.mkdtemp(prefix="graphh_"),
                       disk_mode=args.disk_mode)
     gen = {"rmat": synth.rmat_edges, "uniform": synth.uniform_edges,
            "banded": synth.banded_edges}[args.graph]
-    weighted = args.app == "sssp"
+    weighted = args.app in ("sssp", "landmarks")
     t0 = time.time()
     spe.preprocess(
         lambda: gen(args.vertices, args.edges, seed=args.seed,
@@ -55,8 +61,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     """Parse the CLI flags; reject the reference's flags outside the slice
     with ``NotImplementedError``."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--app", default="pagerank",
-                    choices=sorted(APPS) + sorted(BATCHED_APPS))
+    ap.add_argument("--app", default="pagerank", choices=sorted(APPS))
     ap.add_argument("--graph", default="rmat",
                     choices=["rmat", "uniform", "banded"])
     ap.add_argument("--vertices", type=int, default=100_000)
@@ -67,6 +72,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--cache-mb", type=float, default=1024)
     ap.add_argument("--cache-mode", default="auto",
                     choices=["auto", "1", "2", "3", "4"])
+    ap.add_argument("--cache-policy", default="lru",
+                    choices=["lru", "tiered", "cost-aware"],
+                    help="lru = paper's whole-cache single mode; tiered / "
+                         "cost-aware = per-tile hot/warm/cold ladder with "
+                         "demote-before-evict")
+    ap.add_argument("--cache-promote-hits", type=int, default=2,
+                    help="hits between tier promotions (tiered policies)")
+    ap.add_argument("--static-order", action="store_true",
+                    help="disable cache-hit-first tile ordering")
     ap.add_argument("--comm-mode", default="hybrid",
                     choices=["dense", "sparse", "hybrid"])
     ap.add_argument("--disk-mode", type=int, default=1)
@@ -74,6 +88,21 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="reuse an existing tile store directory")
     ap.add_argument("--reuse", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--pipeline", action="store_true",
+                    help="overlap tile I/O, compute, and broadcast "
+                         "compression")
+    ap.add_argument("--prefetch-depth", type=int, default=4)
+    ap.add_argument("--prefetch-workers", type=int, default=2)
+    ap.add_argument("--stack-size", type=int, default=4,
+                    help="tiles per stacked dispatch (pipelined mode)")
+    ap.add_argument("--queries", type=int, default=None,
+                    help="batched apps (ppr/msbfs/landmarks): number of "
+                         "query instances to run in one edge pass; seeds "
+                         "are drawn deterministically from --seed unless "
+                         "--seeds is given")
+    ap.add_argument("--seeds", default=None,
+                    help="comma-separated seed/source/landmark vertex ids "
+                         "for the batched apps, e.g. --seeds 0,17,42")
     ap.add_argument("--seg-impl", default="fused", choices=list(SEG_IMPLS),
                     help="fused: the fused gather→combine→apply kernel (the "
                          "segment kernel for apps without a fused form); "
@@ -82,25 +111,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="torch device the tiles compute on (cpu runs the "
                          "kernels' plain versions)")
-    for flag in ("--pipeline", "--kernel-autotune", "--cluster", "--resume",
+    for flag in ("--kernel-autotune", "--cluster", "--resume",
                  "--preemptible", "--serve", "--serve-http"):
         ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
-    for flag in ("--queries", "--seeds", "--vertex-memory-budget",
-                 "--checkpoint-dir"):
+    for flag in ("--vertex-memory-budget", "--checkpoint-dir"):
         ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--cache-policy", default="lru", help=argparse.SUPPRESS)
     for flag in ("--inject", "--admit"):
         ap.add_argument(flag, action="append", default=None,
                         help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     later = [f"--{k.replace('_', '-')} is ROADMAP.md queue {item}"
              for k, item in _LATER_FLAGS.items() if getattr(args, k)]
-    if args.cache_policy != "lru":
-        later.append(f"--cache-policy {args.cache_policy} (tiered cache) is "
-                     f"ROADMAP.md queue A.5")
-    if args.app in BATCHED_APPS:
-        later.append(f"--app {args.app} (batched [V, Q] program) is "
-                     f"ROADMAP.md queue A.5")
     if later:
         raise NotImplementedError("; ".join(later))
     return args
@@ -110,6 +131,10 @@ def main(argv=None):
     """Parse CLI flags, build or reuse a tile store, and run the selected
     app through the port's out-of-core engine."""
     args = parse_args(argv)
+    batched = args.app in _QUERY_FIELD
+    if not batched and (args.queries or args.seeds):
+        raise SystemExit(f"--queries/--seeds only apply to batched apps "
+                         f"(ppr/msbfs/landmarks), not {args.app}")
     if args.reuse and args.store:
         store = TileStore(args.store)
         store.load_meta()
@@ -122,23 +147,56 @@ def main(argv=None):
         cache_mode=args.cache_mode if args.cache_mode == "auto"
         else int(args.cache_mode),
         comm_mode=args.comm_mode,
+        cache_policy=args.cache_policy,
+        cache_promote_hits=args.cache_promote_hits,
+        cache_aware_order=not args.static_order,
         seg_impl=args.seg_impl,
         max_supersteps=args.supersteps,
+        pipeline=args.pipeline,
+        prefetch_depth=args.prefetch_depth,
+        prefetch_workers=args.prefetch_workers,
+        stack_size=args.stack_size,
         device=args.device,
     )
     eng = OutOfCoreEngine(store, cfg)
-    prog = APPS[args.app]()
+    if batched:
+        if args.seeds:
+            seeds = tuple(int(s) for s in args.seeds.split(","))
+        else:
+            rng = np.random.default_rng(args.seed)
+            seeds = tuple(int(v) for v in rng.choice(
+                args.vertices, size=args.queries or 8, replace=False))
+        prog = APPS[args.app](**{_QUERY_FIELD[args.app]: seeds})
+    else:
+        prog = APPS[args.app]()
     t0 = time.time()
     res = eng.run(prog)
     dt = time.time() - t0
     print(f"{args.app}: {res.supersteps} supersteps in {dt:.1f}s "
           f"(mean {res.mean_superstep_seconds()*1000:.0f} ms/superstep, "
           f"converged={res.converged}, device={eng.device})")
+    if batched:
+        q = len(seeds)
+        io = sum(x.disk_bytes_read for x in res.history)
+        print(f"  {q} queries in one edge pass: "
+              f"tile I/O {io/1e6:.1f} MB total = {io/q/1e6:.2f} MB/query, "
+              f"{dt/q*1000:.0f} ms/query; per-query supersteps "
+              f"{[int(s) for s in res.per_query_supersteps]}")
     h = res.history[-1]
     print(f"  cache hit ratio {h.cache_hit_ratio:.2f}, "
           f"net {sum(x.network_bytes for x in res.history)/1e6:.1f} MB total, "
           f"mode={eng.cache_mode}, "
-          f"disk-stall {res.disk_stall_fraction()*100:.0f}% of wall time")
+          f"disk-stall {res.disk_stall_fraction()*100:.0f}% of wall time"
+          f"{' (pipelined)' if args.pipeline else ''}")
+    if args.cache_policy != "lru":
+        promo = sum(x.cache_promotions for x in res.history)
+        demo = sum(x.cache_demotions for x in res.history)
+        tiers = ", ".join(
+            f"{name}: {d['tiles']} tiles/{d['bytes']/1e6:.1f} MB "
+            f"({d['hits']} hits)"
+            for name, d in sorted(h.cache_tiers.items()))
+        print(f"  cache tiers [{args.cache_policy}]: {tiers or 'empty'}; "
+              f"{promo} promotions, {demo} demotions")
     return res
 
 

@@ -213,14 +213,10 @@ def test_broadcast_measurement_matches_reference(mode, density):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(pipeline=True), dict(engine_mode="stacked"),
-    dict(engine_mode="merged"), dict(kernel_autotune=True),
-    dict(kernel_blocks=(512, 256)), dict(vertex_memory_budget=1 << 20),
-    dict(checkpoint_dir="ckpt"), dict(resume=True), dict(preemptible=True),
-    dict(fault_plan=object()), dict(admit_plan=((1, (2,)),)),
-    dict(server_rank=0), dict(cache_policy="tiered"),
-    dict(cache_policy="cost-aware"), dict(comm_accounting="sampled"),
-    dict(debug_skip_log=True)])
+    dict(kernel_autotune=True), dict(kernel_blocks=(512, 256)),
+    dict(vertex_memory_budget=1 << 20), dict(checkpoint_dir="ckpt"),
+    dict(resume=True), dict(preemptible=True), dict(fault_plan=object()),
+    dict(admit_plan=((1, (2,)),)), dict(server_rank=0)])
 def test_knobs_outside_the_slice_raise(knob, small_store):
     store, _, _ = small_store
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
@@ -229,14 +225,15 @@ def test_knobs_outside_the_slice_raise(knob, small_store):
 
 
 def test_batched_program_raises(small_store):
+    """Batched programs run; their mid-run admission (q_slots, a scripted
+    admit_plan) is ROADMAP.md queue A.7."""
     store, _, _ = small_store
-
-    class TwoColumns(tapps.BFS):
-        num_queries = 2
-
     eng = OutOfCoreEngine(TileStore(store.root), EngineConfig(device="cpu"))
-    with pytest.raises(NotImplementedError, match="A.5"):
-        eng.run(TwoColumns())
+    with pytest.raises(NotImplementedError, match="A.7"):
+        eng.open_session(tapps.MultiSourceBFS(sources=(0, 5)), q_slots=4)
+    with pytest.raises(NotImplementedError, match="A.7"):
+        OutOfCoreEngine(TileStore(store.root), EngineConfig(
+            device="cpu", admit_plan=((1, (2,)),)))
 
 
 def test_seg_impl_names(small_store):
@@ -265,11 +262,9 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
     assert "bfs:" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv", [["--pipeline"], ["--kernel-autotune"],
-                                  ["--app", "ppr"], ["--cluster"],
+@pytest.mark.parametrize("argv", [["--kernel-autotune"], ["--cluster"],
                                   ["--checkpoint-dir", "x"], ["--serve"],
-                                  ["--vertex-memory-budget", "10"],
-                                  ["--cache-policy", "tiered"]])
+                                  ["--vertex-memory-budget", "10"]])
 def test_cli_rejects_flags_outside_the_slice(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
         tgraph.parse_args(argv)

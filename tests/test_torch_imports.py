@@ -24,12 +24,17 @@ def test_importing_every_module_loads_no_jax():
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(len(names), bad)\n"
+        "print(' '.join(names))\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 15
+    count, names = proc.stdout.splitlines()[0], proc.stdout.splitlines()[1]
+    assert int(count.split()[0]) >= 17
+    for name in ("repro_torch.kernels.compact", "repro_torch.core.distributed",
+                 "repro_torch.core.engine", "repro_torch.kernels.ops"):
+        assert name in names.split()
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))

@@ -23,9 +23,11 @@ from repro.kernels import gab_fused as jfused
 from repro.kernels import gab_gather as jgather
 from repro.kernels import ref as jref
 from repro_torch.core import apps as tapps
+from repro_torch.kernels import compact as tcompact
 from repro_torch.kernels import gab_fused as tfused
 from repro_torch.kernels import gab_gather as tgather
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 
 SUM_TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -199,3 +201,98 @@ def test_cuda_wrappers_take_only_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tfused.gab_fused(tapps.WCC().fused_spec(), c, None, None, d,
                          torch.zeros(2), None, 2, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        tcompact.compact(torch.zeros(4, dtype=torch.bool), c, 2)
+
+
+def _compact_inputs(n, density, dtype, seed):
+    rng = np.random.default_rng(seed)
+    mask = rng.random(n) < density
+    if dtype == np.float32:
+        values = rng.normal(size=n).astype(np.float32)
+    else:   # int32 beyond 2^24, where an f32 round trip loses bits
+        values = rng.integers(-(1 << 31), (1 << 31) - 1, n).astype(np.int32)
+    return mask, values
+
+
+def _assert_compact_matches(mask, values, capacity, fill_index):
+    got_i, got_v = tops.compact(torch.from_numpy(mask),
+                                torch.from_numpy(values), capacity,
+                                fill_index=fill_index)
+    want_i, want_v = jref.compact(jnp.asarray(mask), jnp.asarray(values),
+                                  capacity, fill_index)
+    assert got_i.dtype == torch.int32
+    assert got_v.numpy().dtype == values.dtype
+    assert np.array_equal(got_i.numpy(), np.asarray(want_i))
+    assert np.array_equal(got_v.numpy().view(np.uint32),
+                          np.asarray(want_v).view(np.uint32))
+
+
+@pytest.mark.parametrize("n", [1, 7, 512, 4099])
+@pytest.mark.parametrize("density", [0.0, 0.01, 0.3, 1.0])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_compact_matches_reference(n, density, dtype):
+    """The plain compact equals ``repro.kernels.ref.compact`` index for
+    index and bit for bit, with the capacity below and above the popcount
+    (the first K entries when it is below) and the default or a custom
+    fill index at or past V (see the next test for one below V)."""
+    mask, values = _compact_inputs(n, density, dtype, n + int(density * 100))
+    pop = int(mask.sum())
+    for capacity in sorted({max(pop - 3, 0), pop // 2, pop + 5}):
+        for fill_index in (None, n + 7):
+            _assert_compact_matches(mask, values, capacity, fill_index)
+
+
+def test_compact_past_the_tpu_kernels_bound():
+    """V = 2^24 + 1: the TPU kernel routes indices through f32 and needs
+    V < 2^24; the port's indices are int32 throughout."""
+    n = (1 << 24) + 1
+    mask = np.zeros(n, dtype=bool)
+    mask[[0, 3, (1 << 24) - 1, 1 << 24]] = True
+    values = np.arange(n, dtype=np.int32)
+    _assert_compact_matches(mask, values, 8, None)
+    got_i, got_v = tops.compact(torch.from_numpy(mask),
+                                torch.from_numpy(values), 3)
+    assert got_i.tolist() == [0, 3, (1 << 24) - 1]
+    assert got_v.tolist() == [0, 3, (1 << 24) - 1]
+
+
+def test_compact_fill_below_v_holds_zero_values():
+    """Unused slots hold (fill_index, 0) for any fill_index, as the TPU
+    kernel's output (zeroed, then overwritten) does.  The reference's
+    plain version reads values[fill_index] there when fill_index < V
+    (repro/kernels/ref.py:34-35) — ROADMAP.md queue C."""
+    mask = np.zeros(10, dtype=bool)
+    mask[[3, 8]] = True
+    values = np.arange(1, 11, dtype=np.float32)
+    got_i, got_v = tops.compact(torch.from_numpy(mask),
+                                torch.from_numpy(values), 5, fill_index=0)
+    assert got_i.tolist() == [3, 8, 0, 0, 0]
+    assert got_v.tolist() == [4.0, 9.0, 0.0, 0.0, 0.0]
+    want_i, want_v = jref.compact(jnp.asarray(mask), jnp.asarray(values), 5,
+                                  0)
+    assert np.array_equal(got_i.numpy(), np.asarray(want_i))
+    assert np.asarray(want_v).tolist() == [4.0, 9.0, 1.0, 1.0, 1.0]
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32, torch.uint8])
+def test_compact_reads_any_mask_dtype_as_nonzero(dtype):
+    mask = torch.tensor([0, 2, 0, -1, 1], dtype=torch.int32).to(dtype)
+    if dtype == torch.uint8:
+        mask = torch.tensor([0, 2, 0, 255, 1], dtype=dtype)
+    values = torch.arange(5, dtype=torch.float32)
+    idx, vals = tops.compact(mask, values, 4)
+    assert idx.tolist() == [1, 3, 4, 5]
+    assert vals.tolist() == [1.0, 3.0, 4.0, 0.0]
+    want_i, _ = jref.compact(jnp.asarray(mask.numpy()), jnp.asarray(
+        values.numpy()), 4)
+    assert np.array_equal(idx.numpy(), np.asarray(want_i))
+
+
+def test_compact_empty_and_zero_capacity():
+    mask = torch.zeros(0, dtype=torch.bool)
+    idx, vals = tref.compact(mask, torch.zeros(0), 3)
+    assert idx.tolist() == [0, 0, 0] and vals.tolist() == [0.0] * 3
+    idx, vals = tref.compact(torch.ones(5, dtype=torch.bool),
+                             torch.ones(5), 0)
+    assert idx.shape == (0,) and vals.shape == (0,)
