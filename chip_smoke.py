@@ -10,26 +10,38 @@
    0.19) at SCALE 22, edge factor 16 — 4,194,304 vertices, 67,108,864
    edges — in tiles of 2^20 edges, unweighted, disk mode 1.
 4. Kernels against their plain PyTorch versions on the card:
+   - the row-length histogram (longest row; shares of rows with <= 1,
+     <= 4, <= 32 edges) of the largest tile and of the merged dst list;
+   - the segment kernel's order: its sum at the largest tile's shape,
+     Q = 1 and Q = 8, equals bit for bit the fused kernel's with the
+     identity apply (affine, alpha 0, beta 1, no base, num_rows = row_cap);
    - the segment kernel at the largest tile's shapes (sum/min/max, Q in
-     {1, 4, 8}, sorted and unsorted dst, int32) and once (sum) at the
-     merged mode's shape (the server's 67,108,864 real edges, V + 1 rows);
+     {1, 3, 4, 8}, sorted and unsorted dst, int32; a contrib view 4 bytes
+     into its storage and ids out of range at both ends, -1 first and
+     >= R last, at Q = 3 and 8) and once (sum) at the merged mode's shape
+     (the server's 67,108,864 real edges, V + 1 rows);
    - the fused kernel at the largest tile's shapes (the four single-query
      fused specs, PPR's spec with its per-query base, and a weighted spec
      with both edge streams; Q in {1, 4, 8});
    - the compact kernel at V = 4,194,304 with K = sparse_capacity(V)
      (densities 0, 1e-3, 0.05, 0.399; 0.6, where more than K are set and
-     the first K are kept; int32 values; a fill index of 7) and at
-     V = 2^25, density 0.01 (past the TPU kernel's 2^24 bound).
+     the first K are kept; int32 values; a fill index of 7; a mask view
+     one byte into its storage), at V = 4,194,303, at V = 2^25, density
+     0.01 (past the TPU kernel's 2^24 bound), with K = 0, and with K > V.
    Min, max, integers and compaction must be equal (compact: indices and
    value bits), sums within rtol=1e-5, atol=1e-6 (another order of
    summation); the fused kernel's updated mask must equal the plain
    version's (for sums, on every entry whose change is farther than that
    tolerance from update_tol) and leave rows past num_rows untouched.
    Each case is timed with CUDA events (L2 flushed before each launch,
-   median of 10) beside the plain version, one PyTorch call that computes
+   median of 10; the device spins ~0.5 ms before each call that does not
+   synchronise with the host, so host enqueue time is not counted) beside
+   the plain version, one PyTorch call that computes
    the same function where there is one (scatter_reduce; for compact
-   torch.nonzero plus a gather, which synchronises with the host), and
-   its bound (bytes over 3.35 TB/s, flops over 67 TFLOP/s).
+   torch.nonzero plus a gather, which synchronises with the host, and
+   also the whole function in PyTorch: torch.full of the K slots, then
+   nonzero, truncation to K and the gather), and its bound (bytes over
+   3.35 TB/s, flops over 67 TFLOP/s).
 5. Main path: OutOfCoreEngine(store, device="cuda", seg_impl="fused") runs
    PageRank for 5 supersteps (against a float64 numpy power iteration,
    rtol=1e-4: float32 against float64), BFS from vertex 0 to convergence
@@ -64,9 +76,11 @@
 
 Phases 5, 6, 8 and 9 each set every kernel's launch counter to 0 before
 and read it after; each must have launched the kernels it runs.  The
-``{"kernels": [...]}`` line gives, per kernel, the launches summed over
-those phases, and the times of one case: segment sum at Q = 1, the fused
-PageRank spec at Q = 1, compact at density 0.05.  Then, as its last line,
+``{"kernels": [...]}`` line gives, per kernel and case, the launches
+summed over those phases and the case's times: segment sum at the largest
+tile for Q = 1 and Q = 8 and at the merged shape, the fused PageRank spec
+at Q = 1, compact at V = 4,194,304, density 0.05 and at V = 2^25 (the
+"case" key names it).  Then, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failed check raises; without a CUDA
 device, or without the repository beside it, it exits non-zero before
 printing a result.  Details go to build/chip_smoke.json.
@@ -94,6 +108,7 @@ NUM_QUERIES = 8
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12      # H100 SXM data sheet, float32 outside tensor cores
 SUM_TOL = dict(rtol=1e-5, atol=1e-6)
+SPIN_CYCLES = 1_000_000      # ~0.5 ms of device clock before each timed call
 PR_RTOL = 1e-4
 PPR_MIN_ENTRY = 1e-6
 PPR_L1 = 1e-5
@@ -115,14 +130,20 @@ def card_info(torch):
     return smi
 
 
-def time_ms(torch, fn, flush, reps=10):
+def time_ms(torch, fn, flush, reps=10, spin=True):
     """Median device time of one call, CUDA events around each call, the L2
-    cache flushed before each (the main path finds a tile cold)."""
+    cache flushed before each (the main path finds a tile cold).  A spin on
+    the device after the flush keeps it busy until the host has queued the
+    call, so the events time the device's work, not the host's enqueue;
+    ``spin=False`` for a call that synchronises with the host inside (a
+    head start would only add the host thread's wake-up to its time)."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         flush.zero_()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -233,6 +254,46 @@ def segment_row(torch, flush, c, d, r, combine, what, reps=10):
     return row
 
 
+def row_lengths(dst, num_rows, what):
+    """Log the row-length histogram of an ascending dst list: the longest
+    row and the shares of rows with <= 1, <= 4 and <= 32 edges."""
+    d = np.asarray(dst)
+    counts = np.bincount(d[(d >= 0) & (d < num_rows)], minlength=num_rows)
+    out = dict(rows=int(num_rows), max=int(counts.max()),
+               **{f"le_{k}": float((counts <= k).mean()) for k in (1, 4, 32)})
+    log(f"{what} row lengths: max {out['max']}, <= 1 edge "
+        f"{out['le_1']:.4f}, <= 4 {out['le_4']:.4f}, <= 32 "
+        f"{out['le_32']:.4f} of {num_rows} rows")
+    return out
+
+
+def check_segment_order(torch, tile, plan):
+    """The segment kernel's sum is the fused kernel's order, bit for bit:
+    at the largest tile's shape, Q = 1 and Q = 8, segment sum into row_cap
+    rows against gab_fused with the identity apply (affine, alpha 0, beta
+    1, no base, no edge streams, num_rows = row_cap: new = 0 + 1 · acc)."""
+    from repro_torch.kernels import gab_fused, gab_gather
+    from repro_torch.kernels.gab_fused import FusedSpec
+
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    e, r = plan.edge_cap, plan.row_cap
+    d = torch.from_numpy(tile.dst_local).to(dev)
+    spec = FusedSpec(combine="sum", apply="affine", alpha=0.0, beta=1.0)
+    for q in (1, NUM_QUERIES):
+        tail = () if q == 1 else (q,)
+        c = torch.rand((e,) + tail, generator=gen, device=dev)
+        seg = gab_gather.segment_reduce(c, d, r, "sum")
+        new, _ = gab_fused.gab_fused(spec, c, None, None, d,
+                                     torch.zeros((r,) + tail, device=dev),
+                                     None, r, r)
+        if not torch.equal(seg, new):
+            raise AssertionError(f"segment sum Q={q} differs from gab_fused's "
+                                 f"order in {int((seg != new).sum())} entries")
+    log("segment sum equals gab_fused's identity apply bit for bit at Q = 1 "
+        f"and Q = {NUM_QUERIES}")
+
+
 def check_segment_kernel(torch, tile, plan, flush):
     """Segment kernel against ref.segment_reduce at the tiles' shapes
     (InDegree, the segment backend: contrib [edge_cap(, Q)],
@@ -247,7 +308,7 @@ def check_segment_kernel(torch, tile, plan, flush):
     rows = []
     err = 0.0
     for combine in ("sum", "min", "max"):
-        for q in (1, 4, NUM_QUERIES):
+        for q in (1, 3, 4, NUM_QUERIES):
             shape = (e,) if q == 1 else (e, q)
             # positive messages for sums (as PageRank's): no cancellation
             c = (torch.rand(shape, generator=gen, device=dev)
@@ -269,6 +330,24 @@ def check_segment_kernel(torch, tile, plan, flush):
         got = gab_gather.segment_reduce(ci, dst_sorted, r, combine)
         want = ref.segment_reduce(ci, dst_sorted, r, combine)
         check_equal_or_close(torch, got, want, True, f"segment int32 {combine}")
+    # a contrib view 4 bytes into its storage (no 16-byte alignment), Q = 3
+    # and Q = 8; ids out of range at both ends (-1 first, >= R last)
+    d_out = torch.cat([torch.tensor([-1], dtype=torch.int32, device=dev),
+                       dst_sorted,
+                       torch.tensor([r, r + 5], dtype=torch.int32,
+                                    device=dev)])
+    for q in (3, NUM_QUERIES):
+        flat = torch.rand((e + 3) * q + 1, generator=gen, device=dev)
+        view = flat[1:1 + e * q].view(e, q)
+        out_ids = flat[1:1 + (e + 3) * q].view(e + 3, q)
+        for combine in ("sum", "min", "max"):
+            for c, d, name in ((view, dst_sorted, "offset view"),
+                               (out_ids, d_out, "ids out of range")):
+                got = gab_gather.segment_reduce(c, d, r, combine)
+                want = ref.segment_reduce(c, d, r, combine)
+                check_equal_or_close(torch, got, want, combine != "sum",
+                                     f"segment {combine} Q={q} {name}")
+                err = max(err, max_abs_err(torch, got, want))
     log(f"segment kernel: all cases agree, max |err| {err:.3g}")
     return rows, err
 
@@ -280,7 +359,10 @@ def check_merged_segment(torch, dst, nv, flush):
 
     dev = torch.device(DEV)
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    d = torch.from_numpy(np.sort(dst).astype(np.int32)).to(dev)
+    d_np = np.sort(dst).astype(np.int32)
+    lengths = row_lengths(d_np, nv + 1, "merged dst list")
+    d = torch.from_numpy(d_np).to(dev)
+    del d_np
     c = torch.rand(d.shape[0], generator=gen, device=dev)
     got = gab_gather.segment_reduce(c, d, nv + 1, "sum")
     want = ref.segment_reduce(c, d, nv + 1, "sum")
@@ -290,6 +372,7 @@ def check_merged_segment(torch, dst, nv, flush):
                       f"segment sum merged shape E={d.shape[0]} R={nv + 1}",
                       reps=5)
     row["shape"] = "merged"
+    row["row_lengths"] = lengths
     log(f"segment kernel at the merged shape agrees, max |err| {err:.3g}")
     return row, err
 
@@ -396,14 +479,22 @@ def check_compact_kernel(torch, nv, flush):
     dev = torch.device(DEV)
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     big = 1 << 25
-    cases = [(nv, 0.0, torch.float32, None), (nv, 1e-3, torch.float32, None),
-             (nv, 0.05, torch.float32, None), (nv, 0.399, torch.float32, None),
-             (nv, 0.6, torch.float32, None), (big, 0.01, torch.float32, None),
-             (nv, 0.05, torch.int32, None), (nv, 0.05, torch.float32, 7)]
+    f32 = torch.float32
+    # (V, density, dtype, fill, K or None for sparse_capacity(V), mask offset)
+    cases = [(nv, 0.0, f32, None, None, 0), (nv, 1e-3, f32, None, None, 0),
+             (nv, 0.05, f32, None, None, 0), (nv, 0.399, f32, None, None, 0),
+             (nv, 0.6, f32, None, None, 0), (big, 0.01, f32, None, None, 0),
+             (nv, 0.05, torch.int32, None, None, 0),
+             (nv, 0.05, f32, 7, None, 0),
+             (nv, 0.05, f32, None, None, 1),          # mask view, 1-byte offset
+             (nv - 1, 0.05, f32, None, None, 0),      # V not a multiple of 16
+             (nv, 0.05, f32, None, 0, 0),             # K = 0
+             (1000, 0.5, f32, None, 1500, 0)]         # K > V
     rows = []
-    for n, density, dtype, fill in cases:
-        k = sparse_capacity(n)
-        m = torch.rand(n, generator=gen, device=dev) < density
+    for n, density, dtype, fill, k, offset in cases:
+        k = sparse_capacity(n) if k is None else k
+        m = (torch.rand(n + offset, generator=gen, device=dev)
+             < density)[offset:]
         if dtype == torch.float32:
             v = torch.randn(n, generator=gen, device=dev)
         else:
@@ -412,27 +503,47 @@ def check_compact_kernel(torch, nv, flush):
         gi, gv = compact.compact(m, v, k, fill)
         wi, wv = ref.compact(m, v, k, fill)
         what = (f"compact V={n} density={density} K={k} {dtype} "
-                f"fill={'V' if fill is None else fill}")
+                f"fill={'V' if fill is None else fill} offset={offset}")
         if not (torch.equal(gi, wi)
                 and torch.equal(gv.view(torch.int32), wv.view(torch.int32))):
             raise AssertionError(f"{what}: kernel differs from plain version")
         pop = int(m.sum())
+        if k == 0 or n < nv - 1:
+            log(f"{what}: {pop} set, equal")
+            continue
+        fill_v = n if fill is None else fill
+
+        def library_full():
+            # the whole function in PyTorch: K slots of (fill, 0), then the
+            # first K set indices and their values
+            idx = torch.full((k,), fill_v, dtype=torch.int32, device=dev)
+            val = torch.zeros(k, dtype=v.dtype, device=dev)
+            nz = torch.nonzero(m).squeeze(1)[:k]
+            idx[:nz.shape[0]] = nz.to(torch.int32)
+            val[:nz.shape[0]] = v[nz]
+            return idx, val
         nbytes = n + 4 * min(pop, k) + 8 * k
         b_ms, b_by = bound(nbytes, n)
+        li, lv = library_full()
+        if not (torch.equal(li, wi)
+                and torch.equal(lv.view(torch.int32), wv.view(torch.int32))):
+            raise AssertionError(f"{what}: the PyTorch yardstick differs")
         row = dict(
             n=n, density=density, capacity=k, popcount=pop,
-            dtype=str(dtype), fill=fill,
+            dtype=str(dtype), fill=fill, offset=offset,
             kernel_ms=time_ms(torch, lambda: compact.compact(m, v, k, fill),
                               flush),
             plain_ms=time_ms(torch, lambda: ref.compact(m, v, k, fill),
                              flush),
             library_ms=time_ms(torch, lambda: v[torch.nonzero(m).squeeze(1)
-                                                [:k]], flush),
+                                                [:k]], flush, spin=False),
+            library_full_ms=time_ms(torch, library_full, flush, spin=False),
             bound_ms=b_ms, bound_by=b_by)
         rows.append(row)
         log(f"{what}: {pop} set, equal; kernel {row['kernel_ms']:.4f} ms, "
             f"plain {row['plain_ms']:.4f} ms, nonzero+gather "
-            f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            f"{row['library_ms']:.4f} ms, full function in PyTorch "
+            f"{row['library_full_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     log("compact kernel: all cases equal")
     return rows, 0.0
 
@@ -734,11 +845,13 @@ def modes(torch, store, sources, pr, msbfs):
     return out, launches
 
 
-def kernel_entry(name, source, replaces, launches, err, row):
+def kernel_entry(name, source, replaces, launches, err, row, case):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=row["kernel_ms"],
                 plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-                bound_by=row["bound_by"], library_ms=row["library_ms"])
+                bound_by=row["bound_by"], library_ms=row["library_ms"],
+                case=case, **({"library_full_ms": row["library_full_ms"]}
+                              if "library_full_ms" in row else {}))
 
 
 def main():
@@ -787,7 +900,10 @@ def main():
         log(f"kernel shapes from tile {big}: E {plan.edge_cap}, "
             f"R {plan.row_cap}, {tile.meta.num_edges} real edges, "
             f"{tile.meta.num_rows} rows")
+        tile_lengths = row_lengths(tile.dst_local, plan.row_cap + 1,
+                                   f"tile {big}")
         flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
+        check_segment_order(torch, tile, plan)
         seg_rows, seg_err = check_segment_kernel(torch, tile, plan, flush)
         merged_row, merged_err = check_merged_segment(torch, dst, nv, flush)
         seg_rows.append(merged_row)
@@ -829,32 +945,48 @@ def main():
              "batched apps": batched_launches, "modes": mode_launches}
     total = {k: sum(p[k] for p in paths.values()) for k in main_launches}
     log(f"launches by path: {paths}; total {total}")
+    seg_src = ("segment_reduce",
+               "src/repro_torch/kernels/csrc/segment_reduce.cu",
+               "src/repro/kernels/gab_gather.py:127",
+               total["segment_reduce"], seg_err)
+    compact_src = ("compact", "src/repro_torch/kernels/csrc/compact.cu",
+                   "src/repro/kernels/compact.py:107", total["compact"],
+                   compact_err)
+
+    def compact_case(n, density):
+        return next(r for r in compact_rows
+                    if r["n"] == n and r["density"] == density
+                    and r["fill"] is None and r["offset"] == 0
+                    and r["dtype"] == "torch.float32")
+
     kernels = [
-        kernel_entry("segment_reduce",
-                     "src/repro_torch/kernels/csrc/segment_reduce.cu",
-                     "src/repro/kernels/gab_gather.py:127",
-                     total["segment_reduce"], seg_err,
-                     next(r for r in seg_rows
-                          if r["combine"] == "sum" and r["q"] == 1)),
+        kernel_entry(*seg_src, next(r for r in seg_rows
+                                    if r["combine"] == "sum" and r["q"] == 1
+                                    and "shape" not in r),
+                     "tile, sum, Q=1"),
+        kernel_entry(*seg_src, next(r for r in seg_rows
+                                    if r["combine"] == "sum"
+                                    and r["q"] == NUM_QUERIES),
+                     f"tile, sum, Q={NUM_QUERIES}"),
+        kernel_entry(*seg_src, merged_row, "merged shape, sum, Q=1"),
         kernel_entry("gab_fused", "src/repro_torch/kernels/csrc/gab_fused.cu",
                      "src/repro/kernels/gab_fused.py:294",
                      total["gab_fused"], fused_err,
                      next(r for r in fused_rows
-                          if r["spec"] == "pagerank" and r["q"] == 1)),
-        kernel_entry("compact", "src/repro_torch/kernels/csrc/compact.cu",
-                     "src/repro/kernels/compact.py:107",
-                     total["compact"], compact_err,
-                     next(r for r in compact_rows
-                          if r["n"] == nv and r["density"] == 0.05
-                          and r["fill"] is None
-                          and r["dtype"] == "torch.float32")),
+                          if r["spec"] == "pagerank" and r["q"] == 1),
+                     "tile, PageRank spec, Q=1"),
+        kernel_entry(*compact_src, compact_case(nv, 0.05),
+                     f"V={nv}, density 0.05"),
+        kernel_entry(*compact_src, compact_case(1 << 25, 0.01),
+                     "V=2^25, density 0.01"),
     ]
     seconds = time.perf_counter() - t_all
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, torch=torch.__version__,
                        cuda=torch.version.cuda, builds={
                            k: v["seconds"] for k, v in builds.items()},
-                       store=store_info, segment=seg_rows, fused=fused_rows,
+                       store=store_info, tile_row_lengths=tile_lengths,
+                       segment=seg_rows, fused=fused_rows,
                        compact=compact_rows, compact_path=compact_counts,
                        apps=summaries, pagerank_max_rel_err=pr_rel,
                        sources=list(sources), batched=batched,

@@ -3,13 +3,15 @@
 Counterpart of ``repro/kernels/compact.py:compact_pallas``: the first K
 set indices of a mask, ascending, with their values — the sparse
 broadcast's (index, value) list.  The TPU kernel routes indices through
-f32 lanes (V < 2^24) and relies on sequential grid steps; this one counts,
-scans and scatters across blocks with int32 indices (see the source).
+f32 lanes (V < 2^24) and relies on sequential grid steps; this one is a
+single pass with a decoupled look-back across tiles, int32 indices and
+the fill in the same launch (see the source).
 
 The wrapper takes CUDA tensors only (``ops`` sends CPU tensors to
 ``ref.compact``), checks what the kernel accepts, allocates the outputs
-and the block-count scratch, launches on the current stream and counts the
-launch in ``LAUNCHES``.
+and the zeroed look-back scratch, launches on the current stream and
+counts the launch in ``LAUNCHES``.  A mask view at any byte offset is
+taken as it is: the kernel reads its unaligned ends byte by byte.
 """
 from __future__ import annotations
 
@@ -62,11 +64,14 @@ def compact(mask: torch.Tensor, values: torch.Tensor, capacity: int,
     capacity = int(capacity)
     if capacity < 0:
         raise ValueError(f"capacity must be >= 0, got {capacity}")
-    lib = _build.load("compact", _SIGNATURES)
     out_idx = torch.empty(capacity, dtype=torch.int32, device=device)
     out_val = torch.empty(capacity, dtype=values.dtype, device=device)
+    if capacity == 0:
+        return out_idx, out_val
+    lib = _build.load("compact", _SIGNATURES)
     scratch_len = lib.compact_scratch_len(n)
-    scratch = torch.empty(scratch_len, dtype=torch.int32, device=device)
+    # the look-back flags and the tile counter start at 0
+    scratch = torch.zeros(scratch_len, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.compact_u32(mask.data_ptr(), values.data_ptr(), n,
