@@ -14,15 +14,24 @@
      <= 4, <= 32 edges) of the largest tile and of the merged dst list;
    - the segment kernel's order: its sum at the largest tile's shape,
      Q = 1 and Q = 8, equals bit for bit the fused kernel's with the
-     identity apply (affine, alpha 0, beta 1, no base, num_rows = row_cap);
+     identity apply (affine, alpha 0, beta 1, no base, num_rows = row_cap,
+     so the sink row of padding edges is reduced too — through the hub
+     launch when it holds two multiples of 256 edges);
    - the segment kernel at the largest tile's shapes (sum/min/max, Q in
      {1, 3, 4, 8}, sorted and unsorted dst, int32; a contrib view 4 bytes
      into its storage and ids out of range at both ends, -1 first and
      >= R last, at Q = 3 and 8) and once (sum) at the merged mode's shape
      (the server's 67,108,864 real edges, V + 1 rows);
-   - the fused kernel at the largest tile's shapes (the four single-query
-     fused specs, PPR's spec with its per-query base, and a weighted spec
-     with both edge streams; Q in {1, 4, 8});
+   - the fused kernel at the largest tile's shapes and num_rows (the four
+     single-query fused specs, PPR's spec with its per-query base, and a
+     weighted spec with both edge streams; Q in {1, 4, 8}), against the
+     plain version and, bit for bit on new and updated, against the
+     merged-mode composition: the program's gather in PyTorch, the
+     segment kernel over rows [0, num_rows), the program's apply and
+     updated_mask in PyTorch;
+   - the same on a tile whose padding would be a hub row: the largest
+     tile with num_rows cut so that its last PAD_HUB_EDGES real edges and
+     the padding all point at num_rows (PageRank and BFS specs, Q = 1, 8);
    - the compact kernel at V = 4,194,304 with K = sparse_capacity(V)
      (densities 0, 1e-3, 0.05, 0.399; 0.6, where more than K are set and
      the first K are kept; int32 values; a fill index of 7; a mask view
@@ -36,12 +45,14 @@
    Each case is timed with CUDA events (L2 flushed before each launch,
    median of 10; the device spins ~0.5 ms before each call that does not
    synchronise with the host, so host enqueue time is not counted) beside
-   the plain version, one PyTorch call that computes
+   the plain version (and, for the fused kernel, the merged-mode
+   composition), one PyTorch call that computes
    the same function where there is one (scatter_reduce; for compact
    torch.nonzero plus a gather, which synchronises with the host, and
    also the whole function in PyTorch: torch.full of the K slots, then
    nonzero, truncation to K and the gather), and its bound (bytes over
-   3.35 TB/s, flops over 67 TFLOP/s).
+   3.35 TB/s, flops over 67 TFLOP/s; the fused kernel's counts the real
+   edges and base over num_rows rows only, the work its function needs).
 5. Main path: OutOfCoreEngine(store, device="cuda", seg_impl="fused") runs
    PageRank for 5 supersteps (against a float64 numpy power iteration,
    rtol=1e-4: float32 against float64), BFS from vertex 0 to convergence
@@ -79,8 +90,8 @@ and read it after; each must have launched the kernels it runs.  The
 ``{"kernels": [...]}`` line gives, per kernel and case, the launches
 summed over those phases and the case's times: segment sum at the largest
 tile for Q = 1 and Q = 8 and at the merged shape, the fused PageRank spec
-at Q = 1, compact at V = 4,194,304, density 0.05 and at V = 2^25 (the
-"case" key names it).  Then, as its last line,
+at Q = 1 and Q = 8 (with "composition_ms"), compact at V = 4,194,304,
+density 0.05 and at V = 2^25 (the "case" key names it).  Then, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failed check raises; without a CUDA
 device, or without the repository beside it, it exits non-zero before
 printing a result.  Details go to build/chip_smoke.json.
@@ -113,6 +124,7 @@ PR_RTOL = 1e-4
 PPR_MIN_ENTRY = 1e-6
 PPR_L1 = 1e-5
 PPR_MAX_FLIP_SHARE = 1e-4
+PAD_HUB_EDGES = 20000        # real edges turned into padding (phase 4)
 DEV = "cuda"
 
 
@@ -400,75 +412,191 @@ def check_fused_mask(torch, spec, new, upd, pnew, pupd, old, nr, what):
 
 
 def fused_cases():
+    """The programs whose fused specs phase 4 runs: the five apps with a
+    FusedSpec, and PageRank whose messages also add the edge's value (the
+    one case with both edge streams, a and b)."""
+    import dataclasses
+
     from repro_torch.core import apps
-    from repro_torch.kernels.gab_fused import FusedSpec
+
+    @dataclasses.dataclass(eq=False)
+    class WeightedRank(apps.PageRank):
+        def gather(self, src_value, edge_val, aux):
+            return super().gather(src_value, edge_val, aux) + edge_val
+
+        def fused_spec(self):
+            return dataclasses.replace(super().fused_spec(), add_edge=True)
 
     return {
-        "pagerank": apps.PageRank().fused_spec(),
-        "sssp": apps.SSSP().fused_spec(),
-        "wcc": apps.WCC().fused_spec(),
-        "bfs": apps.BFS().fused_spec(),
-        "ppr": apps.PersonalizedPageRank().fused_spec(),
-        "weighted": FusedSpec(combine="sum", scale_aux="w", add_edge=True,
-                              apply="affine", alpha=0.15, beta=0.85,
-                              update_tol=1e-9),
+        "pagerank": apps.PageRank(),
+        "sssp": apps.SSSP(),
+        "wcc": apps.WCC(),
+        "bfs": apps.BFS(),
+        "ppr": apps.PersonalizedPageRank(),
+        "weighted": WeightedRank(),
     }
 
 
-def check_fused_kernel(torch, tile, plan, flush):
-    """Fused kernel against ref.gab_fused_ref at the tiles' shapes
-    (src_vals [edge_cap(, Q)], old [row_cap(, Q)])."""
-    from repro_torch.kernels import gab_fused, ref
+def batched(prog):
+    """Whether prog is a batched program (values [V, Q] at every Q)."""
+    return hasattr(prog, "with_queries")
 
-    dev = torch.device(DEV)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    e, r, nr = plan.edge_cap, plan.row_cap, tile.meta.num_rows
-    dst = torch.from_numpy(tile.dst_local).to(dev)
-    real = dst < nr
-    ev = torch.where(real, torch.rand(e, generator=gen, device=dev) + 0.5,
+
+def fused_inputs(torch, prog, dst, nr, r, q, gen):
+    """Inputs of one fused case at a tile's shape, as the engine forms
+    them: src [E(, Q)] (2-D for a batched program; 30 % inf for min
+    specs: unreached sources), old and base [r(, Q)], the edge values ev
+    (0 on padding edges, dst >= nr) and the gathered source aux inv, and
+    the kernel's streams a = inv · ev, b = ev.  Returns (kernel args,
+    (prog, ev, inv))."""
+    spec = prog.fused_spec()
+    dev = dst.device
+    e = dst.shape[0]
+    tail = (q,) if q > 1 or batched(prog) else ()
+    ev = torch.where(dst < nr, torch.rand(e, generator=gen, device=dev) + 0.5,
                      torch.zeros((), device=dev))
     inv = torch.rand(e, generator=gen, device=dev)
+    src = torch.rand((e,) + tail, generator=gen, device=dev) * 5
+    if spec.combine == "min":
+        src = torch.where(torch.rand(src.shape, generator=gen,
+                                     device=dev) < 0.3,
+                          torch.full_like(src, float("inf")), src)
+    old = torch.rand((r,) + tail, generator=gen, device=dev) * 5
+    a = (inv * ev) if spec.scale_aux else None
+    b = ev if spec.add_edge else None
+    base = (torch.rand((r,) + tail, generator=gen, device=dev)
+            if spec.base_aux else None)
+    return (spec, src, a, b, dst, old, base, nr, r), (prog, ev, inv)
+
+
+def merged_composition(torch, prog, ev, inv, args):
+    """The engine's merged mode at a tile's shape (gab.merged_server_step):
+    the program's gather in PyTorch, the segment kernel over rows [0,
+    num_rows), the program's apply and updated_mask; rows past num_rows
+    keep old.  Every product and sum is its own PyTorch operation, so it
+    rounds as the fused kernel's, and the segment kernel sums each row in
+    the fused kernel's order: the two must agree bit for bit.  A
+    single-query program at Q > 1 gets its edge arrays as [E, 1] columns,
+    so that its message broadcasts over the query columns as the fused
+    kernel's does."""
+    from repro_torch.kernels import gab_gather
+
+    spec, src, _, _, dst, old, base, nr, _ = args
+    if src.ndim == 2 and not batched(prog):
+        ev, inv = ev[:, None], inv[:, None]
+    contrib = prog.gather(src, ev, {k: inv for k in prog.src_aux})
+    acc = gab_gather.segment_reduce(contrib, dst, nr, prog.combine)
+    o = old[:nr]
+    new = prog.apply(o, acc, {k: base[:nr] for k in prog.dst_aux})
+    upd = prog.updated_mask(o, new)
+    return (torch.cat([new, old[nr:]]),
+            torch.cat([upd, torch.zeros(old[nr:].shape, dtype=torch.bool,
+                                        device=old.device)]))
+
+
+def fused_bound(args):
+    """The fused function's least bytes and operations: src, dst and each
+    edge stream over the real edges (padding edges, dst >= num_rows, are
+    never reduced), old, new and updated over row_cap rows, base over
+    num_rows rows; a message step an edge stream, the apply over num_rows
+    rows."""
+    spec, src, a, b, dst, old, base, nr, r = args
+    e = int((dst < nr).sum())
+    q = 1 if src.ndim == 1 else src.shape[1]
+    streams = int(a is not None) + int(b is not None)
+    nbytes = (e * (4 + 4 * q + 4 * streams) + r * q * (4 + 4 + 1)
+              + nr * q * 4 * int(base is not None))
+    flops = e * q * (1 + streams + int(spec.add_const is not None))
+    return bound(nbytes, flops + 3 * nr * q)
+
+
+def check_fused_case(torch, case, flush, what):
+    """One fused case: the kernel against the plain version (sums within
+    SUM_TOL, the rest equal; the mask as check_fused_mask says) and bit
+    for bit against the merged-mode composition, then each timed."""
+    from repro_torch.kernels import gab_fused, ref
+
+    args, (prog, ev, inv) = case
+    spec, src, _, _, _, old, _, nr, _ = args
+    new, upd = gab_fused.gab_fused(*args)
+    pnew, pupd = ref.gab_fused_ref(*args)
+    cnew, cupd = merged_composition(torch, prog, ev, inv, args)
+    check_equal_or_close(torch, new, pnew, spec.combine != "sum", what)
+    n_clear, n_rows = check_fused_mask(torch, spec, new, upd, pnew, pupd,
+                                       old, nr, what)
+    if not (torch.equal(new, cnew) and torch.equal(upd, cupd)):
+        raise AssertionError(
+            f"{what}: differs from the merged-mode composition in "
+            f"{int((new != cnew).sum())} values, "
+            f"{int((upd != cupd).sum())} mask entries")
+    q = 1 if src.ndim == 1 else src.shape[1]
+    b_ms, b_by = fused_bound(args)
+    row = dict(q=q, num_rows=int(nr), library_ms=None, bound_ms=b_ms,
+               bound_by=b_by, max_abs_err=max_abs_err(torch, new, pnew),
+               mask_clear=n_clear, mask_entries=n_rows,
+               kernel_ms=time_ms(torch, lambda: gab_fused.gab_fused(*args),
+                                 flush),
+               composition_ms=time_ms(torch, lambda: merged_composition(
+                   torch, prog, ev, inv, args), flush),
+               plain_ms=time_ms(torch, lambda: ref.gab_fused_ref(*args),
+                                flush))
+    log(f"{what}: kernel {row['kernel_ms']:.4f} ms, merged-mode "
+        f"composition {row['composition_ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); equal to "
+        f"the composition; mask equal on {n_clear} of {n_rows} entries")
+    return row
+
+
+def check_fused_kernel(torch, tile, plan, flush):
+    """Fused kernel at the tiles' shapes (src_vals [edge_cap(, Q)], old
+    [row_cap(, Q)], the largest tile's num_rows) against ref.gab_fused_ref
+    and the merged-mode composition."""
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    dst = torch.from_numpy(tile.dst_local).to(dev)
     rows = []
     err = 0.0
-    for name, spec in fused_cases().items():
+    for name, prog in fused_cases().items():
         for q in (1, 4, NUM_QUERIES):
-            tail = () if q == 1 else (q,)
-            src = torch.rand((e,) + tail, generator=gen, device=dev) * 5
-            if spec.combine == "min":
-                src = torch.where(torch.rand(src.shape, generator=gen,
-                                             device=dev) < 0.3,
-                                  torch.full_like(src, float("inf")), src)
-            old = torch.rand((r,) + tail, generator=gen, device=dev) * 5
-            a = (inv * ev) if spec.scale_aux else None
-            b = ev if spec.add_edge else None
-            base = (torch.rand((r,) + tail, generator=gen, device=dev)
-                    if spec.base_aux else None)
-            args = (spec, src, a, b, dst, old, base, nr, r)
-            new, upd = gab_fused.gab_fused(*args)
-            pnew, pupd = ref.gab_fused_ref(*args)
-            what = f"fused {name} Q={q}"
-            check_equal_or_close(torch, new, pnew, spec.combine != "sum", what)
-            n_clear, n_rows = check_fused_mask(torch, spec, new, upd, pnew,
-                                               pupd, old, nr, what)
-            err = max(err, max_abs_err(torch, new, pnew))
-            streams = int(a is not None) + int(b is not None)
-            nbytes = (e * (4 + 4 * q + 4 * streams)
-                      + r * q * (4 + 4 + 1 + 4 * int(base is not None)))
-            flops = e * q * (1 + streams + int(spec.add_const is not None))
-            b_ms, b_by = bound(nbytes, flops + 3 * r * q)
-            row = dict(
-                spec=name, q=q,
-                kernel_ms=time_ms(torch, lambda: gab_fused.gab_fused(*args),
-                                  flush),
-                plain_ms=time_ms(torch, lambda: ref.gab_fused_ref(*args),
-                                 flush),
-                library_ms=None, bound_ms=b_ms, bound_by=b_by)
-            rows.append(row)
-            log(f"{what}: kernel {row['kernel_ms']:.4f} ms, plain "
-                f"{row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-                f"mask equal on {n_clear} of {n_rows} entries")
+            case = fused_inputs(torch, prog, dst, tile.meta.num_rows,
+                                plan.row_cap, q, gen)
+            row = check_fused_case(torch, case, flush,
+                                   f"fused {name} Q={q}")
+            rows.append(dict(spec=name, **row))
+            err = max(err, row["max_abs_err"])
     log(f"fused kernel: all cases agree, max |err| {err:.3g}")
     return rows, err
+
+
+def check_fused_padding_hub(torch, tile, plan, flush):
+    """A tile whose padding would be a hub row (more than 8,192 edges, far
+    past the hub launch's two multiples of 256): the largest tile's dst
+    with num_rows lowered to the row of its PAD_HUB_EDGES-th last real
+    edge and every edge from that row's first on pointing at it, as
+    padding does.  The
+    fused kernel must skip that row (it keeps old), agree with the plain
+    version and equal the merged-mode composition."""
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    d_np = tile.dst_local.copy()
+    cut = min(PAD_HUB_EDGES, tile.meta.num_edges // 2)
+    nr = int(d_np[tile.meta.num_edges - cut])
+    first = int(np.searchsorted(d_np, nr))
+    d_np[first:] = nr
+    dst = torch.from_numpy(d_np).to(dev)
+    pad = d_np.shape[0] - first
+    if cut == PAD_HUB_EDGES and pad <= 2 * 4096:
+        raise AssertionError(f"padding of {pad} edges would be no hub")
+    rows = []
+    for name in ("pagerank", "bfs"):
+        prog = fused_cases()[name]
+        for q in (1, NUM_QUERIES):
+            case = fused_inputs(torch, prog, dst, nr, plan.row_cap, q, gen)
+            row = check_fused_case(
+                torch, case, flush, f"fused {name} Q={q}, num_rows {nr}, "
+                f"{pad} padding edges at dst == num_rows")
+            rows.append(dict(spec=name, padding_edges=pad, **row))
+    return rows, max(r["max_abs_err"] for r in rows)
 
 
 def check_compact_kernel(torch, nv, flush):
@@ -850,8 +978,9 @@ def kernel_entry(name, source, replaces, launches, err, row, case):
                 launches=launches, max_abs_err=err, ms=row["kernel_ms"],
                 plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                 bound_by=row["bound_by"], library_ms=row["library_ms"],
-                case=case, **({"library_full_ms": row["library_full_ms"]}
-                              if "library_full_ms" in row else {}))
+                case=case, **{k: row[k] for k in ("library_full_ms",
+                                                  "composition_ms")
+                              if k in row})
 
 
 def main():
@@ -909,6 +1038,8 @@ def main():
         seg_rows.append(merged_row)
         seg_err = max(seg_err, merged_err)
         fused_rows, fused_err = check_fused_kernel(torch, tile, plan, flush)
+        pad_rows, pad_err = check_fused_padding_hub(torch, tile, plan, flush)
+        fused_err = max(fused_err, pad_err)
         compact_rows, compact_err = check_compact_kernel(torch, nv, flush)
         del flush
         torch.cuda.empty_cache()
@@ -949,6 +1080,9 @@ def main():
                "src/repro_torch/kernels/csrc/segment_reduce.cu",
                "src/repro/kernels/gab_gather.py:127",
                total["segment_reduce"], seg_err)
+    fused_src = ("gab_fused", "src/repro_torch/kernels/csrc/gab_fused.cu",
+                 "src/repro/kernels/gab_fused.py:294", total["gab_fused"],
+                 fused_err)
     compact_src = ("compact", "src/repro_torch/kernels/csrc/compact.cu",
                    "src/repro/kernels/compact.py:107", total["compact"],
                    compact_err)
@@ -969,12 +1103,11 @@ def main():
                                     and r["q"] == NUM_QUERIES),
                      f"tile, sum, Q={NUM_QUERIES}"),
         kernel_entry(*seg_src, merged_row, "merged shape, sum, Q=1"),
-        kernel_entry("gab_fused", "src/repro_torch/kernels/csrc/gab_fused.cu",
-                     "src/repro/kernels/gab_fused.py:294",
-                     total["gab_fused"], fused_err,
-                     next(r for r in fused_rows
-                          if r["spec"] == "pagerank" and r["q"] == 1),
-                     "tile, PageRank spec, Q=1"),
+        *(kernel_entry(*fused_src, next(r for r in fused_rows
+                                        if r["spec"] == "pagerank"
+                                        and r["q"] == q),
+                       f"tile, PageRank spec, Q={q}")
+          for q in (1, NUM_QUERIES)),
         kernel_entry(*compact_src, compact_case(nv, 0.05),
                      f"V={nv}, density 0.05"),
         kernel_entry(*compact_src, compact_case(1 << 25, 0.01),
@@ -987,6 +1120,7 @@ def main():
                            k: v["seconds"] for k, v in builds.items()},
                        store=store_info, tile_row_lengths=tile_lengths,
                        segment=seg_rows, fused=fused_rows,
+                       fused_padding_hub=pad_rows,
                        compact=compact_rows, compact_path=compact_counts,
                        apps=summaries, pagerank_max_rel_err=pr_rel,
                        sources=list(sources), batched=batched,

@@ -1,11 +1,12 @@
 // Shared pieces of the two GAB segment kernels (segment_reduce.cu,
-// gab_fused.cu): the row-block layout, the per-row edge ranges found by
-// binary search on the dst-sorted edge list, the combine monoids and the
-// fixed-order warp reduction.
+// gab_fused.cu): the row-block size, the combine monoids, a binary search
+// on the dst-sorted edge list and the fixed-order warp reduction.  Their
+// common row layout is seg_layout.cuh.
 //
-// Determinism: a row's edges are reduced by one warp, lane l taking edges
-// lo + l, lo + l + 32, ... in order, then a butterfly over the lanes in a
-// fixed pattern.  No atomics: every row is owned by exactly one warp.
+// Determinism: a row's edges are combined in one fixed order (lane l of a
+// warp takes edges lo + l, lo + l + 32, ..., then a butterfly over the
+// lanes; seg_layout.cuh).  No atomics on values: each row's result is
+// formed once.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -29,16 +30,6 @@ __device__ __forceinline__ long long lower_bound(const int* __restrict__ dst,
     if (static_cast<long long>(dst[mid]) < key) lo = mid + 1; else hi = mid;
   }
   return lo;
-}
-
-// bounds[t] = first edge of row r0 + t, for t in [0, kRowsPerBlock]; row
-// r0 + t owns edges [bounds[t], bounds[t + 1]).
-__device__ __forceinline__ void block_row_bounds(const int* __restrict__ dst,
-                                                 long long n, long long r0,
-                                                 long long* bounds) {
-  for (int t = threadIdx.x; t <= kRowsPerBlock; t += blockDim.x)
-    bounds[t] = lower_bound(dst, n, r0 + t);
-  __syncthreads();
 }
 
 // NaN-propagating min / max, as torch.minimum / jnp.minimum.

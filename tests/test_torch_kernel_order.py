@@ -9,8 +9,10 @@ keep.  The kernels run only on the card; these models run here.
   rows, warps of 32 rows, rows of 1..32 edges packed into windows of 32
   edges with a tree over positions inside each row, longer rows on the
   whole warp, query columns in chunks; hub rows go to a second launch
-  that finds each exactly once from multiples of HUB_EDGES (``hub_rows``)
-  and streams it in chunks of a multiple of 32 edges (``hub_row``).
+  that finds each exactly once from multiples of H (``hub_rows``; H =
+  ``hub_edges(E)``, 256 at a tile's size) and streams it by four blocks
+  of eight lanes, in chunks of a multiple of 32 edges (``hub_row``);
+  ``layout_both`` is the two launches.
 
 The two must agree bit for bit — the engine's merged mode (segment
 kernel) is held bit for bit to its tiled mode (fused kernel) — for every
@@ -21,16 +23,28 @@ canonical (as the card's), min/max as ``seg_common.cuh``'s
 ``min_nan``/``max_nan``.  The model's sums are also held to the JAX
 reference within ``rtol=1e-5, atol=1e-6`` (another order of summation).
 
+``fused_kernel`` is ``gab_fused.cu``: the same row launch over the
+message ``src · a + b + add_const`` (each step rounded), rows past
+num_rows left unreduced (the padding's sink row never a hub), hub rows
+chunked by the message's streams, and the apply and mask as the epilogue
+(``epilogue``).  It must give the segment model's bits followed by the
+apply — the merged mode's composition — and agree with the JAX package's
+``gab_fused`` (Pallas, interpret mode) within the sum tolerance.
+
 ``compact_kernel`` models ``compact.cu``: tiles on the 16-byte grid of
 the mask's address, 16-byte chunks turned into bit masks by the multiply
 trick, the packed two-round block scan, ranks and the fill, for every
 alignment of the mask; it is held to ``repro.kernels.ref.compact``.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from repro.kernels import gab_fused as jfused
 from repro.kernels import ref as jref
+from repro_torch.kernels.gab_fused import FusedSpec
 
 F32 = np.float32
 CANON_NAN = np.array([0x7FFFFFFF], dtype=np.uint32).view(np.float32)[0]
@@ -88,12 +102,21 @@ def _window_tree(vals, heads, c):
     return [v[h] for h in heads[:-1]]
 
 
-def segment_kernel(contrib, dst, num_rows, c, qc=None):
-    """``segment_reduce.cu``'s layout over contrib [E, Q], ascending dst."""
-    e_count, q_cols = contrib.shape
-    if qc is None:
-        qc = 1 if q_cols == 1 else 2 if q_cols == 2 else 4 if q_cols <= 4 else 8
-    out = np.full((num_rows, q_cols), np.nan, dtype=np.float32)
+def _qc(q_cols):
+    """The kernels' column chunk: 1, 2, 4 or 8 columns a pass."""
+    return 1 if q_cols == 1 else 2 if q_cols == 2 else 4 if q_cols <= 4 else 8
+
+
+def layout_rows(vals, dst, num_rows, c, qc, put, h):
+    """``seg_layout.cuh``'s row launch over vals [E, Q] (each edge's values
+    as loaded) and ascending dst: blocks of 256 rows below num_rows, whose
+    slices end at the first edge of row min(r0 + 256, num_rows); warps of
+    32 rows; rows of 1..32 edges packed into windows of 32 edges with a
+    tree over positions inside each row; longer rows on the whole warp,
+    except those ``is_hub`` (hub size h) leaves to the hub launch; query
+    columns in chunks of qc.  Calls put(r, q, value) for each row and
+    column it reduces."""
+    e_count, q_cols = vals.shape
     d = dst.astype(np.int64)
     for r0 in range(0, num_rows, ROWS_PER_BLOCK):
         nrows = min(ROWS_PER_BLOCK, num_rows - r0)
@@ -106,7 +129,8 @@ def segment_kernel(contrib, dst, num_rows, c, qc=None):
                 cols = range(q0, min(q0 + qc, q_cols))
                 for r in owned:
                     if hi[r] == lo[r]:
-                        out[r0 + r, list(cols)] = IDENT[c]
+                        for q in cols:
+                            put(r0 + r, q, IDENT[c])
                 ew, whi = lo[row0], hi[owned[-1]]
                 while ew < whi:
                     rows = [r for r in owned if 1 <= hi[r] - lo[r] <= 32
@@ -117,60 +141,112 @@ def segment_kernel(contrib, dst, num_rows, c, qc=None):
                         continue
                     heads = [lo[r] - ew for r in rows] + [hi[rows[-1]] - ew]
                     for q in cols:
-                        vals = [contrib[ew + l, q] if ew + l < e_count
-                                else F32(0) for l in range(32)]
-                        for r, x in zip(rows, _window_tree(vals, heads, c)):
-                            out[r0 + r, q] = x
+                        v = [vals[ew + l, q] if ew + l < e_count
+                             else F32(0) for l in range(32)]
+                        for r, x in zip(rows, _window_tree(v, heads, c)):
+                            put(r0 + r, q, x)
                     ew += heads[-1]
                 for r in owned:
-                    if hi[r] - lo[r] > 32:
+                    if hi[r] - lo[r] > 32 and not is_hub(lo[r], hi[r], h):
                         for q in cols:
-                            out[r0 + r, q] = fused_row(
-                                contrib[lo[r]:hi[r], q], c)
-    return out
+                            put(r0 + r, q, fused_row(vals[lo[r]:hi[r], q], c))
 
 
-HUB_EDGES = 4096
+HUB_MIN_EDGES = 256
+HUB_MAX_MULTIPLES = 16384
+HUB_GROUPS = 4
 HUB_CHUNK_BYTES = 16384
 
 
-def is_hub(lo, hi):
-    """The row launch's test: the row holds m, the first multiple of
-    HUB_EDGES at or after lo, and m + HUB_EDGES."""
-    m = -(-lo // HUB_EDGES) * HUB_EDGES
-    return m + HUB_EDGES < hi
+def hub_edges(num_edges):
+    """``seg_layout.cuh``'s hub_shift() as a size: H, the least power of
+    two of at least HUB_MIN_EDGES for which an edge list of num_edges holds
+    at most HUB_MAX_MULTIPLES multiples of H."""
+    h = HUB_MIN_EDGES
+    while (num_edges - 1) // h > HUB_MAX_MULTIPLES:
+        h *= 2
+    return h
 
 
-def hub_rows(dst, num_rows):
-    """The hub launch's discovery: multiple m of HUB_EDGES with
-    dst[m] == dst[m + HUB_EDGES] in [0, R) and dst[m - HUB_EDGES] !=
-    dst[m].  Returns the rows found, one entry per find."""
+def is_hub(lo, hi, h):
+    """The row launch's test: the row holds m, the first multiple of h at
+    or after lo, and m + h."""
+    m = -(-lo // h) * h
+    return m + h < hi
+
+
+def hub_rows(dst, num_rows, h):
+    """The hub launch's discovery: multiple m of h with dst[m] == dst[m +
+    h] in [0, num_rows) and dst[m - h] != dst[m].  Returns the rows found,
+    one entry per find."""
     found = []
-    for j in range((len(dst) - 1) // HUB_EDGES):
-        m = j * HUB_EDGES
+    for j in range((len(dst) - 1) // h):
+        m = j * h
         r = dst[m]
-        if (0 <= r < num_rows and dst[m + HUB_EDGES] == r
-                and (m == 0 or dst[m - HUB_EDGES] != r)):
+        if (0 <= r < num_rows and dst[m + h] == r
+                and (m == 0 or dst[m - h] != r)):
             found.append(int(r))
     return found
 
 
-def hub_row(vals, c, q_cols, itemsize=4):
-    """The hub launch's consumer: chunks of (HUB_CHUNK_BYTES / itemsize /
-    Q) & ~31 edges; lane l combines edge i of a chunk for i = l, l + 32,
-    ...; then the 32-lane butterfly."""
-    chunk = (HUB_CHUNK_BYTES // itemsize // q_cols) & ~31
+def hub_row(vals, c, streams, itemsize=4, groups=HUB_GROUPS):
+    """The hub launch on one column: chunks spanning (HUB_CHUNK_BYTES /
+    itemsize / streams · groups) & ~31 edges (streams: elements an edge);
+    block g of the hub's ``groups`` stages and combines lanes [g·L, (g +
+    1)·L) (L = 32 / groups) — lane l edge i of a chunk for i % 32 == l, in
+    order — and writes their values to scratch; the last block runs the
+    butterfly over the 32."""
+    chunk = (HUB_CHUNK_BYTES // itemsize // streams * groups) & ~31
     assert chunk >= 32
-    acc = [IDENT[c]] * 32
-    for c0 in range(0, len(vals), chunk):
-        for i in range(c0, min(c0 + chunk, len(vals))):
-            lane = (i - c0) % 32
-            acc[lane] = combine(c, acc[lane], vals[i])
+    width = 32 // groups
+    scratch = [None] * 32
+    for g in range(groups):
+        acc = {l: IDENT[c] for l in range(g * width, (g + 1) * width)}
+        for c0 in range(0, len(vals), chunk):
+            for u in range(0, min(chunk, len(vals) - c0), 32):
+                for l in acc:
+                    if c0 + u + l < len(vals):
+                        acc[l] = combine(c, acc[l], vals[c0 + u + l])
+        for l, x in acc.items():
+            scratch[l] = x
     m = 16
     while m:
-        acc = [combine(c, acc[l], acc[l ^ m]) for l in range(32)]
+        scratch = [combine(c, scratch[l], scratch[l ^ m]) for l in range(32)]
         m >>= 1
-    return acc[0]
+    return scratch[0]
+
+
+def layout_both(vals, dst, num_rows, c, qc, put, streams, itemsize=4):
+    """Both launches of ``seg_layout.cuh`` over vals [E, Q] with hubs of
+    ``hub_edges(E)``: the row launch (``layout_rows``, hub rows left out)
+    and the hub launch over the rows ``hub_rows`` finds, chunked by the
+    source's elements an edge (``streams``) and their size.  Every row
+    below num_rows is put exactly once, no row past it at all."""
+    q_cols = vals.shape[1]
+    h = hub_edges(len(dst))
+    puts = np.zeros((max(num_rows, 0), q_cols), dtype=np.int64)
+
+    def counted(r, q, x):
+        puts[r, q] += 1
+        put(r, q, x)
+    layout_rows(vals, dst, num_rows, c, qc, counted, h)
+    d = dst.astype(np.int64)
+    for r in hub_rows(dst, num_rows, h):
+        lo, hi = np.searchsorted(d, r), np.searchsorted(d, r, side="right")
+        for q in range(q_cols):
+            counted(r, q, hub_row(vals[lo:hi, q], c, streams, itemsize))
+    assert (puts == 1).all()
+
+
+def segment_kernel(contrib, dst, num_rows, c, qc=None):
+    """``segment_reduce.cu``'s layout over contrib [E, Q], ascending dst."""
+    out = np.full((num_rows, contrib.shape[1]), np.nan, dtype=np.float32)
+
+    def put(r, q, x):
+        out[r, q] = x
+    layout_both(contrib, dst, num_rows, c, qc or _qc(contrib.shape[1]), put,
+                streams=contrib.shape[1], itemsize=contrib.itemsize)
+    return out
 
 
 def fused_rows(contrib, dst, num_rows, c):
@@ -209,11 +285,16 @@ def _bits(a):
 @pytest.mark.parametrize("combine_name", ["sum", "min", "max"])
 @pytest.mark.parametrize("q_cols", [1, 3, 8])
 def test_segment_layout_equals_fused_order(combine_name, q_cols):
+    """Row lengths 0-100, then rows for the hub launch (every row of 513
+    edges or more, and a row of 258..512 that holds two multiples of 256)
+    beside rows under that size."""
     rng = np.random.default_rng(100 + q_cols)
     lengths = np.arange(101)
     lengths = np.concatenate([lengths, rng.permutation(lengths)[:60],
-                              np.zeros(7, dtype=np.int64)])
+                              np.zeros(7, dtype=np.int64),
+                              [513, 511, 1100, 33, 2600, 0, 4500]])
     dst = _rows_of_lengths(lengths)
+    assert {168, 170, 172, 174} <= set(hub_rows(dst, len(lengths), 256))
     contrib = _special_values(rng, (dst.shape[0], q_cols))
     real = (dst >= 0) & (dst < len(lengths))
     got = segment_kernel(contrib, dst, len(lengths), combine_name)
@@ -258,28 +339,56 @@ def test_hub_rows_found_once_and_match_row_launch():
     """Every row the row launch leaves as a hub is found by exactly one
     multiple in the hub launch, and nothing else is — at row lengths
     around the thresholds, hubs first and last, ids out of range."""
+    _check_hub_discovery(4096)
+
+
+def _check_hub_discovery(h):
     rng = np.random.default_rng(5)
     lengths = rng.integers(0, 40, 3000)
-    for r, n in ((0, 20000), (3, 4097), (4, 8191), (5, 8192), (9, 12289),
-                 (100, 4096), (101, 4095), (2999, 9000)):
+    for r, n in ((0, 20000), (3, h + 1), (4, 2 * h - 1), (5, 2 * h),
+                 (9, 3 * h + 1), (100, h), (101, h - 1), (2999, 9000)):
         lengths[r] = n
-    for pad_lo, pad_hi in ((0, 0), (1, 0), (4097, 0), (0, 9000),
+    for pad_lo, pad_hi in ((0, 0), (1, 0), (h + 1, 0), (0, 9000),
                            (5000, 5000)):
         d = np.concatenate([np.full(pad_lo, -1), np.repeat(
             np.arange(len(lengths)), lengths), np.full(pad_hi, len(lengths))])
         bounds = np.searchsorted(d, np.arange(len(lengths) + 1))
         want = sorted(r for r in range(len(lengths))
-                      if is_hub(int(bounds[r]), int(bounds[r + 1])))
-        found = hub_rows(d, len(lengths))
+                      if is_hub(int(bounds[r]), int(bounds[r + 1]), h))
+        found = hub_rows(d, len(lengths), h)
         assert sorted(found) == want and len(set(found)) == len(found)
         assert 0 in want and 101 not in want
 
 
-@pytest.mark.parametrize("q_cols", [1, 3, 8])
+@pytest.mark.parametrize("h", [256, 1024, 8192])
+def test_hub_rows_found_once_at_each_hub_size(h):
+    """The same at the other hub sizes a call can choose."""
+    _check_hub_discovery(h)
+
+
+def test_hub_size_grows_with_the_edge_list():
+    """H is 256 up to HUB_MAX_MULTIPLES multiples of 256 (a tile of 2^20
+    edges), then the least power of two that keeps the multiples at most
+    HUB_MAX_MULTIPLES (a server's merged list of 2^26 edges: 4,096)."""
+    assert hub_edges(1) == hub_edges(1_058_944) == 256
+    assert hub_edges(256 * 16385) == 256
+    assert hub_edges(256 * 16385 + 1) == 512
+    assert hub_edges(1 << 26) == 4096
+    for e in (1000, 3_000_001, 1 << 26, (1 << 26) + 1):
+        h = hub_edges(e)
+        assert (e - 1) // h <= HUB_MAX_MULTIPLES
+        assert h == HUB_MIN_EDGES or (e - 1) // (h // 2) > HUB_MAX_MULTIPLES
+
+
+@pytest.mark.parametrize("q_cols", [1, 2, 3, 4, 8, 9])
 def test_hub_chunks_keep_fused_order(q_cols):
+    """A hub streamed by 4 blocks of 8 lanes each, merged through scratch,
+    gives the one-warp order's bits (chunks of 1,792 to 16,384 edges;
+    q_cols counts every stream of an edge, as the fused source's a and
+    b)."""
     rng = np.random.default_rng(30 + q_cols)
     for c in ("sum", "min", "max"):
-        for n in (4097, 6000):
+        for n in (2049, 4097, 9000):
             vals = _special_values(rng, (n,))
             assert _bits(hub_row(vals, c, q_cols))[()] == \
                 _bits(fused_row(vals, c))[()]
@@ -306,6 +415,239 @@ def test_segment_model_sums_match_reference(q_cols):
         want = getattr(jref, f"segment_{c}")(jnp.asarray(contrib),
                                              jnp.asarray(dst), len(lengths))
         assert np.array_equal(got, np.asarray(want))
+
+
+# --- gab_fused ---------------------------------------------------------------
+
+
+def message(spec, src, a, b):
+    """``gab_fused.cu``'s message per edge and column, float32, each step
+    rounded: src · a + b + add_const."""
+    m = src.astype(F32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        if spec.scale_aux:
+            m = (m * a[:, None]).astype(F32)
+        if spec.add_edge:
+            m = (m + b[:, None]).astype(F32)
+        if spec.add_const is not None:
+            m = (m + F32(spec.add_const)).astype(F32)
+    return m
+
+
+def epilogue(spec, acc, o, base):
+    """``ApplyEpilogue::put`` on float32 scalars: the apply (affine with two
+    roundings, or ``min_nan``/``max_nan`` against old) and the mask."""
+    with np.errstate(invalid="ignore", over="ignore"):
+        if spec.apply == "affine":
+            alpha = F32(spec.alpha)
+            lhs = alpha if base is None else F32(alpha * base)
+            nv = F32(lhs + F32(F32(spec.beta) * acc))
+            nv = CANON_NAN if np.isnan(nv) else nv
+        else:
+            nv = combine(spec.apply, o, acc)
+        if spec.update_tol > 0.0:
+            changed = abs(F32(nv - o)) > F32(spec.update_tol)
+        else:
+            changed = nv != o
+    return nv, bool(changed)
+
+
+def fused_kernel(spec, src, a, b, dst, old, base, num_rows):
+    """``gab_fused.cu`` over src [E, Q], a/b [E] or None, ascending dst,
+    old/base [row_cap, Q]: the message formed as each edge is loaded, both
+    launches over rows below num_rows (``layout_both``, hubs chunked by
+    the message's streams: Q + one for each of a, b), the epilogue on
+    every reduced row, and old copied into the rows past num_rows."""
+    q_cols = src.shape[1]
+    new = old.copy()
+    upd = np.zeros(old.shape, dtype=bool)
+
+    def put(r, q, acc):
+        new[r, q], upd[r, q] = epilogue(
+            spec, acc, old[r, q], None if base is None else base[r, q])
+    layout_both(message(spec, src, a, b), dst, num_rows, spec.combine,
+                _qc(q_cols), put,
+                streams=q_cols + (a is not None) + (b is not None))
+    return new, upd
+
+
+def segment_then_apply(spec, src, a, b, dst, old, base, num_rows):
+    """The merged mode's composition: the message, the segment model over
+    rows [0, num_rows), then the apply and the mask; rows past num_rows
+    keep old and are not updated."""
+    acc = segment_kernel(message(spec, src, a, b), dst, num_rows,
+                         spec.combine)
+    new = old.copy()
+    upd = np.zeros(old.shape, dtype=bool)
+    for r in range(num_rows):
+        for q in range(old.shape[1]):
+            new[r, q], upd[r, q] = epilogue(
+                spec, acc[r, q], old[r, q], None if base is None
+                else base[r, q])
+    return new, upd
+
+
+FUSED_LAYOUT_SPECS = {
+    # every stream, a dst-side base and a tolerance (the PPR form, with b
+    # and a constant besides)
+    "sum": FusedSpec(combine="sum", scale_aux="w", add_edge=True,
+                     add_const=0.25, apply="affine", alpha=0.15, beta=0.85,
+                     base_aux="m", update_tol=1e-3),
+    "min": FusedSpec(combine="min", add_edge=True, add_const=1.0,
+                     apply="min"),
+    "max": FusedSpec(combine="max", scale_aux="w", apply="max"),
+}
+
+
+def _fused_inputs(rng, spec, lengths, q_cols, pad_edges, extra_rows,
+                  special=True):
+    """Rows of the given lengths, then pad_edges padding edges at dst ==
+    num_rows, old/base over row_cap = num_rows + extra_rows rows."""
+    num_rows = len(lengths)
+    row_cap = num_rows + extra_rows
+    dst = np.concatenate([np.repeat(np.arange(num_rows), lengths),
+                          np.full(pad_edges, num_rows)]).astype(np.int32)
+    e = dst.shape[0]
+    values = _special_values if special else (
+        lambda g, shape: g.normal(size=shape).astype(np.float32))
+    src = values(rng, (e, q_cols))
+    a = values(rng, (e,)) if spec.scale_aux else None
+    b = values(rng, (e,)) if spec.add_edge else None
+    old = values(rng, (row_cap, q_cols))
+    base = values(rng, (row_cap, q_cols)) if spec.base_aux else None
+    return src, a, b, dst, old, base, num_rows
+
+
+@pytest.mark.parametrize("combine_name", ["sum", "min", "max"])
+@pytest.mark.parametrize("q_cols", [1, 3, 8])
+def test_fused_layout_equals_segment_then_apply(combine_name, q_cols):
+    """The fused layout gives the segment layout's bits followed by the
+    apply, for row lengths 0-100 and a hub row, with -0.0, +-inf, NaN and
+    subnormals in every stream; rows past num_rows keep old."""
+    spec = FUSED_LAYOUT_SPECS[combine_name]
+    rng = np.random.default_rng(200 + q_cols)
+    lengths = np.arange(101)
+    lengths = np.concatenate([lengths, rng.permutation(lengths)[:60],
+                              [8492, 40, 1025, 2049, 3000],
+                              np.zeros(7, dtype=np.int64), [40, 3]])
+    args = _fused_inputs(rng, spec, lengths, q_cols, pad_edges=50,
+                         extra_rows=300)
+    assert hub_rows(args[3], args[-1], 256) == [161, 163, 164,
+                                                          165]
+    got_new, got_upd = fused_kernel(spec, *args)
+    want_new, want_upd = segment_then_apply(spec, *args)
+    assert np.array_equal(_bits(got_new), _bits(want_new))
+    assert np.array_equal(got_upd, want_upd)
+    num_rows, old = args[-1], args[4]
+    assert np.array_equal(_bits(got_new[num_rows:]), _bits(old[num_rows:]))
+    assert not got_upd[num_rows:].any()
+
+
+@pytest.mark.parametrize("combine_name", ["sum", "min", "max"])
+def test_fused_column_equals_single_column_run(combine_name):
+    """A column of a Q = 8 fused run equals its Q = 1 run, a hub row
+    included (its chunks hold fewer edges at Q = 8)."""
+    spec = FUSED_LAYOUT_SPECS[combine_name]
+    rng = np.random.default_rng(9)
+    lengths = np.concatenate([rng.integers(0, 70, 200), [8193]])
+    src, a, b, dst, old, base, nr = _fused_inputs(
+        rng, spec, lengths, 8, pad_edges=20, extra_rows=10)
+    full_new, full_upd = fused_kernel(spec, src, a, b, dst, old, base, nr)
+    for q in (0, 5, 7):
+        col = slice(q, q + 1)
+        one_new, one_upd = fused_kernel(
+            spec, src[:, col], a, b, dst, old[:, col],
+            None if base is None else base[:, col], nr)
+        assert np.array_equal(_bits(full_new[:, col]), _bits(one_new))
+        assert np.array_equal(full_upd[:, col], one_upd)
+
+
+def test_padding_hub_is_skipped():
+    """A tile whose padding edges (dst == num_rows < row_cap) would form a
+    hub: the hub search bounded by num_rows does not find it, the last
+    row block's slice ends at the first padding edge, a real hub below
+    num_rows is still found, and the sink row keeps old."""
+    spec = FUSED_LAYOUT_SPECS["sum"]
+    rng = np.random.default_rng(11)
+    lengths = rng.integers(0, 6, 500)
+    lengths[250] = 8292
+    pad = 9092
+    src, a, b, dst, old, base, nr = _fused_inputs(
+        rng, spec, lengths, 1, pad_edges=pad, extra_rows=300, special=False)
+    assert nr == 500 and old.shape[0] == 800        # one block wholly past
+    unbounded = hub_rows(dst, old.shape[0], 256)
+    assert unbounded == [250, nr]                   # unbounded: a hub
+    assert hub_rows(dst, nr, 256) == [250]
+    d = dst.astype(np.int64)
+    first_pad = int(np.searchsorted(d, nr))
+    assert first_pad == dst.shape[0] - pad
+    r0 = (nr - 1) // ROWS_PER_BLOCK * ROWS_PER_BLOCK
+    assert np.searchsorted(d, r0 + min(ROWS_PER_BLOCK, nr - r0)) == first_pad
+    got_new, got_upd = fused_kernel(spec, src, a, b, dst, old, base, nr)
+    want_new, want_upd = segment_then_apply(spec, src, a, b, dst, old, base,
+                                            nr)
+    assert np.array_equal(_bits(got_new), _bits(want_new))
+    assert np.array_equal(got_upd, want_upd)
+    assert np.array_equal(_bits(got_new[nr:]), _bits(old[nr:]))
+    assert not got_upd[nr:].any()
+
+
+JAX_FUSED_SPECS = {
+    "pagerank": FusedSpec(combine="sum", scale_aux="w", apply="affine",
+                          alpha=0.15, beta=0.85, update_tol=1e-3),
+    "ppr": FusedSpec(combine="sum", scale_aux="w", apply="affine",
+                     alpha=0.15, beta=0.85, base_aux="m", update_tol=1e-9),
+    "sssp": FusedSpec(combine="min", add_edge=True, apply="min"),
+    "wcc": FusedSpec(combine="min", apply="min"),
+    "bfs": FusedSpec(combine="min", add_const=1.0, apply="min"),
+    "max": FusedSpec(combine="max", add_edge=True, apply="max"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(JAX_FUSED_SPECS))
+@pytest.mark.parametrize("q_cols", [1, 8])
+def test_fused_model_matches_jax_gab_fused(name, q_cols):
+    """The fused model against ``repro.kernels.gab_fused.gab_fused``
+    (Pallas, interpret mode): sums within rtol=1e-5, atol=1e-6, min/max
+    equal; the mask equal wherever the change lies farther than that
+    tolerance from update_tol; rows past num_rows keep old."""
+    spec = JAX_FUSED_SPECS[name]
+    rng = np.random.default_rng(sorted(JAX_FUSED_SPECS).index(name) + q_cols)
+    e, row_cap, num_rows = 1500, 300, 270
+    n_real = e - e // 8
+    dst = np.concatenate([np.sort(rng.integers(0, num_rows, n_real)),
+                          np.full(e - n_real, num_rows)]).astype(np.int32)
+    ev = np.concatenate([rng.uniform(0.5, 2.0, n_real),
+                         np.zeros(e - n_real)]).astype(np.float32)
+    src = rng.uniform(0.0, 5.0, (e, q_cols)).astype(np.float32)
+    if spec.combine == "min":
+        src[rng.random(src.shape) < 0.3] = np.inf     # unreached sources
+    old = rng.uniform(0.0, 5.0, (row_cap, q_cols)).astype(np.float32)
+    a = rng.uniform(0.1, 1.0, e).astype(np.float32) * ev \
+        if spec.scale_aux else None
+    b = ev if spec.add_edge else None
+    base = (rng.uniform(0.0, 1.0, (row_cap, q_cols)).astype(np.float32)
+            if spec.base_aux else None)
+    new, upd = fused_kernel(spec, src, a, b, dst, old, base, num_rows)
+
+    def j(x):
+        return None if x is None else jnp.asarray(x)
+    jspec = jfused.FusedSpec(**dataclasses.asdict(spec))
+    jnew, jupd = jfused.gab_fused(jspec, j(src), j(a), j(b), j(dst), j(old),
+                                  j(base), jnp.int32(num_rows), row_cap,
+                                  interpret=True)
+    jnew, jupd = np.asarray(jnew), np.asarray(jupd)
+    if spec.combine == "sum":
+        np.testing.assert_allclose(new, jnew, **SUM_TOL)
+        margin = SUM_TOL["atol"] + SUM_TOL["rtol"] * np.abs(jnew)
+        clear = np.abs(np.abs(jnew - old) - spec.update_tol) > margin
+    else:
+        assert np.array_equal(new, jnew)
+        clear = np.ones(upd.shape, dtype=bool)
+    assert clear[:num_rows].mean() > 0.9
+    assert np.array_equal(upd[clear], jupd[clear])
+    assert np.array_equal(new[num_rows:], old[num_rows:])
+    assert not upd[num_rows:].any()
 
 
 # --- compact ---------------------------------------------------------------
