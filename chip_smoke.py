@@ -24,7 +24,8 @@
      (the server's 67,108,864 real edges, V + 1 rows);
    - the fused kernel at the largest tile's shapes and num_rows (the four
      single-query fused specs, PPR's spec with its per-query base, and a
-     weighted spec with both edge streams; Q in {1, 4, 8}), against the
+     weighted spec with both edge streams; Q in {1, 4, 8}, and Q = 9 for
+     the BFS spec, MultiSourceBFS after an admission), against the
      plain version and, bit for bit on new and updated, against the
      merged-mode composition: the program's gather in PyTorch, the
      segment kernel over rows [0, num_rows), the program's apply and
@@ -62,14 +63,18 @@
    superstep of phase 5 (the vertices it updated, their levels),
    K = sparse_capacity(V); equal to numpy's nonzero.
 7. One PageRank superstep under torch.profiler: device busy share and the
-   kernels' device time.
-8. Batched apps at Q = 8 on the same store, seg_impl="fused": sources are
+   kernels' device time.  Phases 7, 8 and 10, PageRank in 11 and the
+   reference and out-of-core runs of 12 run with tile skipping off: on
+   R-MAT it skips no tile and never changes a result, and its filter
+   build is most of a superstep 0 (8-21 s).
+8. Batched apps at Q = 8 on the same store, seg_impl="fused", tile
+   skipping off (phase 12's in-memory session runs it on): sources are
    vertex 0 and seven vertices drawn with numpy from SEED among those with
-   out-degree > 0.  MultiSourceBFS to convergence (each column equal to a
-   numpy BFS from its source, column 0 equal to phase 5's BFS);
+   out-degree > 0.  MultiSourceBFS to convergence (each column equal to
+   scipy's BFS from its source, column 0 equal to phase 5's BFS);
    LandmarkDistances on the unweighted store (edge weight 1.0, the b
    stream), equal to MultiSourceBFS with equal per-query supersteps;
-   PersonalizedPageRank for 5 supersteps against a float64 scipy.sparse
+   PersonalizedPageRank for 3 supersteps against a float64 scipy.sparse
    power iteration with the same update gate (|new - old| > update_tol):
    relative error <= 1e-4 on entries >= 1e-6 and L1 error <= 1e-5 per
    column.  An entry whose change in some superstep lies within float32
@@ -79,18 +84,50 @@
    update_tol per superstep, in at most 1e-4 of the entries.  Column 0
    equal bit for bit to a Q = 1 PPR run.
 9. Modes: PageRank (5 supersteps) and MultiSourceBFS (Q = 8, to
-   convergence) with engine_mode "stacked", "merged" and pipeline=True,
-   tile skipping off so every superstep runs in the mode; each equal bit
-   for bit to the tiled runs of phases 5 and 8 (tile skipping never
+   convergence, so retirement shrinks Q from 8 to 1) with engine_mode
+   "stacked", "merged" and pipeline=True, tile skipping off so every
+   superstep runs in the mode; each equal bit for bit to the tiled runs
+   of phases 5 and 8, per-query supersteps too (tile skipping never
    changes a result).
 10. One MultiSourceBFS superstep at Q = 8 under torch.profiler.
+11. Out-of-core vertex state ("ooc") on the same store, with
+    num_intervals = OOC_INTERVALS: the engine cuts the vertices into
+    intervals aligned to tiles and computes each tile's source footprint
+    as it loads the tile (timed once over all tiles); PageRank for 5
+    supersteps under an 8 MiB vertex budget (superstep 1 profiled: H2D
+    bytes of the sharded step, copy and kernel device time, the host
+    gather and writeback) and InDegree for 1 under 8 MiB; each equal bit
+    for bit to the in-memory tiled run of as many supersteps, with 64
+    kernel calls a superstep, faults, spills and dirty intervals (the
+    budget binds), and its ms a superstep beside the tiled run's.
+    MultiSourceBFS at Q = 8 under 32 MiB is the first two supersteps of
+    phase 12's out-of-core session.
+12. Mid-run admission ("admission"): a MultiSourceBFS session at Q = 8
+    whose admit_plan brings a ninth source in after superstep 1 (Q = 9
+    at superstep 2, 64 fused calls; the ninth source is drawn among
+    vertices whose out-neighbours are all sinks, so its column retires
+    after its second superstep), query 1 drained after superstep 2 and a
+    tenth source admitted through admit() once a column has left; to
+    convergence in memory, each admitted column equal to a fresh
+    single-query run with equal per-query supersteps, the drained one
+    to scipy's BFS levels up to 3 with -1, the other originals to phase
+    8's Q = 8 run; its first ADMIT_OOC_SUPERSTEPS supersteps (Q = 8, 8,
+    9, 8: the ninth query's admission, its Q = 9 superstep, the drain,
+    the ninth query's retirement and the tenth's admission into the
+    freed slot) in memory and under a 32 MiB budget equal bit for bit,
+    the latter with 64 fused calls a superstep and its budget binding.
+    Device bytes outside torch's allocator (the hub scratch) are logged
+    around each superstep and each phase 4 fused case.
 
-Phases 5, 6, 8 and 9 each set every kernel's launch counter to 0 before
-and read it after; each must have launched the kernels it runs.  The
+Phases 5, 6, 8, 9 and 11, the in-memory session of 12 and its
+out-of-core session ("admission ooc") each set every kernel's launch
+counter to 0 just before and read it just after; each must have
+launched the kernels it runs.  The
 ``{"kernels": [...]}`` line gives, per kernel and case, the launches
 summed over those phases and the case's times: segment sum at the largest
 tile for Q = 1 and Q = 8 and at the merged shape, the fused PageRank spec
-at Q = 1 and Q = 8 (with "composition_ms"), compact at V = 4,194,304,
+at Q = 1 and Q = 8 and BFS spec at Q = 9 (with "composition_ms"),
+compact at V = 4,194,304,
 density 0.05 and at V = 2^25 (the "case" key names it).  Then, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failed check raises; without a CUDA
 device, or without the repository beside it, it exits non-zero before
@@ -114,6 +151,7 @@ EDGE_FACTOR = 16
 TILE_SIZE = 1 << 20
 SEED = 0
 PR_SUPERSTEPS = 5
+PPR_SUPERSTEPS = 3           # cut from 5 in PR 16 to make room for 11-12
 BFS_MAX_SUPERSTEPS = 40
 NUM_QUERIES = 8
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
@@ -125,6 +163,12 @@ PPR_MIN_ENTRY = 1e-6
 PPR_L1 = 1e-5
 PPR_MAX_FLIP_SHARE = 1e-4
 PAD_HUB_EDGES = 20000        # real edges turned into padding (phase 4)
+OOC_INTERVALS = 16           # interval plan of the out-of-core runs
+OOC_PR_BUDGET = 8 << 20      # PageRank / InDegree vertex budget, bytes
+OOC_MSBFS_BUDGET = 32 << 20  # MultiSourceBFS (Q = 8 and 9) vertex budget
+DRAIN_AT = 2                 # admission: drain query DRAIN_QID after this
+DRAIN_QID = 1                # superstep
+ADMIT_OOC_SUPERSTEPS = 4     # admission session compared out of core
 DEV = "cuda"
 
 
@@ -137,8 +181,11 @@ def card_info(torch):
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip()
     log(smi)
+    from repro_torch import compat
+
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}; "
+        f"codec {'zstandard' if compat.HAVE_ZSTD else 'zlib (no zstandard)'}")
     return smi
 
 
@@ -557,11 +604,18 @@ def check_fused_kernel(torch, tile, plan, flush):
     rows = []
     err = 0.0
     for name, prog in fused_cases().items():
-        for q in (1, 4, NUM_QUERIES):
+        # Q + 1 = 9: MultiSourceBFS after a scheduled admission (phase 12)
+        qs = (1, 4, NUM_QUERIES) + ((NUM_QUERIES + 1,) if name == "bfs"
+                                    else ())
+        for q in qs:
             case = fused_inputs(torch, prog, dst, tile.meta.num_rows,
                                 plan.row_cap, q, gen)
+            m0 = non_torch_device_bytes(torch)
             row = check_fused_case(torch, case, flush,
                                    f"fused {name} Q={q}")
+            # the hub launch's scratch grows by cudaMalloc beside torch's
+            # allocator when a call needs more (ROADMAP B.4)
+            row["non_torch_growth"] = non_torch_device_bytes(torch) - m0
             rows.append(dict(spec=name, **row))
             err = max(err, row["max_abs_err"])
     log(f"fused kernel: all cases agree, max |err| {err:.3g}")
@@ -703,6 +757,18 @@ def numpy_bfs(src, dst, nv, source):
     return level
 
 
+def scipy_bfs(src, dst, nv, sources):
+    """BFS levels [V, Q] float32 from each source (inf where unreached),
+    by scipy's breadth-first shortest paths over the edge list."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import shortest_path
+
+    g = sp.csr_matrix((np.ones(len(src), np.float32), (src, dst)),
+                      shape=(nv, nv))
+    return shortest_path(g, unweighted=True,
+                         indices=list(sources)).T.astype(np.float32)
+
+
 def scipy_ppr(src, dst, out_degree, nv, seeds, steps, tol):
     """float64 personalized PageRank with the engine's update gate: a cell
     takes its new value only where it moved by more than ``tol``."""
@@ -722,13 +788,20 @@ def scipy_ppr(src, dst, out_degree, nv, seeds, steps, tol):
     return x
 
 
-def app_summary(name, res):
+def steady_ms(res):
+    """Mean ms a superstep over supersteps 1+ (superstep 0 alone if the
+    run had one)."""
     h = res.history
     steady = h[1:] if len(h) > 1 else h
+    return 1e3 * float(np.mean([x.seconds for x in steady]))
+
+
+def app_summary(name, res):
+    h = res.history
     s = dict(
         app=name, supersteps=res.supersteps, converged=res.converged,
         ms_per_superstep=1e3 * res.total_seconds() / max(len(h), 1),
-        steady_ms=1e3 * float(np.mean([x.seconds for x in steady])),
+        steady_ms=steady_ms(res),
         seconds=res.total_seconds(),
         load_seconds=sum(x.load_seconds for x in h),
         compute_seconds=sum(x.compute_seconds for x in h),
@@ -794,7 +867,7 @@ def main_path(torch, store, src, dst):
     if not np.array_equal(indeg.values, np.bincount(dst, minlength=nv)):
         raise AssertionError("indegree differs from np.bincount")
     log("indegree equals np.bincount")
-    return eng, launches, summaries, rel, pr, bfs
+    return eng, launches, summaries, rel, pr, bfs, indeg
 
 
 def compact_path(torch, bfs):
@@ -827,39 +900,68 @@ def compact_path(torch, bfs):
     return launches, counts
 
 
-def profile_superstep(torch, eng, prog, name):
-    """One superstep (after a warm one) under torch.profiler: device busy
-    share and device time by kernel."""
+def profiled_step(torch, session, name):
+    """One ``session.step()`` under torch.profiler: wall time, device busy
+    share, device time by kernel and copy direction, and the host time of
+    the out-of-core gather and writeback (record_function ranges)."""
     from torch.profiler import ProfilerActivity, profile
 
-    session = eng.open_session(prog, max_supersteps=2)
-    session.step()          # warm: the first superstep
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        session.step()
+        stats = session.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
     # device-side events only (kernels and copies): a CPU op's device time
     # repeats its kernels'; "Activity Buffer Request" is the profiler's own
     cuda = torch.autograd.DeviceType.CUDA
+    events = prof.key_averages()
     by_name = sorted(((e.device_time_total, e.key, e.count)
-                      for e in prof.key_averages()
+                      for e in events
                       if e.device_type == cuda
                       and not e.key.startswith("Activity Buffer")),
                      reverse=True)
     busy = sum(t for t, _, _ in by_name) / 1e6
+
+    def device_ms(pred):
+        return sum(t for t, k, _ in by_name if pred(k)) / 1e3
+
+    def host_ms(key):
+        return sum(e.cpu_time_total for e in events if e.key == key) / 1e3
+
     out = dict(app=name, wall_s=wall, device_busy_s=busy,
                device_busy_share=busy / wall if wall else 0.0,
+               h2d_ms=device_ms(lambda k: "HtoD" in k),
+               d2h_ms=device_ms(lambda k: "DtoH" in k),
+               gab_kernels_ms=device_ms(
+                   lambda k: "row_kernel" in k or "hub_kernel" in k),
+               vstate_gather_ms=host_ms("vstate_gather"),
+               vstate_writeback_ms=host_ms("vstate_writeback"),
+               superstep_s=stats.seconds,
                top=[dict(name=k[:80], device_ms=t / 1e3, count=c)
                     for t, k, c in by_name[:12]])
     log(f"profiled {name} superstep: wall {wall:.3f} s, device busy "
-        f"{busy:.4f} s ({100 * out['device_busy_share']:.1f}%)")
+        f"{busy:.4f} s ({100 * out['device_busy_share']:.1f}%), H2D "
+        f"{out['h2d_ms']:.1f} ms, D2H {out['d2h_ms']:.1f} ms, GAB kernels "
+        f"{out['gab_kernels_ms']:.1f} ms, vertex-state gather "
+        f"{out['vstate_gather_ms']:.1f} ms and writeback "
+        f"{out['vstate_writeback_ms']:.1f} ms on the host")
     for row in out["top"]:
         log(f"  {row['device_ms']:9.3f} ms  x{row['count']:<5d} {row['name']}")
     return out
+
+
+def profile_superstep(torch, eng, prog, name):
+    """One superstep (after a warm one) under torch.profiler (see
+    profiled_step)."""
+    session = eng.open_session(prog, max_supersteps=2)
+    session.step()          # warm: the first superstep
+    try:
+        return profiled_step(torch, session, name)
+    finally:
+        session.close()
 
 
 def pick_sources(out_degree):
@@ -875,7 +977,10 @@ def batched_apps(torch, store, src, dst, bfs):
     from repro_torch.core.apps import (LandmarkDistances, MultiSourceBFS,
                                        PersonalizedPageRank)
 
-    eng = engine(store)
+    # tile skipping off: each run would rebuild the filters (12-20 s of
+    # its superstep 0) and R-MAT skips no tile; phase 12's in-memory
+    # session runs the batched skip pre-pass
+    eng = engine(store, tile_skipping=False)
     nv = eng.plan.num_vertices
     sources = pick_sources(eng.out_degree)
     log(f"batched sources (Q = {len(sources)}): {sources}")
@@ -885,9 +990,9 @@ def batched_apps(torch, store, src, dst, bfs):
     lm = eng.run(LandmarkDistances(landmarks=sources),
                  max_supersteps=BFS_MAX_SUPERSTEPS)
     ppr = eng.run(PersonalizedPageRank(seeds=sources),
-                  max_supersteps=PR_SUPERSTEPS)
+                  max_supersteps=PPR_SUPERSTEPS)
     ppr1 = eng.run(PersonalizedPageRank(seeds=sources[:1]),
-                   max_supersteps=PR_SUPERSTEPS)
+                   max_supersteps=PPR_SUPERSTEPS)
     launches = read_launches()
     require_launches(launches, ("gab_fused",), "batched apps")
     summaries = [app_summary("msbfs", msbfs), app_summary("landmarks", lm),
@@ -900,13 +1005,14 @@ def batched_apps(torch, store, src, dst, bfs):
                                  f"{res.values.dtype}")
     if not msbfs.converged or not lm.converged:
         raise AssertionError("msbfs / landmarks did not converge")
+    levels = scipy_bfs(src, dst, nv, sources)
     for q, s in enumerate(sources):
-        if not np.array_equal(msbfs.values[:, q], numpy_bfs(src, dst, nv, s)):
+        if not np.array_equal(msbfs.values[:, q], levels[:, q]):
             raise AssertionError(f"msbfs column {q} (source {s}) differs "
-                                 "from numpy BFS")
+                                 "from scipy's BFS")
     if not np.array_equal(msbfs.values[:, 0], bfs.values):
         raise AssertionError("msbfs column 0 differs from the Q = 1 BFS")
-    log(f"msbfs equals numpy BFS in all {len(sources)} columns; column 0 "
+    log(f"msbfs equals scipy's BFS in all {len(sources)} columns; column 0 "
         f"equals the single-query BFS; per-query supersteps "
         f"{list(msbfs.per_query_supersteps)}")
     if not (np.array_equal(lm.values, msbfs.values)
@@ -916,7 +1022,7 @@ def batched_apps(torch, store, src, dst, bfs):
     log("landmarks (edge weight 1.0) equal msbfs, per-query supersteps too")
 
     tol = PersonalizedPageRank().update_tol
-    want = scipy_ppr(src, dst, eng.out_degree, nv, sources, PR_SUPERSTEPS,
+    want = scipy_ppr(src, dst, eng.out_degree, nv, sources, PPR_SUPERSTEPS,
                      tol)
     if not np.isfinite(ppr.values).all():
         raise AssertionError("ppr: non-finite values")
@@ -931,21 +1037,23 @@ def batched_apps(torch, store, src, dst, bfs):
     log(f"ppr vs float64 scipy: max rel err {rel:.3g} on {rel_all.size - n_over}"
         f" entries >= {PPR_MIN_ENTRY} (limit {PR_RTOL}); {n_over} gate flips "
         f"(max rel {float(rel_all.max()):.3g}, max abs err {flip_err:.3g}, "
-        f"limit {PR_SUPERSTEPS * tol:.3g}); max L1 per column {l1:.3g} "
+        f"limit {PPR_SUPERSTEPS * tol:.3g}); max L1 per column {l1:.3g} "
         f"(limit {PPR_L1})")
-    if (l1 > PPR_L1 or flip_err > PR_SUPERSTEPS * tol
+    if (l1 > PPR_L1 or flip_err > PPR_SUPERSTEPS * tol
             or n_over > PPR_MAX_FLIP_SHARE * rel_all.size):
         raise AssertionError("ppr disagrees with scipy")
     if not np.array_equal(ppr.values[:, 0], ppr1.values[:, 0]):
         raise AssertionError("ppr column 0 differs from the Q = 1 run")
     log("ppr column 0 equals the Q = 1 PPR run")
-    return (sources, launches, summaries, msbfs,
+    return (sources, launches, summaries, msbfs, levels,
             dict(ppr_max_rel_err=rel, ppr_gate_flips=n_over,
                  ppr_entries=int(rel_all.size),
                  ppr_flip_max_abs_err=flip_err, ppr_max_l1=l1))
 
 
 def modes(torch, store, sources, pr, msbfs):
+    """PageRank (PR_SUPERSTEPS) and MultiSourceBFS (to convergence) in
+    each mode, equal to the tiled runs."""
     from repro_torch.core.apps import MultiSourceBFS, PageRank
 
     out = []
@@ -957,9 +1065,9 @@ def modes(torch, store, sources, pr, msbfs):
         p = eng.run(PageRank(), max_supersteps=PR_SUPERSTEPS)
         m = eng.run(MultiSourceBFS(sources=sources),
                     max_supersteps=BFS_MAX_SUPERSTEPS)
-        if not np.array_equal(p.values, pr.values):
+        if not same_bits(p.values, pr.values):
             raise AssertionError(f"{name}: pagerank differs from tiled")
-        if not (np.array_equal(m.values, msbfs.values)
+        if not (same_bits(m.values, msbfs.values)
                 and np.array_equal(m.per_query_supersteps,
                                    msbfs.per_query_supersteps)):
             raise AssertionError(f"{name}: msbfs differs from tiled")
@@ -971,6 +1079,322 @@ def modes(torch, store, sources, pr, msbfs):
     launches = read_launches()
     require_launches(launches, ("segment_reduce", "gab_fused"), "modes")
     return out, launches
+
+
+def same_bits(a, b):
+    """Whether two host arrays hold the same bits (shape, dtype, bytes)."""
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and np.array_equal(a.view(np.uint8), b.view(np.uint8)))
+
+
+def non_torch_device_bytes(torch):
+    """Device bytes in use outside torch's caching allocator (the CUDA
+    context and the hub launch's scratch, which grows by cudaMalloc)."""
+    free, total = torch.cuda.mem_get_info()
+    return total - free - torch.cuda.memory_reserved()
+
+
+def vstate_summary(name, res, tiled_ms, store_stats, k):
+    """Per-superstep vertex-state counters of an out-of-core run, beside
+    the in-memory tiled run's steady ms per superstep."""
+    h = res.history
+    s = app_summary(name, res)
+    s.update(
+        intervals=k, tiled_steady_ms=tiled_ms,
+        faults=[x.vstate_faults for x in h],
+        load_bytes=[x.vstate_load_bytes for x in h],
+        spill_bytes=[x.vstate_spill_bytes for x in h],
+        dirty_intervals=[x.vstate_dirty_intervals for x in h],
+        store=store_stats)
+    log(f"{name}: {k} intervals, {s['steady_ms']:.1f} ms/superstep steady "
+        f"against tiled {tiled_ms:.1f} ({s['steady_ms'] / tiled_ms:.2f}x); "
+        f"faults {s['faults']}, faulted-in bytes {s['load_bytes']}, spilled "
+        f"bytes {s['spill_bytes']}, dirty intervals {s['dirty_intervals']}; "
+        f"store: {store_stats['faults']} faults, {store_stats['spills']} "
+        f"spills, compress {store_stats['compress_seconds']:.2f} s, "
+        f"decompress {store_stats['decompress_seconds']:.2f} s, disk "
+        f"{store_stats['disk_seconds']:.2f} s")
+    if not (sum(s["faults"]) and sum(s["dirty_intervals"])):
+        raise AssertionError(f"{name}: the vertex budget does not bind")
+    return s
+
+
+def counting_h2d(torch, counter):
+    """Wrap engine.run_tile_sharded to add the bytes of the host inputs it
+    copies to the device to counter[0]."""
+    from repro_torch.core import engine as engine_mod
+
+    real = engine_mod.run_tile_sharded
+
+    def wrapped(*args, **kw):
+        for a in list(args) + list(kw.values()):
+            for x in (a.values() if isinstance(a, dict) else (a,)):
+                if isinstance(x, (np.ndarray, torch.Tensor)):
+                    counter[0] += x.nbytes
+        return real(*args, **kw)
+
+    engine_mod.run_tile_sharded = wrapped
+    return lambda: setattr(engine_mod, "run_tile_sharded", real)
+
+
+def time_footprints(store, plan):
+    """Seconds to read every tile and compute its source footprint over
+    the OOC_INTERVALS plan: what the out-of-core engine adds to each tile
+    load on a store written without an interval plan."""
+    from repro_torch.core.partition import plan_intervals
+    from repro_torch.core.tiles import compute_source_footprint
+
+    iv = plan_intervals(plan.splitter, OOC_INTERVALS)
+    t0 = time.perf_counter()
+    read = 0.0
+    for t in range(plan.num_tiles):
+        r0 = time.perf_counter()
+        tile = store.read_tile(t)
+        read += time.perf_counter() - r0
+        compute_source_footprint(tile.src, tile.meta.num_edges, iv.splitter)
+    total = time.perf_counter() - t0
+    out = dict(intervals=int(iv.num_intervals), read_s=read,
+               footprint_s=total - read)
+    log(f"footprints: {iv.num_intervals} intervals (OOC_INTERVALS = "
+        f"{OOC_INTERVALS}, cut at tile boundaries); {plan.num_tiles} tiles "
+        f"read in {read:.2f} s, footprints computed in "
+        f"{out['footprint_s']:.2f} s")
+    return out
+
+
+def ooc_phase(torch, store, pr, indeg):
+    """Out-of-core vertex state on the main store with OOC_INTERVALS
+    intervals: PageRank (budget OOC_PR_BUDGET, PR_SUPERSTEPS supersteps,
+    superstep 1 profiled) and InDegree (OOC_PR_BUDGET, 1 superstep, the
+    segment kernel), each bit for bit equal to the in-memory tiled run of
+    as many supersteps; the budget must bind.  MultiSourceBFS under
+    OOC_MSBFS_BUDGET runs in phase 12's out-of-core session."""
+    from repro_torch.core.apps import InDegree, PageRank
+
+    num_tiles = store.load_plan().num_tiles
+    out, launches = [], {}
+    reset_launches()
+    eng = engine(store, tile_skipping=False, num_intervals=OOC_INTERVALS,
+                 vertex_memory_budget=OOC_PR_BUDGET)
+    sess = eng.open_session(PageRank(), max_supersteps=PR_SUPERSTEPS)
+    try:
+        sess.step()
+        h2d = [0]
+        restore = counting_h2d(torch, h2d)
+        try:
+            prof = profiled_step(torch, sess, "pagerank ooc")
+        finally:
+            restore()
+        prof["h2d_bytes"] = h2d[0]
+        log(f"  H2D of the sharded step: {h2d[0]} bytes")
+        while not sess.finished:
+            sess.step()
+        res = sess.result()
+    finally:
+        sess.close()
+    launches["pagerank"] = read_launches()
+    if not same_bits(res.values, pr.values):
+        raise AssertionError("pagerank ooc differs from the tiled run")
+    out.append(vstate_summary("pagerank ooc", res, steady_ms(pr),
+                              eng.vstate.stats.as_dict(),
+                              eng.vstate.num_intervals))
+    if launches["pagerank"]["gab_fused"] != num_tiles * PR_SUPERSTEPS:
+        raise AssertionError(f"pagerank ooc: {launches['pagerank']} "
+                             f"launches, {num_tiles} a superstep expected")
+
+    # tile skipping on, as in phase 5: its one superstep builds the filters
+    eng = engine(store, num_intervals=OOC_INTERVALS,
+                 vertex_memory_budget=OOC_PR_BUDGET)
+    reset_launches()
+    res = eng.run(InDegree(), max_supersteps=1)
+    launches["indegree"] = read_launches()
+    if not same_bits(res.values, indeg.values):
+        raise AssertionError("indegree ooc differs from the tiled run")
+    if launches["indegree"]["segment_reduce"] != num_tiles:
+        raise AssertionError(f"indegree ooc: {launches['indegree']}")
+    out.append(vstate_summary("indegree ooc", res, steady_ms(indeg),
+                              eng.vstate.stats.as_dict(),
+                              eng.vstate.num_intervals))
+    for key in ("faults", "spill_bytes", "dirty_intervals"):
+        if not all(sum(r[key]) for r in out):
+            raise AssertionError(f"ooc: no {key}: the budget does not bind")
+    total = {k: sum(v[k] for v in launches.values())
+             for k in launches["pagerank"]}
+    require_launches(total, ("segment_reduce", "gab_fused"), "ooc")
+    log("ooc: pagerank and indegree equal the tiled runs bit for bit")
+    return out, prof, total
+
+
+def pick_admitted(src, dst, out_degree, sources):
+    """Two more sources drawn from SEED among vertices with out-degree > 0
+    that are not sources already: the ninth (scheduled) query among those
+    whose out-neighbours are all sinks, so its BFS converges in two
+    supersteps and its column retires inside the out-of-core window; the
+    tenth (admitted through the session) among all of them."""
+    rng = np.random.default_rng(SEED)
+    cand = np.setdiff1d(np.nonzero(out_degree > 0)[0], np.asarray(sources))
+    feeds = np.bincount(src[out_degree[dst] > 0], minlength=len(out_degree))
+    s9 = int(rng.choice(cand[feeds[cand] == 0]))
+    s10 = int(rng.choice(cand[cand != s9]))
+    return s9, s10
+
+
+def admission_script(torch, eng, sources, s10, max_supersteps=None):
+    """The session the admission phase drives: MultiSourceBFS over the
+    sources, at most Q + 1 live columns, the engine's admit_plan bringing
+    the ninth query in after superstep 1; query DRAIN_QID drained at the
+    end of superstep DRAIN_AT, and s10 admitted through ``admit()`` once
+    a column has left.  Returns (result, per-superstep rows, the drained
+    column's partial values, s10's query id)."""
+    from repro_torch.core.apps import MultiSourceBFS
+    from repro_torch.kernels import gab_fused
+
+    sess = eng.open_session(MultiSourceBFS(sources=sources),
+                            q_slots=len(sources) + 1,
+                            max_supersteps=max_supersteps)
+    steps, partial, g10 = [], None, None
+    try:
+        while not sess.finished:
+            ss = sess.superstep
+            if ss == DRAIN_AT:
+                sess.drain([DRAIN_QID])
+            l0, m0 = gab_fused.LAUNCHES, non_torch_device_bytes(torch)
+            st = sess.step()
+            steps.append(dict(
+                superstep=ss, active_queries=st.active_queries,
+                fused_launches=gab_fused.LAUNCHES - l0,
+                non_torch_growth=non_torch_device_bytes(torch) - m0,
+                ms=1e3 * st.seconds, admitted=list(st.admitted_queries),
+                drained=list(st.drained_queries),
+                retired=list(st.retired_queries),
+                vstate_faults=st.vstate_faults,
+                vstate_load_bytes=st.vstate_load_bytes,
+                vstate_spill_bytes=st.vstate_spill_bytes,
+                vstate_dirty_intervals=st.vstate_dirty_intervals))
+            if st.drained_queries:
+                partial = sess.query_result(DRAIN_QID)
+            if (g10 is None and not sess.finished
+                    and (st.retired_queries or st.drained_queries)):
+                g10 = sess.admit([s10])[0]
+        res = sess.result()
+    finally:
+        sess.close()
+    return res, steps, partial, g10
+
+
+def admission_phase(torch, store, src, dst, sources, msbfs, levels):
+    """Mid-run admission at SCALE 22: the session of admission_script in
+    memory to convergence (tile skipping on, as users run it), each
+    admitted column against a fresh single-query run, the drained one
+    against scipy's BFS levels up to DRAIN_AT + 1; then its first
+    ADMIT_OOC_SUPERSTEPS supersteps in memory and under OOC_MSBFS_BUDGET,
+    equal bit for bit — the latter is also the out-of-core MultiSourceBFS
+    run at Q = 8 (supersteps 0 and 1), Q = 9 (superstep 2) and, after
+    the drain, Q = 8 (superstep 3, at whose barrier the ninth column
+    retires and the tenth is admitted).  The launch counters are read
+    around the two sessions alone: "admission" (in memory) and
+    "admission ooc"."""
+    from repro_torch.core.apps import MultiSourceBFS
+
+    s9, s10 = pick_admitted(src, dst, store.load_degrees()[1], sources)
+    plan = ((1, (s9,)),)
+    log(f"admission: ninth source {s9} (its out-neighbours are sinks) "
+        f"scheduled after superstep 1, tenth {s10} through admit(); query "
+        f"{DRAIN_QID} drained at superstep {DRAIN_AT}")
+    launches = {}
+    eng = engine(store, admit_plan=plan)
+    reset_launches()
+    res, steps, partial, g10 = admission_script(torch, eng, sources, s10)
+    launches["admission"] = read_launches()
+    require_launches(launches["admission"], ("gab_fused",), "admission")
+    for row in steps:
+        log(f"  superstep {row['superstep']}: {row['active_queries']} live, "
+            f"{row['fused_launches']} fused launches, {row['ms']:.1f} ms, "
+            f"admitted {row['admitted']}, drained {row['drained']}, retired "
+            f"{row['retired']}, non-torch device bytes "
+            f"{row['non_torch_growth']:+d}")
+    q = len(sources)
+    nine = [r for r in steps if r["active_queries"] == q + 1]
+    if not res.converged or not nine or g10 is None or partial is None:
+        raise AssertionError("admission: the session did not run its script")
+    num_tiles = store.load_plan().num_tiles
+    if any(r["fused_launches"] != num_tiles for r in nine):
+        raise AssertionError(f"admission: fused launches at Q = {q + 1}: "
+                             f"{[r['fused_launches'] for r in nine]}")
+    pq = res.per_query_supersteps
+    keep = [c for c in range(q) if c != DRAIN_QID]
+    if not (same_bits(res.values[:, keep], msbfs.values[:, keep])
+            and np.array_equal(pq[keep], msbfs.per_query_supersteps[keep])):
+        raise AssertionError("admission: an original column differs from "
+                             "the Q = 8 run")
+    for gq, s in ((q, s9), (g10, s10)):
+        fresh = engine(store, tile_skipping=False).run(
+            MultiSourceBFS(sources=(s,)), max_supersteps=BFS_MAX_SUPERSTEPS)
+        if not (same_bits(res.values[:, gq], fresh.values[:, 0])
+                and pq[gq] == fresh.per_query_supersteps[0]):
+            raise AssertionError(f"admission: query {gq} (source {s}) "
+                                 "differs from its fresh run")
+    lv = levels[:, DRAIN_QID]
+    want = np.where(lv <= DRAIN_AT + 1, lv, np.float32(np.inf))
+    if not (pq[DRAIN_QID] == -1
+            and same_bits(res.values[:, DRAIN_QID], partial)
+            and same_bits(partial, want)):
+        raise AssertionError("admission: the drained column is not its "
+                             "partial run")
+    log(f"admission: {res.supersteps} supersteps, Q up to {q + 1}; queries "
+        f"{q} and {g10} equal their fresh runs (supersteps "
+        f"{int(pq[q])}, {int(pq[g10])}), query {DRAIN_QID} holds its BFS "
+        f"levels up to {DRAIN_AT + 1}, the other originals equal the "
+        f"Q = {q} run")
+
+    cut = ADMIT_OOC_SUPERSTEPS
+    mem, mem_steps, _, _ = admission_script(
+        torch, engine(store, tile_skipping=False, admit_plan=plan), sources,
+        s10, cut)
+    eng = engine(store, tile_skipping=False, admit_plan=plan,
+                 num_intervals=OOC_INTERVALS,
+                 vertex_memory_budget=OOC_MSBFS_BUDGET)
+    reset_launches()
+    ooc, ooc_steps, _, _ = admission_script(torch, eng, sources, s10, cut)
+    launches["admission ooc"] = read_launches()
+    require_launches(launches["admission ooc"], ("gab_fused",),
+                     "admission ooc")
+
+    def script(rows):
+        return [(r["active_queries"], r["admitted"], r["drained"],
+                 r["retired"]) for r in rows]
+
+    if not (same_bits(ooc.values, mem.values)
+            and np.array_equal(ooc.per_query_supersteps,
+                               mem.per_query_supersteps)
+            and script(ooc_steps) == script(mem_steps)
+            and all(r["fused_launches"] == num_tiles for r in ooc_steps)):
+        raise AssertionError("admission: the out-of-core session differs "
+                             "from the in-memory one")
+    # the window holds the scheduled admission, Q = 9, the drain, a
+    # natural retirement and admit() into a freed slot
+    if not (any(r["active_queries"] == q + 1 for r in ooc_steps)
+            and [q] in [r["admitted"] for r in ooc_steps]
+            and [DRAIN_QID] in [r["drained"] for r in ooc_steps]
+            and any(q in r["retired"] for r in ooc_steps)
+            and [g10] in [r["admitted"] for r in ooc_steps]):
+        raise AssertionError(f"admission ooc: {script(ooc_steps)} misses a "
+                             "step of the script")
+    ooc_summary = vstate_summary(
+        f"msbfs Q={q} then {q + 1} ooc (admission session)", ooc,
+        steady_ms(mem), eng.vstate.stats.as_dict(), eng.vstate.num_intervals)
+    if not sum(ooc_summary["spill_bytes"]):
+        raise AssertionError("admission ooc: nothing spilled")
+    log(f"admission: its first {cut} supersteps ((Q, admitted, drained, "
+        f"retired) {script(ooc_steps)}) equal in memory and out of core bit "
+        f"for bit")
+    return dict(s9=s9, s10=s10, q10=g10, supersteps=res.supersteps,
+                per_query_supersteps=[int(x) for x in pq], steps=steps,
+                mem_steps=mem_steps, ooc_steps=ooc_steps, ooc=ooc_summary,
+                fused_launches_at_q9=[r["fused_launches"] for r in nine],
+                non_torch_growth_at_q9=[r["non_torch_growth"]
+                                        for r in nine]), launches
 
 
 def kernel_entry(name, source, replaces, launches, err, row, case):
@@ -1046,34 +1470,46 @@ def main():
         mark("kernels", t0)
 
         t0 = time.perf_counter()
-        eng, main_launches, summaries, pr_rel, pr, bfs = main_path(
+        eng, main_launches, summaries, pr_rel, pr, bfs, indeg = main_path(
             torch, store, src, dst)
         mark("main path", t0)
         t0 = time.perf_counter()
         compact_launches, compact_counts = compact_path(torch, bfs)
         mark("compact path", t0)
         t0 = time.perf_counter()
-        prof = profile_superstep(torch, eng, PageRank(), "pagerank")
+        prof = profile_superstep(torch, engine(store, tile_skipping=False),
+                                 PageRank(), "pagerank")
         del eng
         mark("profile pagerank", t0)
 
         t0 = time.perf_counter()
-        sources, batched_launches, batched, msbfs, ppr_err = batched_apps(
-            torch, store, src, dst, bfs)
+        (sources, batched_launches, batched, msbfs, levels,
+         ppr_err) = batched_apps(torch, store, src, dst, bfs)
         mark("batched apps", t0)
         t0 = time.perf_counter()
         mode_rows, mode_launches = modes(torch, store, sources, pr, msbfs)
         mark("modes", t0)
         t0 = time.perf_counter()
-        prof_q = profile_superstep(torch, engine(store),
+        prof_q = profile_superstep(torch, engine(store, tile_skipping=False),
                                    MultiSourceBFS(sources=sources),
                                    f"msbfs Q={len(sources)}")
         mark("profile msbfs", t0)
+
+        t0 = time.perf_counter()
+        footprints = time_footprints(store, plan)
+        ooc_rows, prof_ooc, ooc_launches = ooc_phase(torch, store, pr, indeg)
+        mark("ooc", t0)
+        t0 = time.perf_counter()
+        admission, admission_launches = admission_phase(
+            torch, store, src, dst, sources, msbfs, levels)
+        ooc_rows.append(admission["ooc"])
+        mark("admission", t0)
     finally:
         shutil.rmtree(store_root, ignore_errors=True)
 
     paths = {"main path": main_launches, "compact path": compact_launches,
-             "batched apps": batched_launches, "modes": mode_launches}
+             "batched apps": batched_launches, "modes": mode_launches,
+             "ooc": ooc_launches, **admission_launches}
     total = {k: sum(p[k] for p in paths.values()) for k in main_launches}
     log(f"launches by path: {paths}; total {total}")
     seg_src = ("segment_reduce",
@@ -1108,6 +1544,10 @@ def main():
                                         and r["q"] == q),
                        f"tile, PageRank spec, Q={q}")
           for q in (1, NUM_QUERIES)),
+        kernel_entry(*fused_src, next(r for r in fused_rows
+                                      if r["spec"] == "bfs"
+                                      and r["q"] == NUM_QUERIES + 1),
+                     f"tile, BFS spec, Q={NUM_QUERIES + 1}"),
         kernel_entry(*compact_src, compact_case(nv, 0.05),
                      f"V={nv}, density 0.05"),
         kernel_entry(*compact_src, compact_case(1 << 25, 0.01),
@@ -1126,6 +1566,8 @@ def main():
                        sources=list(sources), batched=batched,
                        batched_errors=ppr_err, modes=mode_rows,
                        profile=prof, profile_msbfs=prof_q,
+                       footprints=footprints, ooc=ooc_rows,
+                       profile_ooc=prof_ooc, admission=admission,
                        launches_by_path=paths, kernels=kernels,
                        phase_seconds=phase_s, seconds=seconds), f, indent=1)
     log(f"total {seconds:.1f} s")

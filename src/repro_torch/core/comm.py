@@ -11,8 +11,9 @@ buffers (paper Fig. 9) — inline, or on a small executor that overlaps
 compression with the next server's compute (pipelined engine) — plus the
 session admission records.  It is numpy throughout and matches
 ``repro/core/comm.py`` byte for byte, for ``[V]`` and multi-query
-``[V, Q]`` payloads alike.  The device collectives (``hybrid_broadcast``
-and friends) are ROADMAP.md queue A.8, the per-interval payloads A.6.
+``[V, Q]`` payloads alike, and for the out-of-core engine's
+per-dirty-interval payloads.  The device collectives
+(``hybrid_broadcast`` and friends) are ROADMAP.md queue A.8.
 """
 from __future__ import annotations
 
@@ -226,6 +227,77 @@ def plan_broadcast(
         mode=rec_mode, raw_bytes=raw, wire_bytes=wire, density=density,
         compressor=codec, query_modes=qmodes,
     )
+
+
+# 8-byte header per dirty-interval section: (interval id: u32, count: u32).
+INTERVAL_HEADER_BYTES = 8
+
+
+def plan_broadcast_intervals(
+    idx: np.ndarray,              # [U] updated global vertex ids
+    vals: np.ndarray,             # [U] or [U, Q] updated values
+    mask: Optional[np.ndarray],   # [U, Q] per-query updated mask, or None
+    splitter: np.ndarray,         # int64[K + 1] interval boundaries
+    threshold: float = DENSITY_THRESHOLD,
+    compressor: str = "zstd-1",
+    mode: str = "hybrid",
+) -> BroadcastRecord:
+    """Measure one server's broadcast sharded per *dirty interval*
+    (DESIGN.md §10) instead of one whole-V payload.  Shapes: idx ``[U]``
+    global vertex ids, vals ``[U(, Q)]``, mask ``[U, Q]`` or None,
+    splitter ``[K+1]`` interval boundaries.
+
+    Each interval that received updates ships its own section — an 8-byte
+    (interval id, count) header plus a :func:`plan_broadcast` payload built
+    over that interval's local vertex range — so receivers holding their
+    vertex state out of core apply updates block by block and clean
+    intervals cost zero bytes.  Density on the sparse/dense switch is
+    *local* to the interval, which is strictly better than the global
+    switch when updates cluster (a dense-in-one-interval frontier no
+    longer drags the whole |V| array onto the wire)."""
+    _, codec = resolve_compressor(compressor)
+    splitter = np.asarray(splitter, dtype=np.int64)
+    nv = int(splitter[-1])
+    qa = vals.shape[1] if vals.ndim == 2 else None
+    cells = nv * (qa or 1)
+    if len(idx) == 0:
+        return BroadcastRecord(mode="interval", raw_bytes=0, wire_bytes=0,
+                               density=0.0, compressor=codec, intervals=0)
+    ivs = np.searchsorted(splitter, idx, side="right") - 1
+    raw = wire = 0
+    count = 0
+    updated_cells = 0
+    for iv in np.unique(ivs):
+        lo, hi = int(splitter[iv]), int(splitter[iv + 1])
+        sel = ivs == iv
+        local = idx[sel] - lo
+        n = hi - lo
+        if qa is not None:
+            dense = np.zeros((n, qa), dtype=vals.dtype)
+            upd = np.zeros((n, qa), dtype=bool)
+            dense[local] = vals[sel]
+            upd[local] = mask[sel]
+        else:
+            dense = np.zeros(n, dtype=vals.dtype)
+            upd = np.zeros(n, dtype=bool)
+            dense[local] = vals[sel]
+            upd[local] = True
+        rec = plan_broadcast(dense, upd, threshold=threshold,
+                             compressor=compressor, mode=mode)
+        raw += rec.raw_bytes + INTERVAL_HEADER_BYTES
+        wire += rec.wire_bytes + INTERVAL_HEADER_BYTES
+        count += 1
+        updated_cells += int(upd.sum())
+    return BroadcastRecord(
+        mode="interval", raw_bytes=raw, wire_bytes=wire,
+        density=updated_cells / max(cells, 1), compressor=codec,
+        intervals=count,
+    )
+
+
+def plan_broadcast_intervals_async(*args, **kw) -> "Future[BroadcastRecord]":
+    """Submit :func:`plan_broadcast_intervals` onto the comm executor."""
+    return _comm_pool().submit(plan_broadcast_intervals, *args, **kw)
 
 
 # Payload compression is CPU-bound byte work with no dependence on the next

@@ -24,6 +24,20 @@ executor while the next server computes.  Vertex values are ``[V]`` or,
 for batched programs, ``[V, Q]``; a query column with no updates in a
 superstep retires and is compacted out of the live state.
 
+With ``vertex_memory_budget`` the vertex arrays leave memory too: they
+are cut into source intervals held by a
+:class:`~repro_torch.core.vstate.VertexStateStore` whose blocks spill to
+disk beyond the budget; each tile's source values are gathered on the
+host interval by interval and copied to the device with the tile
+(``gab.run_tile_sharded``), and only the dirty intervals are written back
+at the barrier.  Results are bit-identical to the in-memory run.
+
+A session (:meth:`OutOfCoreEngine.open_session`) runs one superstep a
+``step()``; between barriers a batched session admits fresh queries into
+``[V, Q]`` columns freed by retirement and drains live ones
+(:class:`EngineSession`), and ``EngineConfig.admit_plan`` scripts such
+admissions for a whole run.
+
 The knobs of later queue items keep their :class:`EngineConfig` field,
 and a non-default value raises ``NotImplementedError`` naming its
 ROADMAP.md queue item.
@@ -31,7 +45,10 @@ ROADMAP.md queue item.
 from __future__ import annotations
 
 import dataclasses
+import tempfile
+import threading
 import time
+from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
@@ -43,10 +60,13 @@ from repro_torch.core.cache import EdgeCache, auto_select_mode
 from repro_torch.core.distributed import pad_stack_to
 from repro_torch.core.gab import (SEG_IMPLS, VertexProgram,
                                   merged_server_step, run_tile,
-                                  run_tile_stack, stack_to_device,
-                                  stacked_tiles_step)
-from repro_torch.core.partition import assign_tiles, assign_tiles_balanced
-from repro_torch.core.tiles import stack_tiles, tile_edge_values
+                                  run_tile_sharded, run_tile_stack,
+                                  stack_to_device, stacked_tiles_step)
+from repro_torch.core.partition import (assign_tiles, assign_tiles_balanced,
+                                        plan_intervals)
+from repro_torch.core.tiles import (compute_source_footprint, stack_tiles,
+                                    tile_edge_values)
+from repro_torch.core.vstate import VertexStateStore
 from repro_torch.graphio.formats import TileStore
 
 ENGINE_MODES = ("tiled", "stacked", "merged")
@@ -102,8 +122,17 @@ class EngineConfig:
     stack_size: int = 4                     # tiles per pipelined stack
     # record every tile-skip decision into engine.skip_log (test aid)
     debug_skip_log: bool = False
-    vertex_memory_budget: Optional[int] = None   # ROADMAP.md A.6
+    # byte budget of the out-of-core vertex state's in-memory tiers (hot
+    # arrays + warm compressed blobs); beyond it, interval blocks spill to
+    # disk.  None keeps the [V(, Q)] arrays fully resident.  Forces
+    # engine_mode="tiled" (stacked/merged need the whole value array)
+    vertex_memory_budget: Optional[int] = None
+    # source intervals K; 0 = auto (about four value blocks fit the budget,
+    # or the store's preprocessed interval plan when it has one)
     num_intervals: int = 0
+    # out-of-core vertex state: order tiles for joint residency of edge
+    # tiles and source intervals (cache-hit-first while footprints are
+    # unknown, in superstep 0)
     interval_aware_order: bool = True
     server_rank: Optional[int] = None       # ROADMAP.md A.9
     checkpoint_dir: Optional[str] = None    # ROADMAP.md A.10
@@ -112,7 +141,10 @@ class EngineConfig:
     resume: bool = False                    # ROADMAP.md A.10
     preemptible: bool = False               # ROADMAP.md A.10
     fault_plan: Optional[object] = None     # ROADMAP.md A.10
-    admit_plan: Optional[tuple] = None      # ROADMAP.md A.7
+    # scripted admissions: (after_superstep, seeds) entries, each seeds
+    # tuple spliced in as fresh query columns at the end of superstep
+    # after_superstep, past the slot cap; ignored for 1-D programs
+    admit_plan: Optional[tuple] = None
     # where tiles compute: "cuda" launches the kernels, "cpu" runs their
     # plain PyTorch versions (the tests)
     device: str = "cuda"
@@ -126,9 +158,6 @@ class EngineConfig:
              "kernel_autotune=True (roofline/kernel_tune.py)", "A.12"),
             (self.kernel_blocks is not None,
              "kernel_blocks (roofline/kernel_tune.py)", "A.12"),
-            (self.vertex_memory_budget is not None,
-             "vertex_memory_budget (out-of-core vertex state)", "A.6"),
-            (self.admit_plan is not None, "admit_plan (admission)", "A.7"),
             (self.server_rank is not None,
              "server_rank (cluster runtime)", "A.9"),
             (self.checkpoint_dir is not None, "checkpoint_dir", "A.10"),
@@ -145,7 +174,7 @@ class EngineConfig:
 @dataclasses.dataclass
 class SuperstepStats:
     """Per-superstep measurements (bytes are real payload/compressed sizes,
-    seconds wall-clock) — the reference's fields for in-memory runs in one
+    seconds wall-clock) — the reference's fields for runs in one
     process."""
     superstep: int
     seconds: float
@@ -181,6 +210,17 @@ class SuperstepStats:
     # global query ids whose columns converged (and were compacted out)
     # at the end of this superstep
     retired_queries: tuple = ()
+    # global query ids spliced in (admitted) at the end of this superstep;
+    # their first compute superstep is the next one
+    admitted_queries: tuple = ()
+    # global query ids force-retired mid-flight (session drain) at the end
+    # of this superstep; their per-query supersteps stay -1
+    drained_queries: tuple = ()
+    # --- out-of-core vertex state (zeros when in memory) ---
+    vstate_faults: int = 0          # interval blocks decoded (warm + cold)
+    vstate_load_bytes: int = 0      # compressed bytes faulted back in
+    vstate_spill_bytes: int = 0     # compressed bytes written to disk
+    vstate_dirty_intervals: int = 0 # intervals written back (and broadcast)
 
 
 @dataclasses.dataclass
@@ -192,8 +232,9 @@ class RunResult:
     history: list[SuperstepStats]
     supersteps: int
     converged: bool
-    # multi-query runs: supersteps each query column took to converge
-    # (index = query id; -1 if it hit max_supersteps); None for 1-D runs
+    # multi-query runs: supersteps each query column took to converge,
+    # counted from its admission (index = global query id; -1 if it hit
+    # max_supersteps or was drained); None for 1-D runs
     per_query_supersteps: Optional[np.ndarray] = None
 
     def total_seconds(self) -> float:
@@ -281,6 +322,18 @@ class OutOfCoreEngine:
         self._promo_cum = 0
         self._demo_cum = 0
         self._disk_cum = 0
+        # --- out-of-core vertex state (set here, not at session open: the
+        # reference's kernel_plan returns before its lines for __init__)
+        self._ooc = False
+        #: the running session's interval-sharded VertexStateStore
+        self.vstate: Optional[VertexStateStore] = None
+        self._iv_splitter: Optional[np.ndarray] = None
+        self._iv_t2i: Optional[np.ndarray] = None
+        self._use_meta_fp = False
+        self._tile_iv_ids: dict[int, frozenset] = {}
+        self._vs_faults_cum = 0
+        self._vs_load_cum = 0
+        self._vs_spill_cum = 0
 
     # ------------------------------------------------------------------
     def kernel_plan(self, prog) -> tuple[str, int]:
@@ -304,22 +357,29 @@ class OutOfCoreEngine:
                      q_slots: Optional[int] = None,
                      max_supersteps: Optional[int] = None) -> "EngineSession":
         """Open a step-driven session over ``prog``: one ``session.step()``
-        executes exactly one superstep.  ``q_slots`` (live query columns
-        under mid-run admission) is ROADMAP.md queue A.7."""
-        if q_slots is not None:
-            raise NotImplementedError(
-                "q_slots (mid-run query admission) is ROADMAP.md queue A.7")
-        return EngineSession(self, prog, max_supersteps=max_supersteps)
+        executes exactly one superstep, and between barriers the caller may
+        ``admit()`` fresh queries into retired ``[V, Q]`` columns or
+        ``drain()`` live ones.  ``q_slots`` caps the live query columns
+        (default: the program's initial batch width); admissions beyond it
+        queue until retirement frees a slot.  At most one out-of-core
+        session may be live per engine at a time (sessions share the
+        engine's edge caches, skip filters and interval bookkeeping)."""
+        return EngineSession(self, prog, q_slots=q_slots,
+                             max_supersteps=max_supersteps)
 
     def run(self, prog: VertexProgram,
             max_supersteps: Optional[int] = None) -> RunResult:
-        """Run ``prog`` to convergence (no updated cells) or
-        ``max_supersteps``; results are bit-identical across engine modes,
-        pipelining and cache policies."""
+        """Run ``prog`` to convergence (no updated cells and no pending
+        admission) or ``max_supersteps``, honouring ``cfg.admit_plan``;
+        results are bit-identical across engine modes, pipelining, cache
+        policies and out-of-core vertex state."""
         session = self.open_session(prog, max_supersteps=max_supersteps)
-        while not session.finished:
-            session.step()
-        return session.result()
+        try:
+            while not session.finished:
+                session.step()
+            return session.result()
+        finally:
+            session.close()
 
     # ------------------------------------------------------------------
     def _measure_broadcast(self, si, sv, sm, nv, qa, dtype, background=False):
@@ -327,8 +387,17 @@ class OutOfCoreEngine:
         inline (returns a BroadcastRecord) or on the comm executor
         (returns a Future resolving to one).  ``sm`` is the per-query
         updated mask ``[len(si), qa]`` of multi-query runs or None; the
-        2-D payload then covers the ``qa`` live query columns."""
+        2-D payload then covers the ``qa`` live query columns.
+
+        Out-of-core vertex state ships one section per dirty interval,
+        built from the sparse update lists (no ``[V, Q]`` buffer)."""
         cfg = self.cfg
+        if self._ooc:
+            plan = (comm.plan_broadcast_intervals_async if background
+                    else comm.plan_broadcast_intervals)
+            return plan(si, sv, sm, self._iv_splitter,
+                        threshold=cfg.comm_threshold,
+                        compressor=cfg.comm_compressor, mode=cfg.comm_mode)
         if sm is not None:
             upd_mask = np.zeros((nv, qa), dtype=bool)
             upd_mask[si] = sm
@@ -363,6 +432,11 @@ class OutOfCoreEngine:
         cfg = self.cfg
         if not tids:
             return [], [], [], 0.0, 0.0, 0.0
+        if self._ooc:
+            # out-of-core vertex state: the prefetcher still reads edge
+            # tiles ahead, but tiles run one at a time through the sharded
+            # step (a stack would need the whole value array on the device)
+            return self._run_tiles_pipelined_ooc(s, tids, prog, filters, nv)
         row_cap = self.plan.row_cap
         seg_impl, stack_k = self.kernel_plan(prog)
         load_s = comp_s = stall_s = 0.0
@@ -498,6 +572,216 @@ class OutOfCoreEngine:
         return ([t for t in tids if t in resident]
                 + [t for t in tids if t not in resident])
 
+    # ------------------------------------------------------------------
+    # out-of-core vertex state
+    # ------------------------------------------------------------------
+    def _build_vstate(self, values: np.ndarray,
+                      aux_np: dict) -> VertexStateStore:
+        """Shard the freshly initialized ``[V(, Q)]`` arrays into an
+        interval-sharded store under ``cfg.vertex_memory_budget``, its
+        spill directory inside the tile store."""
+        cfg = self.cfg
+        stored = self.store.load_interval_plan()
+        if cfg.num_intervals:
+            k = cfg.num_intervals
+        else:
+            # auto: about four blocks of the whole per-vertex state fit
+            # the budget, so a gather can hold its dst block and several
+            # source blocks hot
+            total = values.nbytes + sum(a.nbytes for a in aux_np.values())
+            k = max(2, int(np.ceil(total / max(cfg.vertex_memory_budget / 4,
+                                               1))))
+        if stored is not None and (cfg.num_intervals == 0
+                                   or stored.num_intervals == cfg.num_intervals):
+            iv = stored   # the tiles' footprint metadata refers to its cuts
+        else:
+            iv = plan_intervals(self.plan.splitter, k)
+        self._use_meta_fp = (stored is not None
+                             and np.array_equal(iv.splitter, stored.splitter))
+        self._iv_splitter = iv.splitter
+        self._iv_t2i = iv.tile_to_interval
+        self._tile_iv_ids = {}
+        spill_dir = tempfile.mkdtemp(prefix="_vstate_", dir=self.store.root)
+        vstore = VertexStateStore(iv.splitter, cfg.vertex_memory_budget,
+                                  spill_dir)
+        self.vstate = vstore
+        vstore.add_array("value", values)
+        for name, arr in aux_np.items():
+            vstore.add_array(name, arr)
+        return vstore
+
+    def _tile_footprint(self, tile):
+        """(interval ids, cumulative edge ptr, bucket-sort permutation) of
+        one tile's sources — from its metadata when the store was
+        preprocessed with this interval plan, else computed here."""
+        m = tile.meta
+        if (self._use_meta_fp and m.src_intervals is not None
+                and tile.iv_perm is not None):
+            ids, ptr, perm = m.src_intervals, m.src_interval_ptr, tile.iv_perm
+        else:
+            ids, ptr, perm = compute_source_footprint(
+                tile.src, m.num_edges, self._iv_splitter)
+        # the joint footprint (source intervals + dst interval), for the
+        # co-scheduler
+        self._tile_iv_ids[m.tile_id] = (
+            frozenset(ids) | {int(self._iv_t2i[m.tile_id])})
+        return ids, ptr, perm
+
+    def _host_buffer(self, shape, dtype) -> torch.Tensor:
+        """A zeroed host tensor for one gathered input; page-locked when
+        the tiles compute on a CUDA device, so its copy is one DMA (torch's
+        pinned pool reuses the memory once that copy is done)."""
+        return torch.zeros(shape,
+                           dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+                           pin_memory=self.device.type == "cuda")
+
+    def _ooc_tile_step(self, prog, tile, nv):
+        """One tile's Gather+Apply against the interval-sharded vertex
+        state: fill the per-edge source inputs interval by interval on the
+        host, slice the dst rows from the tile's own interval block, run
+        ``run_tile_sharded`` on the device.  Returns the same (ids,
+        values, query-mask) update triple as the in-memory path, bit for
+        bit (see ``gab.tile_gather_apply_sharded``)."""
+        vstore = self.vstate
+        m = tile.meta
+        row_cap = self.plan.row_cap
+        with torch.profiler.record_function("vstate_gather"):
+            ids, ptr, perm = self._tile_footprint(tile)
+            names = ("value",) + tuple(prog.src_aux)
+            bufs = {}
+            for name in names:
+                dt, tail = vstore.spec(name)
+                bufs[name] = self._host_buffer((m.edge_cap,) + tail, dt)
+            views = {name: b.numpy() for name, b in bufs.items()}
+            src = tile.src
+            for j, iv in enumerate(ids):
+                sl = perm[ptr[j]: ptr[j + 1]]
+                lo, _hi = vstore.interval_range(int(iv))
+                local = src[sl] - lo
+                for name in names:
+                    views[name][sl] = vstore.get_block(name, int(iv))[local]
+            ivd = int(self._iv_t2i[m.tile_id])
+            lo_d, _hi_d = vstore.interval_range(ivd)
+            r0, r1 = m.row_start - lo_d, m.row_end - lo_d
+            vdt, vtail = vstore.spec("value")
+            old = self._host_buffer((row_cap,) + vtail, vdt)
+            old.numpy()[: m.num_rows] = vstore.get_block("value", ivd)[r0:r1]
+            dst_aux = {}
+            for name in prog.dst_aux:
+                dt, tail = vstore.spec(name)
+                buf = self._host_buffer((row_cap,) + tail, dt)
+                buf.numpy()[: m.num_rows] = vstore.get_block(name, ivd)[r0:r1]
+                dst_aux[name] = buf
+        seg_impl, _ = self.kernel_plan(prog)
+        new, upd = run_tile_sharded(
+            prog, bufs["value"], {k: bufs[k] for k in prog.src_aux},
+            tile_edge_values(tile), tile.dst_local, old, dst_aux,
+            m.num_rows, row_cap, seg_impl, self.device)
+        rows = np.minimum(m.row_start + np.arange(row_cap), nv - 1)
+        return self._split_updates(rows, new.cpu().numpy(),
+                                   upd.cpu().numpy())
+
+    def _ooc_column(self, vstore: VertexStateStore, c: int) -> np.ndarray:
+        """Assemble live query column ``c`` of the sharded value array."""
+        return np.concatenate(
+            [vstore.get_block("value", k)[:, c]
+             for k in range(vstore.num_intervals)])
+
+    def _run_tiles_pipelined_ooc(self, s, tids, prog, filters, nv):
+        """The pipelined loop under out-of-core vertex state: tiles come
+        from the prefetcher and run one at a time through
+        ``_ooc_tile_step``.  Same return as ``_run_tiles_pipelined``."""
+        cfg = self.cfg
+        load_s = comp_s = stall_s = 0.0
+        s_idx: list = []
+        s_val: list = []
+        s_msk: list = []
+        it = self.store.prefetch_iter(tids, depth=cfg.prefetch_depth,
+                                      cache=self.caches[s],
+                                      workers=cfg.prefetch_workers)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    tid, tile = next(it)
+                except StopIteration:
+                    break
+                wait = time.perf_counter() - t0
+                load_s += wait
+                stall_s += wait
+                if filters is not None and filters[tid] is None:
+                    filters[tid] = self._make_filter(tile, nv)
+                t0 = time.perf_counter()
+                ri, rv, rm = self._ooc_tile_step(prog, tile, nv)
+                comp_s += time.perf_counter() - t0
+                s_idx.append(ri)
+                s_val.append(rv)
+                if rm is not None:
+                    s_msk.append(rm)
+        finally:
+            it.close()
+        return s_idx, s_val, s_msk, load_s, comp_s, stall_s
+
+    def _order_joint_residency(self, s: int, tids: list[int]) -> list[int]:
+        """Interval-aware co-scheduling: greedily pick the tile whose joint
+        footprint (source intervals + dst interval) overlaps most with a
+        simulated LRU set of hot vertex intervals, then the one nearest
+        the previous pick's dst interval, then edge-cache residency.  Order
+        never changes results (disjoint rows, BSP barrier).  Falls back to
+        cache-hit-first while footprints are unknown (superstep 0), and to
+        :meth:`_order_interval_sweep` past 256 tiles."""
+        fps = self._tile_iv_ids
+        if any(t not in fps for t in tids):
+            return self._order_cache_first(s, tids)
+        if len(tids) > 256:
+            # the greedy is O(T^2); past a few hundred tiles its Python cost
+            # rivals the tile compute, and on locality-structured inputs it
+            # sweeps contiguously from the hot end anyway
+            return self._order_interval_sweep(tids)
+        cache = self.caches[s]
+        cap = max(1, self.vstate.hot_block_capacity("value"))
+        sim: OrderedDict[int, None] = OrderedDict(
+            (k, None) for k in sorted(self.vstate.hot_intervals("value")))
+        edge_res = {t for t in tids if cache.contains(t)}
+        ivd = {t: int(self._iv_t2i[t]) for t in tids}
+        last: Optional[int] = None
+        remaining = list(tids)
+        order: list[int] = []
+        while remaining:
+            best, best_score = None, None
+            for t in remaining:
+                # a contiguous sweep keeps the faults at ~K - cap a pass;
+                # scattered resident edge tiles pulling the walk around
+                # cost more vertex faults than they save edge decodes
+                score = (len(fps[t] & sim.keys()),
+                         -abs(ivd[t] - last) if last is not None else 0,
+                         t in edge_res)
+                if best_score is None or score > best_score:
+                    best, best_score = t, score
+            order.append(best)
+            remaining.remove(best)
+            last = ivd[best]
+            for ivk in sorted(fps[best]):
+                sim.pop(ivk, None)
+                sim[ivk] = None
+            while len(sim) > cap:
+                sim.popitem(last=False)
+        return order
+
+    def _order_interval_sweep(self, tids: list[int]) -> list[int]:
+        """O(T log T) co-scheduling for large fleets: tiles sorted by dst
+        interval, swept from the end where the hot intervals sit, so
+        alternate supersteps sweep back and forth instead of rewinding to
+        vertex 0 against the LRU."""
+        hot = self.vstate.hot_intervals("value")
+        order = sorted(tids, key=lambda t: int(self._iv_t2i[t]))
+        if not hot:
+            return order
+        mid = (self._iv_t2i[order[0]] + self._iv_t2i[order[-1]]) / 2.0
+        if np.mean(sorted(hot)) > mid:   # hot mass sits at the high end
+            order.reverse()
+        return order
+
     def _agg_cache_stats(self) -> dict:
         """Aggregate hit/miss/tier/io counters over the edge caches."""
         caches = list(self.caches.values())
@@ -522,24 +806,61 @@ class OutOfCoreEngine:
 
 
 class EngineSession:
-    """Step-driven run state over one :class:`OutOfCoreEngine`: one
-    ``step()`` call executes exactly one superstep (skip pre-pass, tile
-    compute, BSP barrier, update apply, query retirement); ``result()``
-    returns the :class:`RunResult` once the session is finished (converged
-    or at ``max_supersteps``)."""
+    """Step-driven run state over one :class:`OutOfCoreEngine`.
+
+    One ``step()`` call executes exactly one superstep — compute, BSP
+    barrier, update apply, query retirement, drains and admissions — and
+    between barriers a batched session takes **mid-run query admission**:
+    ``admit(seeds)`` queues fresh queries that are spliced into ``[V, Q]``
+    columns at a barrier (the inverse of retirement's column compaction),
+    and ``drain(qids)`` force-retires live columns.  ``run()`` is a loop
+    over a session.
+
+    State machine: OPEN --step()*--> FINISHED --result()--> closed.  A
+    session is FINISHED when it converged with no admission backlog, or
+    hit ``max_supersteps``.  ``result()`` flushes live columns, closes the
+    out-of-core spill tier and returns the :class:`RunResult`.
+
+    At each barrier, in every execution mode (so results stay
+    bit-identical across them):
+
+    1. natural retirement — columns with zero updated cells freeze into
+       the result buffer and compact out;
+    2. drains — force-frozen columns (``per_query_supersteps`` stays -1);
+    3. admissions — ``admit_plan`` entries due at this barrier (past the
+       slot cap), then queued ``admit()`` seeds into free slots: fresh
+       columns built by ``prog.with_queries(seeds).init`` splice into the
+       values, the per-query aux and ``active_q``, and the next superstep
+       runs every tile (``_force_full``), since the skip filters have not
+       seen the new column.
+
+    Thread safety: ``admit()``/``drain()`` may be called from any thread
+    while ``step()`` runs; ``step()``/``result()`` from one driver
+    thread.
+    """
+
+    #: lock discipline: the admission and drain queues are filled by a
+    #: submitting thread while the driver thread splices them at the barrier
+    _guarded_by = {"_admit_queue": "_lock", "_drain_queue": "_lock",
+                   "next_qid": "_lock"}
 
     def __init__(self, engine: OutOfCoreEngine, prog: VertexProgram, *,
+                 q_slots: Optional[int] = None,
                  max_supersteps: Optional[int] = None):
         self.eng = engine
         self.prog = prog
         cfg = engine.cfg
         nv = self.nv = engine.plan.num_vertices
+        self._lock = threading.Lock()
+        self._admit_queue: list[tuple[int, int]] = []
+        self._drain_queue: list[int] = []
+        self._force_full = False
+        self._final_result: Optional[RunResult] = None
+        self._closed = False
         self.history: list[SuperstepStats] = []
         self.converged = False
         self.finished = False
-        self._final_result: Optional[RunResult] = None
         self._ss = 0
-        self.engine_mode = cfg.engine_mode
 
         # Re-baseline the engine's cumulative-counter deltas, so cache
         # activity before this session does not leak into its first step.
@@ -554,19 +875,52 @@ class EngineSession:
         self.values = np.asarray(state.pop("value"))
         self.aux_np = {k: np.asarray(v) for k, v in state.items()}
         self.vdtype = self.values.dtype
-        self.aux_dev = {k: self._to_device(v) for k, v in self.aux_np.items()}
 
         # Multi-query bookkeeping: values [V, Q] hold Q program instances.
         # A query column with zero updates in a superstep has reached its
-        # fixpoint: it is written to final_values and compacted out of
-        # values and the per-query aux, so later supersteps no longer pay
-        # for it.
+        # fixpoint: it is written to final_values and compacted out of the
+        # live state, and its slot is what admission refills.
         self.multi_q = self.values.ndim == 2
         self.nq_total = self.values.shape[1] if self.multi_q else 1
-        self.active_q = np.arange(self.nq_total)  # query ids, live columns
+        self.active_q = np.arange(self.nq_total)  # global ids, live columns
         self.final_values = self.values.copy() if self.multi_q else None
         self.per_query_ss = (np.full(self.nq_total, -1, dtype=np.int64)
                              if self.multi_q else None)
+        #: superstep each column's compute began at (0 for the initial
+        #: queries): per_query_ss counts from it, so an admitted query
+        #: reports the same count as a fresh run
+        self.admitted_at = (np.zeros(self.nq_total, dtype=np.int64)
+                            if self.multi_q else None)
+        #: {global qid: seed vertex} for every column ever admitted
+        self.query_seeds: dict[int, int] = {
+            int(i): int(s)
+            for i, s in enumerate(getattr(prog, "queries", ()))}
+        self.next_qid = self.nq_total if self.multi_q else 1
+        self.q_slots = (max(1, int(q_slots)) if q_slots is not None
+                        else max(1, self.nq_total))
+        self._plan_pending: list[tuple[int, tuple]] = (
+            [(int(after), tuple(int(s) for s in seeds))
+             for after, seeds in (cfg.admit_plan or ())]
+            if self.multi_q else [])
+
+        # Out-of-core vertex state: the [V(, Q)] arrays move into an
+        # interval-sharded VertexStateStore and the full arrays are
+        # dropped.  stacked/merged need the whole value array on the
+        # device, so it forces tiled.
+        self._ooc = engine._ooc = cfg.vertex_memory_budget is not None
+        self.engine_mode = "tiled" if self._ooc else cfg.engine_mode
+        self.vstore: Optional[VertexStateStore] = None
+        if self._ooc:
+            self.vstore = engine._build_vstate(self.values, self.aux_np)
+            engine._vs_faults_cum = self.vstore.stats.faults
+            engine._vs_load_cum = self.vstore.stats.load_bytes
+            engine._vs_spill_cum = self.vstore.stats.spill_bytes
+            self.values = None
+            self.aux_np = {}
+            self.aux_dev = None
+        else:
+            self.aux_dev = {k: self._to_device(v)
+                            for k, v in self.aux_np.items()}
 
         self.max_ss = max_supersteps or cfg.max_supersteps
         self.updated_ids = np.arange(nv)  # everything "updated" pre step 0
@@ -577,16 +931,84 @@ class EngineSession:
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.eng.device)
 
+    # -- public session surface ----------------------------------------------
+    @property
+    def superstep(self) -> int:
+        """Index of the next superstep ``step()`` will execute."""
+        return self._ss
+
+    @property
+    def active_queries(self) -> tuple[int, ...]:
+        """Global qids of the live query columns."""
+        return tuple(int(g) for g in self.active_q) if self.multi_q else ()
+
+    @property
+    def free_slots(self) -> int:
+        """Query slots available for admission right now."""
+        if not self.multi_q:
+            return 0
+        with self._lock:
+            queued = len(self._admit_queue)
+        return max(0, self.q_slots - len(self.active_q) - queued)
+
+    def admit(self, seeds) -> list[int]:
+        """Queue fresh queries (seed vertices) for admission at the next
+        barrier; returns their global qids.  Thread-safe.  Queries beyond
+        the free ``q_slots`` stay queued until retirement frees slots."""
+        if not self.multi_q:
+            raise RuntimeError("admission needs a batched [V, Q] program")
+        if self.finished:
+            raise RuntimeError("session is finished")
+        with self._lock:
+            gqs = []
+            for s in seeds:
+                g = self.next_qid
+                self.next_qid += 1
+                self._admit_queue.append((g, int(s)))
+                gqs.append(g)
+        return gqs
+
+    def drain(self, qids) -> None:
+        """Force-retire live columns at the next barrier: their partial
+        values freeze into the result and ``per_query_supersteps`` stays
+        -1.  Thread-safe."""
+        with self._lock:
+            self._drain_queue.extend(int(g) for g in qids)
+
+    def query_result(self, gq: int) -> np.ndarray:
+        """The frozen ``[V]`` column of query ``gq`` — valid once it
+        retired or drained; before that it holds its admission-time
+        state."""
+        return np.asarray(self.final_values[:, int(gq)]).copy()
+
+    def query_supersteps(self, gq: int) -> int:
+        """Supersteps query ``gq`` took to converge, counted from its own
+        admission (a fresh single-query run's count); -1 while live or if
+        it was drained."""
+        return int(self.per_query_ss[int(gq)])
+
+    def close(self) -> None:
+        """Release the run's scratch (the out-of-core spill tier).
+        Idempotent; ``result()`` already closed the store."""
+        if self._closed:
+            return
+        self._closed = True
+        if self.vstore is not None and self._final_result is None:
+            self.vstore.close()
+
+    # -- the superstep ------------------------------------------------------
     def step(self) -> SuperstepStats:
         """Execute exactly one superstep (compute → barrier → apply →
-        retirement) and return its stats."""
+        retirement → drains → admissions) and return its stats."""
         if self.finished:
             raise RuntimeError("session is finished — open a new one")
         eng = self.eng
         cfg = eng.cfg
         prog = self.prog
         nv = self.nv
+        ooc = self._ooc
         multi_q = self.multi_q
+        vstore = self.vstore
         vdtype = self.vdtype
         row_cap = eng.plan.row_cap
         filters = self.filters
@@ -595,23 +1017,39 @@ class EngineSession:
 
         t_start = time.perf_counter()
         qa = len(self.active_q) if multi_q else 1  # live columns this step
-        # the values go to the device once per superstep
-        values_dev = self._to_device(self.values)
+        # a batched session with zero live columns still steps (waiting on
+        # scheduled or queued admissions): the barrier runs, no tile does
+        run_compute = not (multi_q and qa == 0)
+        # in memory, the values go to the device once a superstep
+        values_dev = (None if (ooc or not run_compute)
+                      else self._to_device(self.values))
         load_s = 0.0
         comp_s = 0.0
         stall_s = 0.0
         tiles_done = 0
         tiles_skipped = 0
+        upd_idx_parts: list[np.ndarray] = []
+        upd_val_parts: list[np.ndarray] = []
+        upd_msk_parts: list[np.ndarray] = []
         per_server_updates: list[tuple] = []
         bcast_futures: dict[int, object] = {}
         # "sampled": measure every 4th superstep, estimate the rest from
-        # the update count and the last measured wire/raw ratio
-        sample = not (cfg.comm_accounting == "sampled" and ss % 4 != 0
-                      and eng._wire_ratio is not None)
+        # the update count and the last measured wire/raw ratio; the
+        # out-of-core payloads always measure (the estimator models one
+        # whole-V payload, not per-interval sections)
+        sample = ooc or not (cfg.comm_accounting == "sampled"
+                             and ss % 4 != 0
+                             and eng._wire_ratio is not None)
 
+        # a column admitted at the previous barrier is all-dirty for one
+        # superstep: run every tile once (the filters have no false
+        # negatives, so a full pass only adds work), then skip again
+        force_full = self._force_full
+        self._force_full = False
         skip_on = (
             cfg.tile_skipping
             and ss > 0
+            and not force_full
             and len(self.updated_ids) < cfg.skip_density_threshold * nv
             and eng._filters is not None
         )
@@ -621,7 +1059,7 @@ class EngineSession:
                 self.updated_ids, nv, cfg.block_shift
             )
 
-        for s in eng.exec_servers:
+        for s in (eng.exec_servers if run_compute else ()):
             s_idx: list[np.ndarray] = []
             s_val: list[np.ndarray] = []
             s_msk: list[np.ndarray] = []
@@ -681,7 +1119,9 @@ class EngineSession:
                                  if t not in run_list]))
             else:
                 run_list = list(server_tiles)
-            if cfg.cache_aware_order and len(run_list) > 1:
+            if ooc and cfg.interval_aware_order and len(run_list) > 1:
+                run_list = eng._order_joint_residency(s, run_list)
+            elif cfg.cache_aware_order and len(run_list) > 1:
                 run_list = eng._order_cache_first(s, run_list)
 
             if cfg.pipeline:
@@ -708,15 +1148,19 @@ class EngineSession:
                         filters[tid] = eng._make_filter(tile, nv)
 
                     t0 = time.perf_counter()
-                    rows, new, upd = run_tile(
-                        prog, values_dev, self.aux_dev,
-                        (tile.src, tile.dst_local, tile_edge_values(tile)),
-                        tile.meta.row_start, tile.meta.num_rows, row_cap,
-                        seg_impl,
-                    )
-                    ri, rv, rm = eng._split_updates(
-                        rows.cpu().numpy(), new.cpu().numpy(),
-                        upd.cpu().numpy())
+                    if ooc:
+                        ri, rv, rm = eng._ooc_tile_step(prog, tile, nv)
+                    else:
+                        rows, new, upd = run_tile(
+                            prog, values_dev, self.aux_dev,
+                            (tile.src, tile.dst_local,
+                             tile_edge_values(tile)),
+                            tile.meta.row_start, tile.meta.num_rows,
+                            row_cap, seg_impl,
+                        )
+                        ri, rv, rm = eng._split_updates(
+                            rows.cpu().numpy(), new.cpu().numpy(),
+                            upd.cpu().numpy())
                     comp_s += time.perf_counter() - t0
                     s_idx.append(ri)
                     s_val.append(rv)
@@ -732,6 +1176,10 @@ class EngineSession:
                 sm = (np.concatenate(s_msk) if s_msk
                       else np.zeros(val_shape, dtype=bool))
             per_server_updates.append((si, sv, sm))
+            upd_idx_parts.append(si)
+            upd_val_parts.append(sv)
+            if multi_q:
+                upd_msk_parts.append(sm)
             if cfg.pipeline and sample:
                 # overlap this server's payload compression with the next
                 # server's compute; the records are collected at the barrier
@@ -763,19 +1211,48 @@ class EngineSession:
                 wire_b += int(est * eng._wire_ratio)
         if sample and raw_b:
             eng._wire_ratio = wire_b / raw_b
-        all_idx = np.concatenate([u[0] for u in per_server_updates])
-        all_val = np.concatenate([u[1] for u in per_server_updates])
+        all_idx = (np.concatenate(upd_idx_parts) if upd_idx_parts
+                   else np.zeros(0, np.int64))
+        all_val = (np.concatenate(upd_val_parts) if upd_val_parts
+                   else np.zeros((0, qa) if multi_q else (0,), vdtype))
+        all_msk = None
         if multi_q:
-            all_msk = np.concatenate([u[2] for u in per_server_updates])
+            all_msk = (np.concatenate(upd_msk_parts) if upd_msk_parts
+                       else np.zeros((0, qa), dtype=bool))
             upd_per_q = all_msk.sum(axis=0)
             updated_pairs = int(all_msk.sum())
+        else:
+            updated_pairs = int(len(all_idx))
+        dirty_ivs = 0
+        if ooc:
+            # dirty-interval writeback: only the interval blocks that
+            # received updates are loaded, updated and written back
+            with torch.profiler.record_function("vstate_writeback"):
+                if len(all_idx):
+                    ivs = vstore.interval_of(all_idx)
+                    for iv in np.unique(ivs):
+                        ksel = ivs == iv
+                        lo, _hi = vstore.interval_range(int(iv))
+                        blk = vstore.get_block("value", int(iv)).copy()
+                        loc = all_idx[ksel] - lo
+                        if multi_q:
+                            # per-cell application: a row touched by query
+                            # A must not clobber query B's column
+                            cur = blk[loc]
+                            msk = all_msk[ksel]
+                            cur[msk] = all_val[ksel][msk]
+                            blk[loc] = cur
+                        else:
+                            blk[loc] = all_val[ksel]
+                        vstore.write_block("value", int(iv), blk)
+                        dirty_ivs += 1
+        elif multi_q:
             # per-cell application: a row touched by query A must not
             # clobber query B's column with a masked zero / sub-tol value
             cur = self.values[all_idx]
             cur[all_msk] = all_val[all_msk]
             self.values[all_idx] = cur
         else:
-            updated_pairs = int(len(all_idx))
             self.values[all_idx] = all_val
         self.updated_ids = all_idx
 
@@ -794,17 +1271,45 @@ class EngineSession:
         eng._demo_cum = cache_stats["demotions"]
         disk_b = cache_stats["disk_bytes_read"] - eng._disk_cum
         eng._disk_cum = cache_stats["disk_bytes_read"]
+        vs_faults = vs_load = vs_spill = 0
+        if ooc:
+            vst = vstore.stats
+            vs_faults = vst.faults - eng._vs_faults_cum
+            vs_load = vst.load_bytes - eng._vs_load_cum
+            vs_spill = vst.spill_bytes - eng._vs_spill_cum
+            eng._vs_faults_cum = vst.faults
+            eng._vs_load_cum = vst.load_bytes
+            eng._vs_spill_cum = vst.spill_bytes
 
-        # --- natural retirement: converged columns freeze and compact out
+        # --- barrier bookkeeping: natural retirement → drains → admissions
         retired: tuple = ()
+        drained: tuple = ()
+        admitted: tuple = ()
         upd_map: dict = {}
+        ctl_pending = 0
         if multi_q:
             upd_map = {int(g): int(n)
                        for g, n in zip(self.active_q, upd_per_q)}
             done = np.nonzero(upd_per_q == 0)[0]
             retired = tuple(int(self.active_q[c]) for c in done)
-            if len(done):
-                self._retire(done, ss, qa)
+            # collected after retirement: a slot freed at this barrier
+            # refills at this same barrier
+            control = self._collect_control(
+                ss, qa - len(done), set(self.active_queries), set(retired))
+            ctl_admit, ctl_drain, ctl_pending = comm.unpack_admissions(
+                control)
+            live = set(self.active_queries) - set(retired)
+            drained = tuple(g for g in ctl_drain if g in live)
+            freeze = sorted(set(int(c) for c in done)
+                            | {int(np.nonzero(self.active_q == g)[0][0])
+                               for g in drained})
+            if freeze:
+                self._freeze(freeze, set(int(c) for c in done), ss, qa)
+            if ctl_admit:
+                self._apply_admissions(ctl_admit, ss)
+                admitted = tuple(int(g) for g, _ in ctl_admit)
+                self._force_full = True
+        self._plan_pending = [e for e in self._plan_pending if e[0] > ss]
 
         stats = SuperstepStats(
             superstep=ss,
@@ -829,45 +1334,155 @@ class EngineSession:
             updated_pairs=updated_pairs,
             updated_per_query=upd_map,
             retired_queries=retired,
+            admitted_queries=admitted,
+            drained_queries=drained,
+            vstate_faults=vs_faults,
+            vstate_load_bytes=vs_load,
+            vstate_spill_bytes=vs_spill,
+            vstate_dirty_intervals=dirty_ivs,
         )
         self.history.append(stats)
         self.converged = (len(self.active_q) == 0 if multi_q
                           else len(all_idx) == 0)
         self._ss = ss + 1
-        self.finished = self.converged or self._ss >= self.max_ss
+        with self._lock:
+            backlog = (bool(self._plan_pending) or ctl_pending > 0
+                       or bool(self._admit_queue))
+        self.finished = ((self.converged and not backlog)
+                         or self._ss >= self.max_ss)
         return stats
 
-    def _retire(self, done: np.ndarray, ss: int, qa: int) -> None:
-        """Freeze the live columns ``done`` into ``final_values`` (they
-        converged at superstep ``ss``) and compact them out of ``values``
-        and the per-query ``[V, qa]`` aux, on the host and the device."""
-        keep = np.ones(qa, dtype=bool)
-        keep[done] = False
-        for c in done:
-            gq = int(self.active_q[c])
-            self.final_values[:, gq] = self.values[:, c]
-            self.per_query_ss[gq] = ss + 1
-        self.values = np.ascontiguousarray(self.values[:, keep])
-        for k, a in self.aux_np.items():
-            if a.ndim == 2 and a.shape[1] == qa:  # per-query aux
-                self.aux_np[k] = np.ascontiguousarray(a[:, keep])
-                self.aux_dev[k] = self._to_device(self.aux_np[k])
-        self.active_q = self.active_q[keep]
-
+    # -- result ----------------------------------------------------------------
     def result(self) -> RunResult:
         """The session's RunResult; the session must be finished.  Columns
-        still live at ``max_supersteps`` are flushed into the result."""
-        if self._final_result is None:
-            if not self.finished:
-                raise RuntimeError("session still live — step() to "
-                                   "completion first")
-            values = self.values
-            if self.multi_q:
-                for c, gq in enumerate(self.active_q):
-                    self.final_values[:, int(gq)] = values[:, c]
-                values = self.final_values
-            self._final_result = RunResult(
-                values=values, aux=self.aux_np, history=self.history,
-                supersteps=len(self.history), converged=self.converged,
-                per_query_supersteps=self.per_query_ss)
+        still live at ``max_supersteps`` are flushed into the result; the
+        out-of-core store is materialized and closed."""
+        if self._final_result is not None:
+            return self._final_result
+        if not self.finished:
+            raise RuntimeError("session still live — step() to "
+                               "completion or drain first")
+        ooc, vstore = self._ooc, self.vstore
+        values, aux_np = self.values, self.aux_np
+        if self.multi_q:
+            for c, gq in enumerate(self.active_q):
+                self.final_values[:, int(gq)] = (
+                    self.eng._ooc_column(vstore, c) if ooc
+                    else values[:, c])
+            values = self.final_values
+        elif ooc:
+            values = vstore.materialize("value")
+        if ooc:
+            # the working state and its spill tier are per-run scratch
+            aux_np = {n: vstore.materialize(n) for n in vstore.names()
+                      if n != "value"}
+            vstore.close()
+        self._final_result = RunResult(
+            values=values, aux=aux_np, history=self.history,
+            supersteps=len(self.history), converged=self.converged,
+            per_query_supersteps=self.per_query_ss)
         return self._final_result
+
+    # -- retirement and admission internals --------------------------------
+    def _freeze(self, freeze: list, done: set, ss: int, qa: int) -> None:
+        """Freeze the live columns ``freeze`` into ``final_values`` and
+        compact them out of the values and the per-query ``[V, qa]`` aux,
+        on the host, in the out-of-core store and on the device.  Columns
+        in ``done`` converged at superstep ``ss``; the others drained."""
+        keep = np.ones(qa, dtype=bool)
+        keep[freeze] = False
+        for c in freeze:
+            gq = int(self.active_q[c])
+            self.final_values[:, gq] = (
+                self.eng._ooc_column(self.vstore, c) if self._ooc
+                else self.values[:, c])
+            if c in done:
+                self.per_query_ss[gq] = ss + 1 - int(self.admitted_at[gq])
+        if self._ooc:
+            q_names = [n for n in self.vstore.names()
+                       if self.vstore.spec(n)[1] == (qa,)]
+            self.vstore.compact_columns(q_names, keep)
+        else:
+            self.values = np.ascontiguousarray(self.values[:, keep])
+            for k, a in self.aux_np.items():
+                if a.ndim == 2 and a.shape[1] == qa:  # per-query aux
+                    self.aux_np[k] = np.ascontiguousarray(a[:, keep])
+                    self.aux_dev[k] = self._to_device(self.aux_np[k])
+        self.active_q = self.active_q[keep]
+
+    def _collect_control(self, ss: int, live_base: int, active_set: set,
+                         retired_set: set) -> Optional[dict]:
+        """This barrier's admission/drain record.  ``live_base`` is the
+        column count that survives this barrier's natural retirement;
+        ``admit_plan`` entries due now fire first and bypass the slot cap,
+        then queued admissions fill the remaining free slots."""
+        if not self.multi_q:
+            return None
+        with self._lock:
+            drains: list[int] = []
+            for g in self._drain_queue:
+                if g not in drains:
+                    drains.append(g)
+            self._drain_queue.clear()
+            live_drains = [g for g in drains
+                           if g in active_set and g not in retired_set]
+            admit: list[tuple[int, int]] = []
+            for after, seeds in self._plan_pending:
+                if after == ss:
+                    for s in seeds:
+                        admit.append((self.next_qid, int(s)))
+                        self.next_qid += 1
+            free = self.q_slots - (live_base - len(live_drains))
+            while self._admit_queue and free > 0:
+                admit.append(self._admit_queue.pop(0))
+                free -= 1
+            return comm.pack_admissions(admit, drains,
+                                        len(self._admit_queue))
+
+    def _apply_admissions(self, admit: list, ss: int) -> None:
+        """Splice freshly admitted query columns into the live state — the
+        inverse of retirement's compaction.  A column's initial state comes
+        from ``prog.with_queries(seeds).init`` (column math does not depend
+        on the batch, so it equals a fresh single-query run bit for bit);
+        per-query aux ``[V, q_new]`` splices alongside, shared aux is
+        untouched, and the device copies of per-query aux are rebuilt."""
+        eng = self.eng
+        nv = self.nv
+        gqs = [int(g) for g, _ in admit]
+        seeds = [int(s) for _, s in admit]
+        sub = self.prog.with_queries(seeds)
+        state = sub.init(nv, eng.out_degree.astype(np.float64),
+                         eng.in_degree.astype(np.float64))
+        new_vals = np.asarray(state.pop("value")).astype(self.vdtype)
+        qn = len(gqs)
+        per_q_aux = {k: np.asarray(v) for k, v in state.items()
+                     if np.asarray(v).ndim == 2
+                     and np.asarray(v).shape[1] == qn}
+        hi = max(gqs) + 1
+        if hi > len(self.per_query_ss):
+            grow = hi - len(self.per_query_ss)
+            self.per_query_ss = np.concatenate(
+                [self.per_query_ss, np.full(grow, -1, np.int64)])
+            self.admitted_at = np.concatenate(
+                [self.admitted_at, np.zeros(grow, np.int64)])
+            self.final_values = np.ascontiguousarray(np.concatenate(
+                [self.final_values,
+                 np.zeros((nv, grow), self.final_values.dtype)], axis=1))
+        for g, s in zip(gqs, seeds):
+            self.admitted_at[g] = ss + 1
+            self.query_seeds[g] = s
+        self.final_values[:, gqs] = new_vals
+        self.nq_total = len(self.per_query_ss)
+        with self._lock:
+            self.next_qid = max(self.next_qid, hi)
+        if self._ooc:
+            self.vstore.append_columns({"value": new_vals, **per_q_aux})
+        else:
+            self.values = np.ascontiguousarray(
+                np.concatenate([self.values, new_vals], axis=1))
+            for k, arr in per_q_aux.items():
+                self.aux_np[k] = np.ascontiguousarray(
+                    np.concatenate([self.aux_np[k], arr], axis=1))
+                self.aux_dev[k] = self._to_device(self.aux_np[k])
+        self.active_q = np.concatenate(
+            [self.active_q, np.asarray(gqs, dtype=self.active_q.dtype)])

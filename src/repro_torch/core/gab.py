@@ -12,7 +12,9 @@ values (All-in-All policy), processes its assigned tiles one at a time
 (Gather+Apply are purely local), and Broadcasts only *updated* values.
 
 This module holds the step functions the engine modes run: one tile
-(``run_tile`` → ``tile_gather_apply``, tiled mode), a stack of tiles
+(``run_tile`` → ``tile_gather_apply``, tiled mode; ``run_tile_sharded``
+→ ``tile_gather_apply_sharded`` on inputs the caller gathered, the
+out-of-core vertex state), a stack of tiles
 (``run_tile_stack`` → ``stacked_tiles_step``, pipelined and stacked modes)
 and one server's merged edge list (``merged_server_step``, merged mode).
 ``seg_impl`` picks the kernel: ``"fused"`` runs gather→combine→apply→mask
@@ -136,17 +138,36 @@ def _fused_tile(fs, src_vals, src_aux, edge_val, dst_local, old, dst_aux,
                          row_cap)
 
 
-def _gather_apply(prog, values, aux, src, dst_local, edge_val, old, dst_aux,
-                  num_rows, row_cap, seg_impl):
-    """Gather+Apply for one tile whose dst rows ``old`` ``[row_cap(, Q)]``
-    and ``dst_aux`` the caller has sliced.  Returns (new [row_cap(, Q)],
-    updated [row_cap(, Q)] bool); rows at or past num_rows keep old and
-    are not updated."""
+def tile_gather_apply_sharded(
+    prog: VertexProgram,
+    src_vals: Tensor,             # [E(, Q)] pre-gathered source values
+    src_aux: dict[str, Tensor],   # pre-gathered per-edge aux, each [E(, ...)]
+    edge_val: Tensor,             # [E]
+    dst_local: Tensor,            # [E] dst - row_start; padding >= num_rows
+    old: Tensor,                  # [row_cap(, Q)] this tile's current rows
+    dst_aux: dict[str, Tensor],   # dst-side aux rows, each [row_cap(, ...)]
+    num_rows: int,                # <= row_cap
+    row_cap: int,
+    seg_impl: str = "fused",
+) -> tuple[Tensor, Tensor]:
+    """Gather+Apply for one tile with *pre-gathered* source-side inputs —
+    the out-of-core vertex-state path, and the body every in-memory step
+    runs after its own gathers.
+
+    The out-of-core engine fills ``src_vals``/``src_aux`` interval by
+    interval from the :class:`~repro_torch.core.vstate.VertexStateStore`
+    and slices ``old``/``dst_aux`` from the tile's own dst-interval
+    block.  Edge order is untouched, so valid rows are bit-identical to
+    :func:`tile_gather_apply`.  Padding slots hold zeros instead of
+    ``values[0]``: their dst is at or past num_rows, and no kernel reduces
+    such a row into a valid one (the segment kernel's sink row is sliced
+    off, the fused kernel leaves rows past num_rows unreduced).
+
+    Returns (new [row_cap(, Q)], updated [row_cap(, Q)] bool); rows at or
+    past num_rows keep old and are not updated."""
     if seg_impl not in SEG_IMPLS:
         raise ValueError(f"seg_impl {seg_impl!r}: the port has "
                          f"{', '.join(SEG_IMPLS)}")
-    src_vals = values.index_select(0, src)
-    src_aux = {k: aux[k].index_select(0, src) for k in prog.src_aux}
     fs = prog.fused_spec() if seg_impl == "fused" else None
     if fs is not None:
         return _fused_tile(fs, src_vals, src_aux, edge_val, dst_local, old,
@@ -159,6 +180,18 @@ def _gather_apply(prog, values, aux, src, dst_local, edge_val, old, dst_aux,
                         new)
     new = torch.where(valid, new, old)
     return new, valid & prog.updated_mask(old, new)
+
+
+def _gather_apply(prog, values, aux, src, dst_local, edge_val, old, dst_aux,
+                  num_rows, row_cap, seg_impl):
+    """Gather ``values``/``aux`` ``[V(, Q)]`` at the tile's sources, then
+    :func:`tile_gather_apply_sharded` on the caller's dst rows ``old``
+    ``[row_cap(, Q)]`` and ``dst_aux``."""
+    src_vals = values.index_select(0, src)
+    src_aux = {k: aux[k].index_select(0, src) for k in prog.src_aux}
+    return tile_gather_apply_sharded(prog, src_vals, src_aux, edge_val,
+                                     dst_local, old, dst_aux, num_rows,
+                                     row_cap, seg_impl)
 
 
 def tile_gather_apply(
@@ -257,6 +290,24 @@ def run_tile(prog, values, aux, tile_arrays, row_start, num_rows, row_cap,
     return tile_gather_apply(prog, values, aux, src, dst_local, edge_val,
                              int(row_start), int(num_rows), row_cap,
                              seg_impl)
+
+
+def run_tile_sharded(prog, src_vals, src_aux, edge_val, dst_local, old,
+                     dst_aux, num_rows, row_cap, seg_impl="fused",
+                     device="cuda"):
+    """Out-of-core vertex-state entry point for one tile: the host inputs
+    of :func:`tile_gather_apply_sharded` (numpy arrays or CPU tensors,
+    page-locked when the caller made them so) go to ``device`` with one
+    non-blocking copy each.  Returns device tensors ``(new, updated)``
+    ``[row_cap(, Q)]``; the caller moves them to the host."""
+    def dev(x):
+        return torch.as_tensor(x).to(device, non_blocking=True)
+
+    return tile_gather_apply_sharded(
+        prog, dev(src_vals), {k: dev(v) for k, v in src_aux.items()},
+        dev(edge_val), dev(dst_local), dev(old),
+        {k: dev(v) for k, v in dst_aux.items()}, int(num_rows), row_cap,
+        seg_impl)
 
 
 def stack_to_device(stk: dict, device) -> dict:

@@ -4,15 +4,19 @@
         --vertices 100000 --edges 1000000 --servers 4 --supersteps 20
 
 The batch flags of ``repro.launch.graph`` for the port so far — the
-in-process engine, serial or ``--pipeline``, all eight apps (``ppr``, ``msbfs`` and ``landmarks`` run
-``--queries``/``--seeds`` query columns in one edge pass), the cache
-policies — plus ``--device`` (default ``cuda``).  The reference's other
+in-process engine, serial or ``--pipeline``, all eight apps (``ppr``,
+``msbfs`` and ``landmarks`` run ``--queries``/``--seeds`` query columns in
+one edge pass, and ``--admit`` splices more in mid-run), the cache
+policies, the out-of-core vertex state (``--vertex-memory-budget``,
+``--num-intervals``, ``--no-interval-order``) — plus ``--device``
+(default ``cuda``).  The reference's other
 flags are accepted and rejected with ``NotImplementedError`` naming their
 ROADMAP.md queue item.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import tempfile
 import time
 
@@ -23,13 +27,13 @@ from repro_torch.core.engine import EngineConfig, OutOfCoreEngine
 from repro_torch.core.gab import SEG_IMPLS
 from repro_torch.graphio import spe, synth
 from repro_torch.graphio.formats import TileStore
+from repro_torch.launch.cluster import parse_admit_plan
 
 # reference flags outside the slice -> the ROADMAP.md queue item bringing them
 _LATER_FLAGS = {
-    "kernel_autotune": "A.12", "vertex_memory_budget": "A.6", "admit": "A.7",
-    "cluster": "A.9", "checkpoint_dir": "A.10", "resume": "A.10",
-    "preemptible": "A.10", "inject": "A.10", "serve": "A.11",
-    "serve_http": "A.11",
+    "kernel_autotune": "A.12", "cluster": "A.9", "checkpoint_dir": "A.10",
+    "resume": "A.10", "preemptible": "A.10", "inject": "A.10",
+    "serve": "A.11", "serve_http": "A.11",
 }
 
 
@@ -103,6 +107,23 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seeds", default=None,
                     help="comma-separated seed/source/landmark vertex ids "
                          "for the batched apps, e.g. --seeds 0,17,42")
+    ap.add_argument("--vertex-memory-budget", type=float, default=None,
+                    metavar="MB",
+                    help="byte budget (in MB) of the interval-sharded "
+                         "out-of-core vertex state; [V,Q] arrays beyond it "
+                         "spill to a disk tier.  Default: fully resident "
+                         "(the paper's All-in-All)")
+    ap.add_argument("--num-intervals", type=int, default=0,
+                    help="source intervals K of the out-of-core vertex "
+                         "state (0 = auto from the budget / stored plan)")
+    ap.add_argument("--no-interval-order", action="store_true",
+                    help="disable interval-aware tile co-scheduling under "
+                         "out-of-core vertex state (cache-hit-first then)")
+    ap.add_argument("--admit", action="append", default=None,
+                    metavar="SS:SEEDS",
+                    help="scripted mid-run admission for batched apps, "
+                         "repeatable: '4:17,42' splices those query seeds "
+                         "into [V,Q] columns at the end of superstep 4")
     ap.add_argument("--seg-impl", default="fused", choices=list(SEG_IMPLS),
                     help="fused: the fused gather→combine→apply kernel (the "
                          "segment kernel for apps without a fused form); "
@@ -114,11 +135,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     for flag in ("--kernel-autotune", "--cluster", "--resume",
                  "--preemptible", "--serve", "--serve-http"):
         ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
-    for flag in ("--vertex-memory-budget", "--checkpoint-dir"):
-        ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
-    for flag in ("--inject", "--admit"):
-        ap.add_argument(flag, action="append", default=None,
-                        help=argparse.SUPPRESS)
+    ap.add_argument("--checkpoint-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--inject", action="append", default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     later = [f"--{k.replace('_', '-')} is ROADMAP.md queue {item}"
              for k, item in _LATER_FLAGS.items() if getattr(args, k)]
@@ -156,8 +175,15 @@ def main(argv=None):
         prefetch_depth=args.prefetch_depth,
         prefetch_workers=args.prefetch_workers,
         stack_size=args.stack_size,
+        vertex_memory_budget=(None if args.vertex_memory_budget is None
+                              else int(args.vertex_memory_budget * 1e6)),
+        num_intervals=args.num_intervals,
+        interval_aware_order=not args.no_interval_order,
         device=args.device,
     )
+    if args.admit:
+        cfg = dataclasses.replace(cfg,
+                                  admit_plan=parse_admit_plan(args.admit))
     eng = OutOfCoreEngine(store, cfg)
     if batched:
         if args.seeds:
@@ -188,6 +214,16 @@ def main(argv=None):
           f"mode={eng.cache_mode}, "
           f"disk-stall {res.disk_stall_fraction()*100:.0f}% of wall time"
           f"{' (pipelined)' if args.pipeline else ''}")
+    if args.vertex_memory_budget is not None:
+        vs = eng.vstate.stats
+        faults = sum(x.vstate_faults for x in res.history)
+        spill = sum(x.vstate_spill_bytes for x in res.history)
+        load = sum(x.vstate_load_bytes for x in res.history)
+        print(f"  vertex state [{eng.vstate.num_intervals} intervals, "
+              f"budget {args.vertex_memory_budget:g} MB]: "
+              f"{faults} interval faults, {load/1e6:.1f} MB faulted in, "
+              f"{spill/1e6:.1f} MB spilled to disk, "
+              f"{vs.dirty_writebacks} dirty writebacks")
     if args.cache_policy != "lru":
         promo = sum(x.cache_promotions for x in res.history)
         demo = sum(x.cache_demotions for x in res.history)

@@ -214,9 +214,8 @@ def test_broadcast_measurement_matches_reference(mode, density):
 
 @pytest.mark.parametrize("knob", [
     dict(kernel_autotune=True), dict(kernel_blocks=(512, 256)),
-    dict(vertex_memory_budget=1 << 20), dict(checkpoint_dir="ckpt"),
-    dict(resume=True), dict(preemptible=True), dict(fault_plan=object()),
-    dict(admit_plan=((1, (2,)),)), dict(server_rank=0)])
+    dict(checkpoint_dir="ckpt"), dict(resume=True), dict(preemptible=True),
+    dict(fault_plan=object()), dict(server_rank=0)])
 def test_knobs_outside_the_slice_raise(knob, small_store):
     store, _, _ = small_store
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
@@ -225,15 +224,38 @@ def test_knobs_outside_the_slice_raise(knob, small_store):
 
 
 def test_batched_program_raises(small_store):
-    """Batched programs run; their mid-run admission (q_slots, a scripted
-    admit_plan) is ROADMAP.md queue A.7."""
+    """Admission needs a batched program and a live session: a
+    single-query session and a finished one refuse ``admit()``."""
     store, _, _ = small_store
     eng = OutOfCoreEngine(TileStore(store.root), EngineConfig(device="cpu"))
-    with pytest.raises(NotImplementedError, match="A.7"):
-        eng.open_session(tapps.MultiSourceBFS(sources=(0, 5)), q_slots=4)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        OutOfCoreEngine(TileStore(store.root), EngineConfig(
-            device="cpu", admit_plan=((1, (2,)),)))
+    with pytest.raises(RuntimeError, match="batched"):
+        eng.open_session(tapps.BFS()).admit([2])
+    sess = eng.open_session(tapps.MultiSourceBFS(sources=(0, 5)),
+                            max_supersteps=1)
+    sess.step()
+    with pytest.raises(RuntimeError, match="finished"):
+        sess.admit([2])
+
+
+def test_session_opens_with_q_slots(small_store):
+    store, _, _ = small_store
+    eng = OutOfCoreEngine(TileStore(store.root), EngineConfig(device="cpu"))
+    sess = eng.open_session(tapps.MultiSourceBFS(sources=(0, 5)), q_slots=4)
+    assert sess.q_slots == 4 and sess.free_slots == 2
+    assert sess.admit([17]) == [2]
+    sess.step()
+    assert sess.active_queries == (0, 1, 2)
+
+
+def test_admit_plan_runs(small_store):
+    store, _, _ = small_store
+    res = OutOfCoreEngine(TileStore(store.root), EngineConfig(
+        device="cpu", admit_plan=((1, (17,)),))).run(
+            tapps.MultiSourceBFS(sources=(0, 5)))
+    fresh = OutOfCoreEngine(TileStore(store.root), EngineConfig(
+        device="cpu")).run(tapps.MultiSourceBFS(sources=(17,)))
+    assert res.history[1].admitted_queries == (2,)
+    assert np.array_equal(res.values[:, 2], fresh.values[:, 0])
 
 
 def test_seg_impl_names(small_store):
@@ -263,8 +285,15 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [["--kernel-autotune"], ["--cluster"],
-                                  ["--checkpoint-dir", "x"], ["--serve"],
-                                  ["--vertex-memory-budget", "10"]])
+                                  ["--checkpoint-dir", "x"], ["--serve"]])
 def test_cli_rejects_flags_outside_the_slice(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
         tgraph.parse_args(argv)
+
+
+@pytest.mark.parametrize("argv", [["--vertex-memory-budget", "10"],
+                                  ["--admit", "1:17,42"]])
+def test_cli_takes_flags_of_this_slice(argv):
+    args = tgraph.parse_args(argv)
+    assert (args.vertex_memory_budget, args.admit) in ((10.0, None),
+                                                       (None, ["1:17,42"]))

@@ -31,9 +31,10 @@ def test_importing_every_module_loads_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     count, names = proc.stdout.splitlines()[0], proc.stdout.splitlines()[1]
-    assert int(count.split()[0]) >= 17
+    assert int(count.split()[0]) >= 19
     for name in ("repro_torch.kernels.compact", "repro_torch.core.distributed",
-                 "repro_torch.core.engine", "repro_torch.kernels.ops"):
+                 "repro_torch.core.engine", "repro_torch.kernels.ops",
+                 "repro_torch.core.vstate", "repro_torch.launch.cluster"):
         assert name in names.split()
 
 
