@@ -118,11 +118,35 @@
     the latter with 64 fused calls a superstep and its budget binding.
     Device bytes outside torch's allocator (the hub scratch) are logged
     around each superstep and each phase 4 fused case.
+13. Device mesh ("mesh"): DistributedGABEngine over a process group of
+    world size 1 on NCCL, all 64 tiles resident on the card: PageRank
+    for 5 supersteps in dense, sparse and hybrid comm (in sparse, the
+    overflow guard sends every superstep past the capacity dense,
+    superstep 0 among them) and MultiSourceBFS at Q = 8 in hybrid to
+    convergence (its late supersteps take the sparse branch: the
+    compact kernel over the 2^25-cell mask, an all_gather, an index
+    put), each equal bit for bit to the tiled run of phases 5 and 8;
+    then world size 2 on gloo with CUDA tensors, two spawned ranks on the
+    one card: a sparse collective on 2^20 cells equal to the merge, and
+    PageRank in hybrid equal to the tiled run (if this torch's gloo
+    refuses CUDA tensors, a line says so and the run goes on).
+14. Cluster ("cluster"): launch.cluster.run_cluster on the card at N = 2
+    and N = 4 (spawned ranks sharing the one card, shm transport,
+    hybrid frames, tile skipping off), one launch per N over PageRank
+    and MultiSourceBFS at Q = 8 whose admit_plan brings phase 12's ninth
+    source in after superstep 1, both for 5 supersteps: every rank's
+    values, supersteps, per-query supersteps and (admitted, retired,
+    updated) per superstep equal one process bit for bit, wire bytes
+    equal across ranks.  Each rank reports its seconds, kernel
+    launches, torch memory and the card's bytes in use, and the
+    exchange's seconds (encode and compress, send, wait for peers,
+    decode, merge) per app.
 
-Phases 5, 6, 8, 9 and 11, the in-memory session of 12 and its
+Phases 5, 6, 8, 9, 11, 13 and 14, the in-memory session of 12 and its
 out-of-core session ("admission ooc") each set every kernel's launch
-counter to 0 just before and read it just after; each must have
-launched the kernels it runs.  The
+counter to 0 just before and read it just after (phase 14's ranks and
+phase 13's gloo ranks count in their processes and report); each must
+have launched the kernels it runs.  The
 ``{"kernels": [...]}`` line gives, per kernel and case, the launches
 summed over those phases and the case's times: segment sum at the largest
 tile for Q = 1 and Q = 8 and at the merged shape, the fused PageRank spec
@@ -1397,6 +1421,345 @@ def admission_phase(torch, store, src, dst, sources, msbfs, levels):
                                         for r in nine]), launches
 
 
+def free_port():
+    """A TCP port on localhost that is free now (for a process group)."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def load_tiles(store):
+    plan = store.load_plan()
+    ind, outd = store.load_degrees()
+    return plan, [store.read_tile(t) for t in range(plan.num_tiles)], ind, outd
+
+
+GLOO_APPS = ("pagerank", "msbfs")
+
+
+def gloo_cuda_refusal(dev, world):
+    """Why this torch's gloo refuses CUDA tensors in the collectives the
+    broadcasts use (all_reduce SUM and MAX, all_gather), or None.  Only
+    gloo's refusal by device type counts; any other error propagates."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.ones(4, device=dev)
+    n = torch.ones(1, dtype=torch.int64, device=dev)
+    i = torch.arange(4, dtype=torch.int32, device=dev)
+    try:
+        dist.all_reduce(x, op=dist.ReduceOp.SUM)
+        dist.all_reduce(n, op=dist.ReduceOp.MAX)
+        dist.all_gather([torch.empty_like(i) for _ in range(world)], i)
+        dist.all_gather([torch.empty_like(x) for _ in range(world)], x)
+    except RuntimeError as exc:
+        if "unsupported device type" not in str(exc):
+            raise
+        return f"{type(exc).__name__}: {exc}"
+    return None
+
+
+def mesh_gloo_worker(rank, world, port, store_root, dev, sources, results):
+    """One rank of the world-size-2 mesh on gloo, both ranks on the one
+    card with CUDA tensors: PageRank (PR_SUPERSTEPS) and MultiSourceBFS at
+    Q = 8 to convergence, both hybrid; the BFS's sparse supersteps launch
+    compact.  Puts (rank, "ok" | "rejected" | "error", payload) on
+    ``results``: "rejected" only where gloo refuses CUDA tensors by device
+    type (``gloo_cuda_refusal``)."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from repro_torch.core.apps import MultiSourceBFS, PageRank
+    from repro_torch.core.distributed import (DistConfig,
+                                              DistributedGABEngine,
+                                              init_process_group)
+    from repro_torch.graphio.formats import TileStore
+
+    try:
+        init_process_group(rank, world, f"tcp://localhost:{port}",
+                           device=dev, backend="gloo")
+        refusal = gloo_cuda_refusal(dev, world)
+        if refusal is not None:
+            results.put((rank, "rejected", refusal))
+            return
+        store = TileStore(store_root)
+        store.load_meta()
+        plan, tiles, ind, outd = load_tiles(store)
+        runs = {}
+        reset_launches()
+        for app, prog, cap in (
+                ("pagerank", PageRank(), PR_SUPERSTEPS),
+                ("msbfs", MultiSourceBFS(sources=sources),
+                 BFS_MAX_SUPERSTEPS)):
+            t0 = time.perf_counter()
+            vals, hist = DistributedGABEngine(None, DistConfig(
+                device=dev)).run(prog, tiles, plan.num_vertices, outd, ind,
+                                 plan.row_cap, max_supersteps=cap)
+            runs[app] = dict(values=vals, history=hist,
+                             seconds=time.perf_counter() - t0)
+        results.put((rank, "ok", dict(runs=runs, launches=read_launches())))
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def mesh_phase(torch, store, pr, msbfs, sources):
+    """Phase 13: DistributedGABEngine at world size 1 on NCCL with all
+    tiles resident: PageRank (PR_SUPERSTEPS) in dense, sparse and hybrid
+    comm, MultiSourceBFS at Q = 8 in hybrid to convergence, each equal
+    bit for bit to the tiled run; then world size 2 on gloo with CUDA
+    tensors, both ranks on the one card (PageRank and MultiSourceBFS at
+    Q = 8, hybrid, each equal to the tiled run bit for bit)."""
+    import multiprocessing as mp
+    import queue
+
+    import torch.distributed as dist
+
+    from repro_torch.core import comm
+    from repro_torch.core.apps import MultiSourceBFS, PageRank
+    from repro_torch.core.distributed import (DistConfig,
+                                              DistributedGABEngine,
+                                              init_process_group)
+
+    plan, tiles, ind, outd = load_tiles(store)
+    nv = plan.num_vertices
+    backend = init_process_group(0, 1, f"tcp://localhost:{free_port()}",
+                                 device=DEV)
+    log(f"mesh: world size 1 on {backend}, {len(tiles)} tiles resident")
+    rows = []
+    launches = {}
+    try:
+        reset_launches()
+        for app, prog, mode, want, cap in (
+                [("pagerank", PageRank(), m, pr, PR_SUPERSTEPS)
+                 for m in ("dense", "sparse", "hybrid")]
+                + [("msbfs", MultiSourceBFS(sources=sources), "hybrid",
+                    msbfs, BFS_MAX_SUPERSTEPS)]):
+            eng = DistributedGABEngine(None, DistConfig(comm_mode=mode,
+                                                        device=DEV))
+            c0 = read_launches()["compact"]
+            t0 = time.perf_counter()
+            vals, hist = eng.run(prog, tiles, nv, outd, ind, plan.row_cap,
+                                 max_supersteps=cap)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            compacts = read_launches()["compact"] - c0
+            del eng
+            torch.cuda.empty_cache()
+            if not (same_bits(vals, want.values)
+                    and len(hist) == want.supersteps):
+                raise AssertionError(f"mesh {app} {mode}: differs from the "
+                                     "tiled run")
+            branches = [h["branch"] for h in hist]
+            if mode == "sparse":
+                # superstep 0 updates every vertex: the overflow guard
+                # sends it dense on every rank
+                cells = nv * getattr(prog, "num_queries", 1)
+                cap_k = comm.sparse_capacity(cells)
+                if not (hist[0]["density"] * cells > cap_k
+                        and branches[0] == "dense"):
+                    raise AssertionError(f"mesh sparse: the overflow guard "
+                                         f"did not fire: {hist[0]}")
+                if any((h["density"] * cells > cap_k) != (b == "dense")
+                       for h, b in zip(hist, branches)):
+                    raise AssertionError(f"mesh sparse: branches {branches}")
+            step_s = [h["seconds"] for h in hist]
+            rows.append(dict(app=app, mode=mode, supersteps=len(hist),
+                             seconds=seconds,
+                             per_superstep_ms=[1e3 * t for t in step_s],
+                             steady_ms=1e3 * float(np.mean(
+                                 step_s[1:] if len(step_s) > 1 else step_s)),
+                             branches=branches,
+                             density=[h["density"] for h in hist],
+                             compact_launches=compacts))
+            log(f"mesh {app} {mode}: {len(hist)} supersteps in {seconds:.1f} "
+                f"s with the tiles' stacking and copy, "
+                f"{rows[-1]['steady_ms']:.1f} ms a superstep steady, branches "
+                f"{branches}, {compacts} compact launches; equal to the tiled "
+                f"run bit for bit")
+        launches["mesh"] = read_launches()
+        require_launches(launches["mesh"], ("gab_fused", "compact"), "mesh")
+    finally:
+        dist.destroy_process_group()
+    del tiles
+
+    # world size 2 on gloo, CUDA tensors, both ranks on the one card
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=mesh_gloo_worker,
+                         args=(r, 2, port, store.root, DEV, sources,
+                               results),
+                         daemon=True)
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    got = {}
+    deadline = time.monotonic() + 300
+    try:
+        while len(got) < len(procs) and time.monotonic() < deadline:
+            try:
+                rank, status, payload = results.get(timeout=5)
+            except queue.Empty:
+                if not any(p.is_alive() for p in procs):
+                    break       # every rank exited; nothing more will come
+                continue
+            got[rank] = (status, payload)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    errors = {r: p for r, (st, p) in got.items() if st == "error"}
+    if errors or len(got) != 2:
+        raise AssertionError(f"mesh gloo world 2: {errors or got}")
+    gloo = dict(status=sorted({st for st, _ in got.values()}))
+    if "rejected" in gloo["status"]:
+        gloo["rejected"] = {r: p for r, (st, p) in got.items()
+                            if st == "rejected"}
+        log(f"mesh gloo world 2: this torch's gloo rejects CUDA tensors in "
+            f"a collective: {gloo['rejected']}")
+    else:
+        for app, want in zip(GLOO_APPS, (pr, msbfs)):
+            for r, (_, p) in got.items():
+                run = p["runs"][app]
+                if not (same_bits(run["values"], want.values)
+                        and len(run["history"]) == want.supersteps):
+                    raise AssertionError(f"mesh gloo rank {r}: {app} differs "
+                                         "from the tiled run")
+            step_s = [h["seconds"] for h in got[0][1]["runs"][app]["history"]]
+            gloo[app] = dict(
+                seconds=[got[r][1]["runs"][app]["seconds"] for r in (0, 1)],
+                branches=[h["branch"]
+                          for h in got[0][1]["runs"][app]["history"]],
+                per_superstep_ms=[1e3 * t for t in step_s],
+                steady_ms=1e3 * float(np.mean(
+                    step_s[1:] if len(step_s) > 1 else step_s)))
+        launches["mesh gloo"] = {
+            k: sum(got[r][1]["launches"][k] for r in (0, 1))
+            for k in got[0][1]["launches"]}
+        require_launches(launches["mesh gloo"], ("gab_fused", "compact"),
+                         "mesh gloo")
+        log(f"mesh gloo world 2 (CUDA tensors, one card): pagerank and msbfs "
+            f"Q = {len(sources)} equal to the tiled runs bit for bit; "
+            + ", ".join(f"{a} {gloo[a]['steady_ms']:.1f} ms a superstep "
+                        f"steady, branches {gloo[a]['branches']}"
+                        for a in GLOO_APPS))
+    return dict(runs=rows, gloo_world2=gloo), launches
+
+
+def cluster_phase(torch, store, pr, sources, s9):
+    """Phase 14: run_cluster on the card at N = 2 and N = 4, shm
+    transport, hybrid comm, one launch per N: PageRank and MultiSourceBFS
+    at Q = 8 whose admit_plan brings s9 in after superstep 1, both capped
+    at PR_SUPERSTEPS (one launch shares the engine's cap), each rank
+    equal bit for bit to the single-process engine, the admitted column
+    spliced at the same barrier on every rank."""
+    from repro_torch.core.apps import MultiSourceBFS, PageRank
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.launch.cluster import ClusterConfig, run_cluster
+
+    plan = ((1, (s9,)),)
+    q = len(sources)
+    # one process for the batched app at the same cap (PageRank is phase
+    # 5's tiled run): the cluster's N = 1
+    t0 = time.perf_counter()
+    single = engine(store, tile_skipping=False, admit_plan=plan).run(
+        MultiSourceBFS(sources=sources), max_supersteps=PR_SUPERSTEPS)
+    log(f"cluster reference (one process): msbfs {PR_SUPERSTEPS} "
+        f"supersteps in {time.perf_counter() - t0:.1f} s, admitted "
+        f"{[h.admitted_queries for h in single.history]}")
+    if single.history[1].admitted_queries != (q,):
+        raise AssertionError("cluster reference: the ninth query was not "
+                             "admitted after superstep 1")
+    out, launches = [], {}
+    for n in (2, 4):
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        parent_used = total - free     # this process's share of the card
+        ecfg = EngineConfig(seg_impl="fused", tile_skipping=False,
+                            admit_plan=plan, max_supersteps=PR_SUPERSTEPS)
+        progs = [PageRank(), MultiSourceBFS(sources=sources)]
+        t0 = time.perf_counter()
+        res = run_cluster(store.root, progs, ClusterConfig(
+            num_servers=n, device=DEV, engine=ecfg,
+            launch_timeout_seconds=600))
+        wall = time.perf_counter() - t0
+        for a, want in enumerate((pr, single)):
+            for r in range(n):
+                got = res.rank_results[r][a]
+
+                def events(run):
+                    return [(x.admitted_queries, x.retired_queries,
+                             x.updated_vertices) for x in run.history]
+
+                if not (same_bits(got.values, want.values)
+                        and got.supersteps == want.supersteps
+                        and (a == 0 or np.array_equal(
+                            got.per_query_supersteps,
+                            want.per_query_supersteps))
+                        and events(got) == events(want)):
+                    raise AssertionError(f"cluster N={n} rank {r} app {a}: "
+                                         "differs from one process")
+                if ([x.wire_bytes for x in got.history]
+                        != [x.wire_bytes for x in
+                            res.rank_results[0][a].history]):
+                    raise AssertionError(f"cluster N={n} rank {r}: wire "
+                                         "bytes differ from rank 0's")
+        launches[f"cluster N={n}"] = {
+            k: sum(rep["launches"][k] for rep in res.rank_reports)
+            for k in res.rank_reports[0]["launches"]}
+        require_launches(launches[f"cluster N={n}"], ("gab_fused",),
+                         f"cluster N={n}")
+        # the ranks report at their last barrier, all alive: what the card
+        # holds beyond this process and the ranks' torch pools is their
+        # CUDA contexts and hub scratch
+        reps = res.rank_reports
+        outside = (max(r["card_used_bytes"] for r in reps) - parent_used
+                   - sum(r["torch_reserved_bytes"] for r in reps)) / n
+        row = dict(n=n, wall_s=wall, reports=reps, apps=[],
+                   parent_card_bytes=parent_used,
+                   outside_torch_bytes_per_rank=outside)
+        for a, name in enumerate(("pagerank", f"msbfs Q={q}+1")):
+            res_a = res.results[a]
+            row["apps"].append(dict(
+                app=name, supersteps=res_a.supersteps,
+                steady_ms=steady_ms(res_a),
+                per_superstep_ms=[1e3 * x.seconds for x in res_a.history],
+                wire_bytes=[x.wire_bytes for x in res_a.history],
+                raw_bytes=[x.raw_bytes for x in res_a.history],
+                admitted=[list(x.admitted_queries) for x in res_a.history],
+                exchange_seconds=[rep["exchange_seconds"][a]
+                                  for rep in res.rank_reports]))
+            ex = res.rank_reports[0]["exchange_seconds"][a]
+            log(f"cluster N={n} {name}: {res_a.supersteps} supersteps, "
+                f"{steady_ms(res_a):.1f} ms a superstep steady, wire "
+                f"{[x.wire_bytes for x in res_a.history]} B; rank 0 "
+                f"exchange " + ", ".join(f"{k.removeprefix('exchange_')} "
+                                         f"{v:.2f} s" for k, v in ex.items()))
+        for rep in res.rank_reports:
+            log(f"  rank {rep['rank']} on {rep['device']}: {rep['seconds']:.1f}"
+                f" s, sent {rep['wire_bytes']} B, launches {rep['launches']}, "
+                f"torch reserved {rep.get('torch_reserved_bytes')} B, card "
+                f"in use {rep.get('card_used_bytes')} B")
+        log(f"cluster N={n}: {outside / 2**20:.0f} MiB a rank outside torch's "
+            f"allocator (context, hub scratch; this process held "
+            f"{parent_used / 2**20:.0f} MiB of the card)")
+        log(f"cluster N={n}: {wall:.1f} s for the launch; every rank equal "
+            f"to one process bit for bit, the admitted column spliced after "
+            f"superstep 1 on every rank")
+        out.append(row)
+    return dict(single_msbfs=app_summary(f"msbfs Q={q}+1 one process",
+                                         single),
+                runs=out), launches
+
+
 def kernel_entry(name, source, replaces, launches, err, row, case):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=row["kernel_ms"],
@@ -1504,12 +1867,20 @@ def main():
             torch, store, src, dst, sources, msbfs, levels)
         ooc_rows.append(admission["ooc"])
         mark("admission", t0)
+        t0 = time.perf_counter()
+        mesh, mesh_launches = mesh_phase(torch, store, pr, msbfs, sources)
+        mark("mesh", t0)
+        t0 = time.perf_counter()
+        cluster, cluster_launches = cluster_phase(torch, store, pr, sources,
+                                                  admission["s9"])
+        mark("cluster", t0)
     finally:
         shutil.rmtree(store_root, ignore_errors=True)
 
     paths = {"main path": main_launches, "compact path": compact_launches,
              "batched apps": batched_launches, "modes": mode_launches,
-             "ooc": ooc_launches, **admission_launches}
+             "ooc": ooc_launches, **admission_launches, **mesh_launches,
+             **cluster_launches}
     total = {k: sum(p[k] for p in paths.values()) for k in main_launches}
     log(f"launches by path: {paths}; total {total}")
     seg_src = ("segment_reduce",
@@ -1568,6 +1939,7 @@ def main():
                        profile=prof, profile_msbfs=prof_q,
                        footprints=footprints, ooc=ooc_rows,
                        profile_ooc=prof_ooc, admission=admission,
+                       mesh=mesh, cluster=cluster,
                        launches_by_path=paths, kernels=kernels,
                        phase_seconds=phase_s, seconds=seconds), f, indent=1)
     log(f"total {seconds:.1f} s")

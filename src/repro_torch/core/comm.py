@@ -1,19 +1,29 @@
-"""Hybrid communication (paper §III-D-3) — the host half.
+"""Hybrid communication (paper §III-D-3).
 
 Dense mode ships a |V| value array (+ update bitvector); sparse mode ships
 (index, value) pairs for updated vertices only.  The paper switches to
 sparse when the updated ratio drops below a threshold (0.4), and compresses
 payloads (snappy by default).
 
-This is the host accounting the out-of-core engine uses to measure real
-payload bytes per superstep, including real compression of the actual
-buffers (paper Fig. 9) — inline, or on a small executor that overlaps
-compression with the next server's compute (pipelined engine) — plus the
-session admission records.  It is numpy throughout and matches
-``repro/core/comm.py`` byte for byte, for ``[V]`` and multi-query
-``[V, Q]`` payloads alike, and for the out-of-core engine's
-per-dirty-interval payloads.  The device collectives
-(``hybrid_broadcast`` and friends) are ROADMAP.md queue A.8.
+Two layers:
+
+  * host accounting (``plan_broadcast``/``plan_broadcast_intervals``) —
+    what the out-of-core engine uses to measure real payload bytes per
+    superstep, including real compression of the actual buffers (paper
+    Fig. 9), inline or on a small executor that overlaps compression with
+    the next server's compute (pipelined engine).  It is numpy throughout
+    and matches ``repro/core/comm.py`` byte for byte, for ``[V]`` and
+    multi-query ``[V, Q]`` payloads alike, and for the out-of-core
+    engine's per-dirty-interval payloads; the same payload encoders and
+    decoders are the wire formats ``core/transport.py`` ships between
+    server processes.  Plus the session admission records.
+  * device collectives (``hybrid_broadcast``) over ``torch.distributed``
+    on an explicit process group: dense = ``all_reduce`` SUM of the
+    masked new values and of the update flags; sparse = the ``compact``
+    kernel's fixed-capacity (index, value) list, ``all_gather``-ed and
+    scattered into a buffer padded by one sink row; hybrid picks from the
+    global update count, summed exactly in int64 and read on the host.
+    Value payloads can be narrowed (``value_dtype``, e.g. bfloat16).
 """
 from __future__ import annotations
 
@@ -24,9 +34,12 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch import compat
 from repro_torch.graphio import formats
+from repro_torch.kernels import ops
 
 DENSITY_THRESHOLD = 0.4  # paper's sparsity switch point
 
@@ -354,6 +367,137 @@ def sparse_capacity(num_vertices: int, threshold: float = DENSITY_THRESHOLD,
     up to ``align``, at most V)."""
     k = int(np.ceil(num_vertices * threshold))
     return min(num_vertices, ((k + align - 1) // align) * align)
+
+
+def dense_broadcast(old: torch.Tensor, new_masked: torch.Tensor,
+                    updated: torch.Tensor, group=None) -> torch.Tensor:
+    """Dense mode: ``all_reduce`` SUM of the new values and of the update
+    flags over ``group``, then ``where(count > 0, values, old)``.  Tiles
+    own disjoint rows, so at most one rank contributes per cell.  The
+    cells a rank did not update enter the sum as -0.0, which adds exactly
+    to every float (x + -0.0 == x for -0.0, +-inf and NaN too), so the
+    broadcast value is the owner's bits.  (Masked values rather than
+    additive deltas: +-inf-valued programs like SSSP would give inf-inf =
+    NaN.)  Elementwise, so ``[V]`` and ``[V, Q]`` alike."""
+    vals = torch.where(updated, new_masked,
+                       torch.full_like(new_masked, -0.0))
+    dist.all_reduce(vals, op=dist.ReduceOp.SUM, group=group)
+    cnt = updated.to(torch.int32)
+    dist.all_reduce(cnt, op=dist.ReduceOp.SUM, group=group)
+    return torch.where(cnt > 0, vals, old)
+
+
+def sparse_broadcast(old: torch.Tensor, new_masked: torch.Tensor,
+                     updated: torch.Tensor, capacity: int, group=None,
+                     value_dtype=None) -> torch.Tensor:
+    """Sparse mode: compact (index, new value), ``all_gather``,
+    scatter-set.
+
+    The fixed-capacity compaction keeps only the first ``capacity``
+    updates of a rank; under forced ``mode="sparse"`` nothing upstream
+    bounds the count (the hybrid switch does).  So the overflow check is
+    *global* — ``all_reduce`` MAX of the per-rank update counts — and
+    every rank takes the same branch, which keeps the collectives
+    matched: on overflow the whole step is a dense broadcast instead of
+    dropping updates.  ``[V, Q]`` inputs flatten to ``V * Q`` cells, and
+    ``capacity`` then bounds flat cell updates."""
+    if old.ndim > 1:
+        return sparse_broadcast(
+            old.reshape(-1), new_masked.reshape(-1), updated.reshape(-1),
+            capacity, group, value_dtype).reshape(old.shape)
+    return _guarded_sparse(old, new_masked, updated, capacity, group,
+                           value_dtype)[0]
+
+
+def _guarded_sparse(old, new_masked, updated, capacity, group, value_dtype):
+    """:func:`sparse_broadcast` on 1-D cells; returns (values, the branch
+    taken: ``"sparse"``, or ``"dense"`` when the guard fired)."""
+    if capacity >= old.shape[0]:     # cannot truncate: no guard
+        return _sparse_broadcast_unchecked(old, new_masked, updated,
+                                           capacity, group,
+                                           value_dtype), "sparse"
+    count = updated.sum(dtype=torch.int64).reshape(1)
+    dist.all_reduce(count, op=dist.ReduceOp.MAX, group=group)
+    if int(count.item()) > capacity:
+        return dense_broadcast(old, new_masked, updated, group), "dense"
+    return _sparse_broadcast_unchecked(old, new_masked, updated, capacity,
+                                       group, value_dtype), "sparse"
+
+
+def _sparse_broadcast_unchecked(old: torch.Tensor, new_masked: torch.Tensor,
+                                updated: torch.Tensor, capacity: int,
+                                group=None, value_dtype=None) -> torch.Tensor:
+    nv = old.shape[0]
+    # the first `capacity` updated cells, ascending, and their values;
+    # unused slots hold (nv, 0) — the compact kernel on a CUDA tensor
+    idx, vals = ops.compact(updated.contiguous(), new_masked.contiguous(),
+                            capacity, fill_index=nv)
+    if value_dtype is not None:
+        vals = vals.to(value_dtype).to(old.dtype)
+    world = dist.get_world_size(group)
+    all_idx = [torch.empty_like(idx) for _ in range(world)]
+    all_val = [torch.empty_like(vals) for _ in range(world)]
+    dist.all_gather(all_idx, idx, group=group)
+    dist.all_gather(all_val, vals, group=group)
+    # fill slots land in the sink row of a padded buffer; only that row
+    # receives duplicate indices, all writing 0, so a plain index put
+    out = torch.cat([old, old.new_zeros(1)])
+    out[torch.cat(all_idx).long()] = torch.cat(all_val).to(old.dtype)
+    return out[:nv]
+
+
+def hybrid_broadcast(
+    old: torch.Tensor,
+    new_masked: torch.Tensor,
+    updated: torch.Tensor,
+    group=None,
+    capacity: Optional[int] = None,
+    threshold: float = DENSITY_THRESHOLD,
+    mode: str = "hybrid",
+    value_dtype=None,
+) -> tuple[torch.Tensor, float, str]:
+    """Returns (new values replicated on every rank, global update
+    density, the branch taken: ``"dense"`` or ``"sparse"``).
+
+    ``mode="hybrid"`` follows the paper: ``all_reduce`` SUM of the update
+    count, density = global count / cells, then dense at density >=
+    ``threshold`` and sparse below it, the same branch on every rank.
+    The count is int64 and crosses to the host (``.item()``), the one
+    synchronisation the choice needs.  ``[V, Q]`` state flattens to
+    ``V * Q`` cells (density and capacity count (vertex, query) cells)
+    and the result is reshaped back."""
+    if mode not in ("dense", "sparse", "hybrid"):
+        raise ValueError(f"comm mode {mode!r}: dense, sparse or hybrid")
+    if old.ndim > 1:
+        out, density, branch = hybrid_broadcast(
+            old.reshape(-1), new_masked.reshape(-1), updated.reshape(-1),
+            group, capacity=capacity, threshold=threshold, mode=mode,
+            value_dtype=value_dtype)
+        return out.reshape(old.shape), density, branch
+    nv = old.shape[0]
+    capacity = capacity or sparse_capacity(nv, threshold)
+    count = updated.sum(dtype=torch.int64).reshape(1)
+    dist.all_reduce(count, op=dist.ReduceOp.SUM, group=group)
+    density = int(count.item()) / max(nv, 1)
+
+    if mode == "sparse":
+        out, branch = _guarded_sparse(old, new_masked, updated, capacity,
+                                      group, value_dtype)
+        return out, density, branch
+    if mode == "dense" or density >= threshold:
+        return dense_broadcast(old, new_masked, updated, group), density, \
+            "dense"
+    # Unchecked is safe only when capacity covers the density switch point:
+    # the sparse branch then runs only at global density < threshold, and
+    # capacity >= ceil(threshold * nv) bounds every local update count.  A
+    # caller-supplied smaller capacity keeps the overflow guard.
+    if capacity >= int(np.ceil(nv * threshold)):
+        return _sparse_broadcast_unchecked(old, new_masked, updated,
+                                           capacity, group,
+                                           value_dtype), density, "sparse"
+    out, branch = _guarded_sparse(old, new_masked, updated, capacity, group,
+                                  value_dtype)
+    return out, density, branch
 
 
 def wire_bytes_estimate(num_vertices: int, density: float, itemsize: int = 4,

@@ -5,7 +5,12 @@ behaviour: tiles live in the TileStore (disk tier), each server owns a
 round-robin tile subset and an EdgeCache over "idle" memory, vertex state
 is fully replicated (All-in-All) on the host, and the per-superstep
 Broadcast payloads are measured (and actually compressed) through
-core.comm.  Each superstep copies the values to the device once.
+core.comm.  Each superstep copies the values to the device once.  With
+``EngineConfig.server_rank`` and a ``distributed.ClusterExchange`` the
+engine is instead one real server of an N-process cluster
+(``launch/cluster.py``): it runs its own tile share and merges the peers'
+updates at the barrier through the exchange, bit-identical to the
+emulation.
 
 Three engine modes compute a server's tiles, with identical results:
 
@@ -134,7 +139,11 @@ class EngineConfig:
     # tiles and source intervals (cache-hit-first while footprints are
     # unknown, in superstep 0)
     interval_aware_order: bool = True
-    server_rank: Optional[int] = None       # ROADMAP.md A.9
+    # when set, this engine is ONE server of an N-server cluster: it runs
+    # only rank ``server_rank`` of the stage-2 assignment and merges the
+    # other servers' updates through the ClusterExchange passed to the
+    # constructor.  None = one process emulating all N servers.
+    server_rank: Optional[int] = None
     checkpoint_dir: Optional[str] = None    # ROADMAP.md A.10
     checkpoint_every: int = 0
     checkpoint_keep: int = 2
@@ -158,8 +167,6 @@ class EngineConfig:
              "kernel_autotune=True (roofline/kernel_tune.py)", "A.12"),
             (self.kernel_blocks is not None,
              "kernel_blocks (roofline/kernel_tune.py)", "A.12"),
-            (self.server_rank is not None,
-             "server_rank (cluster runtime)", "A.9"),
             (self.checkpoint_dir is not None, "checkpoint_dir", "A.10"),
             (self.resume, "resume=True", "A.10"),
             (self.preemptible, "preemptible=True", "A.10"),
@@ -260,10 +267,19 @@ class RunResult:
 
 
 class OutOfCoreEngine:
-    """The out-of-core superstep engine (see module docstring), emulating
-    all ``cfg.num_servers`` servers in one process."""
+    """The out-of-core superstep engine (see module docstring).
 
-    def __init__(self, store: TileStore, config: EngineConfig = EngineConfig()):
+    One instance either emulates all ``cfg.num_servers`` servers in one
+    process or — with ``cfg.server_rank`` set and a
+    ``distributed.ClusterExchange`` passed as ``exchange`` (or assigned to
+    ``engine.exchange`` before a run) — acts as one real server of a
+    multi-process cluster, merging peer updates at the BSP barrier
+    through the exchange.  Results are bit-identical either way: tiles
+    own disjoint dst rows, the per-tile math is the same kernel, and
+    update value bytes round-trip the wire exactly."""
+
+    def __init__(self, store: TileStore, config: EngineConfig = EngineConfig(),
+                 exchange=None):
         problems = config.unsupported()
         if problems:
             raise NotImplementedError("; ".join(problems))
@@ -288,7 +304,15 @@ class OutOfCoreEngine:
             self.assignment = assign_tiles_balanced(self.plan.edges_per_tile, N)
         else:
             self.assignment = assign_tiles(P, N)
-        self.exec_servers = list(range(N))
+        # cluster mode: this process executes exactly one server's share
+        if config.server_rank is not None:
+            if not 0 <= config.server_rank < N:
+                raise ValueError(
+                    f"server_rank {config.server_rank} outside 0..{N - 1}")
+            self.exec_servers = [config.server_rank]
+        else:
+            self.exec_servers = list(range(N))
+        self.exchange = exchange
 
         # Per-server edge caches (paper: idle memory on each server).
         if config.cache_mode == "auto":
@@ -334,6 +358,21 @@ class OutOfCoreEngine:
         self._vs_faults_cum = 0
         self._vs_load_cum = 0
         self._vs_spill_cum = 0
+
+    @property
+    def exchange(self):
+        """The ``ClusterExchange`` this server merges its peers through at
+        the barrier, or None."""
+        return self._exchange
+
+    @exchange.setter
+    def exchange(self, exchange):
+        # the barrier ships per_server_updates[0]: one executed server
+        if exchange is not None and len(self.exec_servers) != 1:
+            raise ValueError(
+                "a ClusterExchange needs exactly one executed server per "
+                "process — set cfg.server_rank (or num_servers=1)")
+        self._exchange = exchange
 
     # ------------------------------------------------------------------
     def kernel_plan(self, prog) -> tuple[str, int]:
@@ -834,6 +873,11 @@ class EngineSession:
        runs every tile (``_force_full``), since the skip filters have not
        seen the new column.
 
+    In cluster mode rank 0 collects the drains and admissions before the
+    exchange and ships them in its frame; every rank settles that record
+    after its natural retirement, so the columns spliced, and the slots
+    they fill, are the same on every rank and in every mode.
+
     Thread safety: ``admit()``/``drain()`` may be called from any thread
     while ``step()`` runs; ``step()``/``result()`` from one driver
     thread.
@@ -954,9 +998,13 @@ class EngineSession:
     def admit(self, seeds) -> list[int]:
         """Queue fresh queries (seed vertices) for admission at the next
         barrier; returns their global qids.  Thread-safe.  Queries beyond
-        the free ``q_slots`` stay queued until retirement frees slots."""
+        the free ``q_slots`` stay queued until retirement frees slots.
+        Cluster mode: rank 0 only (peers follow its control record)."""
         if not self.multi_q:
             raise RuntimeError("admission needs a batched [V, Q] program")
+        if self.eng.exchange is not None and self.eng.exchange.rank != 0:
+            raise RuntimeError("cluster admissions originate at rank 0 — "
+                               "peers splice from the control record")
         if self.finished:
             raise RuntimeError("session is finished")
         with self._lock:
@@ -1103,9 +1151,11 @@ class EngineSession:
                 run_list = []
                 for tid in server_tiles:
                     f = eng._filters[tid]
-                    hit = (f.intersects(active_words)
-                           if cfg.skip_filter == "bitmap"
-                           else f.might_contain_any(self.updated_ids))
+                    # a tile stolen from a peer has no filter here: run it
+                    hit = (f is None
+                           or (f.intersects(active_words)
+                               if cfg.skip_filter == "bitmap"
+                               else f.might_contain_any(self.updated_ids)))
                     if hit:
                         run_list.append(tid)
                     else:
@@ -1180,45 +1230,80 @@ class EngineSession:
             upd_val_parts.append(sv)
             if multi_q:
                 upd_msk_parts.append(sm)
-            if cfg.pipeline and sample:
+            if cfg.pipeline and sample and eng.exchange is None:
                 # overlap this server's payload compression with the next
                 # server's compute; the records are collected at the barrier
+                # (cluster mode measures the frames that travel instead)
                 bcast_futures[s] = eng._measure_broadcast(
                     si, sv, sm, nv, qa, vdtype, background=True)
 
+        if not run_compute:
+            for _ in eng.exec_servers:
+                per_server_updates.append((np.zeros(0, np.int64),
+                                           np.zeros((0, qa), vdtype),
+                                           np.zeros((0, qa), dtype=bool)))
+
+        own_tiles = [t for s in eng.exec_servers for t in eng.assignment[s]]
         if building_filters and all(filters[t] is not None
-                                    for t in range(eng.plan.num_tiles)):
+                                    for t in own_tiles):
             eng._filters = filters
             self.building_filters = False
 
         # --- Broadcast (BSP barrier): measure payloads, apply updates ---
         raw_b = wire_b = 0
-        for s, (si, sv, sm) in zip(eng.exec_servers, per_server_updates):
-            if sample:
-                rec = (bcast_futures[s].result() if s in bcast_futures
-                       else eng._measure_broadcast(si, sv, sm, nv, qa,
-                                                   vdtype))
-                raw_b += rec.raw_bytes
-                wire_b += rec.wire_bytes
-            else:
-                pairs = int(sm.sum()) if sm is not None else len(si)
-                n_eff = nv * qa
-                est = comm.wire_bytes_estimate(
-                    n_eff, pairs / max(n_eff, 1),
-                    # 2-D sparse payloads pack (vertex, query) u32 pairs
-                    index_bytes=8 if sm is not None else 4)
-                raw_b += est
-                wire_b += int(est * eng._wire_ratio)
-        if sample and raw_b:
-            eng._wire_ratio = wire_b / raw_b
-        all_idx = (np.concatenate(upd_idx_parts) if upd_idx_parts
-                   else np.zeros(0, np.int64))
-        all_val = (np.concatenate(upd_val_parts) if upd_val_parts
-                   else np.zeros((0, qa) if multi_q else (0,), vdtype))
-        all_msk = None
+        control = None
+        if eng.exchange is not None:
+            # cluster mode: ship this server's updates through the real
+            # transport and merge every peer's frame — the exchange IS the
+            # global barrier, and the byte counts are the frames that
+            # travelled.  Rank 0's admission/drain record rides its frame:
+            # collected before the exchange, settled against this
+            # barrier's retirement by every rank below.
+            if eng.exchange.rank == 0:
+                control = self._collect_control(ss)
+            si, sv, sm = per_server_updates[0]
+            xr = eng.exchange.exchange(
+                idx=si, vals=sv, mask=sm, nv=nv,
+                splitter=eng._iv_splitter if ooc else None,
+                compute_seconds=comp_s, control=control)
+            control = xr.control
+            all_idx, all_val, all_msk = xr.idx, xr.vals, xr.mask
+            raw_b, wire_b = xr.raw_bytes, xr.wire_bytes
+            if xr.assignment is not None:
+                # cross-server tile stealing: every server derived the
+                # same new ownership from the same replicated timings
+                eng.assignment = [list(a) for a in xr.assignment]
+        else:
+            for s, (si, sv, sm) in zip(eng.exec_servers,
+                                       per_server_updates):
+                if not run_compute:
+                    break
+                if sample:
+                    rec = (bcast_futures[s].result() if s in bcast_futures
+                           else eng._measure_broadcast(si, sv, sm, nv, qa,
+                                                       vdtype))
+                    raw_b += rec.raw_bytes
+                    wire_b += rec.wire_bytes
+                else:
+                    pairs = int(sm.sum()) if sm is not None else len(si)
+                    n_eff = nv * qa
+                    est = comm.wire_bytes_estimate(
+                        n_eff, pairs / max(n_eff, 1),
+                        # 2-D sparse payloads pack (vertex, query) u32 pairs
+                        index_bytes=8 if sm is not None else 4)
+                    raw_b += est
+                    wire_b += int(est * eng._wire_ratio)
+            if sample and raw_b:
+                eng._wire_ratio = wire_b / raw_b
+            all_idx = (np.concatenate(upd_idx_parts) if upd_idx_parts
+                       else np.zeros(0, np.int64))
+            all_val = (np.concatenate(upd_val_parts) if upd_val_parts
+                       else np.zeros((0, qa) if multi_q else (0,), vdtype))
+            all_msk = None
+            if multi_q:
+                all_msk = (np.concatenate(upd_msk_parts) if upd_msk_parts
+                           else np.zeros((0, qa), dtype=bool))
         if multi_q:
-            all_msk = (np.concatenate(upd_msk_parts) if upd_msk_parts
-                       else np.zeros((0, qa), dtype=bool))
             upd_per_q = all_msk.sum(axis=0)
             updated_pairs = int(all_msk.sum())
         else:
@@ -1292,13 +1377,13 @@ class EngineSession:
                        for g, n in zip(self.active_q, upd_per_q)}
             done = np.nonzero(upd_per_q == 0)[0]
             retired = tuple(int(self.active_q[c]) for c in done)
-            # collected after retirement: a slot freed at this barrier
-            # refills at this same barrier
-            control = self._collect_control(
-                ss, qa - len(done), set(self.active_queries), set(retired))
-            ctl_admit, ctl_drain, ctl_pending = comm.unpack_admissions(
-                control)
+            if eng.exchange is None:
+                control = self._collect_control(ss)
+            # settled after retirement, in every mode: a slot freed at
+            # this barrier refills at this same barrier
             live = set(self.active_queries) - set(retired)
+            ctl_admit, ctl_drain, ctl_pending = self._settle_control(
+                control, live)
             drained = tuple(g for g in ctl_drain if g in live)
             freeze = sorted(set(int(c) for c in done)
                             | {int(np.nonzero(self.active_q == g)[0][0])
@@ -1346,8 +1431,11 @@ class EngineSession:
                           else len(all_idx) == 0)
         self._ss = ss + 1
         with self._lock:
+            # in cluster mode every rank reads the backlog from the same
+            # record; rank 0's queue may already hold a later admit()
             backlog = (bool(self._plan_pending) or ctl_pending > 0
-                       or bool(self._admit_queue))
+                       or (eng.exchange is None
+                           and bool(self._admit_queue)))
         self.finished = ((self.converged and not backlog)
                          or self._ss >= self.max_ss)
         return stats
@@ -1410,34 +1498,49 @@ class EngineSession:
                     self.aux_dev[k] = self._to_device(self.aux_np[k])
         self.active_q = self.active_q[keep]
 
-    def _collect_control(self, ss: int, live_base: int, active_set: set,
-                         retired_set: set) -> Optional[dict]:
-        """This barrier's admission/drain record.  ``live_base`` is the
-        column count that survives this barrier's natural retirement;
-        ``admit_plan`` entries due now fire first and bypass the slot cap,
-        then queued admissions fill the remaining free slots."""
+    def _collect_control(self, ss: int) -> Optional[dict]:
+        """This barrier's admission/drain record, before its retirement is
+        known: the drains asked for, the ``admit_plan`` entries due now
+        (they bypass the slot cap) and, under ``queued``, the queued
+        ``admit()`` seeds that could fill a slot (at most ``q_slots``),
+        with the queue's length as ``pending``.  The classic engine and
+        cluster rank 0 collect; :meth:`_settle_control` decides on every
+        rank how many queued seeds fit."""
         if not self.multi_q:
             return None
         with self._lock:
-            drains: list[int] = []
-            for g in self._drain_queue:
-                if g not in drains:
-                    drains.append(g)
+            drains = list(dict.fromkeys(self._drain_queue))
             self._drain_queue.clear()
-            live_drains = [g for g in drains
-                           if g in active_set and g not in retired_set]
             admit: list[tuple[int, int]] = []
             for after, seeds in self._plan_pending:
                 if after == ss:
                     for s in seeds:
                         admit.append((self.next_qid, int(s)))
                         self.next_qid += 1
-            free = self.q_slots - (live_base - len(live_drains))
-            while self._admit_queue and free > 0:
-                admit.append(self._admit_queue.pop(0))
-                free -= 1
-            return comm.pack_admissions(admit, drains,
-                                        len(self._admit_queue))
+            queued = self._admit_queue[: self.q_slots]
+            record = comm.pack_admissions(admit, drains,
+                                          len(self._admit_queue))
+        if queued:
+            record["queued"] = [[int(g), int(s)] for g, s in queued]
+        return record
+
+    def _settle_control(self, control: Optional[dict],
+                        live: set) -> tuple[list, list, int]:
+        """Resolve a barrier's record against its natural retirement
+        (``live``: the columns that survive it), the same on every rank:
+        drains of live columns free their slots, then queued seeds fill
+        the free ones.  Returns (admissions, drains, seeds still queued);
+        the admitted seeds leave the queue they were collected from (a
+        cluster peer's queue is empty: ``admit()`` raises there)."""
+        admit, drain, pending = comm.unpack_admissions(control)
+        queued = [(int(g), int(s))
+                  for g, s in (control or {}).get("queued", ())]
+        live_drains = [g for g in drain if g in live]
+        free = self.q_slots - (len(live) - len(live_drains))
+        taken = queued[: max(0, free)]
+        with self._lock:
+            del self._admit_queue[: len(taken)]
+        return admit + taken, drain, pending - len(taken)
 
     def _apply_admissions(self, admit: list, ss: int) -> None:
         """Splice freshly admitted query columns into the live state — the

@@ -8,10 +8,11 @@ in-process engine, serial or ``--pipeline``, all eight apps (``ppr``,
 ``msbfs`` and ``landmarks`` run ``--queries``/``--seeds`` query columns in
 one edge pass, and ``--admit`` splices more in mid-run), the cache
 policies, the out-of-core vertex state (``--vertex-memory-budget``,
-``--num-intervals``, ``--no-interval-order``) — plus ``--device``
-(default ``cuda``).  The reference's other
-flags are accepted and rejected with ``NotImplementedError`` naming their
-ROADMAP.md queue item.
+``--num-intervals``, ``--no-interval-order``), ``--cluster`` (``--servers``
+as real server processes, ``launch/cluster.py``, over ``--transport``,
+with ``--steal`` and ``--verify-clean``) — plus ``--device`` (default
+``cuda``).  The reference's other flags are accepted and rejected with
+``NotImplementedError`` naming their ROADMAP.md queue item.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ from repro_torch.launch.cluster import parse_admit_plan
 
 # reference flags outside the slice -> the ROADMAP.md queue item bringing them
 _LATER_FLAGS = {
-    "kernel_autotune": "A.12", "cluster": "A.9", "checkpoint_dir": "A.10",
+    "kernel_autotune": "A.12", "checkpoint_dir": "A.10",
     "resume": "A.10", "preemptible": "A.10", "inject": "A.10",
     "serve": "A.11", "serve_http": "A.11",
 }
@@ -132,7 +133,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="torch device the tiles compute on (cpu runs the "
                          "kernels' plain versions)")
-    for flag in ("--kernel-autotune", "--cluster", "--resume",
+    ap.add_argument("--cluster", action="store_true",
+                    help="run --servers as N real server processes "
+                         "exchanging updates over --transport instead of "
+                         "emulating them in one process")
+    ap.add_argument("--transport", default="shm", choices=["shm", "tcp"],
+                    help="cluster transport: shared-memory ring (one "
+                         "host) or TCP sockets (rendezvous via a shared "
+                         "filesystem)")
+    ap.add_argument("--steal", action="store_true",
+                    help="cluster mode: cross-server tile stealing "
+                         "between supersteps (runtime.scheduler)")
+    ap.add_argument("--verify-clean", action="store_true",
+                    help="cluster mode: diff the run against a "
+                         "single-process rerun")
+    for flag in ("--kernel-autotune", "--resume",
                  "--preemptible", "--serve", "--serve-http"):
         ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--checkpoint-dir", default=None, help=argparse.SUPPRESS)
@@ -146,10 +161,52 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def _cluster_argv(args) -> list[str]:
+    """The ``launch/cluster.py`` command line for a ``--cluster`` run."""
+    argv = ["--app", args.app, "--graph", args.graph,
+            "--vertices", str(args.vertices), "--edges", str(args.edges),
+            "--tile-size", str(args.tile_size),
+            "--servers", str(args.servers), "--transport", args.transport,
+            "--supersteps", str(args.supersteps),
+            "--comm-mode", args.comm_mode, "--cache-mb", str(args.cache_mb),
+            "--cache-mode", str(args.cache_mode),
+            "--cache-policy", args.cache_policy,
+            "--cache-promote-hits", str(args.cache_promote_hits),
+            "--prefetch-depth", str(args.prefetch_depth),
+            "--prefetch-workers", str(args.prefetch_workers),
+            "--stack-size", str(args.stack_size),
+            "--num-intervals", str(args.num_intervals),
+            "--disk-mode", str(args.disk_mode), "--seed", str(args.seed),
+            "--seg-impl", args.seg_impl, "--device", args.device]
+    for flag, on in (("--steal", args.steal), ("--pipeline", args.pipeline),
+                     ("--static-order", args.static_order),
+                     ("--no-interval-order", args.no_interval_order),
+                     ("--reuse", args.reuse),
+                     ("--verify-clean", args.verify_clean)):
+        if on:
+            argv.append(flag)
+    for spec in args.admit or ():
+        argv += ["--admit", spec]
+    if args.store:
+        argv += ["--store", args.store]
+    if args.queries:
+        argv += ["--queries", str(args.queries)]
+    if args.seeds:
+        argv += ["--seeds", args.seeds]
+    if args.vertex_memory_budget is not None:
+        argv += ["--vertex-memory-budget", str(args.vertex_memory_budget)]
+    return argv
+
+
 def main(argv=None):
     """Parse CLI flags, build or reuse a tile store, and run the selected
-    app through the port's out-of-core engine."""
+    app through the port's out-of-core engine (``--cluster``: through
+    ``launch/cluster.py``'s N server processes)."""
     args = parse_args(argv)
+    if args.cluster:
+        from repro_torch.launch import cluster as cluster_mod
+
+        return cluster_mod.main(_cluster_argv(args))
     batched = args.app in _QUERY_FIELD
     if not batched and (args.queries or args.seeds):
         raise SystemExit(f"--queries/--seeds only apply to batched apps "

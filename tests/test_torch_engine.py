@@ -215,7 +215,7 @@ def test_broadcast_measurement_matches_reference(mode, density):
 @pytest.mark.parametrize("knob", [
     dict(kernel_autotune=True), dict(kernel_blocks=(512, 256)),
     dict(checkpoint_dir="ckpt"), dict(resume=True), dict(preemptible=True),
-    dict(fault_plan=object()), dict(server_rank=0)])
+    dict(fault_plan=object()), dict(server_rank=0, checkpoint_dir="ckpt")])
 def test_knobs_outside_the_slice_raise(knob, small_store):
     store, _, _ = small_store
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
@@ -284,7 +284,7 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
     assert "bfs:" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv", [["--kernel-autotune"], ["--cluster"],
+@pytest.mark.parametrize("argv", [["--kernel-autotune"], ["--preemptible"],
                                   ["--checkpoint-dir", "x"], ["--serve"]])
 def test_cli_rejects_flags_outside_the_slice(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):

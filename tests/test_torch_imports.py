@@ -31,10 +31,12 @@ def test_importing_every_module_loads_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     count, names = proc.stdout.splitlines()[0], proc.stdout.splitlines()[1]
-    assert int(count.split()[0]) >= 19
+    assert int(count.split()[0]) >= 29
     for name in ("repro_torch.kernels.compact", "repro_torch.core.distributed",
                  "repro_torch.core.engine", "repro_torch.kernels.ops",
-                 "repro_torch.core.vstate", "repro_torch.launch.cluster"):
+                 "repro_torch.core.vstate", "repro_torch.launch.cluster",
+                 "repro_torch.core.transport", "repro_torch.core.comm",
+                 "repro_torch.runtime.scheduler"):
         assert name in names.split()
 
 
