@@ -141,12 +141,33 @@
     launches, torch memory and the card's bytes in use, and the
     exchange's seconds (encode and compress, send, wait for peers,
     decode, merge) per app.
+15. Checkpoints ("checkpoint"), each part against its uninterrupted run
+    bit for bit, with every boundary checkpointed (each save's seconds,
+    bytes written and hardlinked, interval blocks written and
+    hardlinked, and each load's seconds logged): (a) tiled PageRank
+    crashed (InjectedFault) at the start of superstep 3 and resumed by a
+    fresh engine to 5 supersteps, equal to phase 5's run, its history
+    the resumed supersteps only; (b) MultiSourceBFS at Q = 8 with phase
+    12's ninth source admitted after superstep 1, preemptible, SIGTERM
+    at the barrier of superstep 2 (Preempted at boundary 3), resumed to
+    5 supersteps, equal to phase 14's one-process run (values and
+    per-query supersteps); (c) out-of-core PageRank at 8 MiB, 3
+    supersteps (cut from 5: each is ~21 s), crashed at superstep 2, its
+    checkpoints interval blocks (the codec sniffed: zlib without
+    zstandard), the second hardlinking the unchanged ones, equal to the
+    in-memory run of 3 supersteps; (d) run_cluster on the card, N = 4
+    spawned ranks, PageRank for 5 supersteps, rank 3 killed (os._exit)
+    at the barrier of superstep 2, on_failure="shrink": one restart on
+    3 ranks on the remapped saved assignment, rank 0 equal to phase 5's
+    run, the ranks to each other; the kill (its once-marker's time) to
+    the new attempt's first boundary checkpoint is logged.
 
 Phases 5, 6, 8, 9, 11, 13 and 14, the in-memory session of 12 and its
-out-of-core session ("admission ooc") each set every kernel's launch
-counter to 0 just before and read it just after (phase 14's ranks and
-phase 13's gloo ranks count in their processes and report); each must
-have launched the kernels it runs.  The
+out-of-core session ("admission ooc") and each part of 15 ("checkpoint"
+sums a and b, then "checkpoint ooc", "cluster restart") set every
+kernel's launch counter to 0 just before and read it just after (the
+cluster ranks and phase 13's gloo ranks count in their processes and
+report); each must have launched the kernels it runs.  The
 ``{"kernels": [...]}`` line gives, per kernel and case, the launches
 summed over those phases and the case's times: segment sum at the largest
 tile for Q = 1 and Q = 8 and at the merged shape, the fused PageRank spec
@@ -157,6 +178,7 @@ density 0.05 and at V = 2^25 (the "case" key names it).  Then, as its last line,
 device, or without the repository beside it, it exits non-zero before
 printing a result.  Details go to build/chip_smoke.json.
 """
+import glob
 import json
 import os
 import re
@@ -193,6 +215,12 @@ OOC_MSBFS_BUDGET = 32 << 20  # MultiSourceBFS (Q = 8 and 9) vertex budget
 DRAIN_AT = 2                 # admission: drain query DRAIN_QID after this
 DRAIN_QID = 1                # superstep
 ADMIT_OOC_SUPERSTEPS = 4     # admission session compared out of core
+CKPT_CRASH_SS = 3            # checkpoint: crash at the start of superstep 3
+CKPT_PREEMPT_SS = 2          # SIGTERM at the barrier of superstep 2
+OOC_CKPT_SUPERSTEPS = 3      # out-of-core checkpoint run: cut from 5
+OOC_CKPT_CRASH_SS = 2
+SHRINK_FROM = 4              # cluster restart: N = 4 ...
+SHRINK_KILL = (2, 3)         # ... rank 3 killed at the barrier of superstep 2
 DEV = "cuda"
 
 
@@ -1757,7 +1785,258 @@ def cluster_phase(torch, store, pr, sources, s9):
         out.append(row)
     return dict(single_msbfs=app_summary(f"msbfs Q={q}+1 one process",
                                          single),
-                runs=out), launches
+                runs=out), launches, single
+
+
+def checkpoint_files(d):
+    """(bytes written, bytes hardlinked, blocks written, blocks hardlinked)
+    of one published checkpoint directory: a file with more than one link
+    is shared with the checkpoint before it."""
+    out = [0, 0, 0, 0]
+    for dirpath, _dirs, files in os.walk(d):
+        for fn in files:
+            st = os.stat(os.path.join(dirpath, fn))
+            linked = st.st_nlink > 1
+            out[1 if linked else 0] += st.st_size
+            if fn.endswith(".blk"):
+                out[3 if linked else 2] += 1
+    return out
+
+
+def timed_checkpointer(ckpt, saves, loads):
+    """Time every save and load of a GraphCheckpointer (the engine's) and
+    record each published checkpoint's bytes and blocks."""
+    save, load = ckpt.save_graph, ckpt.load_graph
+
+    def save_graph(superstep, *args, **kw):
+        t0 = time.perf_counter()
+        d = save(superstep, *args, **kw)
+        dt = time.perf_counter() - t0
+        w, lk, bw, bl = checkpoint_files(d)
+        saves.append(dict(step=superstep, seconds=dt, bytes_written=w,
+                          bytes_linked=lk, blocks_written=bw,
+                          blocks_linked=bl))
+        log(f"  checkpoint step {superstep}: {dt:.3f} s, {w} bytes written, "
+            f"{lk} hardlinked; blocks {bw} written, {bl} hardlinked")
+        return d
+
+    def load_graph(*args, **kw):
+        t0 = time.perf_counter()
+        got = load(*args, **kw)
+        loads.append(dict(step=None if got is None else got.step,
+                          seconds=time.perf_counter() - t0))
+        log(f"  checkpoint load of step {loads[-1]['step']}: "
+            f"{loads[-1]['seconds']:.3f} s")
+        return got
+
+    ckpt.save_graph, ckpt.load_graph = save_graph, load_graph
+
+
+def block_codec(d):
+    """The codec of the interval blocks under checkpoint dir ``d``, sniffed
+    from their first bytes (zstd's frame magic or zlib's header)."""
+    heads = set()
+    for p in sorted(glob.glob(os.path.join(d, "step_*", "blocks", "*.blk"))):
+        with open(p, "rb") as f:
+            head = f.read(4)
+        heads.add("zstd" if head == b"\x28\xb5\x2f\xfd" else
+                  "zlib" if head[:1] == b"\x78" else "other")
+    return sorted(heads)
+
+
+def crash_and_resume(make, prog, expect, what, max_supersteps):
+    """Run ``make(resume=False)``'s engine until the fault it is armed with
+    ends it (``expect`` is the exception that must come, anything else is
+    re-raised), then a fresh ``make(resume=True)`` engine to the end.
+    Returns (the exception, the resumed result, save rows, load rows)."""
+    saves, loads = [], []
+    eng = make(resume=False)
+    timed_checkpointer(eng.ckpt, saves, loads)
+    try:
+        eng.run(prog(), max_supersteps=max_supersteps)
+    except expect as e:
+        caught = e
+    else:
+        raise AssertionError(f"{what}: the injected fault did not come")
+    log(f"{what}: {type(caught).__name__}: {caught}")
+    eng = make(resume=True)
+    timed_checkpointer(eng.ckpt, saves, loads)
+    res = eng.run(prog(), max_supersteps=max_supersteps)
+    return caught, res, saves, loads
+
+
+def checkpoint_phase(torch, store, pr, single, sources, s9, ckpt_root):
+    """Phase 15: superstep checkpoints, crash and preemption resume and a
+    supervised cluster shrink on the card, each part equal bit for bit to
+    its uninterrupted run and each launching gab_fused."""
+    from repro_torch import compat
+    from repro_torch.core.apps import MultiSourceBFS, PageRank
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.core.partition import assign_tiles
+    from repro_torch.launch.cluster import ClusterConfig, run_cluster
+    from repro_torch.runtime.elastic import remap_assignment
+    from repro_torch.runtime.faults import FaultPlan, FaultSpec, InjectedFault
+    from repro_torch.runtime.ft import Preempted
+
+    out, launches = {}, {}
+    plan = store.load_plan()
+
+    def ckpt_engine(d, spec, resume, **kw):
+        return engine(store, tile_skipping=False, checkpoint_dir=d,
+                      checkpoint_every=1, resume=resume,
+                      fault_plan=None if resume else FaultPlan(specs=(spec,)),
+                      **kw)
+
+    # a: crash and resume in one process, PageRank tiled
+    d = os.path.join(ckpt_root, "pagerank")
+    spec = FaultSpec(site="superstep", superstep=CKPT_CRASH_SS, kind="raise")
+    reset_launches()
+    t0 = time.perf_counter()
+    _e, res, saves, loads = crash_and_resume(
+        lambda resume: ckpt_engine(d, spec, resume), PageRank, InjectedFault,
+        "checkpoint pagerank", PR_SUPERSTEPS)
+    wall = time.perf_counter() - t0
+    if not (same_bits(res.values, pr.values)
+            and res.supersteps == PR_SUPERSTEPS
+            and len(res.history) == PR_SUPERSTEPS - CKPT_CRASH_SS):
+        raise AssertionError("checkpoint: the resumed PageRank differs from "
+                             "the uninterrupted run")
+    part_a = read_launches()
+    require_launches(part_a, ("gab_fused",), "checkpoint pagerank")
+    out["pagerank"] = dict(wall_s=wall, saves=saves, loads=loads,
+                           resumed=app_summary("pagerank resumed", res))
+    log(f"checkpoint pagerank: crash at superstep {CKPT_CRASH_SS}, resumed "
+        f"from boundary {loads[-1]['step']}, equal to phase 5 bit for bit "
+        f"({wall:.1f} s)")
+
+    # b: preemption with a scheduled admission, MultiSourceBFS Q = 8 -> 9
+    d = os.path.join(ckpt_root, "msbfs")
+    spec = FaultSpec(site="barrier", superstep=CKPT_PREEMPT_SS,
+                     kind="preempt")
+    reset_launches()
+    t0 = time.perf_counter()
+    caught, res, saves, loads = crash_and_resume(
+        lambda resume: ckpt_engine(d, spec, resume, preemptible=not resume,
+                                   admit_plan=((1, (s9,)),)),
+        lambda: MultiSourceBFS(sources=sources), Preempted,
+        "checkpoint msbfs", PR_SUPERSTEPS)
+    wall = time.perf_counter() - t0
+    if caught.superstep != CKPT_PREEMPT_SS + 1:
+        raise AssertionError(f"checkpoint: preempted at {caught.superstep}")
+    if not (same_bits(res.values, single.values)
+            and res.supersteps == PR_SUPERSTEPS
+            and np.array_equal(res.per_query_supersteps,
+                               single.per_query_supersteps)):
+        raise AssertionError("checkpoint: the resumed MultiSourceBFS "
+                             "differs from phase 14's one-process run")
+    part_b = read_launches()
+    require_launches(part_b, ("gab_fused",), "checkpoint msbfs")
+    launches["checkpoint"] = {k: part_a[k] + part_b[k] for k in part_a}
+    out["msbfs"] = dict(wall_s=wall, saves=saves, loads=loads,
+                        preempted_at=caught.superstep,
+                        resumed=app_summary(f"msbfs Q={len(sources)}+1 "
+                                            "resumed", res))
+    log(f"checkpoint msbfs: preempted at boundary {caught.superstep}, the "
+        f"resume equals phase 14's one-process run bit for bit "
+        f"({wall:.1f} s)")
+
+    # c: out of core, interval blocks
+    d = os.path.join(ckpt_root, "pagerank_ooc")
+    spec = FaultSpec(site="superstep", superstep=OOC_CKPT_CRASH_SS,
+                     kind="raise")
+    mem = engine(store, tile_skipping=False).run(
+        PageRank(), max_supersteps=OOC_CKPT_SUPERSTEPS)
+    reset_launches()
+    t0 = time.perf_counter()
+    _e, res, saves, loads = crash_and_resume(
+        lambda resume: ckpt_engine(d, spec, resume,
+                                   num_intervals=OOC_INTERVALS,
+                                   vertex_memory_budget=OOC_PR_BUDGET),
+        PageRank, InjectedFault, "checkpoint pagerank ooc",
+        OOC_CKPT_SUPERSTEPS)
+    wall = time.perf_counter() - t0
+    launches["checkpoint ooc"] = read_launches()
+    require_launches(launches["checkpoint ooc"], ("gab_fused",),
+                     "checkpoint ooc")
+    codec = block_codec(d)
+    want_codec = ["zstd"] if compat.HAVE_ZSTD else ["zlib"]
+    boundaries = [r for r in saves if r["step"] <= OOC_CKPT_SUPERSTEPS]
+    if not (same_bits(res.values, mem.values)
+            and res.supersteps == OOC_CKPT_SUPERSTEPS
+            and len(res.history) == OOC_CKPT_SUPERSTEPS - OOC_CKPT_CRASH_SS):
+        raise AssertionError("checkpoint ooc: the resumed out-of-core run "
+                             "differs from the in-memory one")
+    if not (boundaries and all(r["blocks_written"] for r in boundaries)
+            and boundaries[-1]["blocks_linked"] and codec == want_codec):
+        raise AssertionError(f"checkpoint ooc: blocks {boundaries}, codec "
+                             f"{codec}")
+    out["pagerank_ooc"] = dict(wall_s=wall, saves=saves, loads=loads,
+                               codec=codec,
+                               resumed=app_summary("pagerank ooc resumed",
+                                                   res))
+    log(f"checkpoint pagerank ooc: {OOC_CKPT_SUPERSTEPS} supersteps, crash "
+        f"at {OOC_CKPT_CRASH_SS}, interval blocks {codec}, equal to the "
+        f"in-memory run bit for bit ({wall:.1f} s)")
+
+    # d: supervised shrink of a spawned cluster on the card
+    d = os.path.join(ckpt_root, "cluster")
+    markers = os.path.join(ckpt_root, "cluster_markers")
+    kill_ss, kill_rank = SHRINK_KILL
+    ecfg = EngineConfig(
+        seg_impl="fused", tile_skipping=False, max_supersteps=PR_SUPERSTEPS,
+        checkpoint_dir=d, checkpoint_every=1,
+        checkpoint_keep=PR_SUPERSTEPS + 2,
+        fault_plan=FaultPlan(specs=(FaultSpec(
+            site="barrier", superstep=kill_ss, rank=kill_rank,
+            kind="kill"),), marker_dir=markers))
+    reset_launches()       # the ranks count in their processes and report
+    t0 = time.perf_counter()
+    res = run_cluster(store.root, [PageRank()], ClusterConfig(
+        num_servers=SHRINK_FROM, device=DEV, on_failure="shrink",
+        engine=ecfg, launch_timeout_seconds=600))
+    wall = time.perf_counter() - t0
+    want_asg = remap_assignment(assign_tiles(plan.num_tiles, SHRINK_FROM),
+                                SHRINK_FROM - 1, plan.edges_per_tile)
+    got = res.results[0]
+    if not (res.verified and res.restarts == 1
+            and res.final_servers == SHRINK_FROM - 1
+            and len(res.rank_reports) == SHRINK_FROM - 1
+            and all(r["final_assignment"] == want_asg
+                    for r in res.rank_reports)
+            and same_bits(got.values, pr.values)
+            and got.supersteps == PR_SUPERSTEPS):
+        raise AssertionError("cluster restart: the shrunk cluster differs "
+                             "from one process")
+    launches["cluster restart"] = {
+        k: sum(rep["launches"][k] for rep in res.rank_reports)
+        for k in res.rank_reports[0]["launches"]}
+    require_launches(launches["cluster restart"], ("gab_fused",),
+                     "cluster restart")
+    # the kill's time is its once-marker's (claimed just before the
+    # os._exit); the new attempt's first superstep ends with rank 0's
+    # first boundary checkpoint, the one after the boundary it resumed from
+    (marker,) = glob.glob(os.path.join(markers, "*.fired"))
+    killed_at = os.stat(marker).st_mtime
+    resumed_from = PR_SUPERSTEPS - len(got.history)
+    meta = os.path.join(d, "prog_00", f"step_{resumed_from + 1:08d}",
+                        "meta.json")
+    respawn_s = os.stat(meta).st_mtime - killed_at
+    out["cluster"] = dict(
+        wall_s=wall, restarts=res.restarts, final_servers=res.final_servers,
+        resumed_from=resumed_from, kill_to_first_superstep_s=respawn_s,
+        assignment=want_asg, reports=res.rank_reports,
+        resumed=app_summary("pagerank cluster resumed", got))
+    log(f"cluster restart: rank {kill_rank} of {SHRINK_FROM} killed at the "
+        f"barrier of superstep {kill_ss}; 1 restart on "
+        f"{SHRINK_FROM - 1} ranks (remapped assignment) from boundary "
+        f"{resumed_from}; kill to the new attempt's first superstep "
+        f"{respawn_s:.1f} s; rank 0 equal to one process bit for bit "
+        f"({wall:.1f} s)")
+    for rep in res.rank_reports:
+        log(f"  rank {rep['rank']}: {rep['seconds']:.1f} s, "
+            f"{len(rep['final_assignment'][rep['rank']])} tiles, launches "
+            f"{rep['launches']}")
+    return out, launches
 
 
 def kernel_entry(name, source, replaces, launches, err, row, case):
@@ -1803,7 +2082,9 @@ def main():
     mark("build", t0)
 
     store_root = os.path.join(ROOT, "build", "chip_smoke_store")
+    ckpt_root = os.path.join(ROOT, "build", "chip_smoke_ckpt")
     shutil.rmtree(store_root, ignore_errors=True)
+    shutil.rmtree(ckpt_root, ignore_errors=True)
     try:
         t0 = time.perf_counter()
         store, plan, src, dst, store_info = build_store(store_root)
@@ -1871,16 +2152,21 @@ def main():
         mesh, mesh_launches = mesh_phase(torch, store, pr, msbfs, sources)
         mark("mesh", t0)
         t0 = time.perf_counter()
-        cluster, cluster_launches = cluster_phase(torch, store, pr, sources,
-                                                  admission["s9"])
+        cluster, cluster_launches, single = cluster_phase(
+            torch, store, pr, sources, admission["s9"])
         mark("cluster", t0)
+        t0 = time.perf_counter()
+        checkpoint, ckpt_launches = checkpoint_phase(
+            torch, store, pr, single, sources, admission["s9"], ckpt_root)
+        mark("checkpoint", t0)
     finally:
         shutil.rmtree(store_root, ignore_errors=True)
+        shutil.rmtree(ckpt_root, ignore_errors=True)
 
     paths = {"main path": main_launches, "compact path": compact_launches,
              "batched apps": batched_launches, "modes": mode_launches,
              "ooc": ooc_launches, **admission_launches, **mesh_launches,
-             **cluster_launches}
+             **cluster_launches, **ckpt_launches}
     total = {k: sum(p[k] for p in paths.values()) for k in main_launches}
     log(f"launches by path: {paths}; total {total}")
     seg_src = ("segment_reduce",
@@ -1939,7 +2225,7 @@ def main():
                        profile=prof, profile_msbfs=prof_q,
                        footprints=footprints, ooc=ooc_rows,
                        profile_ooc=prof_ooc, admission=admission,
-                       mesh=mesh, cluster=cluster,
+                       mesh=mesh, cluster=cluster, checkpoint=checkpoint,
                        launches_by_path=paths, kernels=kernels,
                        phase_seconds=phase_s, seconds=seconds), f, indent=1)
     log(f"total {seconds:.1f} s")

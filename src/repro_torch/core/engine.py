@@ -43,6 +43,16 @@ A session (:meth:`OutOfCoreEngine.open_session`) runs one superstep a
 (:class:`EngineSession`), and ``EngineConfig.admit_plan`` scripts such
 admissions for a whole run.
 
+With ``checkpoint_dir`` the engine is crash-consistent at superstep
+boundaries (DESIGN.md §12): every ``checkpoint_every``-th boundary, after
+the updates, retirement, drains and admissions, it writes the state the
+next superstep starts from (``core.checkpoint``, on disk the same as the
+reference's), and ``resume=True`` continues from the latest one bit for
+bit, at the saved server count or another (``elastic.remap_assignment``).
+``preemptible=True`` turns SIGTERM/SIGINT into a save at the next barrier
+and ``runtime.ft.Preempted``; ``fault_plan`` injects crashes at named
+points (``runtime.faults``).
+
 The knobs of later queue items keep their :class:`EngineConfig` field,
 and a non-default value raises ``NotImplementedError`` naming its
 ROADMAP.md queue item.
@@ -62,6 +72,7 @@ import torch
 from repro_torch.core import comm
 from repro_torch.core.bloom import BloomFilter, SourceBlockBitmap
 from repro_torch.core.cache import EdgeCache, auto_select_mode
+from repro_torch.core.checkpoint import GraphCheckpointer
 from repro_torch.core.distributed import pad_stack_to
 from repro_torch.core.gab import (SEG_IMPLS, VertexProgram,
                                   merged_server_step, run_tile,
@@ -73,6 +84,9 @@ from repro_torch.core.tiles import (compute_source_footprint, stack_tiles,
                                     tile_edge_values)
 from repro_torch.core.vstate import VertexStateStore
 from repro_torch.graphio.formats import TileStore
+from repro_torch.runtime.elastic import remap_assignment
+from repro_torch.runtime.faults import FaultPlan
+from repro_torch.runtime.ft import Preempted, PreemptionGuard
 
 ENGINE_MODES = ("tiled", "stacked", "merged")
 
@@ -144,12 +158,24 @@ class EngineConfig:
     # other servers' updates through the ClusterExchange passed to the
     # constructor.  None = one process emulating all N servers.
     server_rank: Optional[int] = None
-    checkpoint_dir: Optional[str] = None    # ROADMAP.md A.10
+    # --- superstep checkpointing + fault tolerance (DESIGN.md §12) ---
+    # directory for superstep-boundary checkpoints (core.checkpoint); None
+    # disables checkpointing entirely
+    checkpoint_dir: Optional[str] = None
+    # write a boundary checkpoint every K supersteps (rank 0 in a cluster);
+    # 0 = no periodic saves (still saves on preemption and run completion)
     checkpoint_every: int = 0
     checkpoint_keep: int = 2
-    resume: bool = False                    # ROADMAP.md A.10
-    preemptible: bool = False               # ROADMAP.md A.10
-    fault_plan: Optional[object] = None     # ROADMAP.md A.10
+    # resume from the latest checkpoint in checkpoint_dir: adopt its tile
+    # assignment (remapped via elastic.remap_assignment when num_servers
+    # differs) and continue from its superstep boundary, bit for bit
+    resume: bool = False
+    # latch SIGTERM/SIGINT at the BSP barrier: save a checkpoint and raise
+    # runtime.ft.Preempted instead of dying mid-superstep (spot reclaim);
+    # needs checkpoint_dir
+    preemptible: bool = False
+    # deterministic fault injection (runtime.faults.FaultPlan), for drills
+    fault_plan: Optional[FaultPlan] = None
     # scripted admissions: (after_superstep, seeds) entries, each seeds
     # tuple spliced in as fresh query columns at the end of superstep
     # after_superstep, past the slot cap; ignored for 1-D programs
@@ -167,10 +193,6 @@ class EngineConfig:
              "kernel_autotune=True (roofline/kernel_tune.py)", "A.12"),
             (self.kernel_blocks is not None,
              "kernel_blocks (roofline/kernel_tune.py)", "A.12"),
-            (self.checkpoint_dir is not None, "checkpoint_dir", "A.10"),
-            (self.resume, "resume=True", "A.10"),
-            (self.preemptible, "preemptible=True", "A.10"),
-            (self.fault_plan is not None, "fault_plan", "A.10"),
         )
         for on, what, item in checks:
             if on:
@@ -314,6 +336,14 @@ class OutOfCoreEngine:
             self.exec_servers = list(range(N))
         self.exchange = exchange
 
+        #: per-process arm of cfg.fault_plan (None = no injection)
+        self.fault = (config.fault_plan.injector(rank=config.server_rank)
+                      if config.fault_plan is not None else None)
+        #: the run's GraphCheckpointer (None = checkpointing disabled)
+        self.ckpt: Optional[GraphCheckpointer] = None
+        self._guard: Optional[PreemptionGuard] = None
+        self.configure_checkpoint(config.checkpoint_dir)
+
         # Per-server edge caches (paper: idle memory on each server).
         if config.cache_mode == "auto":
             # Working set per server ~ share of total on-disk tile bytes.
@@ -375,6 +405,76 @@ class OutOfCoreEngine:
         self._exchange = exchange
 
     # ------------------------------------------------------------------
+    # superstep checkpointing + crash-consistent resume (DESIGN.md §12)
+    # ------------------------------------------------------------------
+    def configure_checkpoint(self, directory: Optional[str]) -> None:
+        """(Re)point the engine at a checkpoint directory — called from
+        ``__init__`` and per program by the cluster server (a launch of
+        several programs uses a subdirectory for each).
+
+        With ``cfg.resume`` and an existing checkpoint, adopts the saved
+        per-server tile assignment now (a cluster server needs it before
+        its exchange snapshots the assignment): verbatim when the saved
+        server count equals ``cfg.num_servers``, else remapped through
+        ``elastic.remap_assignment``, the N -> M resize at a superstep
+        boundary.  Every rank derives the same assignment from the same
+        manifest."""
+        if directory is None:
+            self.ckpt = None
+            return
+        self.ckpt = GraphCheckpointer(directory, keep=self.cfg.checkpoint_keep,
+                                      fault=self.fault)
+        if not self.cfg.resume:
+            return
+        peek = self.ckpt.peek_manifest()
+        if peek is None:
+            return
+        saved = peek[1].get("assignment")
+        if not saved:
+            return
+        n = self.cfg.num_servers
+        if len(saved) == n:
+            self.assignment = [list(map(int, a)) for a in saved]
+        else:
+            self.assignment = remap_assignment(
+                [list(map(int, a)) for a in saved], n,
+                self.plan.edges_per_tile)
+
+    def _save_final(self, values, aux_np, per_query_ss, converged,
+                    supersteps: int) -> None:
+        """Publish the run's result as a ``final`` checkpoint (step =
+        supersteps + 1, after every boundary save, so LATEST lands on it):
+        a supervised restart then returns this program's result instead of
+        recomputing it."""
+        manifest = dict(
+            superstep=int(supersteps),
+            final=True,
+            converged=bool(converged),
+            supersteps=int(supersteps),
+            multi_q=per_query_ss is not None,
+            num_servers=int(self.cfg.num_servers),
+            assignment=[[int(t) for t in a] for a in self.assignment],
+        )
+        state: dict = {"values": values, "aux": aux_np}
+        if per_query_ss is not None:
+            state["per_query_ss"] = per_query_ss
+        self.ckpt.save_graph(int(supersteps) + 1, state, manifest)
+
+    @staticmethod
+    def _result_from_final(loaded) -> "RunResult":
+        """The RunResult of a ``final`` checkpoint (a resume after the run
+        completed): the answers and convergence, no history."""
+        m, st = loaded.manifest, loaded.state
+        pq = (np.asarray(st["per_query_ss"]) if "per_query_ss" in st
+              else None)
+        return RunResult(
+            values=np.asarray(st["values"]),
+            aux={k: np.asarray(v) for k, v in st.get("aux", {}).items()},
+            history=[], supersteps=int(m.get("supersteps", m["superstep"])),
+            converged=bool(m.get("converged", False)),
+            per_query_supersteps=pq)
+
+    # ------------------------------------------------------------------
     def kernel_plan(self, prog) -> tuple[str, int]:
         """``(seg_impl, stack_size)`` for this program: the configured
         backend and the pipelined stack length (at least 1)."""
@@ -411,14 +511,28 @@ class OutOfCoreEngine:
         """Run ``prog`` to convergence (no updated cells and no pending
         admission) or ``max_supersteps``, honouring ``cfg.admit_plan``;
         results are bit-identical across engine modes, pipelining, cache
-        policies and out-of-core vertex state."""
-        session = self.open_session(prog, max_supersteps=max_supersteps)
+        policies, out-of-core vertex state and crash/resume.
+
+        With ``cfg.preemptible`` and a checkpoint directory, SIGTERM/SIGINT
+        during the run latch a flag; at the next barrier the engine saves a
+        checkpoint and raises ``runtime.ft.Preempted``.  The prior signal
+        handlers are restored however the run ends."""
+        guard = None
+        if self.cfg.preemptible and self.ckpt is not None:
+            guard = PreemptionGuard().install()
+        self._guard = guard
+        session = None
         try:
+            session = self.open_session(prog, max_supersteps=max_supersteps)
             while not session.finished:
                 session.step()
             return session.result()
         finally:
-            session.close()
+            if session is not None:
+                session.close()
+            if guard is not None:
+                guard.restore()
+            self._guard = None
 
     # ------------------------------------------------------------------
     def _measure_broadcast(self, si, sv, sm, nv, qa, dtype, background=False):
@@ -904,7 +1018,8 @@ class EngineSession:
         self.history: list[SuperstepStats] = []
         self.converged = False
         self.finished = False
-        self._ss = 0
+        self.vstore: Optional[VertexStateStore] = None
+        self._ooc = False
 
         # Re-baseline the engine's cumulative-counter deltas, so cache
         # activity before this session does not leak into its first step.
@@ -947,13 +1062,58 @@ class EngineSession:
              for after, seeds in (cfg.admit_plan or ())]
             if self.multi_q else [])
 
+        # Crash-consistent resume: the latest checkpoint's state replaces
+        # the fresh init and the session continues from its superstep
+        # boundary.  A "final" checkpoint opens the session FINISHED with
+        # its stored result (a supervised restart skips finished programs).
+        self.start_ss = 0
+        loaded = None
+        if engine.ckpt is not None and cfg.resume:
+            loaded = engine.ckpt.load_graph()
+        if loaded is not None and loaded.manifest.get("final"):
+            self._final_result = engine._result_from_final(loaded)
+            self.converged = self._final_result.converged
+            self.finished = True
+            self._ss = self.start_ss
+            return
+        if loaded is not None:
+            m, st = loaded.manifest, loaded.state
+            self.start_ss = int(m["superstep"])
+            if loaded.vstate:
+                self.values = np.asarray(loaded.vstate["value"])
+                self.aux_np = {k: np.asarray(v)
+                               for k, v in loaded.vstate.items()
+                               if k != "value"}
+            else:
+                self.values = np.asarray(st["values"])
+                self.aux_np = {k: np.asarray(v)
+                               for k, v in st.get("aux", {}).items()}
+            if self.multi_q:
+                self.active_q = np.asarray(m["active_q"], dtype=np.int64)
+                self.final_values = np.asarray(st["final_values"])
+                self.per_query_ss = np.asarray(st["per_query_ss"], np.int64)
+                self.nq_total = len(self.per_query_ss)
+                self.admitted_at = (
+                    np.asarray(st["admitted_at"], np.int64)
+                    if "admitted_at" in st
+                    else np.zeros(self.nq_total, dtype=np.int64))
+                self.next_qid = int(m.get("next_qid", self.nq_total))
+                saved_seeds = {int(g): int(s)
+                               for g, s in m.get("queries", {}).items()}
+                if saved_seeds:
+                    self.query_seeds = saved_seeds
+                # plan entries due before the boundary are in the restored
+                # state: replay only the later ones
+                self._plan_pending = [e for e in self._plan_pending
+                                      if e[0] >= self.start_ss]
+        self._ss = self.start_ss
+
         # Out-of-core vertex state: the [V(, Q)] arrays move into an
         # interval-sharded VertexStateStore and the full arrays are
         # dropped.  stacked/merged need the whole value array on the
         # device, so it forces tiled.
         self._ooc = engine._ooc = cfg.vertex_memory_budget is not None
         self.engine_mode = "tiled" if self._ooc else cfg.engine_mode
-        self.vstore: Optional[VertexStateStore] = None
         if self._ooc:
             self.vstore = engine._build_vstate(self.values, self.aux_np)
             engine._vs_faults_cum = self.vstore.stats.faults
@@ -968,6 +1128,11 @@ class EngineSession:
 
         self.max_ss = max_supersteps or cfg.max_supersteps
         self.updated_ids = np.arange(nv)  # everything "updated" pre step 0
+        if loaded is not None:
+            # the skip pre-pass keys off the last superstep's update set,
+            # part of the boundary state (the filters rebuild lazily: with
+            # no false negatives, a missing filter only costs work)
+            self.updated_ids = np.asarray(st["updated_ids"], np.int64)
         self.building_filters = cfg.tile_skipping
         self.filters: list = ([None] * engine.plan.num_tiles
                               if self.building_filters else [])
@@ -1035,6 +1200,14 @@ class EngineSession:
         it was drained."""
         return int(self.per_query_ss[int(gq)])
 
+    def checkpoint(self) -> None:
+        """Save a resumable boundary checkpoint of the session now (its
+        manifest carries the per-column query lineage, so a resumed
+        session keeps numbering and accounting where this one stopped)."""
+        if self.eng.ckpt is None:
+            raise RuntimeError("engine has no checkpoint directory")
+        self._save_boundary(self.superstep - 1)
+
     def close(self) -> None:
         """Release the run's scratch (the out-of-core spill tier).
         Idempotent; ``result()`` already closed the store."""
@@ -1047,7 +1220,9 @@ class EngineSession:
     # -- the superstep ------------------------------------------------------
     def step(self) -> SuperstepStats:
         """Execute exactly one superstep (compute → barrier → apply →
-        retirement → drains → admissions) and return its stats."""
+        retirement → drains → admissions) and return its stats.  Raises
+        ``runtime.ft.Preempted`` after a preemption checkpoint when the
+        engine's guard latched a signal."""
         if self.finished:
             raise RuntimeError("session is finished — open a new one")
         eng = self.eng
@@ -1063,6 +1238,8 @@ class EngineSession:
         building_filters = self.building_filters
         ss = self._ss
 
+        if eng.fault is not None:
+            eng.fault.check("superstep", ss)
         t_start = time.perf_counter()
         qa = len(self.active_q) if multi_q else 1  # live columns this step
         # a batched session with zero live columns still steps (waiting on
@@ -1250,6 +1427,8 @@ class EngineSession:
             self.building_filters = False
 
         # --- Broadcast (BSP barrier): measure payloads, apply updates ---
+        if eng.fault is not None:
+            eng.fault.check("barrier", ss)
         raw_b = wire_b = 0
         control = None
         if eng.exchange is not None:
@@ -1438,6 +1617,23 @@ class EngineSession:
                            and bool(self._admit_queue)))
         self.finished = ((self.converged and not backlog)
                          or self._ss >= self.max_ss)
+
+        # --- superstep-boundary checkpoint + preemption.  Written after
+        # the updates, retirement, drains and admissions (in a cluster,
+        # after every rank settled rank 0's record): what superstep ss + 1
+        # starts from.  The state is replicated, so rank 0 is the one
+        # periodic writer; a preempted rank saves too (first publish wins).
+        if eng.ckpt is not None and not self.finished:
+            due = (cfg.checkpoint_every > 0
+                   and (ss + 1) % cfg.checkpoint_every == 0
+                   and cfg.server_rank in (None, 0))
+            preempt = eng._guard is not None and eng._guard.triggered
+            if due or preempt:
+                self._save_boundary(ss)
+            if preempt:
+                if ooc:
+                    vstore.close()
+                raise Preempted(ss + 1)
         return stats
 
     # -- result ----------------------------------------------------------------
@@ -1465,9 +1661,16 @@ class EngineSession:
             aux_np = {n: vstore.materialize(n) for n in vstore.names()
                       if n != "value"}
             vstore.close()
+        # supersteps count from the run's start: a resumed run reports the
+        # uninterrupted run's count, its history only the resumed part
+        supersteps = self.start_ss + len(self.history)
+        eng = self.eng
+        if eng.ckpt is not None and eng.cfg.server_rank in (None, 0):
+            eng._save_final(values, aux_np, self.per_query_ss,
+                            self.converged, supersteps)
         self._final_result = RunResult(
             values=values, aux=aux_np, history=self.history,
-            supersteps=len(self.history), converged=self.converged,
+            supersteps=supersteps, converged=self.converged,
             per_query_supersteps=self.per_query_ss)
         return self._final_result
 
@@ -1589,3 +1792,37 @@ class EngineSession:
                 self.aux_dev[k] = self._to_device(self.aux_np[k])
         self.active_q = np.concatenate(
             [self.active_q, np.asarray(gqs, dtype=self.active_q.dtype)])
+
+    # -- checkpoint ----------------------------------------------------------
+    def _save_boundary(self, ss: int) -> None:
+        """Write the superstep-``ss + 1`` boundary checkpoint: the manifest
+        (resume point, live queries and per-column lineage, the replicated
+        assignment) and the state leaves; out of core the vertex state goes
+        as interval blocks instead of leaves (dirty blocks written, clean
+        ones hardlinked, see ``core.checkpoint``)."""
+        eng, cfg = self.eng, self.eng.cfg
+        with self._lock:
+            next_qid = int(self.next_qid)
+        manifest = dict(
+            superstep=ss + 1,
+            final=False,
+            converged=False,
+            multi_q=bool(self.multi_q),
+            nq_total=int(self.nq_total),
+            num_servers=int(cfg.num_servers),
+            assignment=[[int(t) for t in a] for a in eng.assignment],
+            active_q=([int(g) for g in self.active_q]
+                      if self.multi_q else None),
+            next_qid=next_qid,
+            queries={str(g): int(s) for g, s in self.query_seeds.items()},
+        )
+        state: dict = {"updated_ids": np.asarray(self.updated_ids,
+                                                 np.int64)}
+        if self.multi_q:
+            state["final_values"] = self.final_values
+            state["per_query_ss"] = self.per_query_ss
+            state["admitted_at"] = self.admitted_at
+        if self.vstore is None:
+            state["values"] = self.values
+            state["aux"] = self.aux_np
+        eng.ckpt.save_graph(ss + 1, state, manifest, vstore=self.vstore)

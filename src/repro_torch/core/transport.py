@@ -29,8 +29,8 @@ same wire formats actually travel between N server processes:
 
 Thread-safety: ``send`` may be called by one thread per destination;
 ``recv`` by one consumer thread.  The cluster exchange protocol that sits
-on top lives in ``core.distributed.ClusterExchange``.  Fault injection
-around a transport is ROADMAP.md queue A.10.
+on top lives in ``core.distributed.ClusterExchange``;
+:class:`FaultInjectingTransport` wraps either transport for fault drills.
 """
 from __future__ import annotations
 
@@ -602,6 +602,41 @@ class SocketTransport:
                 pass
         for t in self._threads:
             t.join(timeout=2.0)
+
+
+class FaultInjectingTransport:
+    """Decorator transport that consults a ``runtime.faults.FaultInjector``
+    on every send (site ``"transport.send"``) — drop a frame, delay, or
+    kill the rank mid-exchange, deterministically (DESIGN.md §12).
+
+    The step passed to the injector is the exchange sequence number read
+    from the first 4 bytes of the payload (``distributed._ENVELOPE``
+    leads with a ``<I`` seq) — i.e. specs match on the *superstep* whose
+    barrier is being crossed.  Wraps any transport exposing
+    send/recv/close + rank/n."""
+
+    def __init__(self, inner, injector):
+        self.inner = inner
+        self.fault = injector
+        self.rank = inner.rank
+        self.n = inner.n
+
+    def send(self, dst: int, payload: bytes,
+             timeout: Optional[float] = None) -> None:
+        """Send unless a fault spec fires first (drop => swallowed)."""
+        seq = _U32.unpack_from(payload)[0] if len(payload) >= 4 else -1
+        if self.fault.drop("transport.send", seq):
+            return                      # the frame is lost on the "wire"
+        self.fault.check("transport.send", seq)
+        self.inner.send(dst, payload, timeout)
+
+    def recv(self, timeout: float = 0.1) -> Optional[tuple[int, bytes]]:
+        """Pass-through receive."""
+        return self.inner.recv(timeout)
+
+    def close(self) -> None:
+        """Pass-through close."""
+        self.inner.close()
 
 
 TRANSPORTS = {"shm": RingTransport, "tcp": SocketTransport}

@@ -23,9 +23,12 @@ A single launch amortizes process startup over many programs: pass
 several vertex programs and the same N servers execute them back to back
 (the exchange sequence numbers keep the BSP barriers aligned across runs).
 
-Supervised restart and shrink (``on_failure``), checkpoints, resume,
-preemption and fault injection are ROADMAP.md queue A.10: those knobs
-raise ``NotImplementedError``.
+Failures are supervised (DESIGN.md §12): with ``on_failure="restart"`` a
+dead, failed or preempted rank tears the attempt down and the same N
+respawn, resuming from the latest superstep checkpoint when
+``engine.checkpoint_dir`` is set; ``"shrink"`` respawns the survivors'
+count and remaps the saved tile assignment.  A respawn reuses the kernels
+the parent built.
 """
 from __future__ import annotations
 
@@ -69,35 +72,35 @@ class ClusterConfig:
     #: where every rank computes: "cuda" (rank r on card r mod the card
     #: count) or "cpu" (the kernels' plain versions, the tests)
     device: str = "cuda"
-    #: what to do when a rank dies: "fail" = raise ClusterFailure;
-    #: "restart"/"shrink" are ROADMAP.md queue A.10
+    #: what to do when a rank dies or is preempted mid-run (DESIGN.md
+    #: §12): "fail" = raise ClusterFailure; "restart" = tear down, respawn
+    #: the same N resuming from the latest checkpoint; "shrink" = respawn
+    #: with N - dead servers (elastic resize at the superstep boundary)
     on_failure: str = "fail"
-    #: supervised restart budget (ROADMAP.md queue A.10)
+    #: supervised restart budget before giving up and re-raising
     max_restarts: int = 2
     #: engine template; num_servers/server_rank/device are set per rank
     engine: EngineConfig = dataclasses.field(default_factory=EngineConfig)
 
     def unsupported(self) -> list[str]:
         """The knobs set outside the port so far, each with the ROADMAP.md
-        queue item that will bring it (the engine's own included)."""
-        out = list(self.engine.unsupported())
-        if self.on_failure != "fail":
-            out.append(f"on_failure={self.on_failure!r} (supervised "
-                       "restart/shrink) is ROADMAP.md queue A.10")
-        if self.max_restarts != ClusterConfig.max_restarts:
-            out.append("max_restarts is ROADMAP.md queue A.10")
-        return out
+        queue item that will bring it (the engine's)."""
+        return self.engine.unsupported()
 
 
 class ClusterFailure(RuntimeError):
-    """A cluster attempt died: one or more ranks failed or were killed.
-    Carries ``dead_ranks`` and ``pids`` (of every spawned rank, dead or
-    reaped) for the caller and the tests."""
+    """A cluster attempt died: one or more ranks failed, were killed, or
+    were preempted.  Carries ``dead_ranks``, ``pids`` (of every spawned
+    rank, dead or reaped) and ``preempted`` (True when the rank saved a
+    checkpoint and exited cleanly on SIGTERM rather than crashing) for
+    the supervisor and the tests."""
 
-    def __init__(self, message: str, dead_ranks=(), pids=()):
+    def __init__(self, message: str, dead_ranks=(), pids=(),
+                 preempted: bool = False):
         super().__init__(message)
         self.dead_ranks = list(dead_ranks)
         self.pids = list(pids)
+        self.preempted = preempted
 
 
 @dataclasses.dataclass
@@ -115,6 +118,11 @@ class ClusterResult:
     verified: bool
     #: every rank's RunResult per program ([rank][program])
     rank_results: list = dataclasses.field(default_factory=list)
+    #: supervised restarts consumed before this result was produced
+    restarts: int = 0
+    #: server count of the attempt that finished (< num_servers after a
+    #: shrink)
+    final_servers: int = 0
 
     def wire_bytes_per_superstep(self, app_index: int = 0) -> list:
         """Cluster-total measured wire bytes per superstep for one app."""
@@ -159,6 +167,7 @@ def _server_main(rank: int, store_root: str, cfg: ClusterConfig,
     from repro_torch.core import transport as transport_mod
     from repro_torch.core.distributed import ClusterExchange
     from repro_torch.graphio.formats import TileStore
+    from repro_torch.runtime.ft import Preempted
 
     transport = None
     exchange = None
@@ -171,15 +180,23 @@ def _server_main(rank: int, store_root: str, cfg: ClusterConfig,
         store = TileStore(store_root)
         store.load_meta()
         device = _rank_device(cfg.device, rank)
+        # checkpoints go to a subdirectory per program (configured below,
+        # where resume may remap the assignment before the exchange uses
+        # it), so the engine must not claim the shared root
         ecfg = dataclasses.replace(
             cfg.engine, num_servers=cfg.num_servers, server_rank=rank,
-            device=device)
+            device=device, checkpoint_dir=None)
         if cfg.steal and ecfg.engine_mode != "tiled":
             raise ValueError("tile stealing requires engine_mode='tiled' "
                              "(stacked/merged pin tiles to devices)")
         eng = OutOfCoreEngine(store, ecfg)
         transport = transport_mod.make_transport(
             cfg.transport, rank, cfg.num_servers, run_dir)
+        if eng.fault is not None:
+            # the engine's injector: once-specs share one claim namespace
+            # per rank
+            transport = transport_mod.FaultInjectingTransport(
+                transport, eng.fault)
         exchange = ClusterExchange(
             transport, comm_mode=ecfg.comm_mode,
             compressor=ecfg.comm_compressor, threshold=ecfg.comm_threshold,
@@ -191,7 +208,13 @@ def _server_main(rank: int, store_root: str, cfg: ClusterConfig,
         launches0 = _launch_counts()
         results, split = [], []
         t0 = time.perf_counter()
-        for prog in progs:
+        for i, prog in enumerate(progs):
+            if cfg.engine.checkpoint_dir:
+                eng.configure_checkpoint(
+                    os.path.join(cfg.engine.checkpoint_dir, f"prog_{i:02d}"))
+                # resume may have adopted a remapped assignment (the N -> M
+                # resize): refresh the exchange's copy
+                exchange.assignment = [list(a) for a in eng.assignment]
             before = dict(exchange.seconds)
             results.append(eng.run(prog))
             split.append({k: v - before[k]
@@ -214,6 +237,14 @@ def _server_main(rank: int, store_root: str, cfg: ClusterConfig,
             **_device_memory(device),
         )
         conn.send(("ok", results, report))
+    except Preempted as e:
+        # the engine saved its state before raising: report the resume
+        # boundary and exit cleanly so the supervisor can resume
+        try:
+            conn.send(("preempted", e.superstep, dict(rank=rank)))
+        except (OSError, ValueError):
+            pass
+        raise SystemExit(0)
     except BaseException:
         try:
             conn.send(("error", traceback.format_exc(), None))
@@ -247,8 +278,9 @@ def _teardown(procs) -> None:
 
 def _run_attempt(store_root: str, progs: list, cfg: ClusterConfig,
                  run_dir: str) -> ClusterResult:
-    """Spawn N ranks, collect their results, raise ClusterFailure (after
-    bounded teardown) when any rank dies or errors."""
+    """One supervised attempt: spawn N ranks, collect their results, raise
+    ClusterFailure (after bounded teardown) when any rank dies, errors, or
+    reports preemption."""
     from repro_torch.core import transport as transport_mod
 
     n = cfg.num_servers
@@ -290,6 +322,11 @@ def _run_attempt(store_root: str, progs: list, cfg: ClusterConfig,
                         raise ClusterFailure(
                             f"cluster server {r} failed:\n{payloads[r][1]}",
                             dead_ranks=[r], pids=pids)
+                    if payloads[r][0] == "preempted":
+                        raise ClusterFailure(
+                            f"cluster server {r} preempted; checkpoint "
+                            f"saved at superstep boundary {payloads[r][1]}",
+                            dead_ranks=[r], pids=pids, preempted=True)
                 elif not procs[r].is_alive() and not conns[r].poll(0.1):
                     raise ClusterFailure(
                         f"cluster server {r} died (exit code "
@@ -314,7 +351,8 @@ def _run_attempt(store_root: str, progs: list, cfg: ClusterConfig,
             f"(app index, rank): {diverged}; this is a wrong answer, not "
             "a degraded one (transport/decode bug or broken hardware)")
     return ClusterResult(results=all_results[0], rank_reports=reports,
-                         verified=True, rank_results=all_results)
+                         verified=True, rank_results=all_results,
+                         final_servers=n)
 
 
 def run_cluster(store_root: str, progs: list,
@@ -330,8 +368,17 @@ def run_cluster(store_root: str, progs: list,
     rank's results, verifies the final value arrays are bit-identical
     across ranks (divergence RAISES — a divergent cluster run is a wrong
     answer, never a degraded one), and returns rank 0's results with
-    per-rank reports.  Any rank failure tears the cluster down and raises
-    ClusterFailure with that rank's traceback."""
+    per-rank reports.
+
+    Failure handling follows ``cfg.on_failure`` (DESIGN.md §12): with
+    ``"fail"`` any rank failure tears the cluster down and raises
+    ClusterFailure with that rank's traceback; ``"restart"`` respawns the
+    same N (resuming from the latest checkpoint when
+    ``cfg.engine.checkpoint_dir`` is set, else a clean rerun, as
+    bit-identical and slower); ``"shrink"`` respawns ``N - dead`` servers,
+    remapping the checkpointed assignment at the superstep boundary.  Each
+    attempt gets a fresh rendezvous subdirectory: ring frames of a killed
+    attempt are never replayed into the next."""
     problems = cfg.unsupported()
     if problems:
         raise NotImplementedError("; ".join(problems))
@@ -344,10 +391,31 @@ def run_cluster(store_root: str, progs: list,
         _build.build()    # once here, not N concurrent nvcc runs
     base_dir = run_dir or tempfile.mkdtemp(prefix="graphh_cluster_")
     own_dir = run_dir is None
+    acfg = cfg
+    restarts = 0
     try:
-        attempt_dir = os.path.join(base_dir, "attempt_00")
-        os.makedirs(attempt_dir, exist_ok=True)
-        return _run_attempt(store_root, progs, cfg, attempt_dir)
+        while True:
+            attempt_dir = os.path.join(base_dir, f"attempt_{restarts:02d}")
+            os.makedirs(attempt_dir, exist_ok=True)
+            try:
+                res = _run_attempt(store_root, progs, acfg, attempt_dir)
+                res.restarts = restarts
+                return res
+            except ClusterFailure as e:
+                if (cfg.on_failure not in ("restart", "shrink")
+                        or restarts >= cfg.max_restarts):
+                    raise
+                restarts += 1
+                new_n = acfg.num_servers
+                if cfg.on_failure == "shrink":
+                    new_n = max(1, acfg.num_servers - len(set(e.dead_ranks)))
+                # resume needs a checkpoint directory; without one the
+                # restart is a clean rerun from superstep 0
+                acfg = dataclasses.replace(
+                    acfg, num_servers=new_n,
+                    engine=dataclasses.replace(
+                        acfg.engine,
+                        resume=bool(acfg.engine.checkpoint_dir)))
     finally:
         if own_dir and not keep_run_dir:
             shutil.rmtree(base_dir, ignore_errors=True)
@@ -391,18 +459,10 @@ def _build_progs(args) -> list:
     return [APPS[args.app]()]
 
 
-# reference cluster flags outside the slice -> the ROADMAP.md queue item
-_LATER_FLAGS = {"checkpoint_dir": "A.10", "resume": "A.10",
-                "preemptible": "A.10", "inject": "A.10"}
-
-
-def main(argv=None) -> ClusterResult:
-    """CLI: build (or reuse) a tile store, run one app on an N-server
-    cluster, print per-superstep wire bytes and per-rank reports."""
+def parse_args(argv=None) -> argparse.Namespace:
+    """The cluster CLI's flags (the reference's, plus ``--seg-impl`` and
+    ``--device``)."""
     from repro_torch.core.apps import APPS
-    from repro_torch.core.partition import server_vertex_ranges
-    from repro_torch.graphio.formats import TileStore
-    from repro_torch.launch.graph import build_store
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--app", default="pagerank", choices=sorted(APPS))
@@ -439,14 +499,38 @@ def main(argv=None) -> ClusterResult:
     ap.add_argument("--seeds", default=None)
     ap.add_argument("--vertex-memory-budget", type=float, default=None,
                     metavar="MB")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="directory for superstep checkpoints (shared by "
+                         "all ranks; enables --resume and supervised "
+                         "restart, DESIGN.md §12)")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="write a checkpoint every K superstep boundaries "
+                         "(0 = final checkpoint only)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the latest checkpoint in "
+                         "--checkpoint-dir (bit-identical to the "
+                         "uninterrupted run; N may differ from the saved "
+                         "run — the assignment is remapped)")
+    ap.add_argument("--preemptible", action="store_true",
+                    help="SIGTERM => checkpoint at the next superstep "
+                         "boundary and exit cleanly for later --resume")
     ap.add_argument("--on-failure", default="fail",
                     choices=["fail", "restart", "shrink"],
-                    help="rank-death policy: fail fast (restart and shrink "
-                         "are ROADMAP.md queue A.10)")
+                    help="rank-death policy: fail fast, restart same N "
+                         "from the latest checkpoint, or shrink to the "
+                         "survivors (elastic resize)")
     ap.add_argument("--max-restarts", type=int, default=2)
+    ap.add_argument("--inject", action="append", default=None,
+                    metavar="SPEC",
+                    help="fault-injection spec, repeatable: e.g. "
+                         "'rank=1,superstep=2,site=superstep,kind=kill' "
+                         "(runtime.faults.parse_spec); once-markers "
+                         "persist under --checkpoint-dir so a fault does "
+                         "not re-fire after a supervised restart")
     ap.add_argument("--verify-clean", action="store_true",
-                    help="after the cluster run, re-run in one process and "
-                         "fail unless the answers are byte-for-byte "
+                    help="after the (possibly faulted and restarted) "
+                         "cluster run, re-run uninterrupted in one process "
+                         "and fail unless the answers are byte-for-byte "
                          "identical")
     ap.add_argument("--admit", action="append", default=None,
                     metavar="SS:SEEDS",
@@ -461,24 +545,31 @@ def main(argv=None) -> ClusterResult:
     ap.add_argument("--device", default="cuda",
                     help="torch device every rank computes on (cpu runs "
                          "the kernels' plain versions)")
-    for flag in ("--resume", "--preemptible"):
-        ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--checkpoint-dir", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--checkpoint-every", type=int, default=0,
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--inject", action="append", default=None,
-                    help=argparse.SUPPRESS)
-    args = ap.parse_args(argv)
-    later = [f"--{k.replace('_', '-')} is ROADMAP.md queue {item}"
-             for k, item in _LATER_FLAGS.items() if getattr(args, k)]
-    if later:
-        raise NotImplementedError("; ".join(later))
+    return ap.parse_args(argv)
 
+
+def main(argv=None) -> ClusterResult:
+    """CLI: build (or reuse) a tile store, run one app on an N-server
+    cluster, print per-superstep wire bytes and per-rank reports."""
+    from repro_torch.core.partition import server_vertex_ranges
+    from repro_torch.graphio.formats import TileStore
+    from repro_torch.launch.graph import build_store
+    from repro_torch.runtime import faults
+
+    args = parse_args(argv)
     if args.reuse and args.store:
         store = TileStore(args.store)
         store.load_meta()
     else:
         store = build_store(args)
+
+    fault_plan = None
+    if args.inject:
+        marker_dir = None
+        if args.checkpoint_dir:
+            marker_dir = os.path.join(args.checkpoint_dir, "fault_markers")
+            os.makedirs(marker_dir, exist_ok=True)
+        fault_plan = faults.parse_plan(args.inject, marker_dir=marker_dir)
 
     ecfg = EngineConfig(
         comm_mode=args.comm_mode,
@@ -498,6 +589,11 @@ def main(argv=None) -> ClusterResult:
                               else int(args.vertex_memory_budget * 1e6)),
         num_intervals=args.num_intervals,
         interval_aware_order=not args.no_interval_order,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
+        resume=args.resume,
+        preemptible=args.preemptible,
+        fault_plan=fault_plan,
         admit_plan=parse_admit_plan(args.admit),
         device=args.device,
     )
@@ -516,17 +612,23 @@ def main(argv=None) -> ClusterResult:
           f"{', steal' if args.steal else ''}, {args.device}]: "
           f"{res.supersteps} supersteps in {dt:.1f}s "
           f"(converged={res.converged}, "
-          f"bit-identical across ranks={out.verified})")
+          f"bit-identical across ranks={out.verified}"
+          + (f", {out.restarts} restarts -> {out.final_servers} servers"
+             if out.restarts else "") + ")")
     if args.verify_clean:
-        clean_cfg = dataclasses.replace(ecfg, num_servers=args.servers)
+        clean_cfg = dataclasses.replace(
+            ecfg, num_servers=args.servers, checkpoint_dir=None,
+            checkpoint_every=0, resume=False, preemptible=False,
+            fault_plan=None)
         clean_eng = OutOfCoreEngine(store, clean_cfg)
         for i, prog in enumerate(_build_progs(args)):
             clean = clean_eng.run(prog)
             if not np.array_equal(clean.values, out.results[i].values):
                 raise SystemExit(
                     f"verify-clean FAILED: app index {i} differs from the "
-                    "single-process run")
-        print("  verify-clean: byte-identical to the single-process run")
+                    "uninterrupted single-process run")
+        print("  verify-clean: byte-identical to the uninterrupted "
+              "single-process run")
     print(f"  wire {wire / 1e6:.2f} MB total ({net / 1e6:.2f} MB on the "
           f"network at N-1 peers/server); per-superstep "
           f"{[h.wire_bytes for h in res.history[:8]]}"

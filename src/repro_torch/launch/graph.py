@@ -10,8 +10,11 @@ one edge pass, and ``--admit`` splices more in mid-run), the cache
 policies, the out-of-core vertex state (``--vertex-memory-budget``,
 ``--num-intervals``, ``--no-interval-order``), ``--cluster`` (``--servers``
 as real server processes, ``launch/cluster.py``, over ``--transport``,
-with ``--steal`` and ``--verify-clean``) — plus ``--device`` (default
-``cuda``).  The reference's other flags are accepted and rejected with
+with ``--steal`` and ``--verify-clean``), superstep checkpoints and fault
+drills (``--checkpoint-dir``, ``--checkpoint-every``, ``--resume``,
+``--preemptible``, ``--inject``; ``--on-failure`` and ``--max-restarts``
+supervise a ``--cluster``) — plus ``--device`` (default ``cuda``).  The
+reference's other flags are accepted and rejected with
 ``NotImplementedError`` naming their ROADMAP.md queue item.
 """
 from __future__ import annotations
@@ -29,13 +32,11 @@ from repro_torch.core.gab import SEG_IMPLS
 from repro_torch.graphio import spe, synth
 from repro_torch.graphio.formats import TileStore
 from repro_torch.launch.cluster import parse_admit_plan
+from repro_torch.runtime.faults import parse_plan
 
 # reference flags outside the slice -> the ROADMAP.md queue item bringing them
-_LATER_FLAGS = {
-    "kernel_autotune": "A.12", "checkpoint_dir": "A.10",
-    "resume": "A.10", "preemptible": "A.10", "inject": "A.10",
-    "serve": "A.11", "serve_http": "A.11",
-}
+_LATER_FLAGS = {"kernel_autotune": "A.12", "serve": "A.11",
+                "serve_http": "A.11"}
 
 
 # batched app -> its program's query field
@@ -144,15 +145,33 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--steal", action="store_true",
                     help="cluster mode: cross-server tile stealing "
                          "between supersteps (runtime.scheduler)")
-    ap.add_argument("--verify-clean", action="store_true",
-                    help="cluster mode: diff the run against a "
-                         "single-process rerun")
-    for flag in ("--kernel-autotune", "--resume",
-                 "--preemptible", "--serve", "--serve-http"):
-        ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--checkpoint-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="superstep-boundary checkpoints here; enables "
+                         "--resume")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="checkpoint every K superstep boundaries "
+                         "(0 = final checkpoint only)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the latest checkpoint "
+                         "(bit-identical; --servers may differ from the "
+                         "saved run)")
+    ap.add_argument("--preemptible", action="store_true",
+                    help="SIGTERM => save at the next superstep boundary "
+                         "and exit for later --resume")
+    ap.add_argument("--on-failure", default="fail",
+                    choices=["fail", "restart", "shrink"],
+                    help="cluster mode: rank-death policy (restart/shrink "
+                         "resume from --checkpoint-dir)")
+    ap.add_argument("--max-restarts", type=int, default=2)
     ap.add_argument("--inject", action="append", default=None,
-                    help=argparse.SUPPRESS)
+                    metavar="SPEC",
+                    help="fault-injection spec (runtime.faults), "
+                         "repeatable — fault drills only")
+    ap.add_argument("--verify-clean", action="store_true",
+                    help="cluster mode: diff the run against an "
+                         "uninterrupted single-process rerun")
+    for flag in ("--kernel-autotune", "--serve", "--serve-http"):
+        ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     later = [f"--{k.replace('_', '-')} is ROADMAP.md queue {item}"
              for k, item in _LATER_FLAGS.items() if getattr(args, k)]
@@ -177,14 +196,22 @@ def _cluster_argv(args) -> list[str]:
             "--stack-size", str(args.stack_size),
             "--num-intervals", str(args.num_intervals),
             "--disk-mode", str(args.disk_mode), "--seed", str(args.seed),
-            "--seg-impl", args.seg_impl, "--device", args.device]
+            "--seg-impl", args.seg_impl, "--device", args.device,
+            "--checkpoint-every", str(args.checkpoint_every),
+            "--on-failure", args.on_failure,
+            "--max-restarts", str(args.max_restarts)]
     for flag, on in (("--steal", args.steal), ("--pipeline", args.pipeline),
                      ("--static-order", args.static_order),
                      ("--no-interval-order", args.no_interval_order),
-                     ("--reuse", args.reuse),
+                     ("--reuse", args.reuse), ("--resume", args.resume),
+                     ("--preemptible", args.preemptible),
                      ("--verify-clean", args.verify_clean)):
         if on:
             argv.append(flag)
+    if args.checkpoint_dir:
+        argv += ["--checkpoint-dir", args.checkpoint_dir]
+    for spec in args.inject or ():
+        argv += ["--inject", spec]
     for spec in args.admit or ():
         argv += ["--admit", spec]
     if args.store:
@@ -236,6 +263,11 @@ def main(argv=None):
                               else int(args.vertex_memory_budget * 1e6)),
         num_intervals=args.num_intervals,
         interval_aware_order=not args.no_interval_order,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
+        resume=args.resume,
+        preemptible=args.preemptible,
+        fault_plan=parse_plan(args.inject),
         device=args.device,
     )
     if args.admit:
@@ -265,6 +297,12 @@ def main(argv=None):
               f"tile I/O {io/1e6:.1f} MB total = {io/q/1e6:.2f} MB/query, "
               f"{dt/q*1000:.0f} ms/query; per-query supersteps "
               f"{[int(s) for s in res.per_query_supersteps]}")
+    if not res.history:
+        # --resume of a final checkpoint returns the stored result without
+        # running a superstep: there are no per-superstep stats
+        print("  resumed a finished run from its final checkpoint "
+              "(no supersteps executed)")
+        return res
     h = res.history[-1]
     print(f"  cache hit ratio {h.cache_hit_ratio:.2f}, "
           f"net {sum(x.network_bytes for x in res.history)/1e6:.1f} MB total, "

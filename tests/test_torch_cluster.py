@@ -431,13 +431,18 @@ def test_spawned_cluster_rank_failure_names_the_rank(stores):
 
 
 @pytest.mark.parametrize("knobs", [
-    dict(on_failure="restart"), dict(on_failure="shrink"),
-    dict(max_restarts=5),
-    dict(engine=EngineConfig(checkpoint_dir="ckpt"))])
+    dict(on_failure="restart", engine=EngineConfig(kernel_autotune=True)),
+    dict(on_failure="shrink", engine=EngineConfig(kernel_blocks=(512, 256))),
+    dict(max_restarts=5, engine=EngineConfig(kernel_autotune=True)),
+    dict(engine=EngineConfig(checkpoint_dir="ckpt", kernel_autotune=True))])
 def test_later_cluster_knobs_raise(stores, knobs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A.10"):
+    """The engine's later knobs (the tuner's, A.12) raise before a rank
+    spawns, beside the supervision and checkpoint knobs of A.10."""
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue A.12") as ei:
         run_cluster(stores[0], [tapps.PageRank()],
                     ClusterConfig(device="cpu", **knobs))
+    assert "A.10" not in str(ei.value)
 
 
 def test_cuda_cluster_without_a_card_raises(stores):
@@ -462,13 +467,13 @@ def test_cli_cluster_runs_on_cpu(stores, tmp_path, capsys):
     assert "verify-clean: byte-identical" in text
 
 
-@pytest.mark.parametrize("argv", [["--cluster", "--checkpoint-dir", "x"],
-                                  ["--cluster", "--resume"]])
+@pytest.mark.parametrize("argv", [["--cluster", "--kernel-autotune"],
+                                  ["--cluster", "--serve"]])
 def test_cli_cluster_rejects_later_flags(argv):
-    from repro_torch.launch import cluster as tcluster
-
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A.10"):
-        tcluster.main(argv[1:])
+    """A ``--cluster`` run refuses the flags of later items (the tuner's,
+    serving) before it spawns a rank."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A.1[12]"):
+        tgraph.main(argv)
 
 
 def test_cli_takes_cluster_flags():

@@ -31,12 +31,15 @@ def test_importing_every_module_loads_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     count, names = proc.stdout.splitlines()[0], proc.stdout.splitlines()[1]
-    assert int(count.split()[0]) >= 29
+    assert int(count.split()[0]) >= 35
     for name in ("repro_torch.kernels.compact", "repro_torch.core.distributed",
                  "repro_torch.core.engine", "repro_torch.kernels.ops",
                  "repro_torch.core.vstate", "repro_torch.launch.cluster",
                  "repro_torch.core.transport", "repro_torch.core.comm",
-                 "repro_torch.runtime.scheduler"):
+                 "repro_torch.runtime.scheduler", "repro_torch.runtime.faults",
+                 "repro_torch.runtime.ft", "repro_torch.runtime.elastic",
+                 "repro_torch.train.checkpoint",
+                 "repro_torch.core.checkpoint"):
         assert name in names.split()
 
 
@@ -47,3 +50,45 @@ def test_source_has_no_jax_or_reference_import(path):
     bad = [line for line in path.read_text().splitlines()
            if FORBIDDEN.match(line)]
     assert not bad, bad
+
+
+# the A.10 flags with the reference's defaults (repro/launch/graph.py and
+# repro/launch/cluster.py)
+A10_DEFAULTS = dict(checkpoint_dir=None, checkpoint_every=0, resume=False,
+                    preemptible=False, on_failure="fail", max_restarts=2,
+                    inject=None)
+A10_ARGV = (["--checkpoint-dir", "ck", "--checkpoint-every", "3", "--resume",
+             "--preemptible", "--on-failure", "shrink", "--max-restarts",
+             "4", "--inject", "site=superstep,superstep=2", "--inject",
+             "site=barrier,rank=1,kind=kill"],
+            dict(checkpoint_dir="ck", checkpoint_every=3, resume=True,
+                 preemptible=True, on_failure="shrink", max_restarts=4,
+                 inject=["site=superstep,superstep=2",
+                         "site=barrier,rank=1,kind=kill"]))
+
+
+@pytest.mark.parametrize("cli", ["graph", "cluster"])
+def test_cli_takes_the_checkpoint_and_fault_flags(cli):
+    """Both CLIs of the port take every A.10 flag with the reference's
+    default; a ``--cluster`` run passes them on to the cluster CLI."""
+    from repro_torch.launch import cluster as tcluster
+    from repro_torch.launch import graph as tgraph
+
+    parse = tgraph.parse_args if cli == "graph" else tcluster.parse_args
+    args = parse([])
+    assert {k: getattr(args, k) for k in A10_DEFAULTS} == A10_DEFAULTS
+    argv, want = A10_ARGV
+    args = parse(argv)
+    assert {k: getattr(args, k) for k in want} == want
+    if cli == "graph":
+        passed = tcluster.parse_args(tgraph._cluster_argv(
+            tgraph.parse_args(["--cluster"] + argv)))
+        assert {k: getattr(passed, k) for k in want} == want
+
+
+@pytest.mark.parametrize("flag", ["--serve", "--serve-http"])
+def test_cli_serve_flags_still_raise(flag):
+    from repro_torch.launch import graph as tgraph
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A.11"):
+        tgraph.parse_args([flag, "--checkpoint-dir", "ck"])
