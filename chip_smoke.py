@@ -93,9 +93,10 @@
 11. Out-of-core vertex state ("ooc") on the same store, with
     num_intervals = OOC_INTERVALS: the engine cuts the vertices into
     intervals aligned to tiles and computes each tile's source footprint
-    as it loads the tile (timed once over all tiles); PageRank for 5
-    supersteps under an 8 MiB vertex budget (superstep 1 profiled: H2D
-    bytes of the sharded step, copy and kernel device time, the host
+    as it loads the tile (timed once over all tiles); PageRank for
+    OOC_PR_SUPERSTEPS = 3 supersteps (cut from 5 to keep the run inside
+    its time limit) under an 8 MiB vertex budget (superstep 1 profiled:
+    H2D bytes of the sharded step, copy and kernel device time, the host
     gather and writeback) and InDegree for 1 under 8 MiB; each equal bit
     for bit to the in-memory tiled run of as many supersteps, with 64
     kernel calls a superstep, faults, spills and dirty intervals (the
@@ -112,9 +113,10 @@
     single-query run with equal per-query supersteps, the drained one
     to scipy's BFS levels up to 3 with -1, the other originals to phase
     8's Q = 8 run; its first ADMIT_OOC_SUPERSTEPS supersteps (Q = 8, 8,
-    9, 8: the ninth query's admission, its Q = 9 superstep, the drain,
-    the ninth query's retirement and the tenth's admission into the
-    freed slot) in memory and under a 32 MiB budget equal bit for bit,
+    9: the ninth query's admission, its Q = 9 superstep and the drain at
+    its barrier; the ninth query's retirement and the tenth's admission
+    come a superstep later and are checked in memory here) in memory and
+    under a 32 MiB budget equal bit for bit,
     the latter with 64 fused calls a superstep and its budget binding.
     Device bytes outside torch's allocator (the hub scratch) are logged
     around each superstep and each phase 4 fused case.
@@ -161,19 +163,42 @@
     3 ranks on the remapped saved assignment, rank 0 equal to phase 5's
     run, the ranks to each other; the kill (its once-marker's time) to
     the new attempt's first boundary checkpoint is logged.
+16. Online query service ("serve"): serve/graph_service.py's
+    GraphService on the card (device cuda, seg_impl "fused", tile
+    skipping off, q_slots 8, min_fill 4, max_wait 50 ms, tenants alice:3
+    and bob:1, a result cache of 64) behind serve/http.py's HttpFrontend
+    on 127.0.0.1:0, the serve loop on its own thread; client threads POST
+    and poll GET /v1/query/<rid>.  Wave 1: MultiSourceBFS from phase 8's
+    eight sources and LandmarkDistances from two new seeds drawn from
+    SEED; wave 2: LandmarkDistances from two more and MultiSourceBFS from
+    the unused vertex of largest out-degree with a 1 ms deadline; wave 3:
+    repeats of three finished seeds.  Every done column (decoded from its
+    HTTP body) equals scipy's BFS levels with the per-query supersteps of
+    its depth, the sources' equal phase 8's direct batched run bit for bit
+    with equal per-query supersteps; the deadline query ends "timeout"
+    with a partial BFS column that is not cached; the repeats are cache
+    hits that open no session, run no superstep and take no slot.  Then
+    the drain: /healthz and POST answer 503 with Retry-After, every rid
+    still answers GET.  Logged: p50/p99 latency, the mean queue and
+    service ms, queries/s, supersteps, sessions, the (program, Q) of every
+    fused launch, and torch's allocated and reserved bytes and the bytes
+    outside torch's allocator after each closed session; the fused kernel
+    is held to its plain version and the merged-mode composition at every
+    (program, Q) the service launched it at.
 
-Phases 5, 6, 8, 9, 11, 13 and 14, the in-memory session of 12 and its
+Phases 5, 6, 8, 9, 11, 13, 14 and 16, the in-memory session of 12 and its
 out-of-core session ("admission ooc") and each part of 15 ("checkpoint"
 sums a and b, then "checkpoint ooc", "cluster restart") set every
 kernel's launch counter to 0 just before and read it just after (the
 cluster ranks and phase 13's gloo ranks count in their processes and
 report); each must have launched the kernels it runs.  The
 ``{"kernels": [...]}`` line gives, per kernel and case, the launches
-summed over those phases and the case's times: segment sum at the largest
-tile for Q = 1 and Q = 8 and at the merged shape, the fused PageRank spec
-at Q = 1 and Q = 8 and BFS spec at Q = 9 (with "composition_ms"),
-compact at V = 4,194,304,
-density 0.05 and at V = 2^25 (the "case" key names it).  Then, as its last line,
+summed over those phases, the launches by phase ("launches_by_path") and
+the case's times: segment sum at the largest tile for Q = 1 and Q = 8 and
+at the merged shape, the fused PageRank spec at Q = 1 and Q = 8, BFS spec
+at Q = 9 and the serve path's most launched (program, Q) (with
+"composition_ms"), compact at V = 4,194,304, density 0.05 and at V = 2^25
+(the "case" key names it).  Then, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failed check raises; without a CUDA
 device, or without the repository beside it, it exits non-zero before
 printing a result.  Details go to build/chip_smoke.json.
@@ -211,16 +236,26 @@ PPR_MAX_FLIP_SHARE = 1e-4
 PAD_HUB_EDGES = 20000        # real edges turned into padding (phase 4)
 OOC_INTERVALS = 16           # interval plan of the out-of-core runs
 OOC_PR_BUDGET = 8 << 20      # PageRank / InDegree vertex budget, bytes
+OOC_PR_SUPERSTEPS = 3        # out-of-core PageRank (each ~20-27 s)
 OOC_MSBFS_BUDGET = 32 << 20  # MultiSourceBFS (Q = 8 and 9) vertex budget
 DRAIN_AT = 2                 # admission: drain query DRAIN_QID after this
 DRAIN_QID = 1                # superstep
-ADMIT_OOC_SUPERSTEPS = 4     # admission session compared out of core
+ADMIT_OOC_SUPERSTEPS = 3     # admission session compared out of core
 CKPT_CRASH_SS = 3            # checkpoint: crash at the start of superstep 3
 CKPT_PREEMPT_SS = 2          # SIGTERM at the barrier of superstep 2
 OOC_CKPT_SUPERSTEPS = 3      # out-of-core checkpoint run: cut from 5
 OOC_CKPT_CRASH_SS = 2
 SHRINK_FROM = 4              # cluster restart: N = 4 ...
 SHRINK_KILL = (2, 3)         # ... rank 3 killed at the barrier of superstep 2
+SERVE_Q_SLOTS = 8            # serve: live query columns a session
+SERVE_MIN_FILL = 4           # batch admissions until 4 are queued ...
+SERVE_MAX_WAIT_S = 0.05      # ... or the oldest waited this long
+SERVE_TENANTS = {"alice": 3.0, "bob": 1.0}
+SERVE_CACHE = 64             # result-cache entries
+SERVE_LANDMARKS = 4          # new LandmarkDistances seeds (waves 1 and 2)
+SERVE_DEADLINE_MS = 1.0      # the deadline query's deadline
+SERVE_POLL_S = 0.2           # a client's GET interval
+SERVE_CLIENT_TIMEOUT_S = 600
 DEV = "cuda"
 
 
@@ -1215,10 +1250,11 @@ def time_footprints(store, plan):
     return out
 
 
-def ooc_phase(torch, store, pr, indeg):
+def ooc_phase(torch, store, indeg):
     """Out-of-core vertex state on the main store with OOC_INTERVALS
-    intervals: PageRank (budget OOC_PR_BUDGET, PR_SUPERSTEPS supersteps,
-    superstep 1 profiled) and InDegree (OOC_PR_BUDGET, 1 superstep, the
+    intervals: PageRank (budget OOC_PR_BUDGET, OOC_PR_SUPERSTEPS
+    supersteps, superstep 1 profiled) and InDegree (OOC_PR_BUDGET, 1
+    superstep, the
     segment kernel), each bit for bit equal to the in-memory tiled run of
     as many supersteps; the budget must bind.  MultiSourceBFS under
     OOC_MSBFS_BUDGET runs in phase 12's out-of-core session."""
@@ -1226,10 +1262,12 @@ def ooc_phase(torch, store, pr, indeg):
 
     num_tiles = store.load_plan().num_tiles
     out, launches = [], {}
+    mem = engine(store, tile_skipping=False).run(
+        PageRank(), max_supersteps=OOC_PR_SUPERSTEPS)
     reset_launches()
     eng = engine(store, tile_skipping=False, num_intervals=OOC_INTERVALS,
                  vertex_memory_budget=OOC_PR_BUDGET)
-    sess = eng.open_session(PageRank(), max_supersteps=PR_SUPERSTEPS)
+    sess = eng.open_session(PageRank(), max_supersteps=OOC_PR_SUPERSTEPS)
     try:
         sess.step()
         h2d = [0]
@@ -1246,12 +1284,12 @@ def ooc_phase(torch, store, pr, indeg):
     finally:
         sess.close()
     launches["pagerank"] = read_launches()
-    if not same_bits(res.values, pr.values):
+    if not same_bits(res.values, mem.values):
         raise AssertionError("pagerank ooc differs from the tiled run")
-    out.append(vstate_summary("pagerank ooc", res, steady_ms(pr),
+    out.append(vstate_summary("pagerank ooc", res, steady_ms(mem),
                               eng.vstate.stats.as_dict(),
                               eng.vstate.num_intervals))
-    if launches["pagerank"]["gab_fused"] != num_tiles * PR_SUPERSTEPS:
+    if launches["pagerank"]["gab_fused"] != num_tiles * OOC_PR_SUPERSTEPS:
         raise AssertionError(f"pagerank ooc: {launches['pagerank']} "
                              f"launches, {num_tiles} a superstep expected")
 
@@ -1342,9 +1380,8 @@ def admission_phase(torch, store, src, dst, sources, msbfs, levels):
     against scipy's BFS levels up to DRAIN_AT + 1; then its first
     ADMIT_OOC_SUPERSTEPS supersteps in memory and under OOC_MSBFS_BUDGET,
     equal bit for bit — the latter is also the out-of-core MultiSourceBFS
-    run at Q = 8 (supersteps 0 and 1), Q = 9 (superstep 2) and, after
-    the drain, Q = 8 (superstep 3, at whose barrier the ninth column
-    retires and the tenth is admitted).  The launch counters are read
+    run at Q = 8 (supersteps 0 and 1) and Q = 9 (superstep 2, at whose
+    barrier query DRAIN_QID drains).  The launch counters are read
     around the two sessions alone: "admission" (in memory) and
     "admission ooc"."""
     from repro_torch.core.apps import MultiSourceBFS
@@ -1424,13 +1461,12 @@ def admission_phase(torch, store, src, dst, sources, msbfs, levels):
             and all(r["fused_launches"] == num_tiles for r in ooc_steps)):
         raise AssertionError("admission: the out-of-core session differs "
                              "from the in-memory one")
-    # the window holds the scheduled admission, Q = 9, the drain, a
-    # natural retirement and admit() into a freed slot
+    # the window holds the scheduled admission, the Q = 9 superstep and the
+    # drain at its barrier (the retirement and admit() into the freed slot
+    # come a superstep later: checked in memory above)
     if not (any(r["active_queries"] == q + 1 for r in ooc_steps)
             and [q] in [r["admitted"] for r in ooc_steps]
-            and [DRAIN_QID] in [r["drained"] for r in ooc_steps]
-            and any(q in r["retired"] for r in ooc_steps)
-            and [g10] in [r["admitted"] for r in ooc_steps]):
+            and [DRAIN_QID] in [r["drained"] for r in ooc_steps]):
         raise AssertionError(f"admission ooc: {script(ooc_steps)} misses a "
                              "step of the script")
     ooc_summary = vstate_summary(
@@ -2039,14 +2075,323 @@ def checkpoint_phase(torch, store, pr, single, sources, s9, ckpt_root):
     return out, launches
 
 
-def kernel_entry(name, source, replaces, launches, err, row, case):
+def http_call(url, body=None, timeout=60):
+    """One JSON request (POST when ``body`` is given, else GET); returns
+    (status, Retry-After header or None, decoded JSON body)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.headers.get("Retry-After"), json.loads(
+                r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Retry-After"), json.loads(e.read())
+
+
+def serve_clients(base, queries):
+    """One client thread a query: POST it, then poll its rid until the
+    ticket is terminal.  Returns the terminal tickets, in order."""
+    import threading
+
+    out, errors = [None] * len(queries), []
+
+    def client(i, body):
+        try:
+            code, _, posted = http_call(base + "/v1/query", body)
+            if code != 200:
+                raise AssertionError(f"POST {body}: {code} {posted}")
+            deadline = time.monotonic() + SERVE_CLIENT_TIMEOUT_S
+            while time.monotonic() < deadline:
+                code, _, t = http_call(f"{base}/v1/query/{posted['rid']}")
+                if code != 200:
+                    raise AssertionError(f"GET {posted['rid']}: {code} {t}")
+                if t["status"] in ("done", "timeout", "failed"):
+                    out[i] = t
+                    return
+                time.sleep(SERVE_POLL_S)
+            raise AssertionError(f"rid {posted['rid']} never finished")
+        except Exception as e:  # surfaced below, in the caller's thread
+            errors.append((body, e))
+
+    threads = [threading.Thread(target=client, args=(i, body))
+               for i, body in enumerate(queries)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(SERVE_CLIENT_TIMEOUT_S + 60)
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"serve clients failed: {errors}")
+    return out
+
+
+def pick_serve_seeds(out_degree, sources, s9, s10):
+    """SERVE_LANDMARKS landmark seeds drawn from SEED among the vertices
+    with out-degree > 0 that no earlier phase used, and the deadline
+    query's source: the vertex of largest out-degree among those left
+    (its BFS runs several supersteps, so a drain leaves a partial
+    column)."""
+    rng = np.random.default_rng(SEED + 16)
+    used = np.asarray(list(sources) + [s9, s10])
+    cand = np.setdiff1d(np.nonzero(out_degree > 0)[0], used)
+    landmarks = tuple(int(v) for v in rng.choice(cand, SERVE_LANDMARKS,
+                                                 replace=False))
+    left = np.setdiff1d(cand, np.asarray(landmarks))
+    return landmarks, int(left[np.argmax(out_degree[left])])
+
+
+def serve_phase(torch, store, src, dst, sources, msbfs, levels, s9, s10):
+    """Phase 16: the online query service on the card behind its HTTP
+    frontend.  GraphService over the store (device cuda, the fused
+    kernel, tile skipping off, q_slots 8, min_fill 4, max_wait 50 ms,
+    tenants alice:3 and bob:1, a result cache of 64 entries) fronted by
+    HttpFrontend on 127.0.0.1:0; client threads POST and poll.  Wave 1:
+    MultiSourceBFS from the eight batched sources and LandmarkDistances
+    from two new seeds; wave 2: LandmarkDistances from two more and one
+    MultiSourceBFS query with a SERVE_DEADLINE_MS deadline, drained as
+    ``timeout``; wave 3: repeats of finished seeds, which come back as
+    cache hits with no slot used.  Every done column, decoded from its
+    HTTP body, equals scipy's BFS levels, and the sources' columns equal
+    phase 8's direct batched run bit for bit with equal per-query
+    supersteps.  Then the drain: /healthz and POST answer 503 with
+    Retry-After, and GET still answers for every rid.  The launch counts
+    are read around the service's life ("serve"); the Q of every fused
+    launch is recorded, and the fused kernel is held to its plain version
+    at each (program, Q) the service launched it at."""
+    from repro_torch.core.apps import LandmarkDistances, MultiSourceBFS
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.kernels import gab_fused
+    from repro_torch.serve.graph_service import GraphService
+    from repro_torch.serve.http import HttpFrontend, decode_array
+
+    nv = store.load_plan().num_vertices
+    out_degree = store.load_degrees()[1]
+    landmarks, late = pick_serve_seeds(out_degree, sources, s9, s10)
+    t0 = time.perf_counter()
+    lm_levels = scipy_bfs(src, dst, nv, landmarks + (late,))
+    log(f"serve: landmarks {landmarks}, deadline source {late} "
+        f"(scipy BFS {time.perf_counter() - t0:.1f} s)")
+    want = {("msbfs", s): levels[:, q] for q, s in enumerate(sources)}
+    want.update({("landmarks", s): lm_levels[:, i]
+                 for i, s in enumerate(landmarks)})
+    depth = {q: int(levels[np.isfinite(levels[:, q]), q].max())
+             for q in range(len(sources))}
+    # per-query supersteps of a BFS column against its depth, from the
+    # direct run; every served BFS-like column must keep the same offset
+    offsets = {int(msbfs.per_query_supersteps[q]) - depth[q] for q in depth}
+    if len(offsets) != 1:
+        raise AssertionError(f"serve: supersteps - depth not one value: "
+                             f"{offsets}")
+    offset = offsets.pop()
+
+    closed = []
+
+    class MeasuredService(GraphService):
+        """The service, logging the device's memory after each closed
+        session (on the serve thread, after the session released its
+        state)."""
+
+        def _close_session(self, app, sess):
+            super()._close_session(app, sess)
+            torch.cuda.synchronize()
+            closed.append(dict(
+                app=app, supersteps=sess.superstep,
+                allocated=torch.cuda.memory_allocated(),
+                reserved=torch.cuda.memory_reserved(),
+                non_torch=non_torch_device_bytes(torch)))
+
+    specs = {MultiSourceBFS().fused_spec(): "msbfs",
+             LandmarkDistances().fused_spec(): "landmarks"}
+    fused_q = {}
+    kernel = gab_fused.gab_fused
+
+    def recording(spec, src_vals, *args):
+        key = (specs.get(spec, str(spec)),
+               1 if src_vals.ndim == 1 else int(src_vals.shape[1]))
+        fused_q[key] = fused_q.get(key, 0) + 1
+        return kernel(spec, src_vals, *args)
+
+    cfg = EngineConfig(num_servers=1, device=DEV, seg_impl="fused",
+                       tile_skipping=False)
+    svc = MeasuredService(store, cfg, q_slots=SERVE_Q_SLOTS,
+                          min_fill=SERVE_MIN_FILL,
+                          max_wait_s=SERVE_MAX_WAIT_S,
+                          tenants=SERVE_TENANTS,
+                          result_cache=SERVE_CACHE)
+    fe = HttpFrontend(svc, host="127.0.0.1", port=0).start()
+    base = fe.address
+    tenants = sorted(SERVE_TENANTS)
+    torch.cuda.synchronize()
+    mem0 = dict(allocated=torch.cuda.memory_allocated(),
+                reserved=torch.cuda.memory_reserved(),
+                non_torch=non_torch_device_bytes(torch))
+    log(f"serve: {svc.cfg.device}, frontend {base}; before: {mem0}")
+    gab_fused.gab_fused = recording
+    try:
+        reset_launches()
+        t_serve = time.perf_counter()
+        svc.start()
+        wave1 = serve_clients(base, [
+            dict(app="msbfs", seed=s, tenant=tenants[i % 2])
+            for i, s in enumerate(sources)] + [
+            dict(app="landmarks", seed=s, tenant=tenants[i % 2])
+            for i, s in enumerate(landmarks[:2])])
+        wave2 = serve_clients(base, [
+            dict(app="landmarks", seed=s, tenant=tenants[i % 2])
+            for i, s in enumerate(landmarks[2:])] + [
+            dict(app="msbfs", seed=late, tenant=tenants[0],
+                 deadline_ms=SERVE_DEADLINE_MS)])
+        before_hits = svc.stats_snapshot()
+        wave3 = serve_clients(base, [
+            dict(app="msbfs", seed=sources[0], tenant=tenants[0]),
+            dict(app="msbfs", seed=sources[1], tenant=tenants[1]),
+            dict(app="landmarks", seed=landmarks[0], tenant=tenants[0])])
+        after_hits = svc.stats_snapshot()
+        svc.request_drain()
+        svc.join(600)
+        serve_s = time.perf_counter() - t_serve
+        launches = read_launches()
+    finally:
+        gab_fused.gab_fused = kernel
+    if svc._thread.is_alive():
+        raise AssertionError("serve: the serve thread did not drain")
+    require_launches(launches, ("gab_fused",), "serve")
+
+    # the drain: healthz and POST refuse with Retry-After, GET answers
+    code, retry, _ = http_call(base + "/healthz")
+    pcode, pretry, _ = http_call(base + "/v1/query",
+                                 dict(app="msbfs", seed=sources[0]))
+    if (code, retry, pcode, pretry) != (503, "1", 503, "1"):
+        raise AssertionError(f"serve: drained /healthz {code} {retry}, "
+                             f"POST {pcode} {pretry}")
+    for t in wave1 + wave2 + wave3:
+        code, _, again = http_call(f"{base}/v1/query/{t['rid']}")
+        if code != 200 or again["status"] != t["status"]:
+            raise AssertionError(f"serve: GET {t['rid']} after the drain: "
+                                 f"{code} {again.get('status')}")
+    snap = svc.stats_snapshot()
+    http_counts = fe.counters()
+    fe.close()
+    stats = snap["stats"]
+    if stats["submitted"] != (stats["done"] + stats["timeout"]
+                              + stats["failed"] + stats["refused"]):
+        raise AssertionError(f"serve: counters do not add up: {stats}")
+
+    # every done column against scipy, the sources' against phase 8's run
+    for t in wave1 + wave2[:-1]:
+        col = decode_array(t["result"])
+        key = (t["app"], t["seed"])
+        if t["status"] != "done" or t["cache_hit"]:
+            raise AssertionError(f"serve: {key} ended {t['status']}")
+        if not same_bits(col, want[key]):
+            raise AssertionError(f"serve: {key} differs from scipy's BFS")
+        d = int(want[key][np.isfinite(want[key])].max())
+        if t["supersteps"] != d + offset:
+            raise AssertionError(f"serve: {key} took {t['supersteps']} "
+                                 f"supersteps, its depth {d}")
+        if t["app"] == "msbfs":
+            q = sources.index(t["seed"])
+            if not (same_bits(col, msbfs.values[:, q])
+                    and t["supersteps"] == msbfs.per_query_supersteps[q]):
+                raise AssertionError(f"serve: {key} differs from the "
+                                     "direct batched run")
+    # the deadline query: drained with a partial column, never cached
+    dl = wave2[-1]
+    part = decode_array(dl["result"])
+    lv = lm_levels[:, -1]
+    k = int(part[np.isfinite(part)].max())
+    if not (dl["status"] == "timeout" and dl["supersteps"] == -1
+            and k < int(lv[np.isfinite(lv)].max())
+            and same_bits(part, np.where(lv <= k, lv,
+                                         np.float32(np.inf)))):
+        raise AssertionError(f"serve: the deadline query ended "
+                             f"{dl['status']}, not a partial BFS")
+    with svc.cache._lock:
+        if ("msbfs", late, svc.fingerprint) in svc.cache._entries:
+            raise AssertionError("serve: a timeout column was cached")
+    # the repeats: cache hits, equal bytes, no slot, no superstep
+    firsts = {(t["app"], t["seed"]): t for t in wave1}
+    for t in wave3:
+        orig = firsts[(t["app"], t["seed"])]
+        if not (t["status"] == "done" and t["cache_hit"]
+                and t["supersteps"] == orig["supersteps"]
+                and t["result"] == orig["result"]):
+            raise AssertionError(f"serve: repeat {t['app']} {t['seed']} is "
+                                 "not a cache hit of its first answer")
+    b, a = before_hits, after_hits
+    if not (a["stats"]["sessions_opened"] == b["stats"]["sessions_opened"]
+            and a["stats"]["supersteps"] == b["stats"]["supersteps"]
+            and a["stats"]["cache_hits"] == b["stats"]["cache_hits"] + 3
+            and all(a["tenants"][n]["admitted"]
+                    == b["tenants"][n]["admitted"] for n in tenants)):
+        raise AssertionError(f"serve: cache hits used a slot: {b} -> {a}")
+
+    lat = svc.latency_summary()
+    qps = stats["done"] / serve_s
+    log(f"serve: {stats['done']} done ({stats['cache_hits']} cache hits), "
+        f"{stats['timeout']} timeout, {stats['refused']} refused in "
+        f"{serve_s:.1f} s: {qps:.3f} queries/s, {stats['supersteps']} "
+        f"supersteps, {stats['sessions_opened']} sessions; latency p50 "
+        f"{lat['p50_ms']:.1f} ms, p99 {lat['p99_ms']:.1f} ms, mean queue "
+        f"{lat['mean_queue_ms']:.1f} ms + service {lat['mean_service_ms']:.1f}"
+        f" ms; tenants {snap['tenants']}; http {http_counts}")
+    log(f"serve: fused launches by (program, Q): "
+        f"{dict(sorted(fused_q.items()))}")
+    for row in closed:
+        log(f"serve: closed a {row['app']} session after {row['supersteps']}"
+            f" supersteps: torch allocated {row['allocated']}, reserved "
+            f"{row['reserved']}, outside torch {row['non_torch']} bytes")
+    if sum(fused_q.values()) != launches["gab_fused"]:
+        raise AssertionError(f"serve: {sum(fused_q.values())} fused calls "
+                             f"recorded, {launches['gab_fused']} counted")
+
+    rows = check_serve_shapes(torch, store, fused_q)
+    return dict(landmarks=list(landmarks), deadline_source=late,
+                seconds=serve_s, queries_per_s=qps, stats=stats,
+                tenants=snap["tenants"], cache=snap["cache"],
+                http=http_counts, latency=lat, memory_before=mem0,
+                closed_sessions=closed,
+                fused_launches_by_q=[[app, q, n] for (app, q), n
+                                     in sorted(fused_q.items())],
+                kernel_cases=rows), {"serve": launches}
+
+
+def check_serve_shapes(torch, store, fused_q):
+    """The fused kernel at each (program, Q) the service launched it at,
+    on the largest tile, against its plain version and the merged-mode
+    composition (as phase 4), with the batched programs themselves."""
+    from repro_torch.core.apps import LandmarkDistances, MultiSourceBFS
+
+    plan = store.load_plan()
+    tile = store.read_tile(int(np.argmax(plan.edges_per_tile)))
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    dst = torch.from_numpy(tile.dst_local).to(dev)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    progs = {"msbfs": MultiSourceBFS(), "landmarks": LandmarkDistances()}
+    rows = []
+    for app, q in sorted(fused_q):
+        case = fused_inputs(torch, progs[app], dst, tile.meta.num_rows,
+                            plan.row_cap, q, gen)
+        row = check_fused_case(torch, case, flush, f"serve shape: fused "
+                               f"{app} Q={q}")
+        rows.append(dict(spec=app, launches=fused_q[(app, q)], **row))
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def kernel_entry(name, source, replaces, launches, by_path, err, row, case):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=row["kernel_ms"],
                 plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                 bound_by=row["bound_by"], library_ms=row["library_ms"],
-                case=case, **{k: row[k] for k in ("library_full_ms",
-                                                  "composition_ms")
-                              if k in row})
+                case=case, launches_by_path=by_path,
+                **{k: row[k] for k in ("library_full_ms", "composition_ms")
+                   if k in row})
 
 
 def main():
@@ -2141,7 +2486,7 @@ def main():
 
         t0 = time.perf_counter()
         footprints = time_footprints(store, plan)
-        ooc_rows, prof_ooc, ooc_launches = ooc_phase(torch, store, pr, indeg)
+        ooc_rows, prof_ooc, ooc_launches = ooc_phase(torch, store, indeg)
         mark("ooc", t0)
         t0 = time.perf_counter()
         admission, admission_launches = admission_phase(
@@ -2159,6 +2504,11 @@ def main():
         checkpoint, ckpt_launches = checkpoint_phase(
             torch, store, pr, single, sources, admission["s9"], ckpt_root)
         mark("checkpoint", t0)
+        t0 = time.perf_counter()
+        serve, serve_launches = serve_phase(
+            torch, store, src, dst, sources, msbfs, levels,
+            admission["s9"], admission["s10"])
+        mark("serve", t0)
     finally:
         shutil.rmtree(store_root, ignore_errors=True)
         shutil.rmtree(ckpt_root, ignore_errors=True)
@@ -2166,19 +2516,25 @@ def main():
     paths = {"main path": main_launches, "compact path": compact_launches,
              "batched apps": batched_launches, "modes": mode_launches,
              "ooc": ooc_launches, **admission_launches, **mesh_launches,
-             **cluster_launches, **ckpt_launches}
+             **cluster_launches, **ckpt_launches, **serve_launches}
     total = {k: sum(p[k] for p in paths.values()) for k in main_launches}
     log(f"launches by path: {paths}; total {total}")
+
+    def by_path(name):
+        return {p: c[name] for p, c in paths.items()}
+
+    serve_err = max(r["max_abs_err"] for r in serve["kernel_cases"])
     seg_src = ("segment_reduce",
                "src/repro_torch/kernels/csrc/segment_reduce.cu",
                "src/repro/kernels/gab_gather.py:127",
-               total["segment_reduce"], seg_err)
+               total["segment_reduce"], by_path("segment_reduce"), seg_err)
     fused_src = ("gab_fused", "src/repro_torch/kernels/csrc/gab_fused.cu",
                  "src/repro/kernels/gab_fused.py:294", total["gab_fused"],
-                 fused_err)
+                 by_path("gab_fused"), max(fused_err, serve_err))
     compact_src = ("compact", "src/repro_torch/kernels/csrc/compact.cu",
                    "src/repro/kernels/compact.py:107", total["compact"],
-                   compact_err)
+                   by_path("compact"), compact_err)
+    serve_case = max(serve["kernel_cases"], key=lambda r: r["launches"])
 
     def compact_case(n, density):
         return next(r for r in compact_rows
@@ -2205,6 +2561,9 @@ def main():
                                       if r["spec"] == "bfs"
                                       and r["q"] == NUM_QUERIES + 1),
                      f"tile, BFS spec, Q={NUM_QUERIES + 1}"),
+        kernel_entry(*fused_src, serve_case,
+                     f"tile, {serve_case['spec']} spec, Q={serve_case['q']} "
+                     f"(the serve path's most launched shape)"),
         kernel_entry(*compact_src, compact_case(nv, 0.05),
                      f"V={nv}, density 0.05"),
         kernel_entry(*compact_src, compact_case(1 << 25, 0.01),
@@ -2226,6 +2585,7 @@ def main():
                        footprints=footprints, ooc=ooc_rows,
                        profile_ooc=prof_ooc, admission=admission,
                        mesh=mesh, cluster=cluster, checkpoint=checkpoint,
+                       serve=serve,
                        launches_by_path=paths, kernels=kernels,
                        phase_seconds=phase_s, seconds=seconds), f, indent=1)
     log(f"total {seconds:.1f} s")

@@ -3,19 +3,22 @@
     PYTHONPATH=src python -m repro_torch.launch.graph --app pagerank \
         --vertices 100000 --edges 1000000 --servers 4 --supersteps 20
 
-The batch flags of ``repro.launch.graph`` for the port so far — the
-in-process engine, serial or ``--pipeline``, all eight apps (``ppr``,
-``msbfs`` and ``landmarks`` run ``--queries``/``--seeds`` query columns in
-one edge pass, and ``--admit`` splices more in mid-run), the cache
-policies, the out-of-core vertex state (``--vertex-memory-budget``,
-``--num-intervals``, ``--no-interval-order``), ``--cluster`` (``--servers``
-as real server processes, ``launch/cluster.py``, over ``--transport``,
-with ``--steal`` and ``--verify-clean``), superstep checkpoints and fault
-drills (``--checkpoint-dir``, ``--checkpoint-every``, ``--resume``,
+The flags of ``repro.launch.graph`` for the port so far — the in-process
+engine, serial or ``--pipeline``, all eight apps (``ppr``, ``msbfs`` and
+``landmarks`` run ``--queries``/``--seeds`` query columns in one edge
+pass, and ``--admit`` splices more in mid-run), the cache policies, the
+out-of-core vertex state (``--vertex-memory-budget``, ``--num-intervals``,
+``--no-interval-order``), ``--cluster`` (``--servers`` as real server
+processes, ``launch/cluster.py``, over ``--transport``, with ``--steal``
+and ``--verify-clean``), superstep checkpoints and fault drills
+(``--checkpoint-dir``, ``--checkpoint-every``, ``--resume``,
 ``--preemptible``, ``--inject``; ``--on-failure`` and ``--max-restarts``
-supervise a ``--cluster``) — plus ``--device`` (default ``cuda``).  The
-reference's other flags are accepted and rejected with
-``NotImplementedError`` naming their ROADMAP.md queue item.
+supervise a ``--cluster``), and the online query service (``--serve``,
+``--serve-http`` and their flags, ``serve/graph_service.py``,
+``serve/http.py``) — plus ``--device`` (default ``cuda``).
+``--seg-impl`` also takes the reference's names.  ``--kernel-autotune``
+is accepted and rejected with ``NotImplementedError`` naming its
+ROADMAP.md queue item.
 """
 from __future__ import annotations
 
@@ -35,8 +38,12 @@ from repro_torch.launch.cluster import parse_admit_plan
 from repro_torch.runtime.faults import parse_plan
 
 # reference flags outside the slice -> the ROADMAP.md queue item bringing them
-_LATER_FLAGS = {"kernel_autotune": "A.12", "serve": "A.11",
-                "serve_http": "A.11"}
+_LATER_FLAGS = {"kernel_autotune": "A.12"}
+
+# the reference's --seg-impl backends -> the port's: "jnp" reduces and then
+# applies, as "segment" does; "pallas_onehot" is the segment kernel
+_REFERENCE_SEG_IMPLS = {"jnp": "segment", "pallas_onehot": "segment",
+                        "pallas_fused": "fused"}
 
 
 # batched app -> its program's query field
@@ -126,11 +133,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="scripted mid-run admission for batched apps, "
                          "repeatable: '4:17,42' splices those query seeds "
                          "into [V,Q] columns at the end of superstep 4")
-    ap.add_argument("--seg-impl", default="fused", choices=list(SEG_IMPLS),
+    ap.add_argument("--seg-impl", default="fused",
+                    choices=list(SEG_IMPLS) + list(_REFERENCE_SEG_IMPLS),
                     help="fused: the fused gather→combine→apply kernel (the "
                          "segment kernel for apps without a fused form); "
                          "segment: the app's gather/apply around the "
-                         "segment kernel")
+                         "segment kernel; the reference's names map onto "
+                         "them (jnp, pallas_onehot: segment; pallas_fused: "
+                         "fused)")
     ap.add_argument("--device", default="cuda",
                     help="torch device the tiles compute on (cpu runs the "
                          "kernels' plain versions)")
@@ -170,9 +180,63 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--verify-clean", action="store_true",
                     help="cluster mode: diff the run against an "
                          "uninterrupted single-process rerun")
-    for flag in ("--kernel-autotune", "--serve", "--serve-http"):
-        ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--serve", action="store_true",
+                    help="run as a long-lived graph-query service: queries "
+                         "admit into retired [V,Q] slots mid-run; SIGTERM "
+                         "drains gracefully")
+    ap.add_argument("--q-slots", type=int, default=8,
+                    help="serve mode: live query columns per session")
+    ap.add_argument("--min-fill", type=int, default=1,
+                    help="serve mode: batch admissions until this many "
+                         "queries are queued (amortizes the all-dirty "
+                         "superstep an admission forces) ...")
+    ap.add_argument("--max-wait-ms", type=float, default=50.0,
+                    help="... but admit anyway after this long")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="serve mode: per-query deadline; overdue "
+                         "queries drain with partial results")
+    ap.add_argument("--serve-requests", type=int, default=32,
+                    help="serve mode: scripted workload size "
+                         "(0 = serve idle until SIGTERM)")
+    ap.add_argument("--serve-qps", type=float, default=0.0,
+                    help="serve mode: offered arrival rate for the "
+                         "scripted workload (0 = submit all upfront)")
+    ap.add_argument("--serve-apps", default="ppr,msbfs",
+                    help="serve mode: comma list of batched apps the "
+                         "scripted workload mixes")
+    ap.add_argument("--drain-mode", default="finish",
+                    choices=["finish", "checkpoint"],
+                    help="serve mode: on SIGTERM, run in-flight queries "
+                         "to convergence or checkpoint them for a "
+                         "--resume'd service restart")
+    ap.add_argument("--serve-http", action="store_true",
+                    help="serve mode with the JSON-over-HTTP frontend "
+                         "(serve/http.py): POST /v1/query, GET "
+                         "/v1/query/<rid>, /v1/stats, /healthz; implies "
+                         "--serve and idles until SIGTERM")
+    ap.add_argument("--host", default="127.0.0.1",
+                    help="HTTP frontend bind address")
+    ap.add_argument("--port", type=int, default=8080,
+                    help="HTTP frontend port (0 = ephemeral; the bound "
+                         "port is printed as 'serving http on ...')")
+    ap.add_argument("--tenants", default=None, metavar="NAME:W,...",
+                    help="serve mode: tenant weights for deficit-round-"
+                         "robin fair admission, e.g. 'alice:3,bob:1' "
+                         "(unknown tenants serve at weight 1)")
+    ap.add_argument("--result-cache", type=int, default=0,
+                    metavar="ENTRIES",
+                    help="serve mode: exact result-cache capacity keyed "
+                         "by (app, seed, graph fingerprint); repeated "
+                         "seeds return without consuming a [V,Q] slot "
+                         "(0 = off)")
+    ap.add_argument("--drain-linger-ms", type=float, default=500.0,
+                    help="HTTP serve mode: keep GET /v1/query/<rid> "
+                         "answering this long after the drain so "
+                         "clients can collect in-flight results")
+    ap.add_argument("--kernel-autotune", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    args.seg_impl = _REFERENCE_SEG_IMPLS.get(args.seg_impl, args.seg_impl)
     later = [f"--{k.replace('_', '-')} is ROADMAP.md queue {item}"
              for k, item in _LATER_FLAGS.items() if getattr(args, k)]
     if later:
@@ -225,11 +289,132 @@ def _cluster_argv(args) -> list[str]:
     return argv
 
 
+def _serve_main(args):
+    """``--serve`` / ``--serve-http``: long-lived graph-query service
+    over the tile store.  A scripted workload of ``--serve-requests``
+    mixed queries (seeded from ``--seed``) is offered at ``--serve-qps``
+    (0 = all upfront) from a feeder thread; the serve loop runs in the
+    main thread so SIGTERM drains gracefully (exit 0).  With
+    ``--serve-requests 0`` — always in HTTP mode — the service idles until
+    SIGTERM.  ``--serve-http`` additionally binds the JSON-over-HTTP
+    frontend (serve/http.py) on ``--host``/``--port`` and keeps it
+    answering ``GET /v1/query/<rid>`` for ``--drain-linger-ms`` after the
+    drain so clients can collect in-flight results.  The engines compute
+    on ``--device`` with ``--seg-impl``."""
+    import threading
+
+    from repro_torch.serve.graph_service import (SERVABLE, GraphService,
+                                                 parse_tenants)
+
+    apps = [a.strip() for a in args.serve_apps.split(",") if a.strip()]
+    bad = [a for a in apps if a not in SERVABLE]
+    if bad:
+        raise SystemExit(f"--serve-apps: {bad} not servable "
+                         f"(batched apps only: {', '.join(SERVABLE)})")
+    if args.reuse and args.store:
+        store = TileStore(args.store)
+        store.load_meta()
+    else:
+        store = build_store(args)
+    cfg = EngineConfig(
+        num_servers=args.servers,
+        cache_capacity_bytes=int(args.cache_mb * 1e6),
+        cache_mode=args.cache_mode if args.cache_mode == "auto"
+        else int(args.cache_mode),
+        comm_mode=args.comm_mode,
+        cache_policy=args.cache_policy,
+        seg_impl=args.seg_impl,
+        pipeline=args.pipeline,
+        vertex_memory_budget=(None if args.vertex_memory_budget is None
+                              else int(args.vertex_memory_budget * 1e6)),
+        num_intervals=args.num_intervals,
+        checkpoint_dir=args.checkpoint_dir,
+        device=args.device,
+    )
+    svc = GraphService(
+        store, cfg, q_slots=args.q_slots, min_fill=args.min_fill,
+        max_wait_s=args.max_wait_ms / 1e3,
+        default_deadline_s=(None if args.deadline_ms is None
+                            else args.deadline_ms / 1e3),
+        max_supersteps=args.supersteps,
+        drain_mode=args.drain_mode, resume=args.resume,
+        tenants=parse_tenants(args.tenants) if args.tenants else None,
+        result_cache=args.result_cache)
+
+    frontend = None
+    if args.serve_http:
+        from repro_torch.serve.http import HttpFrontend
+
+        plan = parse_plan(args.inject)
+        frontend = HttpFrontend(
+            svc, host=args.host, port=args.port,
+            fault=None if plan is None else plan.injector()).start()
+        print(f"serving http on {frontend.host}:{frontend.port}",
+              flush=True)
+
+    def feeder():
+        # seeds are drawn below the store's vertex count (a reused store
+        # may hold fewer vertices than --vertices)
+        rng = np.random.default_rng(args.seed)
+        tickets = []
+        for i in range(args.serve_requests):
+            if args.serve_qps > 0 and i:
+                time.sleep(1.0 / args.serve_qps)
+            try:
+                tickets.append(svc.submit(apps[i % len(apps)],
+                                          int(rng.integers(
+                                              svc.num_vertices))))
+            except RuntimeError:
+                break               # service started draining under us
+        for t in tickets:
+            t.wait()
+        svc.request_drain()
+
+    if args.serve_requests and not args.serve_http:
+        threading.Thread(target=feeder, daemon=True).start()
+    print(f"serving {','.join(apps)} on {store.root} "
+          f"(q_slots={args.q_slots}, min_fill={args.min_fill}, "
+          f"max_wait={args.max_wait_ms:g} ms, drain={args.drain_mode}, "
+          f"device={svc.cfg.device})", flush=True)
+    t0 = time.time()
+    svc.serve()
+    dt = time.time() - t0
+    if frontend is not None:
+        # linger: finished tickets stay pollable while clients collect
+        time.sleep(max(0.0, args.drain_linger_ms) / 1e3)
+        frontend.close()
+    s = svc.latency_summary()
+    print(f"drained: {svc.stats['done']} done, {svc.stats['timeout']} "
+          f"timeout, {svc.stats['failed']} failed, "
+          f"{svc.stats['refused']} refused in {dt:.1f}s "
+          f"({svc.stats['done'] / max(dt, 1e-9):.2f} queries/s, "
+          f"{svc.stats['supersteps']} supersteps, "
+          f"{svc.stats['sessions_opened']} sessions)")
+    if s.get("count"):
+        print(f"  latency p50 {s['p50_ms']:.0f} ms, p99 {s['p99_ms']:.0f} "
+              f"ms (queue {s['mean_queue_ms']:.0f} ms + service "
+              f"{s['mean_service_ms']:.0f} ms mean); "
+              f"{s['mean_supersteps']:.1f} supersteps/query mean")
+    if svc.cache is not None:
+        c = svc.cache.snapshot()
+        print(f"  result cache: {c['hits']} hits / {c['misses']} misses "
+              f"({c['entries']}/{c['capacity']} entries)")
+    if svc.tenant_stats:
+        parts = ", ".join(
+            f"{t}: {d['admitted']} admitted/{d['submitted']} submitted"
+            for t, d in sorted(svc.tenant_stats.items()))
+        print(f"  tenants: {parts}")
+    return svc
+
+
 def main(argv=None):
     """Parse CLI flags, build or reuse a tile store, and run the selected
-    app through the port's out-of-core engine (``--cluster``: through
-    ``launch/cluster.py``'s N server processes)."""
+    app through the port's out-of-core engine (``--serve``/``--serve-http``:
+    the online query service; ``--cluster``: ``launch/cluster.py``'s N
+    server processes)."""
     args = parse_args(argv)
+    if args.serve or args.serve_http:
+        return _serve_main(args)
     if args.cluster:
         from repro_torch.launch import cluster as cluster_mod
 

@@ -39,7 +39,8 @@ def test_importing_every_module_loads_no_jax():
                  "repro_torch.runtime.scheduler", "repro_torch.runtime.faults",
                  "repro_torch.runtime.ft", "repro_torch.runtime.elastic",
                  "repro_torch.train.checkpoint",
-                 "repro_torch.core.checkpoint"):
+                 "repro_torch.core.checkpoint",
+                 "repro_torch.serve.graph_service", "repro_torch.serve.http"):
         assert name in names.split()
 
 
@@ -86,9 +87,43 @@ def test_cli_takes_the_checkpoint_and_fault_flags(cli):
         assert {k: getattr(passed, k) for k in want} == want
 
 
+# the A.11 serve flags with the reference's defaults (repro/launch/graph.py)
+SERVE_DEFAULTS = dict(q_slots=8, min_fill=1, max_wait_ms=50.0,
+                      deadline_ms=None, serve_requests=32, serve_qps=0.0,
+                      serve_apps="ppr,msbfs", drain_mode="finish",
+                      host="127.0.0.1", port=8080, tenants=None,
+                      result_cache=0, drain_linger_ms=500.0)
+
+
 @pytest.mark.parametrize("flag", ["--serve", "--serve-http"])
-def test_cli_serve_flags_still_raise(flag):
+def test_cli_serve_flags_parse_to_reference_defaults(flag):
+    """``--serve`` and ``--serve-http`` parse, with every serve flag at
+    the reference's default, and each flag takes a value."""
     from repro_torch.launch import graph as tgraph
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A.11"):
-        tgraph.parse_args([flag, "--checkpoint-dir", "ck"])
+    args = tgraph.parse_args([flag, "--checkpoint-dir", "ck"])
+    assert (args.serve, args.serve_http) == (flag == "--serve",
+                                             flag == "--serve-http")
+    assert {k: getattr(args, k) for k in SERVE_DEFAULTS} == SERVE_DEFAULTS
+    args = tgraph.parse_args([
+        flag, "--q-slots", "4", "--min-fill", "2", "--max-wait-ms", "10",
+        "--deadline-ms", "250", "--serve-requests", "0", "--serve-qps", "5",
+        "--serve-apps", "msbfs,landmarks", "--drain-mode", "checkpoint",
+        "--host", "0.0.0.0", "--port", "0", "--tenants", "a:3,b:1",
+        "--result-cache", "64", "--drain-linger-ms", "0"])
+    assert {k: getattr(args, k) for k in SERVE_DEFAULTS} == dict(
+        q_slots=4, min_fill=2, max_wait_ms=10.0, deadline_ms=250.0,
+        serve_requests=0, serve_qps=5.0, serve_apps="msbfs,landmarks",
+        drain_mode="checkpoint", host="0.0.0.0", port=0, tenants="a:3,b:1",
+        result_cache=64, drain_linger_ms=0.0)
+
+
+@pytest.mark.parametrize("name,port_name", [
+    ("fused", "fused"), ("segment", "segment"), ("pallas_fused", "fused"),
+    ("pallas_onehot", "segment"), ("jnp", "segment")])
+def test_cli_takes_reference_seg_impl_names(name, port_name):
+    """The reference's --seg-impl backends map onto the port's two."""
+    from repro_torch.launch import graph as tgraph
+
+    assert tgraph.parse_args(["--seg-impl", name]).seg_impl == port_name
+    assert tgraph.parse_args([]).seg_impl == "fused"
