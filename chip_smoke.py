@@ -52,7 +52,8 @@
    torch.nonzero plus a gather, which synchronises with the host, and
    also the whole function in PyTorch: torch.full of the K slots, then
    nonzero, truncation to K and the gather), and its bound (bytes over
-   3.35 TB/s, flops over 67 TFLOP/s; the fused kernel's counts the real
+   3.35 TB/s, flops over 67 TFLOP/s: roofline/hw.py's datasheet rates;
+   the fused kernel's counts the real
    edges and base over num_rows rows only, the work its function needs).
 5. Main path: OutOfCoreEngine(store, device="cuda", seg_impl="fused") runs
    PageRank for 5 supersteps (against a float64 numpy power iteration,
@@ -94,8 +95,8 @@
     num_intervals = OOC_INTERVALS: the engine cuts the vertices into
     intervals aligned to tiles and computes each tile's source footprint
     as it loads the tile (timed once over all tiles); PageRank for
-    OOC_PR_SUPERSTEPS = 3 supersteps (cut from 5 to keep the run inside
-    its time limit) under an 8 MiB vertex budget (superstep 1 profiled:
+    OOC_PR_SUPERSTEPS = 2 supersteps (cut from 5, then 3, to keep the run
+    inside its time limit) under an 8 MiB vertex budget (superstep 1 profiled:
     H2D bytes of the sharded step, copy and kernel device time, the host
     gather and writeback) and InDegree for 1 under 8 MiB; each equal bit
     for bit to the in-memory tiled run of as many supersteps, with 64
@@ -112,14 +113,17 @@
     convergence in memory, each admitted column equal to a fresh
     single-query run with equal per-query supersteps, the drained one
     to scipy's BFS levels up to 3 with -1, the other originals to phase
-    8's Q = 8 run; its first ADMIT_OOC_SUPERSTEPS supersteps (Q = 8, 8,
-    9: the ninth query's admission, its Q = 9 superstep and the drain at
-    its barrier; the ninth query's retirement and the tenth's admission
-    come a superstep later and are checked in memory here) in memory and
+    8's Q = 8 run; its first ADMIT_OOC_SUPERSTEPS = 2 supersteps (Q = 8,
+    8 and the ninth query's admission at the barrier of superstep 1; cut
+    from 3, whose Q = 9 superstep took 78-103 s: the Q = 9
+    superstep, the drain, the ninth query's retirement and the tenth's
+    admission are checked in memory here) in memory and
     under a 32 MiB budget equal bit for bit,
     the latter with 64 fused calls a superstep and its budget binding.
-    Device bytes outside torch's allocator (the hub scratch) are logged
-    around each superstep and each phase 4 fused case.
+    Device bytes outside torch's allocator (the CUDA context and the
+    kernels' code; the hub launch's scratch is taken from torch's
+    allocator by the wrappers) are logged around each superstep and each
+    phase 4 fused case, and must not grow at phase 4's first Q = 9 call.
 13. Device mesh ("mesh"): DistributedGABEngine over a process group of
     world size 1 on NCCL, all 64 tiles resident on the card: PageRank
     for 5 supersteps in dense, sparse and hybrid comm (in sparse, the
@@ -186,7 +190,25 @@
     is held to its plain version and the merged-mode composition at every
     (program, Q) the service launched it at.
 
-Phases 5, 6, 8, 9, 11, 13, 14 and 16, the in-memory session of 12 and its
+17. Kernel tuner ("tune"): (a) roofline/hw.py's measured figures
+    measured again and logged beside the table's (calibrate_tuner);
+    (b) at the largest tile's shape, the fused kernel with the PageRank
+    spec at Q = 1 and 8, the BFS spec at Q = 1, 8 and 9 and the
+    landmarks spec at Q = 2 and 8, and the segment sum at Q = 1 and 8,
+    each at every legal (block_e, block_r): new and updated (out) equal
+    to the default blocks' bit for bit, each timed as phase 4 times,
+    beside roofline/kernel_tune.py's prediction, and the pick's time
+    over the best measured time; (c) EngineConfig(kernel_autotune=True):
+    tiled PageRank for 5 supersteps equal to phase 5's run,
+    MultiSourceBFS Q = 8 tiled and pipelined (the tuner's stack size) to
+    convergence equal to phase 8's run, bit for bit, each launching the
+    fused kernel.
+18. Baselines ("baselines"): core/baselines.py's four engines (Pregel+,
+    PowerGraph, GraphD, Chaos) on the main store's graph on the card,
+    PageRank for 2 supersteps each, against a float64 power iteration
+    (rtol=1e-4); ms a superstep beside the tiled engine's (phase 5).
+
+Phases 5, 6, 8, 9, 11, 13, 14, 16 and 17c, the in-memory session of 12 and its
 out-of-core session ("admission ooc") and each part of 15 ("checkpoint"
 sums a and b, then "checkpoint ooc", "cluster restart") set every
 kernel's launch counter to 0 just before and read it just after (the
@@ -198,7 +220,8 @@ the case's times: segment sum at the largest tile for Q = 1 and Q = 8 and
 at the merged shape, the fused PageRank spec at Q = 1 and Q = 8, BFS spec
 at Q = 9 and the serve path's most launched (program, Q) (with
 "composition_ms"), compact at V = 4,194,304, density 0.05 and at V = 2^25
-(the "case" key names it).  Then, as its last line,
+(the "case" key names it), and each phase 17 case at its tuned blocks.
+Then, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failed check raises; without a CUDA
 device, or without the repository beside it, it exits non-zero before
 printing a result.  Details go to build/chip_smoke.json.
@@ -225,8 +248,6 @@ PR_SUPERSTEPS = 5
 PPR_SUPERSTEPS = 3           # cut from 5 in PR 16 to make room for 11-12
 BFS_MAX_SUPERSTEPS = 40
 NUM_QUERIES = 8
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
-F32_FLOPS_PER_S = 67e12      # H100 SXM data sheet, float32 outside tensor cores
 SUM_TOL = dict(rtol=1e-5, atol=1e-6)
 SPIN_CYCLES = 1_000_000      # ~0.5 ms of device clock before each timed call
 PR_RTOL = 1e-4
@@ -236,11 +257,13 @@ PPR_MAX_FLIP_SHARE = 1e-4
 PAD_HUB_EDGES = 20000        # real edges turned into padding (phase 4)
 OOC_INTERVALS = 16           # interval plan of the out-of-core runs
 OOC_PR_BUDGET = 8 << 20      # PageRank / InDegree vertex budget, bytes
-OOC_PR_SUPERSTEPS = 3        # out-of-core PageRank (each ~20-27 s)
+OOC_PR_SUPERSTEPS = 2        # out-of-core PageRank (each ~20-27 s)
 OOC_MSBFS_BUDGET = 32 << 20  # MultiSourceBFS (Q = 8 and 9) vertex budget
 DRAIN_AT = 2                 # admission: drain query DRAIN_QID after this
 DRAIN_QID = 1                # superstep
-ADMIT_OOC_SUPERSTEPS = 3     # admission session compared out of core
+BASELINE_SUPERSTEPS = 2      # each baseline engine's PageRank (phase 18)
+ADMIT_OOC_SUPERSTEPS = 2     # admission session compared out of core (cut
+                             # from 3: its Q = 9 superstep took 78-103 s)
 CKPT_CRASH_SS = 3            # checkpoint: crash at the start of superstep 3
 CKPT_PREEMPT_SS = 2          # SIGTERM at the barrier of superstep 2
 OOC_CKPT_SUPERSTEPS = 3      # out-of-core checkpoint run: cut from 5
@@ -301,8 +324,12 @@ def time_ms(torch, fn, flush, reps=10, spin=True):
 
 
 def bound(nbytes, flops):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    """The least ms for nbytes and flops on the card (roofline/hw.py's
+    datasheet HBM and FP32 rates) and which of the two binds."""
+    from repro_torch.roofline import hw
+
+    t_bytes = nbytes / hw.HBM_BW * 1e3
+    t_ops = flops / hw.F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -700,9 +727,14 @@ def check_fused_kernel(torch, tile, plan, flush):
             m0 = non_torch_device_bytes(torch)
             row = check_fused_case(torch, case, flush,
                                    f"fused {name} Q={q}")
-            # the hub launch's scratch grows by cudaMalloc beside torch's
-            # allocator when a call needs more (ROADMAP B.4)
+            # the hub launch's scratch grows inside torch's allocator: the
+            # first Q = 9 call (more column passes, more scratch, the Q = 8
+            # kernels) adds nothing outside it
             row["non_torch_growth"] = non_torch_device_bytes(torch) - m0
+            if q == NUM_QUERIES + 1 and row["non_torch_growth"]:
+                raise AssertionError(
+                    f"fused {name} Q={q}: {row['non_torch_growth']:+d} "
+                    "bytes outside torch's allocator")
             rows.append(dict(spec=name, **row))
             err = max(err, row["max_abs_err"])
     log(f"fused kernel: all cases agree, max |err| {err:.3g}")
@@ -1177,7 +1209,8 @@ def same_bits(a, b):
 
 def non_torch_device_bytes(torch):
     """Device bytes in use outside torch's caching allocator (the CUDA
-    context and the hub launch's scratch, which grows by cudaMalloc)."""
+    context and the kernels' code; the hub launch's scratch comes from
+    torch's allocator)."""
     free, total = torch.cuda.mem_get_info()
     return total - free - torch.cuda.memory_reserved()
 
@@ -1380,7 +1413,8 @@ def admission_phase(torch, store, src, dst, sources, msbfs, levels):
     against scipy's BFS levels up to DRAIN_AT + 1; then its first
     ADMIT_OOC_SUPERSTEPS supersteps in memory and under OOC_MSBFS_BUDGET,
     equal bit for bit — the latter is also the out-of-core MultiSourceBFS
-    run at Q = 8 (supersteps 0 and 1) and Q = 9 (superstep 2, at whose
+    run at Q = 8 (supersteps 0 and 1, the ninth query admitted at the
+    barrier of 1; with a window of 3, also Q = 9 at superstep 2, at whose
     barrier query DRAIN_QID drains).  The launch counters are read
     around the two sessions alone: "admission" (in memory) and
     "admission ooc"."""
@@ -1461,12 +1495,14 @@ def admission_phase(torch, store, src, dst, sources, msbfs, levels):
             and all(r["fused_launches"] == num_tiles for r in ooc_steps)):
         raise AssertionError("admission: the out-of-core session differs "
                              "from the in-memory one")
-    # the window holds the scheduled admission, the Q = 9 superstep and the
-    # drain at its barrier (the retirement and admit() into the freed slot
-    # come a superstep later: checked in memory above)
-    if not (any(r["active_queries"] == q + 1 for r in ooc_steps)
-            and [q] in [r["admitted"] for r in ooc_steps]
-            and [DRAIN_QID] in [r["drained"] for r in ooc_steps]):
+    # the window holds the scheduled admission and, from 3 supersteps on,
+    # the Q = 9 superstep and the drain at its barrier (the retirement and
+    # admit() into the freed slot come a superstep later: checked in memory
+    # above)
+    if not ([q] in [r["admitted"] for r in ooc_steps]
+            and (cut < 3 or (
+                any(r["active_queries"] == q + 1 for r in ooc_steps)
+                and [DRAIN_QID] in [r["drained"] for r in ooc_steps]))):
         raise AssertionError(f"admission ooc: {script(ooc_steps)} misses a "
                              "step of the script")
     ooc_summary = vstate_summary(
@@ -2208,11 +2244,11 @@ def serve_phase(torch, store, src, dst, sources, msbfs, levels, s9, s10):
     fused_q = {}
     kernel = gab_fused.gab_fused
 
-    def recording(spec, src_vals, *args):
+    def recording(spec, src_vals, *args, **kw):
         key = (specs.get(spec, str(spec)),
                1 if src_vals.ndim == 1 else int(src_vals.shape[1]))
         fused_q[key] = fused_q.get(key, 0) + 1
-        return kernel(spec, src_vals, *args)
+        return kernel(spec, src_vals, *args, **kw)
 
     cfg = EngineConfig(num_servers=1, device=DEV, seg_impl="fused",
                        tile_skipping=False)
@@ -2384,6 +2420,310 @@ def check_serve_shapes(torch, store, fused_q):
     return rows
 
 
+TUNE_FUSED = (("pagerank", 1), ("pagerank", 8), ("bfs", 1), ("bfs", 8),
+              ("bfs", 9), ("landmarks", 2), ("landmarks", 8))
+TUNE_SEGMENT_Q = (1, 8)
+
+
+def calibrate_tuner(torch, flush, tile, plan):
+    """Phase 17a: roofline/hw.py's measured figures, measured again and
+    logged beside the table's (the tuner reads the table, never this):
+    launch_s, the device time of a fused call over 32 edges and rows (a
+    launch and one row block); host_call_s, the host time of such a
+    call (wall time of 2,000 back to back); stack_dispatch_s, the host
+    time of gab.run_tile_stack over one such tile beyond the call
+    inside it; row_wave_s, a wave of row blocks beyond its bytes (the
+    segment sum over 2^20 rows of one edge each, at each block_r); hub_s,
+    a hub beyond its bytes (the segment sum over 2^20 edges in rows of
+    513 edges, every row a hub at H = 256, ceil(hubs / 512) hubs a
+    group); edge_warp_s, an edge of the longest row the row launch keeps
+    (the slope of the fused BFS kernel's time at Q = 1 and 256 rows a
+    block on the largest tile from H = 256 to 2048: 4,095 - 511 more
+    edges); hub_share, the largest tile's hubs at H = 256 over the most
+    its edge list can hold (E / 2H)."""
+    from repro_torch.core import apps
+    from repro_torch.core.gab import run_tile_stack
+    from repro_torch.kernels import gab_fused, gab_gather
+    from repro_torch.kernels.blocks import BLOCK_R
+    from repro_torch.roofline import hw, kernel_tune
+
+    dev = torch.device(DEV)
+    spec = apps.BFS().fused_spec()
+    n = 32
+    d32 = torch.arange(n, dtype=torch.int32, device=dev)
+    s32 = torch.rand(n, device=dev)
+    o32 = torch.rand(n, device=dev)
+
+    def tiny():
+        return gab_fused.gab_fused(spec, s32, None, None, d32, o32, None,
+                                   n, n)
+
+    launch_ms = time_ms(torch, tiny, flush, reps=50)
+    reps = 2000
+    tiny()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        tiny()
+    torch.cuda.synchronize()
+    host_call_s = (time.perf_counter() - t0) / reps
+    values = torch.rand(4096, device=dev)
+    stk = dict(src=np.arange(n, dtype=np.int32)[None],
+               dst_local=np.arange(n, dtype=np.int32)[None],
+               val=np.ones((1, n), np.float32), row_start=np.zeros(1, int),
+               num_rows=np.full(1, n))
+    prog = apps.BFS()
+    run_tile_stack(prog, values, {}, stk, n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps // 4):
+        run_tile_stack(prog, values, {}, stk, n)
+    torch.cuda.synchronize()
+    stack_s = (time.perf_counter() - t0) / (reps // 4) - host_call_s
+
+    e = 1 << 20
+    ones = torch.rand(e, device=dev)
+    d1 = torch.arange(e, dtype=torch.int32, device=dev)
+    wave_s = {}
+    for br in BLOCK_R:
+        t = time_ms(torch, lambda: gab_gather.segment_reduce(
+            ones, d1, e, "sum", blocks=(256, br)), flush) / 1e3
+        waves = -(-(-(-e // br)) // (hw.SMS * kernel_tune.blocks_per_sm(br)))
+        wave_s[br] = (t - e * 12 / hw.HBM_BW) / waves
+    hub_len = 2 * 256 + 1
+    hubs = e // hub_len
+    dh = torch.arange(hubs, dtype=torch.int32,
+                      device=dev).repeat_interleave(hub_len).contiguous()
+    ch = torch.rand(dh.shape[0], device=dev)
+    t = time_ms(torch, lambda: gab_gather.segment_reduce(
+        ch, dh, hubs, "sum", blocks=(256, 256)), flush) / 1e3
+    groups = min((dh.shape[0] - 1) // 256, kernel_tune.HUB_GROUPS_MAX)
+    hub_s = (t - dh.shape[0] * 8 / hw.HBM_BW) / -(-hubs // groups)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    dtile = torch.from_numpy(tile.dst_local).to(dev)
+    args, _ = fused_inputs(torch, apps.BFS(), dtile, tile.meta.num_rows,
+                           plan.row_cap, 1, gen)
+    t_h = {h: time_ms(torch, lambda h=h: gab_fused.gab_fused(
+        *args, blocks=(h, 256)), flush) / 1e3 for h in (256, 2048)}
+    edge_warp_s = (t_h[2048] - t_h[256]) / ((2 * 2048 - 1) - (2 * 256 - 1))
+    d = tile.dst_local.astype(np.int64)
+    m = np.arange((len(d) - 1) // 256) * 256
+    r = d[m]
+    hub = ((r < tile.meta.num_rows) & (d[m + 256] == r)
+           & ((m == 0) | (d[np.maximum(m - 256, 0)] != r)))
+    hub_share = float(hub.sum()) / (len(d) / (2 * 256))
+    out = dict(launch_s=launch_ms / 1e3, host_call_s=host_call_s,
+               edge_warp_s=edge_warp_s, hub_share=hub_share,
+               stack_dispatch_s=stack_s, row_wave_s=wave_s,
+               row_wave_s_mean=float(np.mean(list(wave_s.values()))),
+               hub_s=hub_s,
+               table=dict(launch_s=hw.LAUNCH_S,
+                          stack_dispatch_s=hw.STACK_DISPATCH_S,
+                          row_wave_s=hw.ROW_WAVE_S, hub_s=hw.HUB_S,
+                          edge_warp_s=hw.EDGE_WARP_S,
+                          hub_share=hw.HUB_SHARE,
+                          measured_on=hw.MEASURED_ON))
+    log(f"tuner calibration: launch {out['launch_s'] * 1e6:.2f} us (table "
+        f"{hw.LAUNCH_S * 1e6:.2f}), host call {host_call_s * 1e6:.2f} us, "
+        f"stack dispatch {stack_s * 1e6:.2f} us (table "
+        f"{hw.STACK_DISPATCH_S * 1e6:.2f}), row wave "
+        + ", ".join(f"{k}: {v * 1e6:.2f}" for k, v in wave_s.items())
+        + f" us (table {hw.ROW_WAVE_S * 1e6:.2f}), hub {hub_s * 1e6:.2f} us "
+        f"(table {hw.HUB_S * 1e6:.2f}; {hubs} hubs, {groups} groups), edge "
+        f"of the longest kept row {edge_warp_s * 1e9:.2f} ns (table "
+        f"{hw.EDGE_WARP_S * 1e9:.2f}), hub share {hub_share:.4f} (table "
+        f"{hw.HUB_SHARE:.4f}; {int(hub.sum())} hubs at H = 256)")
+    return out
+
+
+def tune_candidates(torch, tile, plan, flush):
+    """Phase 17b: at the largest tile's shape, every legal (block_e,
+    block_r) of the fused kernel (PageRank, BFS and landmarks specs at
+    the Q's the paths launch) and of the segment sum (Q = 1 and 8, into
+    row_cap + 1 rows): new and updated (out) equal to the default blocks'
+    bit for bit, each timed as phase 4 times, beside the tuner's
+    prediction; per case the pick's time over the best time.  Returns
+    (the per-case rows, the kernels line's tuned entries' rows)."""
+    from repro_torch.core import apps
+    from repro_torch.kernels import gab_fused, gab_gather, ref
+    from repro_torch.kernels.blocks import BLOCK_E, BLOCK_R, DEFAULT_BLOCKS
+    from repro_torch.roofline import kernel_tune
+
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    dst = torch.from_numpy(tile.dst_local).to(dev)
+    nr, r, e = tile.meta.num_rows, plan.row_cap, plan.edge_cap
+    progs = {"pagerank": apps.PageRank(), "bfs": apps.BFS(),
+             "landmarks": apps.LandmarkDistances(landmarks=(0, 1))}
+    pairs = [(be, br) for be in BLOCK_E for br in BLOCK_R]
+    cases = []
+    for name, q in TUNE_FUSED:
+        args, _ = fused_inputs(torch, progs[name], dst, nr, r, q, gen)
+        spec = args[0]
+        cases.append(dict(
+            kernel="gab_fused", spec=name, q=q, combine=spec.combine,
+            run=lambda bl, a=args: gab_fused.gab_fused(*a, blocks=bl),
+            plain=lambda a=args: ref.gab_fused_ref(*a),
+            bound=fused_bound(args), library=None))
+    for q in TUNE_SEGMENT_Q:
+        c = torch.rand((e,) if q == 1 else (e, q), generator=gen, device=dev)
+        idx = dst.long() if q == 1 else dst.long()[:, None].expand(
+            e, q).contiguous()
+        init = torch.zeros((r + 1,) + tuple(c.shape[1:]), device=dev)
+        cases.append(dict(
+            kernel="segment_reduce", spec="sum", q=q, combine="sum",
+            run=lambda bl, c=c: (gab_gather.segment_reduce(
+                c, dst, r + 1, "sum", blocks=bl),),
+            plain=lambda c=c: ref.segment_reduce(c, dst, r + 1, "sum"),
+            bound=bound(e * 4 + e * 4 * q + (r + 1) * 4 * q, e * q),
+            library=lambda c=c, i=idx, z=init: torch.scatter_reduce(
+                z, 0, i, c, "sum")))
+    rows = []
+    for case in cases:
+        want = case["run"](None)
+        pick = kernel_tune.pick_blocks(case["combine"], case["q"], e, r)
+        cands = []
+        for bl in pairs:
+            got = case["run"](bl)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(
+                    f"tune {case['kernel']} {case['spec']} Q={case['q']}: "
+                    f"blocks {bl} differ from the default's")
+            ms = time_ms(torch, lambda bl=bl: case["run"](bl), flush)
+            pred = kernel_tune.tile_cost(case["combine"], case["q"], e, r,
+                                         *bl).predicted_s * 1e3
+            cands.append(dict(blocks=list(bl), ms=ms, predicted_ms=pred))
+        best = min(cands, key=lambda c: c["ms"])
+        by = {tuple(c["blocks"]): c for c in cands}
+        pick_ms = by[pick.blocks]["ms"]
+        plain = case["plain"]()
+        plain = plain[0] if isinstance(plain, tuple) else plain
+        row = dict(kernel=case["kernel"], spec=case["spec"], q=case["q"],
+                   pick=list(pick.blocks), stack_size=pick.stack_size,
+                   pick_ms=pick_ms, best=best["blocks"], best_ms=best["ms"],
+                   default_ms=by[DEFAULT_BLOCKS]["ms"],
+                   pick_over_best=pick_ms / best["ms"],
+                   candidates=cands, bound_ms=case["bound"][0],
+                   bound_by=case["bound"][1],
+                   max_abs_err=max_abs_err(torch, want[0], plain),
+                   kernel_ms=pick_ms,
+                   plain_ms=time_ms(torch, case["plain"], flush),
+                   library_ms=(None if case["library"] is None else
+                               time_ms(torch, case["library"], flush)))
+        rows.append(row)
+        log(f"tune {case['kernel']} {case['spec']} Q={case['q']}: "
+            f"{len(pairs)} pairs equal to the default bit for bit; pick "
+            f"{pick.blocks} {pick_ms:.4f} ms (predicted "
+            f"{by[pick.blocks]['predicted_ms']:.4f}), best "
+            f"{tuple(best['blocks'])} {best['ms']:.4f} ms, default "
+            f"{row['default_ms']:.4f} ms; pick / best "
+            f"{row['pick_over_best']:.3f}; "
+            + ", ".join(f"{tuple(c['blocks'])} {c['ms']:.4f}/"
+                        f"{c['predicted_ms']:.4f}" for c in cands))
+    return rows
+
+
+def tune_engine_runs(torch, store, pr, msbfs, sources):
+    """Phase 17c: the engine with kernel_autotune at the depth of a
+    default-block run, each equal to it bit for bit and each launching
+    the fused kernel at the tuner's blocks: tiled PageRank for
+    PR_SUPERSTEPS (phase 5's run), MultiSourceBFS at Q = 8 tiled and
+    pipelined (the tuner's stack size) to convergence (phase 8's run).
+    The launch counters are read around the three runs ("tune")."""
+    from repro_torch.core.apps import MultiSourceBFS, PageRank
+
+    reset_launches()
+    eng = engine(store, tile_skipping=False, kernel_autotune=True)
+    p = eng.run(PageRank(), max_supersteps=PR_SUPERSTEPS)
+    picks = {"pagerank": eng.kernel_choice}
+    if not same_bits(p.values, pr.values):
+        raise AssertionError("tune: autotuned pagerank differs from the "
+                             "default blocks' run")
+    rows = [dict(app="pagerank", mode="tiled",
+                 blocks=list(eng.kernel_choice.blocks),
+                 stack_size=eng.kernel_choice.stack_size,
+                 summary=app_summary("pagerank autotuned", p))]
+    for pipeline in (False, True):
+        eng = engine(store, tile_skipping=False, kernel_autotune=True,
+                     pipeline=pipeline)
+        m = eng.run(MultiSourceBFS(sources=sources),
+                    max_supersteps=BFS_MAX_SUPERSTEPS)
+        name = "pipelined" if pipeline else "tiled"
+        if not (same_bits(m.values, msbfs.values)
+                and np.array_equal(m.per_query_supersteps,
+                                   msbfs.per_query_supersteps)):
+            raise AssertionError(f"tune: autotuned msbfs ({name}) differs "
+                                 "from the default blocks' run")
+        c = eng.kernel_choice
+        picks[f"msbfs {name}"] = c
+        rows.append(dict(app=f"msbfs Q={len(sources)}", mode=name,
+                         blocks=list(c.blocks), stack_size=c.stack_size,
+                         summary=app_summary(f"msbfs {name} autotuned",
+                                             m)))
+        del eng
+        torch.cuda.empty_cache()
+    launches = read_launches()
+    require_launches(launches, ("gab_fused",), "tune")
+    log("tune: autotuned runs equal the default blocks' bit for bit: "
+        + ", ".join(f"{k} {c.blocks} stack {c.stack_size}"
+                    for k, c in picks.items()))
+    return rows, launches
+
+
+def baselines_phase(torch, store, src, dst, pr):
+    """Phase 18: the paper's comparison engines (core/baselines.py) on the
+    main store's graph with device="cuda", PageRank for
+    BASELINE_SUPERSTEPS each, against a float64 power iteration at that
+    depth (rtol PR_RTOL), each's ms a superstep beside the tiled GAB
+    engine's (phase 5) — the paper's Fig. 10 comparison.  Their edge and
+    message files go to build/ and are removed."""
+    from repro_torch.core.apps import PageRank
+    from repro_torch.core.baselines import ENGINES
+
+    nv = store.load_plan().num_vertices
+    out_degree = store.load_degrees()[1]
+    want = numpy_pagerank(src, dst, out_degree, nv, BASELINE_SUPERSTEPS)
+    work = os.path.join(ROOT, "build", "chip_smoke_baselines")
+    rows = []
+    for name, cls in ENGINES.items():
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        kw = dict(workdir=work) if name in ("graphd", "chaos") else {}
+        t0 = time.perf_counter()
+        eng = cls(src, dst, None, nv, device=DEV, **kw)
+        build_s = time.perf_counter() - t0
+        res = eng.run(PageRank(), max_supersteps=BASELINE_SUPERSTEPS)
+        del eng
+        torch.cuda.empty_cache()
+        shutil.rmtree(work, ignore_errors=True)
+        rel = float(np.max(np.abs(res.values - want) / want))
+        if len(res.history) != BASELINE_SUPERSTEPS or rel > PR_RTOL:
+            raise AssertionError(f"baseline {name}: {len(res.history)} "
+                                 f"supersteps, max rel err {rel:.3g} against "
+                                 "float64")
+        h = res.history
+        rows.append(dict(
+            engine=name, build_s=build_s, max_rel_err=rel,
+            ms_per_superstep=[x.seconds * 1e3 for x in h],
+            network_bytes=[x.network_bytes for x in h],
+            disk_read_bytes=[x.disk_read_bytes for x in h],
+            disk_write_bytes=[x.disk_write_bytes for x in h]))
+        ms = ", ".join(f"{x.seconds * 1e3:.1f}" for x in h)
+        log(f"baseline {name}: {ms} ms a superstep (built in {build_s:.1f} "
+            f"s), max rel err {rel:.3g} against float64; network "
+            f"{h[-1].network_bytes}, disk read {h[-1].disk_read_bytes}, "
+            f"written {h[-1].disk_write_bytes} bytes in its last superstep")
+    log(f"baselines beside the tiled GAB engine's {steady_ms(pr):.1f} ms a "
+        "superstep (phase 5)")
+    return dict(engines=rows, gab_tiled_ms=steady_ms(pr))
+
+
+def tune_case(r):
+    what = (f"{r['spec']} spec" if r["kernel"] == "gab_fused"
+            else r["spec"])
+    return f"tile, {what}, Q={r['q']}, tuned blocks {tuple(r['pick'])}"
+
+
 def kernel_entry(name, source, replaces, launches, by_path, err, row, case):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=row["kernel_ms"],
@@ -2509,6 +2849,18 @@ def main():
             torch, store, src, dst, sources, msbfs, levels,
             admission["s9"], admission["s10"])
         mark("serve", t0)
+        t0 = time.perf_counter()
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEV)
+        calibration = calibrate_tuner(torch, flush, tile, plan)
+        tune_rows = tune_candidates(torch, tile, plan, flush)
+        del flush
+        torch.cuda.empty_cache()
+        tune_runs, tune_launches = tune_engine_runs(torch, store, pr, msbfs,
+                                                    sources)
+        mark("tune", t0)
+        t0 = time.perf_counter()
+        baselines = baselines_phase(torch, store, src, dst, pr)
+        mark("baselines", t0)
     finally:
         shutil.rmtree(store_root, ignore_errors=True)
         shutil.rmtree(ckpt_root, ignore_errors=True)
@@ -2516,7 +2868,8 @@ def main():
     paths = {"main path": main_launches, "compact path": compact_launches,
              "batched apps": batched_launches, "modes": mode_launches,
              "ooc": ooc_launches, **admission_launches, **mesh_launches,
-             **cluster_launches, **ckpt_launches, **serve_launches}
+             **cluster_launches, **ckpt_launches, **serve_launches,
+             "tune": tune_launches}
     total = {k: sum(p[k] for p in paths.values()) for k in main_launches}
     log(f"launches by path: {paths}; total {total}")
 
@@ -2568,6 +2921,10 @@ def main():
                      f"V={nv}, density 0.05"),
         kernel_entry(*compact_src, compact_case(1 << 25, 0.01),
                      "V=2^25, density 0.01"),
+        *({**kernel_entry(*(fused_src if r["kernel"] == "gab_fused"
+                            else seg_src)[:5], r["max_abs_err"], r,
+                          tune_case(r)), "blocks": r["pick"]}
+          for r in tune_rows),
     ]
     seconds = time.perf_counter() - t_all
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
@@ -2585,7 +2942,9 @@ def main():
                        footprints=footprints, ooc=ooc_rows,
                        profile_ooc=prof_ooc, admission=admission,
                        mesh=mesh, cluster=cluster, checkpoint=checkpoint,
-                       serve=serve,
+                       serve=serve, tune_calibration=calibration,
+                       tune=tune_rows, tune_runs=tune_runs,
+                       baselines=baselines,
                        launches_by_path=paths, kernels=kernels,
                        phase_seconds=phase_s, seconds=seconds), f, indent=1)
     log(f"total {seconds:.1f} s")

@@ -53,9 +53,11 @@ bit, at the saved server count or another (``elastic.remap_assignment``).
 and ``runtime.ft.Preempted``; ``fault_plan`` injects crashes at named
 points (``runtime.faults``).
 
-The knobs of later queue items keep their :class:`EngineConfig` field,
-and a non-default value raises ``NotImplementedError`` naming its
-ROADMAP.md queue item.
+``kernel_autotune`` picks the two GAB kernels' block sizes ``(block_e,
+block_r)`` and the pipelined stack size per ``(combine, Q, tile shape)``
+from the card's cost model (``roofline/kernel_tune.py``), and
+``kernel_blocks`` sets the blocks outright; neither changes a bit of the
+results (:meth:`OutOfCoreEngine.kernel_plan`).
 """
 from __future__ import annotations
 
@@ -84,6 +86,8 @@ from repro_torch.core.tiles import (compute_source_footprint, stack_tiles,
                                     tile_edge_values)
 from repro_torch.core.vstate import VertexStateStore
 from repro_torch.graphio.formats import TileStore
+from repro_torch.kernels.blocks import check_blocks
+from repro_torch.roofline import kernel_tune
 from repro_torch.runtime.elastic import remap_assignment
 from repro_torch.runtime.faults import FaultPlan
 from repro_torch.runtime.ft import Preempted, PreemptionGuard
@@ -94,8 +98,7 @@ ENGINE_MODES = ("tiled", "stacked", "merged")
 @dataclasses.dataclass
 class EngineConfig:
     """All engine knobs, with the reference's names and defaults; the port
-    adds ``device`` and names its kernels in ``seg_impl``.  Knobs of later
-    queue items raise when set (see :meth:`unsupported`)."""
+    adds ``device`` and names its kernels in ``seg_impl``."""
     num_servers: int = 1
     num_workers: int = 1                    # paper's T (accounting only here)
     cache_capacity_bytes: int = 1 << 30     # per server
@@ -118,9 +121,12 @@ class EngineConfig:
     # gather and apply around the segment kernel.  (The reference's "jnp"
     # XLA-scatter backend has no counterpart on the card.)
     seg_impl: str = "fused"
-    # the reference's Pallas (BE, BR) block choice from a TPU roofline:
-    # no kernel here takes blocks (ROADMAP.md A.12, roofline/kernel_tune.py)
+    # pick the GAB kernels' (block_e, block_r) and the pipelined stack size
+    # from the card's cost model (roofline/kernel_tune.py); "segment" stays
+    # the segment kernel at the picked blocks
     kernel_autotune: bool = False
+    # explicit (block_e, block_r) (kernels/blocks.py's legal sets); takes
+    # precedence over the tuner.  None: the kernels' static (256, 256)
     kernel_blocks: Optional[tuple] = None
     max_supersteps: int = 200
     balanced_assignment: bool = False       # beyond-paper LPT stage-2
@@ -185,19 +191,9 @@ class EngineConfig:
     device: str = "cuda"
 
     def unsupported(self) -> list[str]:
-        """The knobs set outside the port so far, each with the ROADMAP.md
-        queue item that will bring it."""
-        out = []
-        checks = (
-            (self.kernel_autotune,
-             "kernel_autotune=True (roofline/kernel_tune.py)", "A.12"),
-            (self.kernel_blocks is not None,
-             "kernel_blocks (roofline/kernel_tune.py)", "A.12"),
-        )
-        for on, what, item in checks:
-            if on:
-                out.append(f"{what} is ROADMAP.md queue {item}")
-        return out
+        """The knobs set outside the port, each with the ROADMAP.md queue
+        item that would bring it: none since queue A.12."""
+        return []
 
 
 @dataclasses.dataclass
@@ -313,6 +309,8 @@ class OutOfCoreEngine:
         if config.engine_mode not in ENGINE_MODES:
             raise ValueError(f"engine_mode {config.engine_mode!r}: one of "
                              f"{', '.join(ENGINE_MODES)}")
+        if config.kernel_blocks is not None:
+            check_blocks(config.kernel_blocks)
         self.device = torch.device(config.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {config.device!r} requested but "
@@ -388,6 +386,10 @@ class OutOfCoreEngine:
         self._vs_faults_cum = 0
         self._vs_load_cum = 0
         self._vs_spill_cum = 0
+        # the tuner's KernelChoice per (combine, Q), and the last one
+        # resolved (stats, the CLI's line)
+        self._kernel_choices: dict = {}
+        self.kernel_choice: Optional[kernel_tune.KernelChoice] = None
 
     @property
     def exchange(self):
@@ -475,10 +477,31 @@ class OutOfCoreEngine:
             per_query_supersteps=pq)
 
     # ------------------------------------------------------------------
-    def kernel_plan(self, prog) -> tuple[str, int]:
-        """``(seg_impl, stack_size)`` for this program: the configured
-        backend and the pipelined stack length (at least 1)."""
-        return self.cfg.seg_impl, max(1, self.cfg.stack_size)
+    def kernel_plan(self, prog) -> tuple[str, Optional[tuple], int]:
+        """``(seg_impl, blocks, stack_size)`` for this program.
+
+        With ``cfg.kernel_autotune`` the card's cost model
+        (``roofline/kernel_tune.py``) picks the kernels' ``(block_e,
+        block_r)`` and the pipelined stack size per ``(combine, Q, tile
+        shape)``, memoised, so the model runs once per program family.
+        An explicit ``cfg.kernel_blocks`` wins over the tuner; without
+        either the kernels' static default applies (blocks None).  The
+        reference also promotes its ``"jnp"`` backend to the fused kernel
+        here; the port's backends are kernels already, so ``seg_impl``
+        stays as configured (ROADMAP.md queue C)."""
+        cfg = self.cfg
+        stack_k = max(1, cfg.stack_size)
+        if cfg.kernel_blocks is not None:
+            return cfg.seg_impl, tuple(cfg.kernel_blocks), stack_k
+        if not cfg.kernel_autotune:
+            return cfg.seg_impl, None, stack_k
+        q = int(getattr(prog, "num_queries", 1) or 1)
+        key = (prog.combine, q)
+        if key not in self._kernel_choices:
+            self._kernel_choices[key] = kernel_tune.pick_blocks(
+                prog.combine, q, self.plan.edge_cap, self.plan.row_cap)
+        choice = self.kernel_choice = self._kernel_choices[key]
+        return cfg.seg_impl, choice.blocks, choice.stack_size
 
     @staticmethod
     def _split_updates(rows, new, upd):
@@ -591,7 +614,7 @@ class OutOfCoreEngine:
             # step (a stack would need the whole value array on the device)
             return self._run_tiles_pipelined_ooc(s, tids, prog, filters, nv)
         row_cap = self.plan.row_cap
-        seg_impl, stack_k = self.kernel_plan(prog)
+        seg_impl, blocks, stack_k = self.kernel_plan(prog)
         load_s = comp_s = stall_s = 0.0
         masked_acc = upd_acc = None
         batch: list = []
@@ -603,7 +626,7 @@ class OutOfCoreEngine:
                 stk = pad_stack_to(stk, stack_k)  # every stack K tiles long
             t0 = time.perf_counter()
             new_masked, upd = run_tile_stack(prog, values_dev, aux_dev, stk,
-                                             row_cap, seg_impl)
+                                             row_cap, seg_impl, blocks)
             if masked_acc is None:
                 masked_acc, upd_acc = new_masked, upd
             else:  # disjoint row ranges: set-where-updated merge is exact
@@ -695,14 +718,15 @@ class OutOfCoreEngine:
                 owned=dev(owned))
 
     def _stack_step(self, prog, values_dev, aux_dev, stack):
-        seg_impl, _ = self.kernel_plan(prog)
+        seg_impl, blocks, _ = self.kernel_plan(prog)
         return stacked_tiles_step(prog, values_dev, aux_dev, stack,
-                                  self.plan.row_cap, seg_impl)
+                                  self.plan.row_cap, seg_impl, blocks)
 
     def _merged_step(self, prog, values_dev, aux_dev, m):
-        seg_impl, _ = self.kernel_plan(prog)
+        seg_impl, blocks, _ = self.kernel_plan(prog)
         return merged_server_step(prog, values_dev, aux_dev, m["src"],
-                                  m["dst"], m["val"], m["owned"], seg_impl)
+                                  m["dst"], m["val"], m["owned"], seg_impl,
+                                  blocks)
 
     # ------------------------------------------------------------------
     def _make_filter(self, tile, nv):
@@ -825,11 +849,11 @@ class OutOfCoreEngine:
                 buf = self._host_buffer((row_cap,) + tail, dt)
                 buf.numpy()[: m.num_rows] = vstore.get_block(name, ivd)[r0:r1]
                 dst_aux[name] = buf
-        seg_impl, _ = self.kernel_plan(prog)
+        seg_impl, blocks, _ = self.kernel_plan(prog)
         new, upd = run_tile_sharded(
             prog, bufs["value"], {k: bufs[k] for k in prog.src_aux},
             tile_edge_values(tile), tile.dst_local, old, dst_aux,
-            m.num_rows, row_cap, seg_impl, self.device)
+            m.num_rows, row_cap, seg_impl, self.device, blocks)
         rows = np.minimum(m.row_start + np.arange(row_cap), nv - 1)
         return self._split_updates(rows, new.cpu().numpy(),
                                    upd.cpu().numpy())
@@ -1363,7 +1387,7 @@ class EngineSession:
                 stall_s += stl
                 tiles_done += len(run_list)
             else:
-                seg_impl, _ = eng.kernel_plan(prog)
+                seg_impl, blocks, _ = eng.kernel_plan(prog)
                 for tid in run_list:
                     t0 = time.perf_counter()
                     tile = eng.caches[s].get(tid)
@@ -1383,7 +1407,7 @@ class EngineSession:
                             (tile.src, tile.dst_local,
                              tile_edge_values(tile)),
                             tile.meta.row_start, tile.meta.num_rows,
-                            row_cap, seg_impl,
+                            row_cap, seg_impl, blocks,
                         )
                         ri, rv, rm = eng._split_updates(
                             rows.cpu().numpy(), new.cpu().numpy(),

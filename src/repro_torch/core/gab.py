@@ -23,8 +23,11 @@ as one kernel for programs with a
 otherwise; ``"segment"`` always runs the program's own gather and apply
 around the segment kernel.  The merged step masks rows by ownership, which
 the fused kernel's row test cannot express, so it runs the segment kernel
-under either name, as the reference does.  On a CPU device every step
-runs the kernels' plain versions.
+under either name, as the reference does.  ``blocks`` is the kernels'
+``(block_e, block_r)`` (the engine's ``kernel_plan``: the tuner's pick
+or ``EngineConfig.kernel_blocks``; None for the static default), passed
+to whichever kernel a step runs; it changes no bit.  On a CPU device
+every step runs the kernels' plain versions.
 
 Multi-query axis: vertex values may be ``[V]`` (one program instance) or
 ``[V, Q]`` (Q instances in the same tile visit — personalized PageRank
@@ -56,12 +59,14 @@ def state_from_numpy(state: dict[str, np.ndarray],
 
 
 def segment_reduce(data: Tensor, segment_ids: Tensor, num_segments: int,
-                   combine: str, sorted_ids: bool = True) -> Tensor:
+                   combine: str, sorted_ids: bool = True,
+                   blocks=None) -> Tensor:
     """Reduce ``data`` ``[E(, Q)]`` into ``num_segments`` rows with the
-    given monoid (segments along axis 0).  Tile edges are CSR-sorted by
-    dst, so ``sorted_ids=True`` by default."""
+    given monoid (segments along axis 0) at the kernel's ``blocks``.
+    Tile edges are CSR-sorted by dst, so ``sorted_ids=True`` by
+    default."""
     return ops.segment_reduce(data, segment_ids, num_segments, combine,
-                              sorted_ids)
+                              sorted_ids, blocks=blocks)
 
 
 @dataclasses.dataclass(eq=False)
@@ -126,7 +131,7 @@ def _row_pad(arr: Tensor, pad: int) -> Tensor:
 
 
 def _fused_tile(fs, src_vals, src_aux, edge_val, dst_local, old, dst_aux,
-                num_rows, row_cap):
+                num_rows, row_cap, blocks=None):
     """Run one tile through the fused kernel.  The per-edge affine terms
     are formed here with the programs' own association —
     ``a = src_aux[scale_aux] * edge_val`` (edge_val is exactly 1.0 on real
@@ -135,7 +140,7 @@ def _fused_tile(fs, src_vals, src_aux, edge_val, dst_local, old, dst_aux,
     b = edge_val if fs.add_edge else None
     base = dst_aux[fs.base_aux] if fs.base_aux else None
     return ops.gab_fused(fs, src_vals, a, b, dst_local, old, base, num_rows,
-                         row_cap)
+                         row_cap, blocks=blocks)
 
 
 def tile_gather_apply_sharded(
@@ -149,6 +154,7 @@ def tile_gather_apply_sharded(
     num_rows: int,                # <= row_cap
     row_cap: int,
     seg_impl: str = "fused",
+    blocks=None,
 ) -> tuple[Tensor, Tensor]:
     """Gather+Apply for one tile with *pre-gathered* source-side inputs —
     the out-of-core vertex-state path, and the body every in-memory step
@@ -171,10 +177,10 @@ def tile_gather_apply_sharded(
     fs = prog.fused_spec() if seg_impl == "fused" else None
     if fs is not None:
         return _fused_tile(fs, src_vals, src_aux, edge_val, dst_local, old,
-                           dst_aux, num_rows, row_cap)
+                           dst_aux, num_rows, row_cap, blocks)
     contrib = prog.gather(src_vals, edge_val, src_aux)
     accum = segment_reduce(contrib, dst_local, row_cap + 1,
-                           prog.combine)[:row_cap]
+                           prog.combine, blocks=blocks)[:row_cap]
     new = prog.apply(old, accum, dst_aux)
     valid = _bcast_rows(torch.arange(row_cap, device=old.device) < num_rows,
                         new)
@@ -183,7 +189,7 @@ def tile_gather_apply_sharded(
 
 
 def _gather_apply(prog, values, aux, src, dst_local, edge_val, old, dst_aux,
-                  num_rows, row_cap, seg_impl):
+                  num_rows, row_cap, seg_impl, blocks=None):
     """Gather ``values``/``aux`` ``[V(, Q)]`` at the tile's sources, then
     :func:`tile_gather_apply_sharded` on the caller's dst rows ``old``
     ``[row_cap(, Q)]`` and ``dst_aux``."""
@@ -191,7 +197,7 @@ def _gather_apply(prog, values, aux, src, dst_local, edge_val, old, dst_aux,
     src_aux = {k: aux[k].index_select(0, src) for k in prog.src_aux}
     return tile_gather_apply_sharded(prog, src_vals, src_aux, edge_val,
                                      dst_local, old, dst_aux, num_rows,
-                                     row_cap, seg_impl)
+                                     row_cap, seg_impl, blocks)
 
 
 def tile_gather_apply(
@@ -205,6 +211,7 @@ def tile_gather_apply(
     num_rows: int,                # <= row_cap
     row_cap: int,
     seg_impl: str = "fused",
+    blocks=None,
 ) -> tuple[Tensor, Tensor, Tensor]:
     """Gather+Apply for one tile, on the device of ``values``.
 
@@ -217,13 +224,15 @@ def tile_gather_apply(
     old = values.index_select(0, rows)
     dst_aux = {k: aux[k].index_select(0, rows) for k in prog.dst_aux}
     new, updated = _gather_apply(prog, values, aux, src, dst_local, edge_val,
-                                 old, dst_aux, num_rows, row_cap, seg_impl)
+                                 old, dst_aux, num_rows, row_cap, seg_impl,
+                                 blocks)
     return rows, new, updated
 
 
 def stacked_tiles_step(prog: VertexProgram, values: Tensor,
                        aux: dict[str, Tensor], stk: dict, row_cap: int,
-                       seg_impl: str = "fused") -> tuple[Tensor, Tensor]:
+                       seg_impl: str = "fused",
+                       blocks=None) -> tuple[Tensor, Tensor]:
     """Process a stack of tiles on the device of ``values`` (one server's
     resident tiles, or one pipelined batch): a loop over the tiles, each
     merged into padded ``[V + row_cap + 1(, Q)]`` buffers where it updated
@@ -245,7 +254,7 @@ def stacked_tiles_step(prog: VertexProgram, values: Tensor,
         new, updated = _gather_apply(
             prog, values, aux, stk["src"][i], stk["dst_local"][i],
             stk["val"][i], values_p[win], {k: aux_p[k][win] for k in aux_p},
-            int(nr), row_cap, seg_impl)
+            int(nr), row_cap, seg_impl, blocks)
         out_p[win] = torch.where(updated, new, out_p[win])
         upd_p[win] |= updated
     return out_p[:nv], upd_p[:nv]
@@ -254,7 +263,8 @@ def stacked_tiles_step(prog: VertexProgram, values: Tensor,
 def merged_server_step(prog: VertexProgram, values: Tensor,
                        aux: dict[str, Tensor], src: Tensor, dst: Tensor,
                        edge_val: Tensor, owned: Tensor,
-                       seg_impl: str = "fused") -> tuple[Tensor, Tensor]:
+                       seg_impl: str = "fused",
+                       blocks=None) -> tuple[Tensor, Tensor]:
     """One gather/segment-reduce/apply over a server's merged edge list:
     src, dst (global, ascending), edge_val ``[E_s]`` hold every real edge
     of the server's tiles, owned ``[V]`` marks the rows its tiles cover.
@@ -271,7 +281,8 @@ def merged_server_step(prog: VertexProgram, values: Tensor,
     src_vals = values.index_select(0, src)
     src_aux = {k: aux[k].index_select(0, src) for k in prog.src_aux}
     contrib = prog.gather(src_vals, edge_val, src_aux)
-    accum = segment_reduce(contrib, dst, nv + 1, prog.combine)[:nv]
+    accum = segment_reduce(contrib, dst, nv + 1, prog.combine,
+                           blocks=blocks)[:nv]
     new = prog.apply(values, accum, {k: aux[k] for k in prog.dst_aux})
     own = _bcast_rows(owned, new)
     new = torch.where(own, new, values)
@@ -280,7 +291,7 @@ def merged_server_step(prog: VertexProgram, values: Tensor,
 
 
 def run_tile(prog, values, aux, tile_arrays, row_start, num_rows, row_cap,
-             seg_impl="fused"):
+             seg_impl="fused", blocks=None):
     """Out-of-core engine entry point for one tile: ``tile_arrays`` are the
     host ``(src, dst_local, edge_val)`` arrays ``[E]``, copied to the
     device of ``values`` once each.  Returns device tensors ``(rows, new,
@@ -289,12 +300,12 @@ def run_tile(prog, values, aux, tile_arrays, row_start, num_rows, row_cap,
                                 for x in tile_arrays)
     return tile_gather_apply(prog, values, aux, src, dst_local, edge_val,
                              int(row_start), int(num_rows), row_cap,
-                             seg_impl)
+                             seg_impl, blocks)
 
 
 def run_tile_sharded(prog, src_vals, src_aux, edge_val, dst_local, old,
                      dst_aux, num_rows, row_cap, seg_impl="fused",
-                     device="cuda"):
+                     device="cuda", blocks=None):
     """Out-of-core vertex-state entry point for one tile: the host inputs
     of :func:`tile_gather_apply_sharded` (numpy arrays or CPU tensors,
     page-locked when the caller made them so) go to ``device`` with one
@@ -307,7 +318,7 @@ def run_tile_sharded(prog, src_vals, src_aux, edge_val, dst_local, old,
         prog, dev(src_vals), {k: dev(v) for k, v in src_aux.items()},
         dev(edge_val), dev(dst_local), dev(old),
         {k: dev(v) for k, v in dst_aux.items()}, int(num_rows), row_cap,
-        seg_impl)
+        seg_impl, blocks)
 
 
 def stack_to_device(stk: dict, device) -> dict:
@@ -322,7 +333,8 @@ def stack_to_device(stk: dict, device) -> dict:
     return out
 
 
-def run_tile_stack(prog, values, aux, stk, row_cap, seg_impl="fused"):
+def run_tile_stack(prog, values, aux, stk, row_cap, seg_impl="fused",
+                   blocks=None):
     """Process a K-tile stack (``tiles.stack_tiles`` output, possibly padded
     with inert tiles by ``distributed.pad_stack_to``) in one call, its edge
     arrays copied to the device of ``values`` once.
@@ -332,4 +344,4 @@ def run_tile_stack(prog, values, aux, stk, row_cap, seg_impl="fused"):
     since tiles own disjoint row ranges."""
     return stacked_tiles_step(prog, values, aux,
                               stack_to_device(stk, values.device), row_cap,
-                              seg_impl)
+                              seg_impl, blocks)

@@ -22,8 +22,9 @@
 //   its slice's src (4·Q bytes an edge) and a, b (4 bytes each, when
 //   present) into shared memory with cp.async; one lane takes all Q
 //   columns of an edge, so a and b are read once an edge, not once a
-//   column.  Hub rows hold two multiples of H edges (H = 256 at a
-//   tile's size), and four blocks stream each, eight lanes a block: a row
+//   column.  Hub rows hold two multiples of H edges (H = block_e, 256 by
+//   default, at a tile's size), and four blocks stream each, eight lanes
+//   a block: a row
 //   block streams all its rows through one SM, and an a or b stream
 //   doubles the bytes of an edge at Q = 1, so at a tile every row of more
 //   than 512 edges leaves the row blocks and spreads over four SMs;
@@ -57,7 +58,6 @@ using namespace seg;
 
 namespace fused {
 
-constexpr int kMinBlocks = 4;             // row launch: <= 64 registers
 enum Apply { kAffine = 0, kApplyMin = 1, kApplyMax = 2 };
 
 __host__ __device__ inline int round_up4(int n) { return (n + 3) & ~3; }
@@ -219,22 +219,22 @@ struct ApplyEpilogue {
     const long long head =
         line_pad(from) == line_pad(to) ? min((4LL - line_pad(to)) % 4, n) : n;
     const long long groups = (n - head) / 4;
-    for (long long i = threadIdx.x; i < head; i += kThreads)
+    const int nt = blockDim.x;
+    for (long long i = threadIdx.x; i < head; i += nt)
       to[i] = __ldg(from + i);
-    for (long long g = threadIdx.x; g < groups; g += kThreads)
+    for (long long g = threadIdx.x; g < groups; g += nt)
       reinterpret_cast<float4*>(to + head)[g] =
           __ldg(reinterpret_cast<const float4*>(from + head) + g);
-    for (long long i = head + 4 * groups + threadIdx.x; i < n; i += kThreads)
+    for (long long i = head + 4 * groups + threadIdx.x; i < n; i += nt)
       to[i] = __ldg(from + i);
     uint8_t* upd = out_upd + k0;
     const long long uhead =
         min((16LL - static_cast<long long>(line_pad(upd))) % 16, n);
     const long long ugroups = (n - uhead) / 16;
-    for (long long i = threadIdx.x; i < uhead; i += kThreads) upd[i] = 0;
-    for (long long g = threadIdx.x; g < ugroups; g += kThreads)
+    for (long long i = threadIdx.x; i < uhead; i += nt) upd[i] = 0;
+    for (long long g = threadIdx.x; g < ugroups; g += nt)
       reinterpret_cast<uint4*>(upd + uhead)[g] = make_uint4(0, 0, 0, 0);
-    for (long long i = uhead + 16 * ugroups + threadIdx.x; i < n;
-         i += kThreads)
+    for (long long i = uhead + 16 * ugroups + threadIdx.x; i < n; i += nt)
       upd[i] = 0;
   }
 };
@@ -242,10 +242,11 @@ struct ApplyEpilogue {
 template <int C>
 int launch(const MessageSource& source, const ApplyEpilogue& epi,
            const int* dst, long long num_edges, long long num_rows,
-           long long row_cap, int q_cols, cudaStream_t stream) {
-  return static_cast<int>(
-      launch_cols<MessageSource, ApplyEpilogue, C, kMinBlocks>(
-          stream, source, epi, dst, num_edges, num_rows, row_cap, q_cols));
+           long long row_cap, int q_cols, const Blocks& b,
+           const HubScratch& hs, cudaStream_t stream) {
+  return static_cast<int>(launch_cols<MessageSource, ApplyEpilogue, C>(
+      stream, source, epi, dst, num_edges, num_rows, row_cap, q_cols, b,
+      hs));
 }
 
 }  // namespace fused
@@ -253,18 +254,26 @@ int launch(const MessageSource& source, const ApplyEpilogue& epi,
 extern "C" {
 
 // src [E, Q], old/base/out_new/out_upd [row_cap, Q] row-major; a, b [E] or
-// NULL; base NULL for the implicit 1.0; dst [E] ascending int32.  Returns
-// the cudaError_t of the launches (0 = success).
+// NULL; base NULL for the implicit 1.0; dst [E] ascending int32.  block_e
+// is the least hub size (a power of two), block_r the rows a row block
+// (128, 256 or 512); partials (partial_bytes) and counters (num_counters,
+// zero) the hub launch's scratch, as gab_fused_hub_scratch() sizes it.
+// Returns the cudaError_t of the launches (0 = success).
 int gab_fused_f32(const float* src, const float* a, const float* b,
                   const int* dst, const float* old, const float* base,
                   float* out_new, uint8_t* out_upd, long long num_edges,
                   long long row_cap, int q_cols, long long num_rows,
                   int combine_code, int apply_code, int has_const,
                   float add_const, float alpha, float beta, float tol,
-                  void* stream) {
+                  int block_e, int block_r, void* partials,
+                  long long partial_bytes, int* counters,
+                  long long num_counters, void* stream) {
   using namespace fused;
-  if (apply_code < kAffine || apply_code > kApplyMax)
+  Blocks blocks;
+  if (apply_code < kAffine || apply_code > kApplyMax ||
+      !make_blocks(block_e, block_r, &blocks))
     return static_cast<int>(cudaErrorInvalidValue);
+  const HubScratch hs{partials, partial_bytes, counters, num_counters};
   num_rows = num_rows < 0 ? 0 : (num_rows > row_cap ? row_cap : num_rows);
   const MessageSource source{src, a, b, add_const, has_const != 0};
   const ApplyEpilogue epi{old, base, out_new, out_upd, apply_code,
@@ -273,16 +282,29 @@ int gab_fused_f32(const float* src, const float* a, const float* b,
   switch (combine_code) {
     case kSum:
       return launch<kSum>(source, epi, dst, num_edges, num_rows, row_cap,
-                          q_cols, s);
+                          q_cols, blocks, hs, s);
     case kMin:
       return launch<kMin>(source, epi, dst, num_edges, num_rows, row_cap,
-                          q_cols, s);
+                          q_cols, blocks, hs, s);
     case kMax:
       return launch<kMax>(source, epi, dst, num_edges, num_rows, row_cap,
-                          q_cols, s);
+                          q_cols, blocks, hs, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// out[0] bytes of hub partials and out[1] counters a call over num_edges
+// edges and q_cols columns needs at least hub size block_e; -1 and -1 for
+// an illegal block_e.
+void gab_fused_hub_scratch(long long num_edges, int q_cols, int block_e,
+                           long long* out) {
+  Blocks b;
+  if (!make_blocks(block_e, kDefaultRows, &b)) {
+    out[0] = out[1] = -1;
+    return;
+  }
+  hub_scratch_size(num_edges, q_cols, b.hub_min_shift, sizeof(float), out);
 }
 
 const char* repro_cuda_error_string(int code) {

@@ -1,7 +1,7 @@
 // Shared pieces of the two GAB segment kernels (segment_reduce.cu,
-// gab_fused.cu): the row-block size, the combine monoids, a binary search
-// on the dst-sorted edge list and the fixed-order warp reduction.  Their
-// common row layout is seg_layout.cuh.
+// gab_fused.cu): the legal row-block sizes, the combine monoids, a binary
+// search on the dst-sorted edge list and the fixed-order warp reduction.
+// Their common row layout is seg_layout.cuh.
 //
 // Determinism: a row's edges are combined in one fixed order (lane l of a
 // warp takes edges lo + l, lo + l + 32, ..., then a butterfly over the
@@ -15,9 +15,14 @@
 
 namespace seg {
 
-constexpr int kWarps = 8;                  // warps per block
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerBlock = 256;         // rows owned by one block
+// A row block owns kRows consecutive rows, one thread a row (kRows / 32
+// warps); kRows is chosen at run time from {128, 256, 512} (the tuner's
+// block_r, roofline/kernel_tune.py), 256 by default.  Which block owns a
+// row changes no bit of its result (seg_layout.cuh).
+constexpr int kDefaultRows = 256;
+inline bool legal_rows(int rows) {
+  return rows == 128 || rows == 256 || rows == 512;
+}
 
 enum Combine { kSum = 0, kMin = 1, kMax = 2 };
 
@@ -84,8 +89,9 @@ __device__ __forceinline__ Acc warp_reduce(Acc v) {
   return v;
 }
 
-inline unsigned int num_row_blocks(long long rows) {
-  return static_cast<unsigned int>((rows + kRowsPerBlock - 1) / kRowsPerBlock);
+inline unsigned int num_row_blocks(long long rows, int rows_per_block) {
+  return static_cast<unsigned int>((rows + rows_per_block - 1) /
+                                   rows_per_block);
 }
 
 }  // namespace seg

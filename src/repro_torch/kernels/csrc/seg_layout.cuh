@@ -20,11 +20,12 @@
 // no atomics on values; the second runs on a side stream beside the first
 // (see launch_both):
 //
-// 1. Rows.  A block owns kRowsPerBlock consecutive rows.  Two warps find
-//    its edge slice — up to the first edge of row min(r0 + 256, num_rows)
-//    — with 32-way searches (a few dependent loads each); the block
-//    copies the slice's edge values into shared memory (cp.async, up to
-//    kCacheBytes) while it
+// 1. Rows.  A block owns kRows consecutive rows (block_r: 128, 256 or
+//    512, a thread a row).  Two warps find its edge slice — up to the
+//    first edge of row min(r0 + kRows, num_rows) — with 32-way searches
+//    (a few dependent loads each); the block copies the slice's edge
+//    values into dynamic shared memory (cp.async, up to kCacheBytesPerRow
+//    bytes a row) while it
 //    reads the slice's dst once, coalesced, marking where dst changes (a
 //    slice too long for that — one holding a hub row — takes one binary
 //    search a row instead).  Warp w then owns rows [32w, 32w + 32) of the
@@ -40,7 +41,8 @@
 //    - hub rows (below) are left to launch 2.
 //    A block wholly past num_rows only runs the epilogue's keep().
 // 2. Hubs.  A row below num_rows is a hub when it holds two consecutive
-//    multiples m, m + H of the edge index (H a power of two, hub_shift()),
+//    multiples m, m + H of the edge index (H = 2^shift, hub_shift(): at
+//    least block_e, a power of two, 256 by default),
 //    m being the first multiple at or after its start.  So dst[m] ==
 //    dst[m + H] != dst[m - H] finds each hub exactly once without a list:
 //    the kHubBlocks groups of launch 2 test the multiples (a thread each),
@@ -50,15 +52,26 @@
 //    consumer threads combine one lane and column each in the lane order
 //    above (chunks span multiples of 32 edges); the butterfly then runs
 //    over the 32 lanes' values (see hub_kernel).  H is as small as 256
-//    edges: a row block streams all its rows through one SM, so long rows
-//    left there hold the launch back, while a hub's bytes spread over
-//    kHubGroups SMs.  But a group takes its hubs one after another, each
-//    at a fixed cost (searches, the ring's fill, the meeting at scratch),
-//    so H grows with the edge list until it holds at most
-//    kHubMaxMultiples multiples, a few a group.  Rows are disjoint, so
-//    nothing is merged across launches.
+//    edges by default: a row block streams all its rows through one SM,
+//    so long rows left there hold the launch back, while a hub's bytes
+//    spread over kHubGroups SMs.  But a group takes its hubs one after
+//    another, each at a fixed cost (searches, the ring's fill, the
+//    meeting at scratch), so H grows with the edge list until it holds at
+//    most kHubMaxMultiples multiples, a few a group.  Rows are disjoint,
+//    so nothing is merged across launches.
+// The block sizes (block_e, block_r) change no bit of any row: a warp's
+// 32 rows are the same aligned rows at every kRows (so are its windows of
+// short rows), a long row is summed in the lane order above by whichever
+// launch takes it, and both launches take the same shift, so the row
+// launch leaves exactly the rows the hub launch finds.
 // Query columns go in chunks of up to 8 per pass; each column keeps the
 // order it has alone, so a column equals its Q = 1 run.
+//
+// The hub launch's lane partials and arrival counters are the caller's
+// (hub_scratch_size() says how many; the counters start at 0 and the
+// kernel leaves them at 0), allocated by the wrappers from PyTorch's
+// allocator, one pair a library and device: the library's side stream
+// runs its calls' hub launches in order.
 //
 // A Source has types Val (an edge value as loaded) and Acc (the
 // accumulator), kSlackBytes (shared memory it needs beyond its edges'
@@ -80,15 +93,20 @@
 namespace seg {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kCacheBytes = 40960;        // a row block's edge values
+// a row block's edge values: 40,960 bytes at 256 rows, so an SM holds
+// about 180 KiB of them at every row-block size (1,024 threads)
+constexpr int kCacheBytesPerRow = 160;
+constexpr int kResidentThreads = 1024;    // row launch: <= 64 registers
+constexpr int kHubThreads = 256;          // hub launch: threads a block
 constexpr long long kScanEdges = 32768;   // longer slices: search per row
 constexpr int kHubChunkBytes = 16384;     // a hub block's data a ring slot
-// Hub rows hold two multiples of H = 2^s edges, H >= 2^kHubMinShift and
-// at most kHubMaxMultiples multiples in the edge list (hub_shift());
+// Hub rows hold two multiples of H = 2^s edges, H >= block_e (2^8 by
+// default) and at most kHubMaxMultiples multiples in the edge list
+// (hub_shift());
 // kHubGroups blocks of kHubLanes lanes each stream one, through
 // kHubStages ring slots a block (room beside it for row blocks); up to
 // kHubBlocks groups test the multiples.
-constexpr int kHubMinShift = 8;
+constexpr int kDefaultHubShift = 8;
 constexpr long long kHubMaxMultiples = 16384;
 constexpr int kHubGroups = 4;
 constexpr int kHubLanes = 32 / kHubGroups;
@@ -173,11 +191,12 @@ __device__ __forceinline__ void copy_async(T* smem, const T* src, int count) {
   const int head = min((kPer - pad) % kPer, count);
   const int groups = (count - head) / kPer;
   T* to = smem + pad;
-  for (int i = threadIdx.x; i < head; i += kThreads)
+  const int nt = blockDim.x;
+  for (int i = threadIdx.x; i < head; i += nt)
     cp_async<sizeof(T)>(to + i, src + i);
-  for (int g = threadIdx.x; g < groups; g += kThreads)
+  for (int g = threadIdx.x; g < groups; g += nt)
     cp_async16(to + head + g * kPer, src + head + g * kPer);
-  for (int i = head + groups * kPer + threadIdx.x; i < count; i += kThreads)
+  for (int i = head + groups * kPer + threadIdx.x; i < count; i += nt)
     cp_async<sizeof(T)>(to + i, src + i);
 }
 
@@ -195,7 +214,7 @@ __device__ __forceinline__ void copy_runs(T* smem, const T* src, long long e0,
   const int per = kHubLanes * w;            // elements a run
   if (line_pad(src + e0 * w) == 0) {
     const int pieces = per / kPer;
-    for (int t = threadIdx.x; t < runs * pieces; t += kThreads) {
+    for (int t = threadIdx.x; t < runs * pieces; t += kHubThreads) {
       const int u = t / pieces, f = t % pieces * kPer;
       const long long first = e0 + 32LL * u;
       const T* from = src + first * w + f;
@@ -208,7 +227,7 @@ __device__ __forceinline__ void copy_runs(T* smem, const T* src, long long e0,
       }
     }
   } else {
-    for (int t = threadIdx.x; t < runs * per; t += kThreads) {
+    for (int t = threadIdx.x; t < runs * per; t += kHubThreads) {
       const int u = t / per, f = t % per;
       const long long first = e0 + 32LL * u;
       if (first + f / w < end)
@@ -241,9 +260,10 @@ __device__ inline long long warp_lower_bound(const int* __restrict__ dst,
   return ge ? lo + __ffs(ge) - 1 : hi;
 }
 
-// log2 of H for an edge list of num_edges (see kHubMaxMultiples).
-inline int hub_shift(long long num_edges) {
-  int s = kHubMinShift;
+// log2 of H for an edge list of num_edges, H at least 2^min_shift (see
+// kHubMaxMultiples).
+inline int hub_shift(long long num_edges, int min_shift) {
+  int s = min_shift;
   while (((num_edges - 1) >> s) > kHubMaxMultiples) ++s;
   return s;
 }
@@ -275,29 +295,30 @@ __device__ inline void block_slice(const int* __restrict__ dst,
 
 // Edge ranges of the block's rows: bounds[t] = first edge of row r0 + t,
 // t in [0, nrows].  dst values are clamped, so a dst that is not ascending
-// never writes out of bounds.
+// never writes out of bounds.  All kT threads of the block.
+template <int kT>
 __device__ inline void fill_bounds(const int* __restrict__ dst, long long r0,
                                    int nrows, long long lo, long long hi,
                                    long long* bounds) {
   if (hi - lo > kScanEdges) {
     // a hub slice: one binary search a row inside it
-    for (int t = threadIdx.x; t <= nrows; t += kThreads)
+    for (int t = threadIdx.x; t <= nrows; t += kT)
       bounds[t] = lo + lower_bound(dst + lo, hi - lo, r0 + t);
     return;
   }
   const long long last_row = static_cast<long long>(nrows - 1);
   constexpr int kBatch = 8;                   // loads in flight a thread
-  for (long long base = lo; base < hi; base += kBatch * kThreads) {
+  for (long long base = lo; base < hi; base += kBatch * kT) {
     int dv[kBatch], pv[kBatch];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
-      const long long i = base + u * kThreads + threadIdx.x;
+      const long long i = base + u * kT + threadIdx.x;
       dv[u] = i < hi ? dst[i] : 0;
       pv[u] = i > lo && i < hi ? dst[i - 1] : 0;
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
-      const long long i = base + u * kThreads + threadIdx.x;
+      const long long i = base + u * kT + threadIdx.x;
       if (i >= hi) continue;
       const long long d = min(dv[u] - r0, last_row);
       const long long prev = i == lo ? -1 : max(pv[u] - r0, -1LL);
@@ -306,7 +327,7 @@ __device__ inline void fill_bounds(const int* __restrict__ dst, long long r0,
   }
   const long long last =
       hi > lo ? min(max(dst[hi - 1] - r0, -1LL), last_row) : -1;
-  for (long long t = last + 1 + threadIdx.x; t <= nrows; t += kThreads)
+  for (long long t = last + 1 + threadIdx.x; t <= nrows; t += kT)
     bounds[t] = hi;
 }
 
@@ -318,27 +339,29 @@ __device__ __forceinline__ void put_cols(const Epi& epi, long long r, int q0,
     if (q0 + q < q_cols) epi.put(r, q0 + q, q_cols, v[q]);
 }
 
-// Launch 1: the rows of one block each.
-template <class Src, class Epi, int C, int QC, int kMinBlocks>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+// Launch 1: the rows of one block each, kRows threads and
+// kCacheBytesPerRow · kRows bytes of dynamic shared memory a block.
+template <class Src, class Epi, int C, int QC, int kRows>
+__global__ void __launch_bounds__(kRows, kResidentThreads / kRows)
 row_kernel(const Src source, const Epi epi, const int* __restrict__ dst,
            long long num_edges, long long num_rows, long long row_cap,
            int q_cols, int shift) {
   using Val = typename Src::Val;
   using Acc = typename Src::Acc;
-  __shared__ long long bounds[kRowsPerBlock + 1];
+  constexpr int kCacheBytes = kCacheBytesPerRow * kRows;
+  __shared__ long long bounds[kRows + 1];
   __shared__ long long slice[2];
-  __shared__ int row_at[kWarps][32];  // window position -> owner lane
-  __shared__ int long_rows[kRowsPerBlock], num_long, next_long;
-  __shared__ __align__(16) unsigned char cache[kCacheBytes];
-  const long long r0 = static_cast<long long>(blockIdx.x) * kRowsPerBlock;
+  __shared__ int row_at[kRows / 32][32];  // window position -> owner lane
+  __shared__ int long_rows[kRows], num_long, next_long;
+  extern __shared__ __align__(16) unsigned char cache[];
+  const long long r0 = static_cast<long long>(blockIdx.x) * kRows;
   if constexpr (Epi::kKeepsOld) {
     epi.keep(max(r0, num_rows) * q_cols,
-             min(r0 + kRowsPerBlock, row_cap) * q_cols);
+             min(r0 + kRows, row_cap) * q_cols);
     if (r0 >= num_rows) return;                // the whole block is kept
   }
   const int nrows = static_cast<int>(
-      min(static_cast<long long>(kRowsPerBlock), num_rows - r0));
+      min(static_cast<long long>(kRows), num_rows - r0));
   block_slice(dst, num_edges, r0, nrows, slice);
   const long long blo = slice[0], bhi = slice[1];
 
@@ -349,7 +372,7 @@ row_kernel(const Src source, const Epi epi, const int* __restrict__ dst,
       source.stage(cache, blo, static_cast<int>(cached), q_cols);
   cp_async_commit();
   if (threadIdx.x == 0) num_long = 0;
-  fill_bounds(dst, r0, nrows, blo, bhi, bounds);
+  fill_bounds<kRows>(dst, r0, nrows, blo, bhi, bounds);
   cp_async_wait<0>();
   __syncthreads();
 
@@ -477,7 +500,7 @@ row_kernel(const Src source, const Epi epi, const int* __restrict__ dst,
 // (an integer counter a hub, reset by it) runs the butterfly over the 32:
 // the same tree, whichever block is last.
 template <class Src, class Epi, int C, int QC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kHubThreads)
 hub_kernel(const Src source, const Epi epi, const int* __restrict__ dst,
            long long num_edges, long long num_rows, int q_cols,
            int shift, typename Src::Acc* scratch, int* counters) {
@@ -485,7 +508,7 @@ hub_kernel(const Src source, const Epi epi, const int* __restrict__ dst,
   constexpr int kSlot = kHubChunkBytes + Src::kSlackBytes;
   constexpr int kUnroll = 16;
   extern __shared__ __align__(16) unsigned char ring[];
-  __shared__ long long found[kThreads];
+  __shared__ long long found[kHubThreads];
   __shared__ long long range[2];
   __shared__ int num_found, is_last;
   const long long chunk_edges = source.hub_chunk_edges(q_cols);  // 32·k
@@ -502,7 +525,7 @@ hub_kernel(const Src source, const Epi epi, const int* __restrict__ dst,
   const int li = threadIdx.x % kHubLanes;
   const int cq = threadIdx.x / kHubLanes;
 
-  for (long long j0 = jb; j0 < multiples; j0 += groups * kThreads) {
+  for (long long j0 = jb; j0 < multiples; j0 += groups * kHubThreads) {
     if (threadIdx.x == 0) num_found = 0;
     __syncthreads();
     const long long j = j0 + groups * threadIdx.x;
@@ -602,15 +625,6 @@ hub_kernel(const Src source, const Epi epi, const int* __restrict__ dst,
 struct SideStream {
   cudaStream_t stream = nullptr;
   cudaEvent_t fork = nullptr, join = nullptr;
-  // the hub launch's lane partials and arrival counters (zero between
-  // launches); used on the side stream only, grown when a call needs more
-  // (cudaMalloc, beside torch's caching allocator, never returned): 32
-  // values a multiple and column chunk, so at most kHubMaxMultiples ·
-  // ceil(Q / 8) · 8 · 32 accumulators — 4 MiB of float at Q <= 8
-  void* scratch = nullptr;
-  size_t scratch_bytes = 0;
-  int* counters = nullptr;
-  size_t num_counters = 0;
 };
 
 inline std::mutex side_mutex;
@@ -637,55 +651,87 @@ inline cudaError_t side_stream(SideStream** out) {
   return cudaSuccess;
 }
 
-// At least `bytes` of scratch and `counters` zeroed counters on the side
-// stream (after the fork: the side stream has waited for the caller's).
-inline cudaError_t side_scratch(SideStream* side, size_t bytes,
-                                size_t counters) {
-  cudaError_t err = cudaSuccess;
-  if (side->scratch_bytes < bytes) {
-    if (side->scratch != nullptr && (err = cudaFree(side->scratch)) != 0)
-      return err;
-    side->scratch = nullptr;
-    side->scratch_bytes = 0;
-    if ((err = cudaMalloc(&side->scratch, bytes)) != 0) return err;
-    side->scratch_bytes = bytes;
-  }
-  if (side->num_counters < counters) {
-    if (side->counters != nullptr && (err = cudaFree(side->counters)) != 0)
-      return err;
-    side->counters = nullptr;
-    side->num_counters = 0;
-    if ((err = cudaMalloc(&side->counters, counters * sizeof(int))) != 0)
-      return err;
-    if ((err = cudaMemsetAsync(side->counters, 0, counters * sizeof(int),
-                               side->stream)) != 0)
-      return err;
-    side->num_counters = counters;
-  }
-  return cudaSuccess;
+// One call's block sizes: rows a row block (block_r) and log2 of the
+// least hub size (block_e).
+struct Blocks {
+  int rows = kDefaultRows;
+  int hub_min_shift = kDefaultHubShift;
+};
+
+// (block_e, block_r) -> Blocks; false unless block_r is a legal row count
+// and block_e a power of two in [32, 2^20].
+inline bool make_blocks(int block_e, int block_r, Blocks* out) {
+  if (!legal_rows(block_r) || block_e < 32 || block_e > (1 << 20) ||
+      (block_e & (block_e - 1)) != 0)
+    return false;
+  int s = 0;
+  while ((1 << s) < block_e) ++s;
+  out->rows = block_r;
+  out->hub_min_shift = s;
+  return true;
+}
+
+// The caller's hub scratch (device memory): lane partials and arrival
+// counters, the counters zero.  Used on the side stream only.
+struct HubScratch {
+  void* partials = nullptr;
+  long long partial_bytes = 0;
+  int* counters = nullptr;
+  long long num_counters = 0;
+};
+
+// Query columns a pass (launch_cols).
+inline int col_chunk(int q_cols) {
+  return q_cols == 1 ? 1 : (q_cols == 2 ? 2 : (q_cols <= 4 ? 4 : 8));
+}
+
+// The scratch a call needs: out[0] bytes of lane partials (acc_bytes an
+// accumulator: 32 a multiple of H and column pass), out[1] counters (one
+// a multiple and pass); 0 and 0 when the edge list holds no multiple.
+inline void hub_scratch_size(long long num_edges, int q_cols, int min_shift,
+                             int acc_bytes, long long* out) {
+  const int shift = hub_shift(num_edges, min_shift);
+  const int qc = col_chunk(q_cols);
+  const long long multiples =
+      num_edges > (1LL << shift) ? (num_edges - 1) >> shift : 0;
+  const long long ids = multiples * ((q_cols + qc - 1) / qc);
+  out[0] = ids * qc * 32 * acc_bytes;
+  out[1] = ids;
 }
 
 // Both launches over rows [0, row_cap), rows [0, num_rows) reduced.
-template <class Src, class Epi, int C, int QC, int kMinBlocks>
+template <class Src, class Epi, int C, int QC, int kRows>
 cudaError_t launch_both(cudaStream_t stream, const Src& source,
                         const Epi& epi, const int* dst, long long num_edges,
-                        long long num_rows, long long row_cap, int q_cols) {
+                        long long num_rows, long long row_cap, int q_cols,
+                        int min_shift, const HubScratch& hs) {
   using Acc = typename Src::Acc;
-  const dim3 grid(num_row_blocks(row_cap));
+  const dim3 grid(num_row_blocks(row_cap, kRows));
+  const int cache = kCacheBytesPerRow * kRows;
+  cudaError_t err = cudaSuccess;
+  if (cache > 48 * 1024 &&
+      (err = cudaFuncSetAttribute(row_kernel<Src, Epi, C, QC, kRows>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  cache)) != 0)
+    return err;
   // hubs need a chunk of at least 32 edges
-  const int shift = hub_shift(num_edges);
+  const int shift = hub_shift(num_edges, min_shift);
   const bool hubs = source.hub_chunk_edges(q_cols) >= 32 &&
                     num_edges > (1LL << shift) && num_rows > 0;
   if (!hubs) {
-    row_kernel<Src, Epi, C, QC, kMinBlocks><<<grid, kThreads, 0, stream>>>(
+    row_kernel<Src, Epi, C, QC, kRows><<<grid, kRows, cache, stream>>>(
         source, epi, dst, num_edges, num_rows, row_cap, q_cols, 0);
     return cudaGetLastError();
   }
+  const long long multiples = (num_edges - 1) >> shift;
+  const long long ids = multiples * ((q_cols + QC - 1) / QC);
+  if (hs.partials == nullptr || hs.counters == nullptr ||
+      hs.partial_bytes < ids * QC * 32 * static_cast<long long>(sizeof(Acc)) ||
+      hs.num_counters < ids)
+    return cudaErrorInvalidValue;
   std::lock_guard<std::mutex> lock(side_mutex);
   SideStream* side = nullptr;
-  cudaError_t err = side_stream(&side);
-  if (err != cudaSuccess) return err;
-  const long long multiples = (num_edges - 1) >> shift;
+  if ((err = side_stream(&side)) != cudaSuccess) return err;
   const int blocks =
       static_cast<int>(min(multiples, 1LL * kHubBlocks)) * kHubGroups;
   const int ring = kHubStages * (kHubChunkBytes + Src::kSlackBytes);
@@ -695,16 +741,11 @@ cudaError_t launch_both(cudaStream_t stream, const Src& source,
       (err = cudaEventRecord(side->fork, stream)) != 0 ||
       (err = cudaStreamWaitEvent(side->stream, side->fork, 0)) != 0)
     return err;
-  const size_t ids = static_cast<size_t>(multiples) * ((q_cols + QC - 1) / QC);
-  if ((err = side_scratch(side, ids * QC * 32 * sizeof(Acc), ids)) != 0)
-    return err;
-  Acc* scratch = static_cast<Acc*>(side->scratch);
-  int* counters = side->counters;
-  hub_kernel<Src, Epi, C, QC><<<blocks, kThreads, ring, side->stream>>>(
-      source, epi, dst, num_edges, num_rows, q_cols, shift, scratch,
-      counters);
+  hub_kernel<Src, Epi, C, QC><<<blocks, kHubThreads, ring, side->stream>>>(
+      source, epi, dst, num_edges, num_rows, q_cols, shift,
+      static_cast<Acc*>(hs.partials), hs.counters);
   if ((err = cudaGetLastError()) != 0) return err;
-  row_kernel<Src, Epi, C, QC, kMinBlocks><<<grid, kThreads, 0, stream>>>(
+  row_kernel<Src, Epi, C, QC, kRows><<<grid, kRows, cache, stream>>>(
       source, epi, dst, num_edges, num_rows, row_cap, q_cols, shift);
   if ((err = cudaGetLastError()) != 0 ||
       (err = cudaEventRecord(side->join, side->stream)) != 0 ||
@@ -713,22 +754,49 @@ cudaError_t launch_both(cudaStream_t stream, const Src& source,
   return cudaSuccess;
 }
 
-// Query columns in one pass of up to 8.
-template <class Src, class Epi, int C, int kMinBlocks>
+template <class Src, class Epi, int C, int QC>
+cudaError_t launch_rows(cudaStream_t stream, const Src& source,
+                        const Epi& epi, const int* dst, long long num_edges,
+                        long long num_rows, long long row_cap, int q_cols,
+                        const Blocks& b, const HubScratch& hs) {
+  switch (b.rows) {
+    case 128:
+      return launch_both<Src, Epi, C, QC, 128>(
+          stream, source, epi, dst, num_edges, num_rows, row_cap, q_cols,
+          b.hub_min_shift, hs);
+    case 256:
+      return launch_both<Src, Epi, C, QC, 256>(
+          stream, source, epi, dst, num_edges, num_rows, row_cap, q_cols,
+          b.hub_min_shift, hs);
+    case 512:
+      return launch_both<Src, Epi, C, QC, 512>(
+          stream, source, epi, dst, num_edges, num_rows, row_cap, q_cols,
+          b.hub_min_shift, hs);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Query columns in one pass of up to 8, at the call's block sizes.
+template <class Src, class Epi, int C>
 cudaError_t launch_cols(cudaStream_t stream, const Src& source,
                         const Epi& epi, const int* dst, long long num_edges,
-                        long long num_rows, long long row_cap, int q_cols) {
-  if (q_cols == 1)
-    return launch_both<Src, Epi, C, 1, kMinBlocks>(
-        stream, source, epi, dst, num_edges, num_rows, row_cap, q_cols);
-  if (q_cols == 2)
-    return launch_both<Src, Epi, C, 2, kMinBlocks>(
-        stream, source, epi, dst, num_edges, num_rows, row_cap, q_cols);
-  if (q_cols <= 4)
-    return launch_both<Src, Epi, C, 4, kMinBlocks>(
-        stream, source, epi, dst, num_edges, num_rows, row_cap, q_cols);
-  return launch_both<Src, Epi, C, 8, kMinBlocks>(
-      stream, source, epi, dst, num_edges, num_rows, row_cap, q_cols);
+                        long long num_rows, long long row_cap, int q_cols,
+                        const Blocks& b, const HubScratch& hs) {
+  switch (col_chunk(q_cols)) {
+    case 1:
+      return launch_rows<Src, Epi, C, 1>(stream, source, epi, dst, num_edges,
+                                         num_rows, row_cap, q_cols, b, hs);
+    case 2:
+      return launch_rows<Src, Epi, C, 2>(stream, source, epi, dst, num_edges,
+                                         num_rows, row_cap, q_cols, b, hs);
+    case 4:
+      return launch_rows<Src, Epi, C, 4>(stream, source, epi, dst, num_edges,
+                                         num_rows, row_cap, q_cols, b, hs);
+    default:
+      return launch_rows<Src, Epi, C, 8>(stream, source, epi, dst, num_edges,
+                                         num_rows, row_cap, q_cols, b, hs);
+  }
 }
 
 }  // namespace seg

@@ -27,7 +27,6 @@ using namespace seg;
 
 namespace segment {
 
-constexpr int kMinBlocks = 4;             // row launch: <= 64 registers
 
 // Source: contrib [E, Q], one stream of Q values an edge.
 template <typename T, typename AccT>
@@ -105,25 +104,30 @@ struct StoreEpilogue {
 
 template <typename T, typename Acc>
 int launch(const T* contrib, const int* dst, T* out, long long num_edges,
-           long long num_rows, int q_cols, int combine_code,
-           cudaStream_t stream) {
+           long long num_rows, int q_cols, int combine_code, int block_e,
+           int block_r, void* partials, long long partial_bytes,
+           int* counters, long long num_counters, cudaStream_t stream) {
   const StoredSource<T, Acc> source{contrib};
   const StoreEpilogue<T, Acc> epi{out};
   using S = StoredSource<T, Acc>;
   using E = StoreEpilogue<T, Acc>;
+  Blocks b;
+  if (!make_blocks(block_e, block_r, &b))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const HubScratch hs{partials, partial_bytes, counters, num_counters};
   cudaError_t err;
   switch (combine_code) {
     case kSum:
-      err = launch_cols<S, E, kSum, kMinBlocks>(
-          stream, source, epi, dst, num_edges, num_rows, num_rows, q_cols);
+      err = launch_cols<S, E, kSum>(stream, source, epi, dst, num_edges,
+                                    num_rows, num_rows, q_cols, b, hs);
       break;
     case kMin:
-      err = launch_cols<S, E, kMin, kMinBlocks>(
-          stream, source, epi, dst, num_edges, num_rows, num_rows, q_cols);
+      err = launch_cols<S, E, kMin>(stream, source, epi, dst, num_edges,
+                                    num_rows, num_rows, q_cols, b, hs);
       break;
     case kMax:
-      err = launch_cols<S, E, kMax, kMinBlocks>(
-          stream, source, epi, dst, num_edges, num_rows, num_rows, q_cols);
+      err = launch_cols<S, E, kMax>(stream, source, epi, dst, num_edges,
+                                    num_rows, num_rows, q_cols, b, hs);
       break;
     default:
       err = cudaErrorInvalidValue;
@@ -138,30 +142,38 @@ using segment::launch;
 extern "C" {
 
 // contrib [E, Q] and out [R, Q] row-major, dst [E] ascending int32.
-// Returns the cudaError_t of the launches (0 = success).
-int segment_reduce_f32(const float* contrib, const int* dst, float* out,
-                       long long num_edges, long long num_rows, int q_cols,
-                       int combine_code, void* stream) {
-  return launch<float, float>(contrib, dst, out, num_edges, num_rows, q_cols,
-                              combine_code,
-                              static_cast<cudaStream_t>(stream));
-}
+// block_e is the least hub size (a power of two), block_r the rows a row
+// block (128, 256 or 512); partials (partial_bytes) and counters
+// (num_counters, zero) the hub launch's scratch, as
+// segment_reduce_hub_scratch() sizes it.  Returns the cudaError_t of the
+// launches (0 = success).
+#define SEGMENT_ENTRY(NAME, T, ACC)                                          \
+  int NAME(const T* contrib, const int* dst, T* out, long long num_edges,   \
+           long long num_rows, int q_cols, int combine_code, int block_e,    \
+           int block_r, void* partials, long long partial_bytes,             \
+           int* counters, long long num_counters, void* stream) {            \
+    return launch<T, ACC>(contrib, dst, out, num_edges, num_rows, q_cols,    \
+                          combine_code, block_e, block_r, partials,          \
+                          partial_bytes, counters, num_counters,             \
+                          static_cast<cudaStream_t>(stream));                \
+  }
+SEGMENT_ENTRY(segment_reduce_f32, float, float)
+SEGMENT_ENTRY(segment_reduce_i32, int, long long)
+SEGMENT_ENTRY(segment_reduce_i64, long long, long long)
+#undef SEGMENT_ENTRY
 
-int segment_reduce_i32(const int* contrib, const int* dst, int* out,
-                       long long num_edges, long long num_rows, int q_cols,
-                       int combine_code, void* stream) {
-  return launch<int, long long>(contrib, dst, out, num_edges, num_rows,
-                                q_cols, combine_code,
-                                static_cast<cudaStream_t>(stream));
-}
-
-int segment_reduce_i64(const long long* contrib, const int* dst,
-                       long long* out, long long num_edges,
-                       long long num_rows, int q_cols, int combine_code,
-                       void* stream) {
-  return launch<long long, long long>(contrib, dst, out, num_edges, num_rows,
-                                      q_cols, combine_code,
-                                      static_cast<cudaStream_t>(stream));
+// out[0] bytes of hub partials and out[1] counters a call over num_edges
+// edges and q_cols columns of an integer (wide = 1: 8-byte accumulators)
+// or float contribution needs at least hub size block_e; -1 and -1 for an
+// illegal block_e.
+void segment_reduce_hub_scratch(long long num_edges, int q_cols, int block_e,
+                                int wide, long long* out) {
+  Blocks b;
+  if (!make_blocks(block_e, kDefaultRows, &b)) {
+    out[0] = out[1] = -1;
+    return;
+  }
+  hub_scratch_size(num_edges, q_cols, b.hub_min_shift, wide ? 8 : 4, out);
 }
 
 const char* repro_cuda_error_string(int code) {

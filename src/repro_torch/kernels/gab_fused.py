@@ -10,7 +10,8 @@ the caller, as in the reference.
 
 The wrapper takes CUDA tensors only (``ops`` sends CPU tensors to
 ``ref.gab_fused_ref``), checks what the kernel accepts, allocates the
-outputs, launches on the current stream and counts the launch in
+outputs and the hub launch's scratch (``blocks.hub_scratch``), launches
+at the given block sizes on the current stream and counts the launch in
 ``LAUNCHES``.
 """
 from __future__ import annotations
@@ -21,6 +22,7 @@ import dataclasses
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import blocks as _blocks
 
 #: kernel launches since the counter was last set to 0
 LAUNCHES = 0
@@ -59,9 +61,12 @@ class FusedSpec:
 _COMBINE = {"sum": 0, "min": 1, "max": 2}
 _APPLY = {"affine": 0, "min": 1, "max": 2}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_SIGNATURES = {"gab_fused_f32": (
-    [_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _L, _I, _I, _I, _F, _F, _F,
-     _F, _P], ctypes.c_int)}
+_SIGNATURES = {
+    "gab_fused_f32": (
+        [_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _L, _I, _I, _I, _F, _F,
+         _F, _F, _I, _I, _P, _L, _P, _L, _P], ctypes.c_int),
+    "gab_fused_hub_scratch": ([_L, _I, _I, ctypes.POINTER(_L)], None),
+}
 
 
 def _check(name, t, shape, dtype, device):
@@ -75,7 +80,7 @@ def _check(name, t, shape, dtype, device):
 
 def gab_fused(spec: FusedSpec, src_vals: torch.Tensor, a, b,
               dst_local: torch.Tensor, old: torch.Tensor, base,
-              num_rows: int, row_cap: int):
+              num_rows: int, row_cap: int, blocks=None):
     """One fused Gather+Apply tile step on the card.
 
     Shapes: src_vals ``[E(, Q)]`` float32; a, b ``[E]`` float32 exactly when
@@ -83,9 +88,14 @@ def gab_fused(spec: FusedSpec, src_vals: torch.Tensor, a, b,
     (padding edges point at or past ``num_rows``); old and base ``[R(, Q)]``
     with R = row_cap (base only with ``spec.base_aux``).
 
+    ``blocks`` is ``(block_e, block_r)`` (``blocks.BLOCK_E`` x
+    ``blocks.BLOCK_R``; None: the default); every legal pair gives the
+    same bits.
+
     Returns ``(new [R(, Q)] float32, updated [R(, Q)] bool)``: rows at or
     beyond ``num_rows`` keep ``old`` and are not updated."""
     global LAUNCHES
+    block_e, block_r = _blocks.check_blocks(blocks)
     if spec.combine not in _COMBINE or spec.apply not in _APPLY:
         raise ValueError(f"unsupported spec: {spec}")
     device = src_vals.device
@@ -118,11 +128,15 @@ def gab_fused(spec: FusedSpec, src_vals: torch.Tensor, a, b,
     if row_cap == 0 or q == 0:
         return new, upd
     lib = _build.load("gab_fused", _SIGNATURES)
+    nbytes, ncounters = _blocks.scratch_size(lib.gab_fused_hub_scratch, e, q,
+                                             block_e)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(device):
+        part, cnt = _blocks.hub_scratch("gab_fused", device, nbytes,
+                                        ncounters)
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gab_fused_f32(
             src_vals.data_ptr(), ptr(a), ptr(b), dst_local.data_ptr(),
@@ -130,7 +144,8 @@ def gab_fused(spec: FusedSpec, src_vals: torch.Tensor, a, b,
             e, row_cap, q, int(num_rows), _COMBINE[spec.combine],
             _APPLY[spec.apply], int(spec.add_const is not None),
             float(spec.add_const or 0.0), float(spec.alpha),
-            float(spec.beta), float(spec.update_tol), stream)
+            float(spec.beta), float(spec.update_tol), block_e, block_r,
+            ptr(part), nbytes, ptr(cnt), ncounters, stream)
     _build.check(lib, err, "gab_fused_f32")
     LAUNCHES += 1
     return new, upd

@@ -3,13 +3,15 @@
 A CUDA tensor launches the hand-written kernel (``gab_gather``,
 ``gab_fused``, ``compact``); a CPU tensor runs the plain PyTorch version
 (``ref``);
-any other device raises.  Nothing here falls back from the kernel: a
+any other device raises.  The two GAB kernels take ``blocks``, checked
+here on either device (``blocks.check_blocks``).  Nothing here falls back from the kernel: a
 kernel that cannot build or launch raises.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import blocks as _blocks
 from repro_torch.kernels import compact as _cp
 from repro_torch.kernels import gab_fused as _gf
 from repro_torch.kernels import gab_gather as _gg
@@ -26,11 +28,13 @@ def _on_card(t: torch.Tensor) -> bool:
 
 def segment_reduce(contrib: torch.Tensor, dst: torch.Tensor,
                    num_segments: int, combine: str,
-                   sorted_ids: bool = True) -> torch.Tensor:
+                   sorted_ids: bool = True, blocks=None) -> torch.Tensor:
     """``combine``-reduce contrib ``[E(, Q)]`` by dst ``[E]`` into
-    ``[R(, Q)]`` rows (R = num_segments); see ``gab_gather``."""
+    ``[R(, Q)]`` rows (R = num_segments) at the kernel's ``blocks``
+    ``(block_e, block_r)`` (None: the default); see ``gab_gather``."""
+    _blocks.check_blocks(blocks)
     fn = _gg.segment_reduce if _on_card(contrib) else _ref.segment_reduce
-    return fn(contrib, dst, num_segments, combine, sorted_ids)
+    return fn(contrib, dst, num_segments, combine, sorted_ids, blocks=blocks)
 
 
 def segment_sum(contrib, dst, num_segments, sorted_ids=True):
@@ -50,11 +54,15 @@ def segment_max(contrib, dst, num_segments, sorted_ids=True):
     return segment_reduce(contrib, dst, num_segments, "max", sorted_ids)
 
 
-def gab_fused(spec, src_vals, a, b, dst_local, old, base, num_rows, row_cap):
+def gab_fused(spec, src_vals, a, b, dst_local, old, base, num_rows, row_cap,
+              blocks=None):
     """One fused Gather+Apply tile step over src_vals ``[E(, Q)]`` and old
-    ``[R(, Q)]``; returns ``(new, updated)`` — see ``gab_fused``."""
+    ``[R(, Q)]`` at the kernel's ``blocks`` ``(block_e, block_r)`` (None:
+    the default); returns ``(new, updated)`` — see ``gab_fused``."""
+    _blocks.check_blocks(blocks)
     fn = _gf.gab_fused if _on_card(src_vals) else _ref.gab_fused_ref
-    return fn(spec, src_vals, a, b, dst_local, old, base, num_rows, row_cap)
+    return fn(spec, src_vals, a, b, dst_local, old, base, num_rows, row_cap,
+              blocks=blocks)
 
 
 def compact(mask, values, capacity, fill_index=None):

@@ -30,10 +30,11 @@ def identity(combine: str, dtype: torch.dtype):
 
 def segment_reduce(contrib: torch.Tensor, dst: torch.Tensor,
                    num_segments: int, combine: str,
-                   sorted_ids: bool = True) -> torch.Tensor:
+                   sorted_ids: bool = True, blocks=None) -> torch.Tensor:
     """Reduce contrib ``[E(, Q)]`` by dst ``[E]`` into ``[R(, Q)]`` rows
     (R = num_segments) with the ``combine`` monoid; empty rows hold its
-    identity and ids outside ``[0, R)`` are dropped.
+    identity and ids outside ``[0, R)`` are dropped.  ``blocks`` (the
+    kernel's block sizes) is accepted and changes nothing.
 
     ``dst`` must be ascending unless ``sorted_ids=False``, which first
     permutes the edges by a stable sort on dst.  Integer contributions
@@ -76,7 +77,7 @@ def segment_reduce(contrib: torch.Tensor, dst: torch.Tensor,
 
 
 def gab_fused_ref(spec, src_vals, a, b, dst_local, old, base, num_rows,
-                  row_cap):
+                  row_cap, blocks=None):
     """One Gather+Apply tile step with ``gab_fused``'s contract.
 
     Shapes: src_vals ``[E(, Q)]``, a/b/dst_local ``[E]``, old/base
@@ -85,7 +86,8 @@ def gab_fused_ref(spec, src_vals, a, b, dst_local, old, base, num_rows,
     (base 1.0 when absent) or ``min``/``max`` against ``old``, each
     product and sum rounded on its own.  Rows at or past ``num_rows``
     keep ``old`` and are not updated.  Returns ``(new [R(, Q)], updated
-    [R(, Q)] bool)``."""
+    [R(, Q)] bool)``.  ``blocks`` (the kernel's block sizes) is accepted
+    and changes nothing."""
     squeeze = src_vals.ndim == 1
     contrib = src_vals[:, None] if squeeze else src_vals
     ov = old[:, None] if squeeze else old

@@ -542,6 +542,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "the record) and peers splice from it")
     ap.add_argument("--seg-impl", default="fused",
                     choices=["fused", "segment"])
+    ap.add_argument("--kernel-autotune", action="store_true",
+                    help="every rank picks the GAB kernels' blocks and the "
+                         "pipelined stack size from the card's cost model "
+                         "(roofline/kernel_tune.py)")
     ap.add_argument("--device", default="cuda",
                     help="torch device every rank computes on (cpu runs "
                          "the kernels' plain versions)")
@@ -595,6 +599,7 @@ def main(argv=None) -> ClusterResult:
         preemptible=args.preemptible,
         fault_plan=fault_plan,
         admit_plan=parse_admit_plan(args.admit),
+        kernel_autotune=args.kernel_autotune,
         device=args.device,
     )
     cfg = ClusterConfig(num_servers=args.servers, transport=args.transport,
@@ -615,6 +620,18 @@ def main(argv=None) -> ClusterResult:
           f"bit-identical across ranks={out.verified}"
           + (f", {out.restarts} restarts -> {out.final_servers} servers"
              if out.restarts else "") + ")")
+    if args.kernel_autotune:
+        # every rank's pick: the model reads the tile shape and the card's
+        # table only
+        from repro_torch.launch.graph import autotune_line
+        from repro_torch.roofline import kernel_tune
+
+        plan = store.load_plan()
+        for prog in progs:
+            q = int(getattr(prog, "num_queries", 1) or 1)
+            pick = kernel_tune.pick_blocks(prog.combine, q, plan.edge_cap,
+                                           plan.row_cap)
+            print("  " + autotune_line(prog.combine, q, pick))
     if args.verify_clean:
         clean_cfg = dataclasses.replace(
             ecfg, num_servers=args.servers, checkpoint_dir=None,

@@ -15,10 +15,10 @@ and ``--verify-clean``), superstep checkpoints and fault drills
 ``--preemptible``, ``--inject``; ``--on-failure`` and ``--max-restarts``
 supervise a ``--cluster``), and the online query service (``--serve``,
 ``--serve-http`` and their flags, ``serve/graph_service.py``,
-``serve/http.py``) — plus ``--device`` (default ``cuda``).
-``--seg-impl`` also takes the reference's names.  ``--kernel-autotune``
-is accepted and rejected with ``NotImplementedError`` naming its
-ROADMAP.md queue item.
+``serve/http.py``) and ``--kernel-autotune`` (the kernels' blocks and
+the pipelined stack size from ``roofline/kernel_tune.py``, in each mode)
+— plus ``--device`` (default ``cuda``).  ``--seg-impl`` also takes the
+reference's names.
 """
 from __future__ import annotations
 
@@ -37,8 +37,9 @@ from repro_torch.graphio.formats import TileStore
 from repro_torch.launch.cluster import parse_admit_plan
 from repro_torch.runtime.faults import parse_plan
 
-# reference flags outside the slice -> the ROADMAP.md queue item bringing them
-_LATER_FLAGS = {"kernel_autotune": "A.12"}
+# reference flags outside the port -> the ROADMAP.md queue item bringing
+# them (none since A.12)
+_LATER_FLAGS: dict[str, str] = {}
 
 # the reference's --seg-impl backends -> the port's: "jnp" reduces and then
 # applies, as "segment" does; "pallas_onehot" is the segment kernel
@@ -234,7 +235,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "answering this long after the drain so "
                          "clients can collect in-flight results")
     ap.add_argument("--kernel-autotune", action="store_true",
-                    help=argparse.SUPPRESS)
+                    help="pick the GAB kernels' (block_e, block_r) and the "
+                         "pipelined stack size from the card's cost model "
+                         "(roofline/kernel_tune.py); results are "
+                         "bit-identical to the static blocks")
     args = ap.parse_args(argv)
     args.seg_impl = _REFERENCE_SEG_IMPLS.get(args.seg_impl, args.seg_impl)
     later = [f"--{k.replace('_', '-')} is ROADMAP.md queue {item}"
@@ -269,7 +273,8 @@ def _cluster_argv(args) -> list[str]:
                      ("--no-interval-order", args.no_interval_order),
                      ("--reuse", args.reuse), ("--resume", args.resume),
                      ("--preemptible", args.preemptible),
-                     ("--verify-clean", args.verify_clean)):
+                     ("--verify-clean", args.verify_clean),
+                     ("--kernel-autotune", args.kernel_autotune)):
         if on:
             argv.append(flag)
     if args.checkpoint_dir:
@@ -329,6 +334,7 @@ def _serve_main(args):
                               else int(args.vertex_memory_budget * 1e6)),
         num_intervals=args.num_intervals,
         checkpoint_dir=args.checkpoint_dir,
+        kernel_autotune=args.kernel_autotune,
         device=args.device,
     )
     svc = GraphService(
@@ -404,7 +410,18 @@ def _serve_main(args):
             f"{t}: {d['admitted']} admitted/{d['submitted']} submitted"
             for t, d in sorted(svc.tenant_stats.items()))
         print(f"  tenants: {parts}")
+    if args.kernel_autotune:
+        for app, eng in sorted(svc._engines.items()):
+            for (combine, q), c in sorted(eng._kernel_choices.items()):
+                print(f"  {app} " + autotune_line(combine, q, c))
     return svc
+
+
+def autotune_line(combine: str, q: int, c) -> str:
+    """The reference's line for a tuner pick ``c`` (a ``KernelChoice``)."""
+    return (f"kernel autotune [{combine}, Q={q}]: BE={c.block_e} "
+            f"BR={c.block_r} stack={c.stack_size} ({c.bound}-bound, "
+            f"ceiling {c.edges_per_s:.2e} edges/s)")
 
 
 def main(argv=None):
@@ -453,6 +470,7 @@ def main(argv=None):
         resume=args.resume,
         preemptible=args.preemptible,
         fault_plan=parse_plan(args.inject),
+        kernel_autotune=args.kernel_autotune,
         device=args.device,
     )
     if args.admit:
@@ -475,6 +493,10 @@ def main(argv=None):
     print(f"{args.app}: {res.supersteps} supersteps in {dt:.1f}s "
           f"(mean {res.mean_superstep_seconds()*1000:.0f} ms/superstep, "
           f"converged={res.converged}, device={eng.device})")
+    if args.kernel_autotune and eng.kernel_choice is not None:
+        print("  " + autotune_line(prog.combine,
+                                   getattr(prog, "num_queries", 1),
+                                   eng.kernel_choice))
     if batched:
         q = len(seeds)
         io = sum(x.disk_bytes_read for x in res.history)

@@ -435,14 +435,23 @@ def test_spawned_cluster_rank_failure_names_the_rank(stores):
     dict(on_failure="shrink", engine=EngineConfig(kernel_blocks=(512, 256))),
     dict(max_restarts=5, engine=EngineConfig(kernel_autotune=True)),
     dict(engine=EngineConfig(checkpoint_dir="ckpt", kernel_autotune=True))])
-def test_later_cluster_knobs_raise(stores, knobs):
-    """The engine's later knobs (the tuner's, A.12) raise before a rank
-    spawns, beside the supervision and checkpoint knobs of A.10."""
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue A.12") as ei:
-        run_cluster(stores[0], [tapps.PageRank()],
-                    ClusterConfig(device="cpu", **knobs))
-    assert "A.10" not in str(ei.value)
+def test_later_cluster_knobs_raise(stores, knobs, tmp_path):
+    """The engine's tuner knobs (queue A.12, once refused before a rank
+    spawned) pass through ``ClusterConfig`` beside the supervision and
+    checkpoint knobs of A.10: a two-rank cluster with them equals the
+    single-process run at the default blocks bit for bit."""
+    cfg = ClusterConfig(device="cpu", **knobs)
+    assert cfg.unsupported() == []
+    ecfg = cfg.engine
+    kw = dict(kernel_autotune=ecfg.kernel_autotune,
+              kernel_blocks=ecfg.kernel_blocks)
+    if ecfg.checkpoint_dir:
+        kw["checkpoint_dir"] = str(tmp_path / "ckpt")
+    outs = _thread_cluster(stores[0], _run_app("pagerank"), 2, **kw)
+    want = _single(stores[0], tapps.PageRank(), 2)
+    for out in outs:
+        _assert_same_run(out, want)
+    _assert_ranks_agree(outs)
 
 
 def test_cuda_cluster_without_a_card_raises(stores):
@@ -468,13 +477,21 @@ def test_cli_cluster_runs_on_cpu(stores, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [["--cluster", "--kernel-autotune"],
-                                  ["--cluster", "--steal",
-                                   "--kernel-autotune"]])
-def test_cli_cluster_rejects_later_flags(argv):
-    """A ``--cluster`` run refuses the flags of later items (the tuner's)
-    before it spawns a rank."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A.12"):
-        tgraph.main(argv)
+                                   ["--cluster", "--steal",
+                                    "--kernel-autotune"]])
+def test_cli_cluster_rejects_later_flags(argv, stores, tmp_path, capsys):
+    """``--cluster --kernel-autotune`` (queue A.12, once refused before a
+    rank spawned) runs: the ranks take the tuner's blocks, agree bit for
+    bit, and the CLI prints the reference's autotune line."""
+    out = tgraph.main(argv + ["--servers", "2", "--device", "cpu",
+                              "--app", "bfs", "--vertices", "2000",
+                              "--edges", "20000", "--tile-size", "1024",
+                              "--supersteps", "4",
+                              "--store", str(tmp_path / "s")])
+    assert out.verified
+    text = capsys.readouterr().out
+    assert "kernel autotune [min, Q=1]: BE=" in text
+    assert "edges/s)" in text
 
 
 def test_cli_takes_cluster_flags():

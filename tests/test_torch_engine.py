@@ -220,16 +220,36 @@ def test_broadcast_measurement_matches_reference(mode, density):
     dict(kernel_autotune=True, preemptible=True),
     dict(kernel_blocks=(512, 256), fault_plan=FaultPlan()),
     dict(kernel_autotune=True, server_rank=0, checkpoint_dir="ckpt")])
-def test_knobs_outside_the_slice_raise(knob, small_store):
-    """The tuner's knobs (A.12) raise, also beside the checkpoint and
-    fault knobs the port takes since A.10, which the message never
-    names."""
+def test_knobs_outside_the_slice_raise(knob, small_store, tmp_path):
+    """The tuner's knobs (queue A.12, once refused here) are live, also
+    beside the checkpoint and fault knobs: the engine takes them,
+    ``kernel_plan`` returns the tuner's pick (blocks and stack size) or
+    the blocks verbatim, and a run equals the default blocks' bit for
+    bit."""
+    from repro_torch.roofline import kernel_tune
+
     store, _, _ = small_store
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue A.12") as ei:
-        OutOfCoreEngine(TileStore(store.root),
-                        EngineConfig(device="cpu", **knob))
-    assert "A.10" not in str(ei.value)
+    knob = {k: str(tmp_path / v) if k == "checkpoint_dir" else v
+            for k, v in knob.items()}
+    cfg = EngineConfig(device="cpu", **knob)
+    assert cfg.unsupported() == []
+    eng = OutOfCoreEngine(TileStore(store.root), cfg)
+    prog = tapps.PageRank()
+    impl, blocks, stack = eng.kernel_plan(prog)
+    assert impl == "fused"
+    if "kernel_blocks" in knob:
+        assert (blocks, stack) == ((512, 256), cfg.stack_size)
+        assert eng.kernel_choice is None
+    else:
+        pick = kernel_tune.pick_blocks("sum", 1, eng.plan.edge_cap,
+                                       eng.plan.row_cap)
+        assert (blocks, stack) == (pick.blocks, pick.stack_size)
+        assert eng.kernel_choice == pick
+    if cfg.server_rank is None:
+        got = eng.run(prog, max_supersteps=3)
+        want = OutOfCoreEngine(TileStore(store.root), EngineConfig(
+            device="cpu")).run(tapps.PageRank(), max_supersteps=3)
+        assert np.array_equal(got.values, want.values)
 
 
 def test_batched_program_raises(small_store):
@@ -298,8 +318,11 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
                                   ["--kernel-autotune", "--checkpoint-dir",
                                    "x"], ["--serve", "--kernel-autotune"]])
 def test_cli_rejects_flags_outside_the_slice(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A.12"):
-        tgraph.parse_args(argv)
+    """``--kernel-autotune`` (queue A.12, once refused) parses in every
+    mode, and no reference flag is left outside the port."""
+    args = tgraph.parse_args(argv)
+    assert args.kernel_autotune
+    assert tgraph._LATER_FLAGS == {}
 
 
 @pytest.mark.parametrize("argv", [["--vertex-memory-budget", "10"],

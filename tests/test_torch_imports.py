@@ -40,7 +40,9 @@ def test_importing_every_module_loads_no_jax():
                  "repro_torch.runtime.ft", "repro_torch.runtime.elastic",
                  "repro_torch.train.checkpoint",
                  "repro_torch.core.checkpoint",
-                 "repro_torch.serve.graph_service", "repro_torch.serve.http"):
+                 "repro_torch.serve.graph_service", "repro_torch.serve.http",
+                 "repro_torch.roofline.hw", "repro_torch.roofline.kernel_tune",
+                 "repro_torch.core.baselines", "repro_torch.kernels.blocks"):
         assert name in names.split()
 
 

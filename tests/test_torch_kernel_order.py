@@ -107,10 +107,12 @@ def _qc(q_cols):
     return 1 if q_cols == 1 else 2 if q_cols == 2 else 4 if q_cols <= 4 else 8
 
 
-def layout_rows(vals, dst, num_rows, c, qc, put, h):
+def layout_rows(vals, dst, num_rows, c, qc, put, h,
+                rows_per_block=ROWS_PER_BLOCK):
     """``seg_layout.cuh``'s row launch over vals [E, Q] (each edge's values
-    as loaded) and ascending dst: blocks of 256 rows below num_rows, whose
-    slices end at the first edge of row min(r0 + 256, num_rows); warps of
+    as loaded) and ascending dst: blocks of rows_per_block rows (block_r:
+    128, 256 or 512) below num_rows, whose slices end at the first edge of
+    row min(r0 + rows_per_block, num_rows); warps of
     32 rows; rows of 1..32 edges packed into windows of 32 edges with a
     tree over positions inside each row; longer rows on the whole warp,
     except those ``is_hub`` (hub size h) leaves to the hub launch; query
@@ -118,8 +120,8 @@ def layout_rows(vals, dst, num_rows, c, qc, put, h):
     column it reduces."""
     e_count, q_cols = vals.shape
     d = dst.astype(np.int64)
-    for r0 in range(0, num_rows, ROWS_PER_BLOCK):
-        nrows = min(ROWS_PER_BLOCK, num_rows - r0)
+    for r0 in range(0, num_rows, rows_per_block):
+        nrows = min(rows_per_block, num_rows - r0)
         bounds = np.searchsorted(d, r0 + np.arange(nrows + 1))
         for row0 in range(0, nrows, 32):
             owned = range(row0, min(row0 + 32, nrows))
@@ -158,11 +160,12 @@ HUB_GROUPS = 4
 HUB_CHUNK_BYTES = 16384
 
 
-def hub_edges(num_edges):
+def hub_edges(num_edges, min_edges=HUB_MIN_EDGES):
     """``seg_layout.cuh``'s hub_shift() as a size: H, the least power of
-    two of at least HUB_MIN_EDGES for which an edge list of num_edges holds
-    at most HUB_MAX_MULTIPLES multiples of H."""
-    h = HUB_MIN_EDGES
+    two of at least min_edges (block_e, HUB_MIN_EDGES by default) for which
+    an edge list of num_edges holds at most HUB_MAX_MULTIPLES multiples of
+    H."""
+    h = min_edges
     while (num_edges - 1) // h > HUB_MAX_MULTIPLES:
         h *= 2
     return h
@@ -216,20 +219,21 @@ def hub_row(vals, c, streams, itemsize=4, groups=HUB_GROUPS):
     return scratch[0]
 
 
-def layout_both(vals, dst, num_rows, c, qc, put, streams, itemsize=4):
+def layout_both(vals, dst, num_rows, c, qc, put, streams, itemsize=4,
+                blocks=(HUB_MIN_EDGES, ROWS_PER_BLOCK)):
     """Both launches of ``seg_layout.cuh`` over vals [E, Q] with hubs of
     ``hub_edges(E)``: the row launch (``layout_rows``, hub rows left out)
     and the hub launch over the rows ``hub_rows`` finds, chunked by the
     source's elements an edge (``streams``) and their size.  Every row
     below num_rows is put exactly once, no row past it at all."""
     q_cols = vals.shape[1]
-    h = hub_edges(len(dst))
+    h = hub_edges(len(dst), blocks[0])
     puts = np.zeros((max(num_rows, 0), q_cols), dtype=np.int64)
 
     def counted(r, q, x):
         puts[r, q] += 1
         put(r, q, x)
-    layout_rows(vals, dst, num_rows, c, qc, counted, h)
+    layout_rows(vals, dst, num_rows, c, qc, counted, h, blocks[1])
     d = dst.astype(np.int64)
     for r in hub_rows(dst, num_rows, h):
         lo, hi = np.searchsorted(d, r), np.searchsorted(d, r, side="right")
@@ -238,14 +242,16 @@ def layout_both(vals, dst, num_rows, c, qc, put, streams, itemsize=4):
     assert (puts == 1).all()
 
 
-def segment_kernel(contrib, dst, num_rows, c, qc=None):
+def segment_kernel(contrib, dst, num_rows, c, qc=None,
+                   blocks=(HUB_MIN_EDGES, ROWS_PER_BLOCK)):
     """``segment_reduce.cu``'s layout over contrib [E, Q], ascending dst."""
     out = np.full((num_rows, contrib.shape[1]), np.nan, dtype=np.float32)
 
     def put(r, q, x):
         out[r, q] = x
     layout_both(contrib, dst, num_rows, c, qc or _qc(contrib.shape[1]), put,
-                streams=contrib.shape[1], itemsize=contrib.itemsize)
+                streams=contrib.shape[1], itemsize=contrib.itemsize,
+                blocks=blocks)
     return out
 
 
@@ -452,7 +458,8 @@ def epilogue(spec, acc, o, base):
     return nv, bool(changed)
 
 
-def fused_kernel(spec, src, a, b, dst, old, base, num_rows):
+def fused_kernel(spec, src, a, b, dst, old, base, num_rows,
+                 blocks=(HUB_MIN_EDGES, ROWS_PER_BLOCK)):
     """``gab_fused.cu`` over src [E, Q], a/b [E] or None, ascending dst,
     old/base [row_cap, Q]: the message formed as each edge is loaded, both
     launches over rows below num_rows (``layout_both``, hubs chunked by
@@ -467,7 +474,8 @@ def fused_kernel(spec, src, a, b, dst, old, base, num_rows):
             spec, acc, old[r, q], None if base is None else base[r, q])
     layout_both(message(spec, src, a, b), dst, num_rows, spec.combine,
                 _qc(q_cols), put,
-                streams=q_cols + (a is not None) + (b is not None))
+                streams=q_cols + (a is not None) + (b is not None),
+                blocks=blocks)
     return new, upd
 
 
@@ -541,6 +549,51 @@ def test_fused_layout_equals_segment_then_apply(combine_name, q_cols):
     num_rows, old = args[-1], args[4]
     assert np.array_equal(_bits(got_new[num_rows:]), _bits(old[num_rows:]))
     assert not got_upd[num_rows:].any()
+
+
+BLOCK_E = (128, 256, 512, 1024, 2048)    # kernels/blocks.py's legal sets
+BLOCK_R = (128, 256, 512)
+
+
+@pytest.fixture(scope="module")
+def default_block_runs():
+    """Inputs and the default (256, 256) blocks' outputs of both models:
+    more rows than a 512-row block, rows long enough to be hubs at
+    H = 2048."""
+    rng = np.random.default_rng(300)
+    lengths = np.concatenate([np.arange(101), rng.permutation(101)[:90],
+                              [513, 1100, 4200, 33, 0],
+                              rng.integers(0, 40, 900)])
+    assert len(lengths) > 2 * 512
+    dst = _rows_of_lengths(lengths)
+    assert hub_rows(dst, len(lengths), hub_edges(len(dst), 2048))
+    seg = []
+    for c, q in (("sum", 2), ("min", 1)):
+        contrib = _special_values(rng, (dst.shape[0], q))
+        seg.append((c, contrib, segment_kernel(contrib, dst, len(lengths),
+                                                c)))
+    spec = FUSED_LAYOUT_SPECS["sum"]
+    args = _fused_inputs(rng, spec, lengths, 1, pad_edges=50, extra_rows=300)
+    return lengths, dst, seg, spec, args, fused_kernel(spec, *args)
+
+
+@pytest.mark.parametrize("block_r", BLOCK_R)
+@pytest.mark.parametrize("block_e", BLOCK_E)
+def test_every_block_pair_gives_the_default_bits(block_e, block_r,
+                                                 default_block_runs):
+    """The row order does not depend on which block owns a row or which
+    launch reduces it: at every legal (block_e, block_r) both models give
+    the default (256, 256)'s bits — the segment model (sum Q = 2, min
+    Q = 1) and the fused model (the sum spec, Q = 1) — with every row
+    below num_rows put exactly once (layout_both)."""
+    lengths, dst, seg, spec, args, (want_new, want_upd) = default_block_runs
+    for c, contrib, want in seg:
+        got = segment_kernel(contrib, dst, len(lengths), c,
+                             blocks=(block_e, block_r))
+        assert np.array_equal(_bits(got), _bits(want)), c
+    got_new, got_upd = fused_kernel(spec, *args, blocks=(block_e, block_r))
+    assert np.array_equal(_bits(got_new), _bits(want_new))
+    assert np.array_equal(got_upd, want_upd)
 
 
 @pytest.mark.parametrize("combine_name", ["sum", "min", "max"])
