@@ -8,7 +8,10 @@
    nvcc each, started together.
 3. Main-path store: SPE of an R-MAT graph (Graph500 a, b, c = 0.57, 0.19,
    0.19) at SCALE 22, edge factor 16 — 4,194,304 vertices, 67,108,864
-   edges — in tiles of 2^20 edges, unweighted, disk mode 1.
+   edges — in tiles of 2^20 edges, unweighted, disk mode 1.  The edges
+   are drawn and the tiles built on up to 8 threads (synth.rmat_edges and
+   spe.preprocess_arrays with ``threads``: the same edges and store bytes
+   as one thread).
 4. Kernels against their plain PyTorch versions on the card:
    - the row-length histogram (longest row; shares of rows with <= 1,
      <= 4, <= 32 edges) of the largest tile and of the merged dst list;
@@ -22,6 +25,14 @@
      into its storage and ids out of range at both ends, -1 first and
      >= R last, at Q = 3 and 8) and once (sum) at the merged mode's shape
      (the server's 67,108,864 real edges, V + 1 rows);
+   - ROADMAP C.1's reproducer: int32 min and max with contributions from
+     randint(-1000, 1000) over a skewed list (2^17 rows of Zipf(1.8)
+     lengths capped at 4,000, rows of 50,000, 9,000, 4,097, 3,000, 1,025,
+     600 and 513 edges, 20,000 padding edges at dst = R; R + 1 rows) at
+     every legal (block_e, block_r), each equal to the plain version, and
+     timed at the default blocks; then the segment kernel's row and hub
+     launches timed apart under torch.profiler for int32 sum, min and max
+     at the largest tile (ROADMAP B.5);
    - the fused kernel at the largest tile's shapes and num_rows (the four
      single-query fused specs, PPR's spec with its per-query base, and a
      weighted spec with both edge streams; Q in {1, 4, 8}, and Q = 9 for
@@ -56,10 +67,13 @@
    the fused kernel's counts the real
    edges and base over num_rows rows only, the work its function needs).
 5. Main path: OutOfCoreEngine(store, device="cuda", seg_impl="fused") runs
-   PageRank for 5 supersteps (against a float64 numpy power iteration,
+   PageRank for 5 supersteps (against a float64 power iteration,
    rtol=1e-4: float32 against float64), BFS from vertex 0 to convergence
-   (equal to a numpy level-synchronous BFS) and InDegree for 1 superstep
-   (equal to np.bincount).
+   (equal to a level-synchronous BFS) and InDegree for 1 superstep
+   (equal to np.bincount).  The PageRank, BFS and PPR references of
+   phases 5, 8, 12, 16 and 18 are plain PyTorch over the edge list on the
+   card (ref_pagerank, ref_bfs, ref_ppr: gathers and index_add_, no code
+   of the port), in place of numpy and scipy on the host.
 6. Compact path: ops.compact over the sparse broadcast of each BFS
    superstep of phase 5 (the vertices it updated, their levels),
    K = sparse_capacity(V); equal to numpy's nonzero.
@@ -72,10 +86,10 @@
    skipping off (phase 12's in-memory session runs it on): sources are
    vertex 0 and seven vertices drawn with numpy from SEED among those with
    out-degree > 0.  MultiSourceBFS to convergence (each column equal to
-   scipy's BFS from its source, column 0 equal to phase 5's BFS);
+   the reference BFS from its source, column 0 equal to phase 5's BFS);
    LandmarkDistances on the unweighted store (edge weight 1.0, the b
    stream), equal to MultiSourceBFS with equal per-query supersteps;
-   PersonalizedPageRank for 3 supersteps against a float64 scipy.sparse
+   PersonalizedPageRank for 3 supersteps against a float64
    power iteration with the same update gate (|new - old| > update_tol):
    relative error <= 1e-4 on entries >= 1e-6 and L1 error <= 1e-5 per
    column.  An entry whose change in some superstep lies within float32
@@ -112,7 +126,7 @@
     tenth source admitted through admit() once a column has left; to
     convergence in memory, each admitted column equal to a fresh
     single-query run with equal per-query supersteps, the drained one
-    to scipy's BFS levels up to 3 with -1, the other originals to phase
+    to the reference BFS levels up to 3 with -1, the other originals to phase
     8's Q = 8 run; its first ADMIT_OOC_SUPERSTEPS = 2 supersteps (Q = 8,
     8 and the ninth query's admission at the barrier of superstep 1; cut
     from 3, whose Q = 9 superstep took 78-103 s: the Q = 9
@@ -177,7 +191,7 @@
     SEED; wave 2: LandmarkDistances from two more and MultiSourceBFS from
     the unused vertex of largest out-degree with a 1 ms deadline; wave 3:
     repeats of three finished seeds.  Every done column (decoded from its
-    HTTP body) equals scipy's BFS levels with the per-query supersteps of
+    HTTP body) equals the reference BFS levels with the per-query supersteps of
     its depth, the sources' equal phase 8's direct batched run bit for bit
     with equal per-query supersteps; the deadline query ends "timeout"
     with a partial BFS column that is not cached; the repeats are cache
@@ -207,25 +221,53 @@
     PowerGraph, GraphD, Chaos) on the main store's graph on the card,
     PageRank for 2 supersteps each, against a float64 power iteration
     (rtol=1e-4); ms a superstep beside the tiled engine's (phase 5).
+19. Language-model serving ("lm serve"), float32, parameters from the
+    port's seeded LM.init, TF32 off: (a) qwen3-1.7b at full width (28
+    layers, d_model 2,048, padded vocab 152,064) through
+    launch/serve.py:main at the CLI's defaults (16 requests, 4 slots, 16
+    new tokens, prompts of 16, max length 256): every completion has 16
+    tokens, requests 0 and 5 served alone in a 1-slot engine give the
+    same greedy tokens, and decode_step's logits for a 24-token sequence
+    (23 prefilled) match the full forward's last within LM_LOGITS_ATOL;
+    (b) gemma2-2b at full width (26 layers LG, window 4,096, vocab
+    256,000): one prompt of 4,160 tokens prefilled at q_chunk = kv_chunk
+    = 512, then 8 greedy decode steps; the prefill's and every decode
+    step's logits match the full forward over the prompt and the decoded
+    tokens within LM_LOGITS_ATOL, so the rolling window cache is held at
+    full width; (c) logged: prefill ms, ms a decode step, tokens/s, the
+    card's bytes in use and torch's peak.  This path runs no kernel of the
+    graph engine: its counts are read and logged as zero.
 
-Phases 5, 6, 8, 9, 11, 13, 14, 16 and 17c, the in-memory session of 12 and its
-out-of-core session ("admission ooc") and each part of 15 ("checkpoint"
-sums a and b, then "checkpoint ooc", "cluster restart") set every
-kernel's launch counter to 0 just before and read it just after (the
-cluster ranks and phase 13's gloo ranks count in their processes and
-report); each must have launched the kernels it runs.  The
+Phase 11, the out-of-core part of 12 ("admission ooc", admission_ooc)
+and part c of 15 (checkpoint_ooc) run in three spawned side processes
+(Side), started after phase 7 and joined after phase 10: each is host
+work that leaves the card idle, so they run on other cores beside phases
+8-10, whose times (and theirs) are taken with the others running.  A
+side's kernels count in its process and report; its lines are logged
+when it is joined.
+
+Phases 5, 6, 8, 9, 11, 13, 14, 16, 17c and 19, the in-memory session of
+12 and its out-of-core session ("admission ooc") and each part of 15
+("checkpoint" sums a and b, then "checkpoint ooc", "cluster restart") set
+every kernel's launch counter to 0 just before and read it just after
+(the cluster ranks and phase 13's gloo ranks count in their processes
+and report); each must have launched the kernels it runs.  The
 ``{"kernels": [...]}`` line gives, per kernel and case, the launches
 summed over those phases, the launches by phase ("launches_by_path") and
 the case's times: segment sum at the largest tile for Q = 1 and Q = 8 and
-at the merged shape, the fused PageRank spec at Q = 1 and Q = 8, BFS spec
+at the merged shape, int32 min and max on C.1's skewed list, the fused
+PageRank spec at Q = 1 and Q = 8, BFS spec
 at Q = 9 and the serve path's most launched (program, Q) (with
 "composition_ms"), compact at V = 4,194,304, density 0.05 and at V = 2^25
 (the "case" key names it), and each phase 17 case at its tuned blocks.
 Then, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failed check raises; without a CUDA
 device, or without the repository beside it, it exits non-zero before
-printing a result.  Details go to build/chip_smoke.json.
+printing a result.  Details go to build/chip_smoke.json.  Each phase's
+end also goes to stderr with the seconds so far, and a run still going
+after WATCHDOG_S seconds prints every thread's stack there.
 """
+import faulthandler
 import glob
 import json
 import os
@@ -255,6 +297,7 @@ PPR_MIN_ENTRY = 1e-6
 PPR_L1 = 1e-5
 PPR_MAX_FLIP_SHARE = 1e-4
 PAD_HUB_EDGES = 20000        # real edges turned into padding (phase 4)
+SKEWED_ROWS = 1 << 17        # ROADMAP C.1's skewed int32 list (phase 4)
 OOC_INTERVALS = 16           # interval plan of the out-of-core runs
 OOC_PR_BUDGET = 8 << 20      # PageRank / InDegree vertex budget, bytes
 OOC_PR_SUPERSTEPS = 2        # out-of-core PageRank (each ~20-27 s)
@@ -262,6 +305,13 @@ OOC_MSBFS_BUDGET = 32 << 20  # MultiSourceBFS (Q = 8 and 9) vertex budget
 DRAIN_AT = 2                 # admission: drain query DRAIN_QID after this
 DRAIN_QID = 1                # superstep
 BASELINE_SUPERSTEPS = 2      # each baseline engine's PageRank (phase 18)
+LM_SERVE_ARCH = "qwen3-1.7b"  # phase 19 (a): through the serve CLI
+LM_SINGLE_RIDS = (0, 5)      # requests rerun alone in a 1-slot engine
+LM_WINDOW_ARCH = "gemma2-2b"  # phase 19 (b): a prompt past the window
+LM_WINDOW_PROMPT = 4160
+LM_WINDOW_DECODE = 8
+LM_WINDOW_CHUNK = 512        # q_chunk = kv_chunk of (b)
+LM_LOGITS_ATOL = 2e-3        # decode vs full-forward logits, float32
 ADMIT_OOC_SUPERSTEPS = 2     # admission session compared out of core (cut
                              # from 3: its Q = 9 superstep took 78-103 s)
 CKPT_CRASH_SS = 3            # checkpoint: crash at the start of superstep 3
@@ -280,6 +330,7 @@ SERVE_DEADLINE_MS = 1.0      # the deadline query's deadline
 SERVE_POLL_S = 0.2           # a client's GET interval
 SERVE_CLIENT_TIMEOUT_S = 600
 DEV = "cuda"
+WATCHDOG_S = 1100            # stacks to stderr if the run is still going
 
 
 def log(msg):
@@ -378,18 +429,20 @@ def build_store(root):
 
     nv, ne = 1 << SCALE, EDGE_FACTOR << SCALE
     t0 = time.perf_counter()
-    chunks = list(synth.rmat_edges(nv, ne, seed=SEED))
+    threads = min(8, os.cpu_count() or 1)
+    chunks = list(synth.rmat_edges(nv, ne, seed=SEED, threads=threads))
     src = np.concatenate([c[0] for c in chunks])
     dst = np.concatenate([c[1] for c in chunks])
     t_gen = time.perf_counter() - t0
     store = TileStore(root, disk_mode=1)
     t0 = time.perf_counter()
     plan = spe.preprocess_arrays(src, dst, None, nv, store,
-                                 tile_size=TILE_SIZE)
+                                 tile_size=TILE_SIZE, threads=threads)
     t_spe = time.perf_counter() - t0
     log(f"store: SCALE {SCALE}, {nv} vertices, {ne} edges, "
         f"{plan.num_tiles} tiles, edge_cap {plan.edge_cap}, row_cap "
-        f"{plan.row_cap}; R-MAT {t_gen:.1f} s, SPE {t_spe:.1f} s")
+        f"{plan.row_cap}; R-MAT {t_gen:.1f} s, SPE {t_spe:.1f} s "
+        f"({threads} threads)")
     return store, plan, src, dst, dict(generate_s=t_gen, spe_s=t_spe,
                                        num_tiles=plan.num_tiles,
                                        edge_cap=plan.edge_cap,
@@ -523,6 +576,97 @@ def check_segment_kernel(torch, tile, plan, flush):
                 err = max(err, max_abs_err(torch, got, want))
     log(f"segment kernel: all cases agree, max |err| {err:.3g}")
     return rows, err
+
+
+def skewed_int32_list(rows, seed=SEED):
+    """ROADMAP C.1's list (tests/test_torch_kernel_order.py builds the same
+    at fewer rows): ``rows`` rows of Zipf(1.8) lengths capped at 4,000,
+    rows of 50,000, 9,000, 4,097, 3,000, 1,025, 600 and 513 edges at rows
+    k·rows/8 (k = 1..7), 20,000 padding edges at dst = rows, int32
+    contributions from randint(-1000, 1000); rows + 1 output rows."""
+    rng = np.random.default_rng(seed)
+    lengths = np.minimum(rng.zipf(1.8, rows), 4000)
+    for k, n in enumerate((50000, 9000, 4097, 3000, 1025, 600, 513)):
+        lengths[(k + 1) * (rows // 8)] = n
+    dst = np.concatenate([np.repeat(np.arange(rows), lengths),
+                          np.full(20000, rows)]).astype(np.int32)
+    contrib = rng.integers(-1000, 1000, dst.shape[0]).astype(np.int32)
+    return dst, contrib, rows + 1
+
+
+def check_segment_skewed_int32(torch, flush):
+    """ROADMAP C.1's reproducer: int32 min and max with negative
+    contributions over the skewed list, at every legal (block_e,
+    block_r), each torch.equal to the plain version; timed at the default
+    blocks."""
+    from repro_torch.kernels import blocks, gab_gather, ref
+
+    dev = torch.device(DEV)
+    d_np, c_np, r = skewed_int32_list(SKEWED_ROWS)
+    lengths = row_lengths(d_np, r, "C.1 skewed list")
+    d = torch.from_numpy(d_np).to(dev)
+    c = torch.from_numpy(c_np).to(dev)
+    rows = []
+    for combine in ("min", "max"):
+        want = ref.segment_reduce(c, d, r, combine)
+        for pair in ((be, br) for be in blocks.BLOCK_E
+                     for br in blocks.BLOCK_R):
+            got = gab_gather.segment_reduce(c, d, r, combine, blocks=pair)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"C.1 skewed int32 {combine} at blocks {pair}: "
+                    f"{int((got != want).sum())} rows differ from the plain "
+                    "version")
+        row = segment_row(torch, flush, c, d, r, combine,
+                          f"C.1 skewed int32 {combine} E={d.shape[0]} R={r}")
+        row.update(shape="skewed int32", row_lengths=lengths,
+                   pairs=len(blocks.BLOCK_E) * len(blocks.BLOCK_R))
+        rows.append(row)
+    log(f"C.1 skewed list: int32 min and max equal to the plain version at "
+        f"all {rows[0]['pairs']} block pairs")
+    return rows
+
+
+def row_hub_ms(torch, fn, calls=10):
+    """Device ms a call of the GAB kernels' row and hub launches in
+    ``fn()``, from torch.profiler (the mean of ``calls`` calls, L2 not
+    flushed)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    ms = {"row": 0.0, "hub": 0.0}
+    for ev in prof.key_averages():
+        for kind in ms:
+            if ev.device_type == cuda and f"{kind}_kernel" in ev.key:
+                ms[kind] += ev.device_time_total / 1e3 / calls
+    return ms
+
+
+def segment_int32_launches(torch, tile, plan):
+    """B.5: the segment kernel's row and hub launches for int32 sum, min
+    and max at the largest tile (``row_hub_ms``)."""
+    from repro_torch.kernels import gab_gather
+
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    e, r = plan.edge_cap, plan.row_cap + 1
+    d = torch.from_numpy(tile.dst_local).to(dev)
+    ci = torch.randint(-(1 << 30), 1 << 30, (e,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    out = {combine: row_hub_ms(torch, lambda c=combine:
+                               gab_gather.segment_reduce(ci, d, r, c))
+           for combine in ("sum", "min", "max")}
+    log("B.5, int32 at the largest tile, device ms a call: " + "; ".join(
+        f"{c} row {m['row']:.4f} hub {m['hub']:.4f}"
+        for c, m in out.items()))
+    return out
 
 
 def check_merged_segment(torch, dst, nv, flush):
@@ -849,62 +993,77 @@ def check_compact_kernel(torch, nv, flush):
     return rows, 0.0
 
 
-def numpy_pagerank(src, dst, out_degree, nv, steps):
-    inv = np.zeros(nv, dtype=np.float32)
-    nz = out_degree > 0
-    inv[nz] = 1.0 / out_degree[nz]
-    w = inv.astype(np.float64)[src]
-    pr = np.ones(nv, dtype=np.float64)
+def device_edges(torch, src, dst):
+    return torch.from_numpy(src).to(DEV), torch.from_numpy(dst).to(DEV)
+
+
+def inv_degree(torch, out_degree):
+    """float64 of the engine's float32 1 / out-degree (0 for sinks)."""
+    od = torch.from_numpy(np.asarray(out_degree)).to(DEV).double()
+    return torch.where(od > 0, 1.0 / od, 0.0).float().double()
+
+
+def ref_pagerank(torch, src, dst, out_degree, nv, steps):
+    """float64 PageRank power iteration over the edge list, in plain
+    PyTorch on the card (index_add_, independent of the engine's path)."""
+    s, d = device_edges(torch, src, dst)
+    w = inv_degree(torch, out_degree)[s]
+    pr = torch.ones(nv, dtype=torch.float64, device=DEV)
     for _ in range(steps):
-        pr = 0.15 + 0.85 * np.bincount(dst, weights=pr[src] * w, minlength=nv)
-    return pr
+        msg = torch.zeros(nv, dtype=torch.float64, device=DEV)
+        pr = 0.15 + 0.85 * msg.index_add_(0, d, pr[s] * w)
+    out = pr.cpu().numpy()
+    del s, d, w, pr, msg
+    torch.cuda.empty_cache()
+    return out
 
 
-def numpy_bfs(src, dst, nv, source):
-    level = np.full(nv, np.inf, dtype=np.float32)
-    level[source] = 0.0
-    frontier = np.zeros(nv, dtype=bool)
-    frontier[source] = True
-    d = 0
-    while frontier.any():
-        cand = dst[frontier[src]]
-        cand = np.unique(cand[np.isinf(level[cand])])
-        d += 1
-        level[cand] = d
-        frontier[:] = False
-        frontier[cand] = True
-    return level
-
-
-def scipy_bfs(src, dst, nv, sources):
+def ref_bfs(torch, src, dst, nv, sources):
     """BFS levels [V, Q] float32 from each source (inf where unreached),
-    by scipy's breadth-first shortest paths over the edge list."""
-    import scipy.sparse as sp
-    from scipy.sparse.csgraph import shortest_path
+    level-synchronous over the edge list in plain PyTorch on the card, one
+    source at a time."""
+    s, d = device_edges(torch, src, dst)
+    out = torch.full((nv, len(sources)), float("inf"), dtype=torch.float32,
+                     device=DEV)
+    for q, v in enumerate(sources):
+        level = out[:, q]
+        level[v] = 0.0
+        frontier = torch.zeros(nv, dtype=torch.bool, device=DEV)
+        frontier[v] = True
+        depth = 0
+        while True:
+            reach = torch.zeros_like(frontier)
+            reach[d[frontier[s]]] = True
+            frontier = reach & torch.isinf(level)
+            if not bool(frontier.any()):
+                break
+            depth += 1
+            level.masked_fill_(frontier, float(depth))
+    levels = out.cpu().numpy()
+    del s, d, out, level, frontier, reach
+    torch.cuda.empty_cache()
+    return levels
 
-    g = sp.csr_matrix((np.ones(len(src), np.float32), (src, dst)),
-                      shape=(nv, nv))
-    return shortest_path(g, unweighted=True,
-                         indices=list(sources)).T.astype(np.float32)
 
-
-def scipy_ppr(src, dst, out_degree, nv, seeds, steps, tol):
-    """float64 personalized PageRank with the engine's update gate: a cell
-    takes its new value only where it moved by more than ``tol``."""
-    import scipy.sparse as sp
-
-    inv = np.zeros(nv, dtype=np.float32)
-    nz = out_degree > 0
-    inv[nz] = 1.0 / out_degree[nz]
-    a = sp.csr_matrix((inv.astype(np.float64)[src], (dst, src)),
-                      shape=(nv, nv))
-    seed_mass = np.zeros((nv, len(seeds)))
-    seed_mass[np.asarray(seeds), np.arange(len(seeds))] = 1.0
-    x = seed_mass.copy()
-    for _ in range(steps):
-        new = 0.15 * seed_mass + 0.85 * (a @ x)
-        x = np.where(np.abs(new - x) > tol, new, x)
-    return x
+def ref_ppr(torch, src, dst, out_degree, nv, seeds, steps, tol):
+    """float64 personalized PageRank with the engine's update gate (a cell
+    takes its new value only where it moved by more than ``tol``), in
+    plain PyTorch on the card, one seed at a time."""
+    s, d = device_edges(torch, src, dst)
+    w = inv_degree(torch, out_degree)[s]
+    out = np.empty((nv, len(seeds)))
+    for q, v in enumerate(seeds):
+        seed_mass = torch.zeros(nv, dtype=torch.float64, device=DEV)
+        seed_mass[v] = 1.0
+        x = seed_mass.clone()
+        for _ in range(steps):
+            msg = torch.zeros(nv, dtype=torch.float64, device=DEV)
+            new = 0.15 * seed_mass + 0.85 * msg.index_add_(0, d, x[s] * w)
+            x = torch.where((new - x).abs() > tol, new, x)
+        out[:, q] = x.cpu().numpy()
+    del s, d, w, seed_mass, x, msg, new
+    torch.cuda.empty_cache()
+    return out
 
 
 def steady_ms(res):
@@ -944,6 +1103,76 @@ def app_summary(name, res):
     return s
 
 
+def open_store(root):
+    from repro_torch.graphio.formats import TileStore
+
+    store = TileStore(root)
+    store.load_meta()
+    return store
+
+
+def side_worker(name, args, results):
+    """Runs ``name(torch, *args)`` (a function of this script) in a spawned
+    process; puts ("ok", (its log lines, its result)) or ("error", (its
+    log lines, the traceback)) on ``results``."""
+    import traceback
+
+    import torch
+
+    global log
+    lines = []
+    log = lines.append
+    try:
+        results.put(("ok", (lines, globals()[name](torch, *args))))
+    except BaseException:
+        results.put(("error", (lines, traceback.format_exc())))
+
+
+class Side:
+    """A part of a phase run in a spawned process beside the main sequence
+    (the out-of-core parts: single-threaded host work that leaves the card
+    idle); its kernels count in its process.  ``join`` logs its lines and
+    returns its result, or raises with its traceback."""
+
+    def __init__(self, name, *args):
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self.name, self.t0 = name, time.perf_counter()
+        self.results = ctx.Queue()
+        self.proc = ctx.Process(target=side_worker,
+                                args=(name, args, self.results), daemon=True)
+        self.proc.start()
+
+    def join(self):
+        import queue
+
+        t_wait = time.perf_counter()
+        got = None
+        try:
+            while got is None:
+                try:
+                    got = self.results.get(timeout=5)
+                except queue.Empty:
+                    if not self.proc.is_alive():
+                        raise AssertionError(
+                            f"{self.name}: its process exited with code "
+                            f"{self.proc.exitcode} and no result") from None
+        finally:
+            self.proc.join(timeout=60)
+            if self.proc.is_alive():
+                self.proc.kill()
+                self.proc.join(timeout=10)
+        status, (lines, payload) = got
+        for line in lines:
+            log(line)
+        if status != "ok":
+            raise AssertionError(f"{self.name} (side process): {payload}")
+        log(f"{self.name}: side process done {time.perf_counter() - self.t0:.1f}"
+            f" s after its start; waited {time.perf_counter() - t_wait:.1f} s")
+        return payload
+
+
 def engine(store, **kw):
     from repro_torch.core.engine import EngineConfig, OutOfCoreEngine
 
@@ -968,20 +1197,20 @@ def main_path(torch, store, src, dst):
     for arr in (pr.values, bfs.values, indeg.values):
         if arr.shape != (nv,) or arr.dtype != np.float32:
             raise AssertionError(f"bad result {arr.shape} {arr.dtype}")
-    want = numpy_pagerank(src, dst, eng.out_degree, nv, PR_SUPERSTEPS)
+    want = ref_pagerank(torch, src, dst, eng.out_degree, nv, PR_SUPERSTEPS)
     if not np.isfinite(pr.values).all():
         raise AssertionError("pagerank: non-finite values")
     rel = float(np.max(np.abs(pr.values - want) / want))
-    log(f"pagerank vs float64 numpy: max rel err {rel:.3g} "
+    log(f"pagerank vs the float64 reference: max rel err {rel:.3g} "
         f"(limit {PR_RTOL})")
     if rel > PR_RTOL:
-        raise AssertionError("pagerank disagrees with numpy")
+        raise AssertionError("pagerank disagrees with the reference")
     if not bfs.converged:
         raise AssertionError("bfs did not converge")
-    level = numpy_bfs(src, dst, nv, 0)
+    level = ref_bfs(torch, src, dst, nv, (0,))[:, 0]
     if not np.array_equal(bfs.values, level):
-        raise AssertionError("bfs differs from numpy BFS")
-    log(f"bfs equals numpy BFS: {int(np.isfinite(level).sum())} reached, "
+        raise AssertionError("bfs differs from the reference BFS")
+    log(f"bfs equals the reference BFS: {int(np.isfinite(level).sum())} reached, "
         f"depth {int(level[np.isfinite(level)].max())}")
     if not np.array_equal(indeg.values, np.bincount(dst, minlength=nv)):
         raise AssertionError("indegree differs from np.bincount")
@@ -1124,14 +1353,14 @@ def batched_apps(torch, store, src, dst, bfs):
                                  f"{res.values.dtype}")
     if not msbfs.converged or not lm.converged:
         raise AssertionError("msbfs / landmarks did not converge")
-    levels = scipy_bfs(src, dst, nv, sources)
+    levels = ref_bfs(torch, src, dst, nv, sources)
     for q, s in enumerate(sources):
         if not np.array_equal(msbfs.values[:, q], levels[:, q]):
             raise AssertionError(f"msbfs column {q} (source {s}) differs "
-                                 "from scipy's BFS")
+                                 "from the reference BFS")
     if not np.array_equal(msbfs.values[:, 0], bfs.values):
         raise AssertionError("msbfs column 0 differs from the Q = 1 BFS")
-    log(f"msbfs equals scipy's BFS in all {len(sources)} columns; column 0 "
+    log(f"msbfs equals the reference BFS in all {len(sources)} columns; column 0 "
         f"equals the single-query BFS; per-query supersteps "
         f"{list(msbfs.per_query_supersteps)}")
     if not (np.array_equal(lm.values, msbfs.values)
@@ -1141,8 +1370,8 @@ def batched_apps(torch, store, src, dst, bfs):
     log("landmarks (edge weight 1.0) equal msbfs, per-query supersteps too")
 
     tol = PersonalizedPageRank().update_tol
-    want = scipy_ppr(src, dst, eng.out_degree, nv, sources, PPR_SUPERSTEPS,
-                     tol)
+    want = ref_ppr(torch, src, dst, eng.out_degree, nv, sources,
+                   PPR_SUPERSTEPS, tol)
     if not np.isfinite(ppr.values).all():
         raise AssertionError("ppr: non-finite values")
     big = want >= PPR_MIN_ENTRY
@@ -1153,14 +1382,14 @@ def batched_apps(torch, store, src, dst, bfs):
     flip_err = float(err[over].max()) if n_over else 0.0
     rel = float(rel_all[~over].max()) if n_over < rel_all.size else 0.0
     l1 = float(np.max(np.abs(ppr.values - want).sum(axis=0)))
-    log(f"ppr vs float64 scipy: max rel err {rel:.3g} on {rel_all.size - n_over}"
+    log(f"ppr vs the float64 reference: max rel err {rel:.3g} on {rel_all.size - n_over}"
         f" entries >= {PPR_MIN_ENTRY} (limit {PR_RTOL}); {n_over} gate flips "
         f"(max rel {float(rel_all.max()):.3g}, max abs err {flip_err:.3g}, "
         f"limit {PPR_SUPERSTEPS * tol:.3g}); max L1 per column {l1:.3g} "
         f"(limit {PPR_L1})")
     if (l1 > PPR_L1 or flip_err > PPR_SUPERSTEPS * tol
             or n_over > PPR_MAX_FLIP_SHARE * rel_all.size):
-        raise AssertionError("ppr disagrees with scipy")
+        raise AssertionError("ppr disagrees with the reference")
     if not np.array_equal(ppr.values[:, 0], ppr1.values[:, 0]):
         raise AssertionError("ppr column 0 differs from the Q = 1 run")
     log("ppr column 0 equals the Q = 1 PPR run")
@@ -1283,16 +1512,18 @@ def time_footprints(store, plan):
     return out
 
 
-def ooc_phase(torch, store, indeg):
+def ooc_phase(torch, store_root, indeg):
     """Out-of-core vertex state on the main store with OOC_INTERVALS
     intervals: PageRank (budget OOC_PR_BUDGET, OOC_PR_SUPERSTEPS
     supersteps, superstep 1 profiled) and InDegree (OOC_PR_BUDGET, 1
     superstep, the
     segment kernel), each bit for bit equal to the in-memory tiled run of
     as many supersteps; the budget must bind.  MultiSourceBFS under
-    OOC_MSBFS_BUDGET runs in phase 12's out-of-core session."""
+    OOC_MSBFS_BUDGET runs in phase 12's out-of-core session.  Runs in a
+    side process (Side)."""
     from repro_torch.core.apps import InDegree, PageRank
 
+    store = open_store(store_root)
     num_tiles = store.load_plan().num_tiles
     out, launches = [], {}
     mem = engine(store, tile_skipping=False).run(
@@ -1406,21 +1637,22 @@ def admission_script(torch, eng, sources, s10, max_supersteps=None):
     return res, steps, partial, g10
 
 
-def admission_phase(torch, store, src, dst, sources, msbfs, levels):
+def admission_phase(torch, store, sources, s9, s10, msbfs, levels,
+                    ooc_part):
     """Mid-run admission at SCALE 22: the session of admission_script in
     memory to convergence (tile skipping on, as users run it), each
     admitted column against a fresh single-query run, the drained one
-    against scipy's BFS levels up to DRAIN_AT + 1; then its first
+    against the reference BFS levels up to DRAIN_AT + 1; then its first
     ADMIT_OOC_SUPERSTEPS supersteps in memory and under OOC_MSBFS_BUDGET,
     equal bit for bit — the latter is also the out-of-core MultiSourceBFS
     run at Q = 8 (supersteps 0 and 1, the ninth query admitted at the
     barrier of 1; with a window of 3, also Q = 9 at superstep 2, at whose
     barrier query DRAIN_QID drains).  The launch counters are read
     around the two sessions alone: "admission" (in memory) and
-    "admission ooc"."""
+    "admission ooc".  The out-of-core part (admission_ooc) ran in a side
+    process: ``ooc_part`` is its result."""
     from repro_torch.core.apps import MultiSourceBFS
 
-    s9, s10 = pick_admitted(src, dst, store.load_degrees()[1], sources)
     plan = ((1, (s9,)),)
     log(f"admission: ninth source {s9} (its out-neighbours are sinks) "
         f"scheduled after superstep 1, tenth {s10} through admit(); query "
@@ -1471,6 +1703,24 @@ def admission_phase(torch, store, src, dst, sources, msbfs, levels):
         f"levels up to {DRAIN_AT + 1}, the other originals equal the "
         f"Q = {q} run")
 
+    ooc_summary, mem_steps, ooc_steps, launches["admission ooc"] = ooc_part
+    return dict(s9=s9, s10=s10, q10=g10, supersteps=res.supersteps,
+                per_query_supersteps=[int(x) for x in pq], steps=steps,
+                mem_steps=mem_steps, ooc_steps=ooc_steps, ooc=ooc_summary,
+                fused_launches_at_q9=[r["fused_launches"] for r in nine],
+                non_torch_growth_at_q9=[r["non_torch_growth"]
+                                        for r in nine]), launches
+
+
+def admission_ooc(torch, store_root, sources, s9, s10):
+    """Phase 12's out-of-core part, in a side process: the admission
+    session's first ADMIT_OOC_SUPERSTEPS supersteps in memory and under
+    OOC_MSBFS_BUDGET, equal bit for bit, the launch counters read around
+    the out-of-core session ("admission ooc")."""
+    store = open_store(store_root)
+    q = len(sources)
+    plan = ((1, (s9,)),)
+    num_tiles = store.load_plan().num_tiles
     cut = ADMIT_OOC_SUPERSTEPS
     mem, mem_steps, _, _ = admission_script(
         torch, engine(store, tile_skipping=False, admit_plan=plan), sources,
@@ -1480,9 +1730,8 @@ def admission_phase(torch, store, src, dst, sources, msbfs, levels):
                  vertex_memory_budget=OOC_MSBFS_BUDGET)
     reset_launches()
     ooc, ooc_steps, _, _ = admission_script(torch, eng, sources, s10, cut)
-    launches["admission ooc"] = read_launches()
-    require_launches(launches["admission ooc"], ("gab_fused",),
-                     "admission ooc")
+    launches = read_launches()
+    require_launches(launches, ("gab_fused",), "admission ooc")
 
     def script(rows):
         return [(r["active_queries"], r["admitted"], r["drained"],
@@ -1498,7 +1747,7 @@ def admission_phase(torch, store, src, dst, sources, msbfs, levels):
     # the window holds the scheduled admission and, from 3 supersteps on,
     # the Q = 9 superstep and the drain at its barrier (the retirement and
     # admit() into the freed slot come a superstep later: checked in memory
-    # above)
+    # by admission_phase)
     if not ([q] in [r["admitted"] for r in ooc_steps]
             and (cut < 3 or (
                 any(r["active_queries"] == q + 1 for r in ooc_steps)
@@ -1513,12 +1762,7 @@ def admission_phase(torch, store, src, dst, sources, msbfs, levels):
     log(f"admission: its first {cut} supersteps ((Q, admitted, drained, "
         f"retired) {script(ooc_steps)}) equal in memory and out of core bit "
         f"for bit")
-    return dict(s9=s9, s10=s10, q10=g10, supersteps=res.supersteps,
-                per_query_supersteps=[int(x) for x in pq], steps=steps,
-                mem_steps=mem_steps, ooc_steps=ooc_steps, ooc=ooc_summary,
-                fused_launches_at_q9=[r["fused_launches"] for r in nine],
-                non_torch_growth_at_q9=[r["non_torch_growth"]
-                                        for r in nine]), launches
+    return ooc_summary, mem_steps, ooc_steps, launches
 
 
 def free_port():
@@ -1937,11 +2181,69 @@ def crash_and_resume(make, prog, expect, what, max_supersteps):
     return caught, res, saves, loads
 
 
-def checkpoint_phase(torch, store, pr, single, sources, s9, ckpt_root):
+def checkpoint_engine(store, d, spec, resume, **kw):
+    """An engine checkpointing every boundary into ``d``, armed with the
+    fault ``spec`` unless it resumes."""
+    from repro_torch.runtime.faults import FaultPlan
+
+    return engine(store, tile_skipping=False, checkpoint_dir=d,
+                  checkpoint_every=1, resume=resume,
+                  fault_plan=None if resume else FaultPlan(specs=(spec,)),
+                  **kw)
+
+
+def checkpoint_ooc(torch, store_root, ckpt_root):
+    """Phase 15 (c), in a side process: out-of-core PageRank at
+    OOC_PR_BUDGET, OOC_CKPT_SUPERSTEPS supersteps, crashed at
+    OOC_CKPT_CRASH_SS and resumed, its checkpoints interval blocks (the
+    second hardlinking the unchanged ones), equal to the in-memory run."""
+    from repro_torch import compat
+    from repro_torch.core.apps import PageRank
+    from repro_torch.runtime.faults import FaultSpec, InjectedFault
+
+    store = open_store(store_root)
+    d = os.path.join(ckpt_root, "pagerank_ooc")
+    spec = FaultSpec(site="superstep", superstep=OOC_CKPT_CRASH_SS,
+                     kind="raise")
+    mem = engine(store, tile_skipping=False).run(
+        PageRank(), max_supersteps=OOC_CKPT_SUPERSTEPS)
+    reset_launches()
+    t0 = time.perf_counter()
+    _e, res, saves, loads = crash_and_resume(
+        lambda resume: checkpoint_engine(store, d, spec, resume,
+                                         num_intervals=OOC_INTERVALS,
+                                         vertex_memory_budget=OOC_PR_BUDGET),
+        PageRank, InjectedFault, "checkpoint pagerank ooc",
+        OOC_CKPT_SUPERSTEPS)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    require_launches(launches, ("gab_fused",), "checkpoint ooc")
+    codec = block_codec(d)
+    want_codec = ["zstd"] if compat.HAVE_ZSTD else ["zlib"]
+    boundaries = [r for r in saves if r["step"] <= OOC_CKPT_SUPERSTEPS]
+    if not (same_bits(res.values, mem.values)
+            and res.supersteps == OOC_CKPT_SUPERSTEPS
+            and len(res.history) == OOC_CKPT_SUPERSTEPS - OOC_CKPT_CRASH_SS):
+        raise AssertionError("checkpoint ooc: the resumed out-of-core run "
+                             "differs from the in-memory one")
+    if not (boundaries and all(r["blocks_written"] for r in boundaries)
+            and boundaries[-1]["blocks_linked"] and codec == want_codec):
+        raise AssertionError(f"checkpoint ooc: blocks {boundaries}, codec "
+                             f"{codec}")
+    out = dict(wall_s=wall, saves=saves, loads=loads, codec=codec,
+               resumed=app_summary("pagerank ooc resumed", res))
+    log(f"checkpoint pagerank ooc: {OOC_CKPT_SUPERSTEPS} supersteps, crash "
+        f"at {OOC_CKPT_CRASH_SS}, interval blocks {codec}, equal to the "
+        f"in-memory run bit for bit ({wall:.1f} s)")
+    return out, launches
+
+
+def checkpoint_phase(torch, store, pr, single, sources, s9, ckpt_root,
+                     ooc_part):
     """Phase 15: superstep checkpoints, crash and preemption resume and a
     supervised cluster shrink on the card, each part equal bit for bit to
-    its uninterrupted run and each launching gab_fused."""
-    from repro_torch import compat
+    its uninterrupted run and each launching gab_fused.  Part c
+    (checkpoint_ooc) ran in a side process: ``ooc_part`` is its result."""
     from repro_torch.core.apps import MultiSourceBFS, PageRank
     from repro_torch.core.engine import EngineConfig
     from repro_torch.core.partition import assign_tiles
@@ -1954,10 +2256,7 @@ def checkpoint_phase(torch, store, pr, single, sources, s9, ckpt_root):
     plan = store.load_plan()
 
     def ckpt_engine(d, spec, resume, **kw):
-        return engine(store, tile_skipping=False, checkpoint_dir=d,
-                      checkpoint_every=1, resume=resume,
-                      fault_plan=None if resume else FaultPlan(specs=(spec,)),
-                      **kw)
+        return checkpoint_engine(store, d, spec, resume, **kw)
 
     # a: crash and resume in one process, PageRank tiled
     d = os.path.join(ckpt_root, "pagerank")
@@ -2012,43 +2311,8 @@ def checkpoint_phase(torch, store, pr, single, sources, s9, ckpt_root):
         f"resume equals phase 14's one-process run bit for bit "
         f"({wall:.1f} s)")
 
-    # c: out of core, interval blocks
-    d = os.path.join(ckpt_root, "pagerank_ooc")
-    spec = FaultSpec(site="superstep", superstep=OOC_CKPT_CRASH_SS,
-                     kind="raise")
-    mem = engine(store, tile_skipping=False).run(
-        PageRank(), max_supersteps=OOC_CKPT_SUPERSTEPS)
-    reset_launches()
-    t0 = time.perf_counter()
-    _e, res, saves, loads = crash_and_resume(
-        lambda resume: ckpt_engine(d, spec, resume,
-                                   num_intervals=OOC_INTERVALS,
-                                   vertex_memory_budget=OOC_PR_BUDGET),
-        PageRank, InjectedFault, "checkpoint pagerank ooc",
-        OOC_CKPT_SUPERSTEPS)
-    wall = time.perf_counter() - t0
-    launches["checkpoint ooc"] = read_launches()
-    require_launches(launches["checkpoint ooc"], ("gab_fused",),
-                     "checkpoint ooc")
-    codec = block_codec(d)
-    want_codec = ["zstd"] if compat.HAVE_ZSTD else ["zlib"]
-    boundaries = [r for r in saves if r["step"] <= OOC_CKPT_SUPERSTEPS]
-    if not (same_bits(res.values, mem.values)
-            and res.supersteps == OOC_CKPT_SUPERSTEPS
-            and len(res.history) == OOC_CKPT_SUPERSTEPS - OOC_CKPT_CRASH_SS):
-        raise AssertionError("checkpoint ooc: the resumed out-of-core run "
-                             "differs from the in-memory one")
-    if not (boundaries and all(r["blocks_written"] for r in boundaries)
-            and boundaries[-1]["blocks_linked"] and codec == want_codec):
-        raise AssertionError(f"checkpoint ooc: blocks {boundaries}, codec "
-                             f"{codec}")
-    out["pagerank_ooc"] = dict(wall_s=wall, saves=saves, loads=loads,
-                               codec=codec,
-                               resumed=app_summary("pagerank ooc resumed",
-                                                   res))
-    log(f"checkpoint pagerank ooc: {OOC_CKPT_SUPERSTEPS} supersteps, crash "
-        f"at {OOC_CKPT_CRASH_SS}, interval blocks {codec}, equal to the "
-        f"in-memory run bit for bit ({wall:.1f} s)")
+    # c: out of core, interval blocks (checkpoint_ooc, a side process)
+    out["pagerank_ooc"], launches["checkpoint ooc"] = ooc_part
 
     # d: supervised shrink of a spawned cluster on the card
     d = os.path.join(ckpt_root, "cluster")
@@ -2190,7 +2454,7 @@ def serve_phase(torch, store, src, dst, sources, msbfs, levels, s9, s10):
     MultiSourceBFS query with a SERVE_DEADLINE_MS deadline, drained as
     ``timeout``; wave 3: repeats of finished seeds, which come back as
     cache hits with no slot used.  Every done column, decoded from its
-    HTTP body, equals scipy's BFS levels, and the sources' columns equal
+    HTTP body, equals the reference BFS levels, and the sources' columns equal
     phase 8's direct batched run bit for bit with equal per-query
     supersteps.  Then the drain: /healthz and POST answer 503 with
     Retry-After, and GET still answers for every rid.  The launch counts
@@ -2207,9 +2471,9 @@ def serve_phase(torch, store, src, dst, sources, msbfs, levels, s9, s10):
     out_degree = store.load_degrees()[1]
     landmarks, late = pick_serve_seeds(out_degree, sources, s9, s10)
     t0 = time.perf_counter()
-    lm_levels = scipy_bfs(src, dst, nv, landmarks + (late,))
+    lm_levels = ref_bfs(torch, src, dst, nv, landmarks + (late,))
     log(f"serve: landmarks {landmarks}, deadline source {late} "
-        f"(scipy BFS {time.perf_counter() - t0:.1f} s)")
+        f"(reference BFS {time.perf_counter() - t0:.1f} s)")
     want = {("msbfs", s): levels[:, q] for q, s in enumerate(sources)}
     want.update({("landmarks", s): lm_levels[:, i]
                  for i, s in enumerate(landmarks)})
@@ -2316,14 +2580,15 @@ def serve_phase(torch, store, src, dst, sources, msbfs, levels, s9, s10):
                               + stats["failed"] + stats["refused"]):
         raise AssertionError(f"serve: counters do not add up: {stats}")
 
-    # every done column against scipy, the sources' against phase 8's run
+    # every done column against the reference, the sources' against phase 8's run
     for t in wave1 + wave2[:-1]:
         col = decode_array(t["result"])
         key = (t["app"], t["seed"])
         if t["status"] != "done" or t["cache_hit"]:
             raise AssertionError(f"serve: {key} ended {t['status']}")
         if not same_bits(col, want[key]):
-            raise AssertionError(f"serve: {key} differs from scipy's BFS")
+            raise AssertionError(f"serve: {key} differs from the reference "
+                                 "BFS")
         d = int(want[key][np.isfinite(want[key])].max())
         if t["supersteps"] != d + offset:
             raise AssertionError(f"serve: {key} took {t['supersteps']} "
@@ -2682,7 +2947,8 @@ def baselines_phase(torch, store, src, dst, pr):
 
     nv = store.load_plan().num_vertices
     out_degree = store.load_degrees()[1]
-    want = numpy_pagerank(src, dst, out_degree, nv, BASELINE_SUPERSTEPS)
+    want = ref_pagerank(torch, src, dst, out_degree, nv,
+                        BASELINE_SUPERSTEPS)
     work = os.path.join(ROOT, "build", "chip_smoke_baselines")
     rows = []
     for name, cls in ENGINES.items():
@@ -2718,6 +2984,168 @@ def baselines_phase(torch, store, src, dst, pr):
     return dict(engines=rows, gab_tiled_ms=steady_ms(pr))
 
 
+def lm_last_logits(torch, model, tokens, n_last):
+    """Full forward (train mode) over tokens [1, S]: logits of the last
+    n_last positions, [n_last, V]."""
+    with torch.inference_mode():
+        h, _ = model.hidden(tokens, mode="train")
+        return model.logits(h[:, -n_last:])[0]
+
+
+def lm_memory(torch):
+    free, total = torch.cuda.mem_get_info()
+    return dict(card_used_bytes=int(total - free),
+                torch_peak_bytes=int(torch.cuda.max_memory_allocated()))
+
+
+def lm_serve_phase(torch):
+    """Phase 19: the dense decoders served at full width (module
+    docstring)."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.model_zoo import build_model, param_count
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    torch.set_float32_matmul_precision("highest")
+    out = {}
+    dev = torch.device(DEV)
+
+    # (a) qwen3-1.7b through the serve CLI at its defaults
+    torch.cuda.reset_peak_memory_stats()
+    cfg = registry.get_config(LM_SERVE_ARCH)
+    args = serve_cli.parse_args(["--arch", LM_SERVE_ARCH])
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        outs = serve_cli.main(["--arch", LM_SERVE_ARCH, "--device", DEV])
+    wall = time.perf_counter() - t0
+    printed = buf.getvalue().splitlines()
+    for line in printed:
+        log(f"  {line}")
+    m = re.match(r"(\d+) completions, (\d+) tokens in [\d.]+s \(([\d.]+) "
+                 r"tok/s, (\d+) decode steps", printed[0])
+    n_done, n_tok, tok_s, steps = (int(m.group(1)), int(m.group(2)),
+                                   float(m.group(3)), int(m.group(4)))
+    by_rid = {o.rid: o for o in outs}
+    if n_done != args.requests or sorted(by_rid) != list(range(args.requests)) \
+            or any(len(o.tokens) != args.max_new for o in outs):
+        raise AssertionError(f"lm serve {LM_SERVE_ARCH}: {n_done} completions, "
+                             f"lengths {sorted(len(o.tokens) for o in outs)}")
+    prefill_ms = 1e3 * float(np.mean([o.prefill_s for o in outs]))
+    decode_ms = 1e3 * sum(o.decode_s for o in outs) / steps
+    mem_a = lm_memory(torch)
+    torch.cuda.empty_cache()
+    # the same model again (LM.init is deterministic on the card): two
+    # requests served alone in a 1-slot engine give the batched tokens
+    run = RunConfig(remat="none", q_chunk=64, kv_chunk=64,
+                    compute_dtype="float32")
+    model = build_model(cfg, run, DEV).init(args.seed)
+    n_params = param_count(model)
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(0, cfg.vocab_size, args.prompt_len).astype(
+        np.int32) for _ in range(args.requests)]
+    for rid in LM_SINGLE_RIDS:
+        one = ServeEngine(cfg, run, model, slots=1, max_len=args.max_len,
+                          device=DEV).run_requests([Request(
+                              rid=rid, prompt=prompts[rid],
+                              max_new_tokens=args.max_new)])
+        if one[0].tokens != by_rid[rid].tokens:
+            raise AssertionError(f"lm serve: request {rid} alone gave "
+                                 f"{one[0].tokens}, batched "
+                                 f"{by_rid[rid].tokens}")
+    # decode_step's logits for a 24-token sequence against the full forward
+    seq = torch.from_numpy(np.random.default_rng(SEED + 19).integers(
+        0, cfg.vocab_size, (1, 24)).astype(np.int32)).to(dev)
+    with torch.inference_mode():
+        cache = model.init_cache(1, 24, torch.float32)
+        cache, _ = model.prefill(seq[:, :23], cache)
+        _, dec = model.decode_step(seq[:, 23:], cache, 23)
+    full = lm_last_logits(torch, model, seq, 1)
+    err_a = float((dec[0, 0] - full[0]).abs().max())
+    if not err_a <= LM_LOGITS_ATOL:
+        raise AssertionError(f"lm serve {LM_SERVE_ARCH}: decode vs full "
+                             f"forward max |err| {err_a:.3g} > "
+                             f"{LM_LOGITS_ATOL}")
+    out["a"] = dict(arch=LM_SERVE_ARCH, params=n_params, completions=n_done,
+                    tokens=n_tok, decode_steps=steps, wall_s=wall,
+                    tokens_per_s=tok_s, prefill_ms=prefill_ms,
+                    decode_step_ms=decode_ms, decode_vs_full_max_abs=err_a,
+                    single_slot_rids=list(LM_SINGLE_RIDS), **mem_a)
+    log(f"lm serve {LM_SERVE_ARCH}: {n_params} params, {n_done} completions "
+        f"of {args.max_new} tokens, {steps} decode steps; prefill "
+        f"{prefill_ms:.1f} ms a request, {decode_ms:.2f} ms a decode step "
+        f"({args.slots} slots), {tok_s:.1f} tokens/s; requests "
+        f"{list(LM_SINGLE_RIDS)} alone equal; decode vs full forward max "
+        f"|err| {err_a:.3g}; card {mem_a['card_used_bytes']} bytes in use, "
+        f"torch peak {mem_a['torch_peak_bytes']}")
+    del model, cache, dec, full, outs
+    torch.cuda.empty_cache()
+
+    # (b) gemma2-2b: one prompt past the window, decode against the full
+    # forward, so the rolling cache is checked at full width
+    torch.cuda.reset_peak_memory_stats()
+    cfg = registry.get_config(LM_WINDOW_ARCH)
+    run = RunConfig(remat="none", q_chunk=LM_WINDOW_CHUNK,
+                    kv_chunk=LM_WINDOW_CHUNK, compute_dtype="float32")
+    model = build_model(cfg, run, DEV).init(SEED)
+    n_params = param_count(model)
+    n, k = LM_WINDOW_PROMPT, LM_WINDOW_DECODE
+    if n <= cfg.sliding_window:
+        raise AssertionError("the prompt must pass the window")
+    prompt = torch.from_numpy(np.random.default_rng(SEED + 20).integers(
+        0, cfg.vocab_size, (1, n)).astype(np.int32)).to(dev)
+    with torch.inference_mode():
+        cache = model.init_cache(1, n + k, torch.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, lg = model.prefill(prompt, cache)
+        torch.cuda.synchronize()
+        prefill_ms_b = 1e3 * (time.perf_counter() - t0)
+        toks = [int(torch.argmax(lg[0, -1]))]
+        logits = [lg[0, -1]]
+        step_ms = []
+        for i in range(k):
+            t0 = time.perf_counter()
+            cache, lg = model.decode_step(
+                torch.tensor([[toks[-1]]], device=dev), cache, n + i)
+            nxt = int(torch.argmax(lg[0, -1]))
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            toks.append(nxt)
+            logits.append(lg[0, -1])
+    windows = {c["k"].shape[1] for c in cache}
+    seq = torch.cat([prompt, torch.tensor([toks[:k]], device=dev,
+                                          dtype=prompt.dtype)], dim=1)
+    full = lm_last_logits(torch, model, seq, k + 1)
+    got = torch.stack(logits[:k + 1])
+    err_b = float((got - full).abs().max())
+    if not err_b <= LM_LOGITS_ATOL:
+        raise AssertionError(f"lm serve {LM_WINDOW_ARCH}: decode past the "
+                             f"window vs full forward max |err| {err_b:.3g} "
+                             f"> {LM_LOGITS_ATOL}")
+    mem_b = lm_memory(torch)
+    out["b"] = dict(arch=LM_WINDOW_ARCH, params=n_params, prompt=n,
+                    decoded=k, chunk=LM_WINDOW_CHUNK,
+                    cache_lengths=sorted(windows), prefill_ms=prefill_ms_b,
+                    decode_step_ms=step_ms,
+                    tokens_per_s=k / (sum(step_ms) / 1e3),
+                    decode_vs_full_max_abs=err_b, **mem_b)
+    log(f"lm serve {LM_WINDOW_ARCH}: {n_params} params; a {n}-token prompt "
+        f"(cache lengths {sorted(windows)}) prefilled in {prefill_ms_b:.1f} "
+        f"ms at chunks of {LM_WINDOW_CHUNK}, {k} decode steps "
+        f"{np.mean(step_ms):.2f} ms each ({out['b']['tokens_per_s']:.1f} "
+        f"tokens/s); prefill and decode vs full forward max |err| "
+        f"{err_b:.3g}; card {mem_b['card_used_bytes']} bytes in use, torch "
+        f"peak {mem_b['torch_peak_bytes']}")
+    del model, cache, full, got, logits
+    torch.cuda.empty_cache()
+    out["logits_atol"] = LM_LOGITS_ATOL
+    return out
+
+
 def tune_case(r):
     what = (f"{r['spec']} spec" if r["kernel"] == "gab_fused"
             else r["spec"])
@@ -2748,7 +3176,13 @@ def main():
 
     def mark(name, t0):
         phase_s[name] = time.perf_counter() - t0
-        log(f"[phase {name}: {phase_s[name]:.1f} s]")
+        line = (f"[phase {name}: {phase_s[name]:.1f} s, "
+                f"{time.perf_counter() - t_all:.1f} s in all]")
+        log(line)
+        print(line, file=sys.stderr, flush=True)
+
+    # a run still going near the time limit prints every thread's stack
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=False)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2789,6 +3223,9 @@ def main():
         seg_rows, seg_err = check_segment_kernel(torch, tile, plan, flush)
         merged_row, merged_err = check_merged_segment(torch, dst, nv, flush)
         seg_rows.append(merged_row)
+        skewed_rows = check_segment_skewed_int32(torch, flush)
+        seg_rows.extend(skewed_rows)
+        int32_launches = segment_int32_launches(torch, tile, plan)
         seg_err = max(seg_err, merged_err)
         fused_rows, fused_err = check_fused_kernel(torch, tile, plan, flush)
         pad_rows, pad_err = check_fused_padding_hub(torch, tile, plan, flush)
@@ -2811,6 +3248,15 @@ def main():
         del eng
         mark("profile pagerank", t0)
 
+        # phase 11 and the out-of-core parts of phases 12 and 15 run in
+        # side processes beside phases 8-10 (host work; the card idles)
+        out_degree = store.load_degrees()[1]
+        sources = pick_sources(out_degree)
+        s9, s10 = pick_admitted(src, dst, out_degree, sources)
+        side_ooc = Side("ooc_phase", store_root, indeg)
+        side_admission = Side("admission_ooc", store_root, sources, s9, s10)
+        side_ckpt = Side("checkpoint_ooc", store_root, ckpt_root)
+
         t0 = time.perf_counter()
         (sources, batched_launches, batched, msbfs, levels,
          ppr_err) = batched_apps(torch, store, src, dst, bfs)
@@ -2826,11 +3272,15 @@ def main():
 
         t0 = time.perf_counter()
         footprints = time_footprints(store, plan)
-        ooc_rows, prof_ooc, ooc_launches = ooc_phase(torch, store, indeg)
+        ooc_rows, prof_ooc, ooc_launches = side_ooc.join()
         mark("ooc", t0)
         t0 = time.perf_counter()
+        admission_ooc_part = side_admission.join()
+        ckpt_ooc_part = side_ckpt.join()
+        mark("side processes", t0)
+        t0 = time.perf_counter()
         admission, admission_launches = admission_phase(
-            torch, store, src, dst, sources, msbfs, levels)
+            torch, store, sources, s9, s10, msbfs, levels, admission_ooc_part)
         ooc_rows.append(admission["ooc"])
         mark("admission", t0)
         t0 = time.perf_counter()
@@ -2842,7 +3292,7 @@ def main():
         mark("cluster", t0)
         t0 = time.perf_counter()
         checkpoint, ckpt_launches = checkpoint_phase(
-            torch, store, pr, single, sources, admission["s9"], ckpt_root)
+            torch, store, pr, single, sources, s9, ckpt_root, ckpt_ooc_part)
         mark("checkpoint", t0)
         t0 = time.perf_counter()
         serve, serve_launches = serve_phase(
@@ -2861,6 +3311,13 @@ def main():
         t0 = time.perf_counter()
         baselines = baselines_phase(torch, store, src, dst, pr)
         mark("baselines", t0)
+        t0 = time.perf_counter()
+        reset_launches()
+        lm_serve = lm_serve_phase(torch)
+        lm_launches = read_launches()
+        log(f"lm serve launches: {lm_launches} (the LM path runs no "
+            "kernel of the graph engine)")
+        mark("lm serve", t0)
     finally:
         shutil.rmtree(store_root, ignore_errors=True)
         shutil.rmtree(ckpt_root, ignore_errors=True)
@@ -2869,7 +3326,7 @@ def main():
              "batched apps": batched_launches, "modes": mode_launches,
              "ooc": ooc_launches, **admission_launches, **mesh_launches,
              **cluster_launches, **ckpt_launches, **serve_launches,
-             "tune": tune_launches}
+             "tune": tune_launches, "lm serve": lm_launches}
     total = {k: sum(p[k] for p in paths.values()) for k in main_launches}
     log(f"launches by path: {paths}; total {total}")
 
@@ -2905,6 +3362,9 @@ def main():
                                     and r["q"] == NUM_QUERIES),
                      f"tile, sum, Q={NUM_QUERIES}"),
         kernel_entry(*seg_src, merged_row, "merged shape, sum, Q=1"),
+        *(kernel_entry(*seg_src, r, f"C.1 skewed list, int32 {r['combine']}, "
+                       f"Q=1, all {r['pairs']} block pairs equal")
+          for r in skewed_rows),
         *(kernel_entry(*fused_src, next(r for r in fused_rows
                                         if r["spec"] == "pagerank"
                                         and r["q"] == q),
@@ -2933,6 +3393,7 @@ def main():
                            k: v["seconds"] for k, v in builds.items()},
                        store=store_info, tile_row_lengths=tile_lengths,
                        segment=seg_rows, fused=fused_rows,
+                       segment_int32_launches=int32_launches,
                        fused_padding_hub=pad_rows,
                        compact=compact_rows, compact_path=compact_counts,
                        apps=summaries, pagerank_max_rel_err=pr_rel,
@@ -2944,9 +3405,10 @@ def main():
                        mesh=mesh, cluster=cluster, checkpoint=checkpoint,
                        serve=serve, tune_calibration=calibration,
                        tune=tune_rows, tune_runs=tune_runs,
-                       baselines=baselines,
+                       baselines=baselines, lm_serve=lm_serve,
                        launches_by_path=paths, kernels=kernels,
                        phase_seconds=phase_s, seconds=seconds), f, indent=1)
+    faulthandler.cancel_dump_traceback_later()
     log(f"total {seconds:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

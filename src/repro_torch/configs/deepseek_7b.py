@@ -1,0 +1,17 @@
+"""deepseek-7b [dense] — llama-arch MHA [arXiv:2401.02954]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="deepseek-7b", family="dense",
+    num_layers=30, d_model=4096, num_heads=32, num_kv_heads=32, head_dim=128,
+    d_ff=11008, vocab_size=102400,
+    layer_pattern="G", rope_theta=1e4,
+    act="silu", norm="rmsnorm", tie_embeddings=False,
+)
+
+REDUCED = ModelConfig(
+    name="deepseek-7b-smoke", family="dense",
+    num_layers=2, d_model=64, num_heads=4, num_kv_heads=4, head_dim=16,
+    d_ff=128, vocab_size=512,
+    layer_pattern="G", act="silu", norm="rmsnorm", tie_embeddings=False,
+)

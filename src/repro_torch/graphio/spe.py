@@ -23,7 +23,7 @@ from repro_torch.core.partition import (IntervalPlan, PartitionPlan, plan_interv
                                   plan_partition)
 from repro_torch.core.tiles import build_tile
 from repro_torch.graphio.formats import TileStore
-from repro_torch.graphio.synth import EdgeChunk
+from repro_torch.graphio.synth import EdgeChunk, ordered_map
 
 StreamFactory = Callable[[], Iterator[EdgeChunk]]
 
@@ -96,13 +96,18 @@ def preprocess(
     pad_edges_to: int = 128,
     pad_rows_to: int = 8,
     num_intervals: int = 0,
+    threads: int = 1,
 ) -> PartitionPlan:
     """Run the full SPE pipeline into ``store``.  Returns the partition plan.
 
     ``num_intervals > 0`` additionally derives a source-interval plan
     (DESIGN.md §10), records each tile's source-interval footprint in its
     metadata (versioned GHT2 tile format), and persists the interval plan
-    in the store's meta.json for the out-of-core vertex-state engine."""
+    in the store's meta.json for the out-of-core vertex-state engine.
+
+    ``threads > 1`` builds tiles on a thread pool (numpy releases the GIL
+    in its sorts and scans), at most ``2 * threads`` ahead of the writer,
+    which writes them in tile order: the store's bytes do not change."""
     in_deg, out_deg = degree_pass(stream_factory(), num_vertices)
     plan = plan_partition(in_deg, tile_size, pad_edges_to, pad_rows_to)
     iv_plan: Optional[IntervalPlan] = (
@@ -119,7 +124,8 @@ def preprocess(
                          interval_plan=iv_plan)
         dd_in = np.zeros_like(in_deg) if dedup else None
         dd_out = np.zeros_like(out_deg) if dedup else None
-        for t in range(plan.num_tiles):
+
+        def one(t):
             src, dst, val = buckets.read(t)
             lo, hi = plan.tile_range(t)
             if dedup and len(src):
@@ -127,14 +133,17 @@ def preprocess(
                 _, idx = np.unique(key, return_index=True)
                 src, dst = src[idx], dst[idx]
                 val = val[idx] if val is not None else None
-            if dedup:
-                dd_in += np.bincount(dst, minlength=len(in_deg))
-                dd_out += np.bincount(src, minlength=len(out_deg))
             tile = build_tile(
                 t, lo, hi, src, dst, val if weighted else None,
                 plan.edge_cap, plan.row_cap,
                 interval_splitter=None if iv_plan is None else iv_plan.splitter,
             )
+            return tile, src, dst
+
+        for tile, src, dst in ordered_map(one, plan.num_tiles, threads):
+            if dedup:
+                dd_in += np.bincount(dst, minlength=len(in_deg))
+                dd_out += np.bincount(src, minlength=len(out_deg))
             store.write_tile(tile)
         if dedup:   # degrees must reflect the deduped edge set
             store.initialize(plan, weighted, dd_in, dd_out,

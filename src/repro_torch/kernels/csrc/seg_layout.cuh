@@ -30,14 +30,14 @@
 //    slice too long for that — one holding a hub row — takes one binary
 //    search a row instead).  Warp w then owns rows [32w, 32w + 32) of the
 //    block, lane l row 32w + l:
+//    - longer rows: on a list the warps share, taken first; the whole
+//      warp, lanes strided over the row, loads issued in batches before
+//      their in-order combines, then the 32-lane butterfly;
 //    - empty rows: the owner lane puts the identity;
 //    - rows of 1..32 edges: packed, in row order, into windows of 32
 //      consecutive edges, one edge a lane, all Q columns of an edge by
 //      one lane; the tree above runs over positions within each row, and
 //      the row's first lane puts the result;
-//    - longer rows: on a list the warps share; the whole warp, lanes
-//      strided over the row, loads issued in batches before their
-//      in-order combines, then the 32-lane butterfly;
 //    - hub rows (below) are left to launch 2.
 //    A block wholly past num_rows only runs the epilogue's keep().
 // 2. Hubs.  A row below num_rows is a hub when it holds two consecutive
@@ -404,6 +404,42 @@ row_kernel(const Src source, const Epi epi, const int* __restrict__ dst,
   Acc v[QC];
   Val c[QC];
 
+  // Long rows from the block's list first: the whole warp, one at a time,
+  // in batches of kUnroll loads a lane issued before their in-order
+  // combines.  They come before the warp's own short rows, not after: with
+  // the windows first, ptxas (CUDA 12.8, -O1 to -O3) miscompiled the int32
+  // min/max instantiations, which faulted on a skewed list with negative
+  // values (ROADMAP.md C.1).  A row's order is the same either way.
+  constexpr int kUnroll = 8 / QC > 0 ? 8 / QC : 1;
+  for (;;) {
+    int k = 0;
+    if (lane == 0) k = atomicAdd(&next_long, 1);
+    k = __shfl_sync(kFull, k, 0);
+    if (k >= num_long) break;
+    const int row = long_rows[k];
+    const long long rlo = min(max(bounds[row], blo), bhi);
+    const long long rhi = min(max(bounds[row + 1], rlo), bhi);
+    for (int q0 = 0; q0 < q_cols; q0 += QC) {
+#pragma unroll
+      for (int q = 0; q < QC; ++q) v[q] = ident;
+      for (long long e = rlo + lane; e < rhi; e += kUnroll * 32) {
+        Val buf[kUnroll][QC];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          if (e + u * 32 < rhi) load(e + u * 32, q0, buf[u]);
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          if (e + u * 32 < rhi)
+#pragma unroll
+            for (int q = 0; q < QC; ++q)
+              v[q] = combine<C>(v[q], static_cast<Acc>(buf[u][q]));
+      }
+#pragma unroll
+      for (int q = 0; q < QC; ++q) v[q] = warp_reduce<C>(v[q]);
+      if (lane == 0) put_cols<QC>(epi, r0 + row, q0, q_cols, v);
+    }
+  }
+
   for (int q0 = 0; q0 < q_cols; q0 += QC) {
     if (owns && n == 0) {
 #pragma unroll
@@ -455,38 +491,6 @@ row_kernel(const Src source, const Epi epi, const int* __restrict__ dst,
         put_cols<QC>(epi, r0 + row0 + row_at[warp][lane], q0, q_cols, v);
       __syncwarp();                            // row_at is rewritten next
       ew += last + 1;
-    }
-  }
-
-  // Long rows from the block's list: the whole warp, one at a time, in
-  // batches of kUnroll loads a lane issued before their in-order combines.
-  constexpr int kUnroll = 8 / QC > 0 ? 8 / QC : 1;
-  for (;;) {
-    int k = 0;
-    if (lane == 0) k = atomicAdd(&next_long, 1);
-    k = __shfl_sync(kFull, k, 0);
-    if (k >= num_long) break;
-    const int row = long_rows[k];
-    const long long rlo = min(max(bounds[row], blo), bhi);
-    const long long rhi = min(max(bounds[row + 1], rlo), bhi);
-    for (int q0 = 0; q0 < q_cols; q0 += QC) {
-#pragma unroll
-      for (int q = 0; q < QC; ++q) v[q] = ident;
-      for (long long e = rlo + lane; e < rhi; e += kUnroll * 32) {
-        Val buf[kUnroll][QC];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u)
-          if (e + u * 32 < rhi) load(e + u * 32, q0, buf[u]);
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u)
-          if (e + u * 32 < rhi)
-#pragma unroll
-            for (int q = 0; q < QC; ++q)
-              v[q] = combine<C>(v[q], static_cast<Acc>(buf[u][q]));
-      }
-#pragma unroll
-      for (int q = 0; q < QC; ++q) v[q] = warp_reduce<C>(v[q]);
-      if (lane == 0) put_cols<QC>(epi, r0 + row, q0, q_cols, v);
     }
   }
 }

@@ -9,7 +9,7 @@ assignment to a new server count while keeping every tile that can stay on
 its current server there, so surviving servers keep their edge caches hot
 across the resize.  (The reference's ``reshard`` and
 ``rescale_via_checkpoint`` move jax arrays between meshes of the
-language-model template: ROADMAP.md queue A.13.)
+language-model template: ROADMAP.md A.13.2.)
 """
 from __future__ import annotations
 

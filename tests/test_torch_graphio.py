@@ -35,12 +35,32 @@ def _files(root):
     (False, 0, 1), (True, 0, 3), (False, 4, 2)])
 def test_spe_writes_identical_store(tmp_path, weighted, num_intervals,
                                     disk_mode):
+    _check_identical_store(tmp_path, weighted, num_intervals, disk_mode)
+
+
+@pytest.mark.parametrize("weighted,num_intervals,disk_mode,dedup", [
+    (False, 4, 1, False), (True, 0, 3, True)])
+def test_spe_threaded_writes_identical_store(tmp_path, weighted,
+                                             num_intervals, disk_mode, dedup):
+    """Tiles built on a thread pool and written in order: the reference's
+    bytes still."""
+    _check_identical_store(tmp_path, weighted, num_intervals, disk_mode,
+                           threads=3, dedup=dedup)
+
+
+def _check_identical_store(tmp_path, weighted, num_intervals, disk_mode,
+                           threads=1, dedup=False):
     nv, src, dst, val = _edges(weighted)
+    if dedup:
+        src, dst = np.concatenate([src, src[:500]]), np.concatenate(
+            [dst, dst[:500]])
+        val = None if val is None else np.concatenate([val, val[:500]])
     jstore = JTileStore(str(tmp_path / "ref"), disk_mode=disk_mode)
     tstore = TTileStore(str(tmp_path / "port"), disk_mode=disk_mode)
-    kw = dict(tile_size=300, num_intervals=num_intervals)
+    kw = dict(tile_size=300, num_intervals=num_intervals, dedup=dedup)
     jplan = jspe.preprocess_arrays(src, dst, val, nv, jstore, **kw)
-    tplan = tspe.preprocess_arrays(src, dst, val, nv, tstore, **kw)
+    tplan = tspe.preprocess_arrays(src, dst, val, nv, tstore,
+                                   threads=threads, **kw)
     assert jplan.to_dict() == tplan.to_dict()
     jfiles, tfiles = _files(jstore.root), _files(tstore.root)
     assert sorted(jfiles) == sorted(tfiles)
@@ -84,3 +104,21 @@ def test_reference_reads_port_store(tmp_path):
         got, want = jstore.read_tile(t), tstore.read_tile(t)
         assert np.array_equal(got.src, want.src)
         assert np.array_equal(got.dst_local, want.dst_local)
+
+
+@pytest.mark.parametrize("weighted,threads", [(False, 3), (True, 4)])
+def test_rmat_edges_threaded_equals_reference(weighted, threads):
+    """The port's R-MAT drawn by a thread pool, each chunk from the seed's
+    PCG64 advanced past the chunks before it, equals the reference's serial
+    stream chunk for chunk (a partial last chunk included)."""
+    from repro.graphio import synth as jsynth
+    from repro_torch.graphio import synth as tsynth
+
+    kw = dict(num_vertices=1000, num_edges=10000, seed=5, weighted=weighted,
+              chunk=999)
+    want = list(jsynth.rmat_edges(**kw))
+    got = list(tsynth.rmat_edges(threads=threads, **kw))
+    assert len(got) == len(want) == 11
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert (a is None and b is None) or np.array_equal(a, b)

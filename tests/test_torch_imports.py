@@ -42,12 +42,39 @@ def test_importing_every_module_loads_no_jax():
                  "repro_torch.core.checkpoint",
                  "repro_torch.serve.graph_service", "repro_torch.serve.http",
                  "repro_torch.roofline.hw", "repro_torch.roofline.kernel_tune",
-                 "repro_torch.core.baselines", "repro_torch.kernels.blocks"):
+                 "repro_torch.core.baselines", "repro_torch.kernels.blocks",
+                 *LM_MODULES):
         assert name in names.split()
 
 
+# the A.13.1 modules: the configs, the dense decoders and their serving
+LM_MODULES = (
+    "repro_torch.configs.base", "repro_torch.configs.registry",
+    *(f"repro_torch.configs.{m}" for m in (
+        "dbrx_132b", "deepseek_7b", "gemma2_2b", "granite_moe_1b",
+        "internvl2_76b", "qwen3_14b", "qwen3_1_7b", "recurrentgemma_9b",
+        "rwkv6_1_6b", "whisper_base")),
+    "repro_torch.models.layers", "repro_torch.models.transformer",
+    "repro_torch.models.model_zoo", "repro_torch.serve.engine",
+    "repro_torch.serve.serve_step", "repro_torch.launch.serve")
+
+
+def test_config_modules_mirror_the_reference():
+    """Every reference config module has its port counterpart, and the
+    registry names only port modules."""
+    from repro_torch.configs import registry
+
+    ref = sorted(p.stem for p in (ROOT / "src" / "repro" / "configs")
+                 .glob("*.py") if p.stem != "__init__")
+    port = sorted(p.stem for p in (PORT / "configs").glob("*.py")
+                  if p.stem != "__init__")
+    assert port == ref
+    assert all(m.startswith("repro_torch.configs.")
+               for m in registry.ARCH_MODULES.values())
+
+
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py", ROOT / "chip_probe_c1.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_has_no_jax_or_reference_import(path):
     bad = [line for line in path.read_text().splitlines()

@@ -49,12 +49,28 @@ from repro_torch.kernels.gab_fused import FusedSpec
 F32 = np.float32
 CANON_NAN = np.array([0x7FFFFFFF], dtype=np.uint32).view(np.float32)[0]
 IDENT = {"sum": F32(0.0), "min": F32(np.inf), "max": F32(-np.inf)}
+# seg_common.cuh's Identity<int, C>, held in the int64 accumulator
+INT32_IDENT = {"sum": 0, "min": 2**31 - 1, "max": -2**31}
 ROWS_PER_BLOCK = 256
 SUM_TOL = dict(rtol=1e-5, atol=1e-6)
 
 
+def ident(c, dtype=F32):
+    """The identity a row starts from: float32's, or ``Identity<int, C>``
+    in the int64 accumulator for integer values."""
+    if np.issubdtype(np.dtype(dtype), np.integer):
+        return np.int64(INT32_IDENT[c])
+    return IDENT[c]
+
+
 def combine(c, x, y):
-    """``seg_common.cuh``'s combine<C>(x, y) on float32 scalars."""
+    """``seg_common.cuh``'s combine<C>(x, y) on float32 scalars, or on
+    integers in the int64 accumulator."""
+    if isinstance(x, np.integer):
+        x, y = np.int64(x), np.int64(y)
+        if c == "sum":
+            return x + y
+        return (y if y < x else x) if c == "min" else (y if y > x else x)
     if c == "sum":
         with np.errstate(invalid="ignore", over="ignore"):
             r = F32(x + y)
@@ -68,7 +84,7 @@ def combine(c, x, y):
 
 def fused_row(vals, c):
     """``gab_fused.cu``'s reduction of one row's values (one column)."""
-    acc = [IDENT[c]] * 32
+    acc = [ident(c, getattr(vals, "dtype", F32))] * 32
     for e, v in enumerate(vals):
         acc[e % 32] = combine(c, acc[e % 32], v)
     m = 16
@@ -78,18 +94,19 @@ def fused_row(vals, c):
     return acc[0]
 
 
-def _window_tree(vals, heads, c):
+def _window_tree(vals, heads, c, dtype=F32):
     """One window of the segment kernel: ``vals`` [32] per lane (identity
     past the last row), ``heads`` the start lane of each packed row and the
-    lane past the last row; returns the head lanes' results."""
+    lane past the last row; returns the head lanes' results.  ``dtype`` is
+    the values' (float32 or an integer type)."""
     last = heads[-1] - 1
     pos = np.empty(32, dtype=np.int64)
     length = np.zeros(32, dtype=np.int64)
     for h, t in zip(heads[:-1], heads[1:]):
         pos[h:t] = np.arange(t - h)
         length[h:t] = t - h
-    v = [combine(c, IDENT[c], vals[l]) if l <= last else IDENT[c]
-         for l in range(32)]
+    e = ident(c, dtype)
+    v = [combine(c, e, vals[l]) if l <= last else e for l in range(32)]
     longest = int(length.max())
     m = 16
     while m:
@@ -132,7 +149,7 @@ def layout_rows(vals, dst, num_rows, c, qc, put, h,
                 for r in owned:
                     if hi[r] == lo[r]:
                         for q in cols:
-                            put(r0 + r, q, IDENT[c])
+                            put(r0 + r, q, ident(c, vals.dtype))
                 ew, whi = lo[row0], hi[owned[-1]]
                 while ew < whi:
                     rows = [r for r in owned if 1 <= hi[r] - lo[r] <= 32
@@ -144,8 +161,9 @@ def layout_rows(vals, dst, num_rows, c, qc, put, h,
                     heads = [lo[r] - ew for r in rows] + [hi[rows[-1]] - ew]
                     for q in cols:
                         v = [vals[ew + l, q] if ew + l < e_count
-                             else F32(0) for l in range(32)]
-                        for r, x in zip(rows, _window_tree(v, heads, c)):
+                             else vals.dtype.type(0) for l in range(32)]
+                        for r, x in zip(rows, _window_tree(v, heads, c,
+                                                           vals.dtype)):
                             put(r0 + r, q, x)
                     ew += heads[-1]
                 for r in owned:
@@ -204,7 +222,8 @@ def hub_row(vals, c, streams, itemsize=4, groups=HUB_GROUPS):
     width = 32 // groups
     scratch = [None] * 32
     for g in range(groups):
-        acc = {l: IDENT[c] for l in range(g * width, (g + 1) * width)}
+        acc = {l: ident(c, vals.dtype)
+               for l in range(g * width, (g + 1) * width)}
         for c0 in range(0, len(vals), chunk):
             for u in range(0, min(chunk, len(vals) - c0), 32):
                 for l in acc:
@@ -244,8 +263,13 @@ def layout_both(vals, dst, num_rows, c, qc, put, streams, itemsize=4,
 
 def segment_kernel(contrib, dst, num_rows, c, qc=None,
                    blocks=(HUB_MIN_EDGES, ROWS_PER_BLOCK)):
-    """``segment_reduce.cu``'s layout over contrib [E, Q], ascending dst."""
-    out = np.full((num_rows, contrib.shape[1]), np.nan, dtype=np.float32)
+    """``segment_reduce.cu``'s layout over contrib [E, Q], ascending dst;
+    float32 contributions give float32 rows, integer ones int64 rows (the
+    accumulator, before the kernel's cast back)."""
+    if np.issubdtype(contrib.dtype, np.integer):
+        out = np.zeros((num_rows, contrib.shape[1]), dtype=np.int64)
+    else:
+        out = np.full((num_rows, contrib.shape[1]), np.nan, dtype=np.float32)
 
     def put(r, q, x):
         out[r, q] = x
@@ -421,6 +445,43 @@ def test_segment_model_sums_match_reference(q_cols):
         want = getattr(jref, f"segment_{c}")(jnp.asarray(contrib),
                                              jnp.asarray(dst), len(lengths))
         assert np.array_equal(got, np.asarray(want))
+
+
+def skewed_int32_list(rows, seed=0):
+    """ROADMAP C.1's list, with ``rows`` Zipf rows (2^17 on the card):
+    Zipf(1.8) row lengths capped at 4,000, rows of 50,000, 9,000, 4,097,
+    3,000, 1,025, 600 and 513 edges at rows k·rows/8 (k = 1..7), 20,000
+    padding edges at dst = rows, int32 contributions in [-1000, 1000);
+    reduced into rows + 1 rows.  ``chip_smoke.py`` builds the same."""
+    rng = np.random.default_rng(seed)
+    lengths = np.minimum(rng.zipf(1.8, rows), 4000)
+    for k, n in enumerate((50000, 9000, 4097, 3000, 1025, 600, 513)):
+        lengths[(k + 1) * (rows // 8)] = n
+    dst = np.concatenate([np.repeat(np.arange(rows), lengths),
+                          np.full(20000, rows)]).astype(np.int32)
+    contrib = rng.integers(-1000, 1000, dst.shape[0]).astype(np.int32)
+    return dst, contrib, rows + 1
+
+
+@pytest.mark.parametrize("combine_name", ["min", "max"])
+def test_int32_min_max_on_a_skewed_list(combine_name):
+    """The segment model on ROADMAP C.1's list shape (2^12 Zipf rows, the
+    same long rows and padding) with negative int32 contributions: every
+    row put exactly once (layout_both), no edge index past the slice, and
+    the rows equal the port's plain version — the layout reads no address
+    from a value."""
+    import torch
+    from repro_torch.kernels import ref as tref
+
+    dst, contrib, num_rows = skewed_int32_list(1 << 12)
+    h = hub_edges(len(dst))
+    found = hub_rows(dst, num_rows, h)
+    assert num_rows - 1 in found and len(found) == len(set(found)) > 7
+    got = segment_kernel(contrib[:, None], dst, num_rows, combine_name)
+    want = tref.segment_reduce(torch.from_numpy(contrib),
+                               torch.from_numpy(dst), num_rows, combine_name)
+    assert got.min() >= -1000 and got.max() < 1000
+    assert np.array_equal(got[:, 0].astype(np.int32), want.numpy())
 
 
 # --- gab_fused ---------------------------------------------------------------
