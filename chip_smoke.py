@@ -237,6 +237,25 @@
     full width; (c) logged: prefill ms, ms a decode step, tokens/s, the
     card's bytes in use and torch's peak.  This path runs no kernel of the
     graph engine: its counts are read and logged as zero.
+20. Language-model training ("lm train"), float32, TF32 off, on the card:
+    (a) qwen3-1.7b at full width through launch/train.py:main with
+    ``--arch qwen3-1.7b --steps 20 --batch 8 --seq 128 --log-every 5``
+    (remat "block", AdamW with the CLI's schedule, no checkpoints): every
+    loss finite, the mean of the last 5 at least LM_TRAIN_DROP below the
+    first 5's (tests/test_train_ckpt.py's criterion); logged: ms a step
+    over steps 2+ (host clock around each step, synchronised), tokens/s,
+    the model FLOPs of a step (6 · params · tokens) and their share of
+    the card's float32 peak (roofline/hw.py), torch's peak and the card's
+    bytes in use; (b) the training invariants at the reduced qwen3-1.7b
+    (``reduced``: a checkpoint of the whole train state is ~20.6 GB at
+    full width) through build_train_step on the card: 10 straight steps
+    against a job that checkpoints every 2 steps (the reference's tree,
+    model_zoo.export_state), fails at step 5 (FailureInjector), restores
+    step 4 and finishes, equal bit for bit; microbatch 2 against 1 over 3
+    steps within LM_TRAIN_MB_TOL; bf16 and top-k compression over 15
+    steps, the loss falls and top-k's density is at most 0.05.  This path
+    runs no kernel of the graph engine: its counts are read and logged as
+    zero.
 
 Phase 11, the out-of-core part of 12 ("admission ooc", admission_ooc)
 and part c of 15 (checkpoint_ooc) run in three spawned side processes
@@ -246,7 +265,7 @@ work that leaves the card idle, so they run on other cores beside phases
 side's kernels count in its process and report; its lines are logged
 when it is joined.
 
-Phases 5, 6, 8, 9, 11, 13, 14, 16, 17c and 19, the in-memory session of
+Phases 5, 6, 8, 9, 11, 13, 14, 16, 17c, 19 and 20, the in-memory session of
 12 and its out-of-core session ("admission ooc") and each part of 15
 ("checkpoint" sums a and b, then "checkpoint ooc", "cluster restart") set
 every kernel's launch counter to 0 just before and read it just after
@@ -312,6 +331,11 @@ LM_WINDOW_PROMPT = 4160
 LM_WINDOW_DECODE = 8
 LM_WINDOW_CHUNK = 512        # q_chunk = kv_chunk of (b)
 LM_LOGITS_ATOL = 2e-3        # decode vs full-forward logits, float32
+LM_TRAIN_ARCH = "qwen3-1.7b"  # phase 20 (a): through the train CLI
+LM_TRAIN_ARGV = ("--steps", "20", "--batch", "8", "--seq", "128",
+                 "--log-every", "5")
+LM_TRAIN_DROP = 0.2          # first 5 losses' mean - last 5's, at least
+LM_TRAIN_MB_TOL = dict(rtol=2e-4, atol=2e-5)  # microbatch 2 vs 1, 3 steps
 ADMIT_OOC_SUPERSTEPS = 2     # admission session compared out of core (cut
                              # from 3: its Q = 9 superstep took 78-103 s)
 CKPT_CRASH_SS = 3            # checkpoint: crash at the start of superstep 3
@@ -3146,6 +3170,198 @@ def lm_serve_phase(torch):
     return out
 
 
+def lm_train_cli(torch):
+    """Phase 20 (a): the train CLI at full width, each step timed (host
+    clock, synchronised on both sides) through a wrapper of the step
+    function the CLI builds."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import train_step as ts
+
+    steps_s, used = [], []
+    build = ts.build_train_step
+
+    def timed_build(*a, **kw):
+        step_fn, init_state, rest = build(*a, **kw)
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step_fn(state, batch)
+            torch.cuda.synchronize()
+            steps_s.append(time.perf_counter() - t0)
+            free, total = torch.cuda.mem_get_info()
+            used.append(int(total - free))
+            return out
+        return timed, init_state, rest
+
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    ts.build_train_step = timed_build
+    try:
+        with contextlib.redirect_stdout(buf):
+            losses = train_cli.main(["--arch", LM_TRAIN_ARCH, "--device",
+                                     DEV, *LM_TRAIN_ARGV])
+    finally:
+        ts.build_train_step = build
+    printed = buf.getvalue().splitlines()
+    for line in printed:
+        log(f"  {line}")
+    return losses, steps_s, printed, dict(
+        card_used_bytes=max(used), torch_peak_bytes=int(
+            torch.cuda.max_memory_allocated()))
+
+
+def lm_train_invariants(torch):
+    """Phase 20 (b) at the reduced config on the card: resume bit for bit,
+    microbatch 2 against 1, bf16 and top-k compression."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models.model_zoo import export_params, export_state
+    from repro_torch.runtime.ft import (FailureInjector, FaultTolerantLoop,
+                                        SimulatedFailure)
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import build_train_step
+
+    cfg = registry.get_config(LM_TRAIN_ARCH, reduced=True)
+    run = RunConfig(remat="none", q_chunk=16, kv_chunk=16, loss_chunk=16,
+                    compute_dtype="float32")
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=2, decay_steps=100)
+    src = SyntheticLM(cfg, 4, 32, seed=SEED)
+    batches = [src.batch_at(i) for i in range(15)]
+    out = {}
+
+    def leaves(tree, path=""):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], f"{path}/{k}")
+        else:
+            yield path, np.asarray(tree)
+
+    # 10 straight steps against a job that fails at step 5 and resumes
+    step, init, _ = build_train_step(cfg, run, opt_cfg, device=DEV)
+    state = init(SEED)
+    for b in batches[:10]:
+        state, _ = step(state, b)
+    straight = export_state(state)
+    d = os.path.join(ROOT, "build", "chip_smoke_train_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    mgr = CheckpointManager(d)
+    ft = FaultTolerantLoop(mgr, save_every=2, on_preempt_save=False,
+                           export=export_state)
+    inj = FailureInjector({5})
+
+    def job():
+        start, st = ft.resume_or_init(lambda: init(SEED))
+        for s in range(start, 10):
+            inj.check(s)
+            st, _ = step(st, batches[s])
+            ft.maybe_save(s + 1, st)
+        return start, st
+    try:
+        job()
+        raise AssertionError("lm train: the injected failure did not fire")
+    except SimulatedFailure:
+        pass
+    start, resumed = job()
+    steps_saved = mgr.all_steps()
+    shutil.rmtree(d, ignore_errors=True)
+    got = export_state(resumed)
+    unequal = [p for (p, a), (_, b) in zip(leaves(got), leaves(straight))
+               if not np.array_equal(a, b)]
+    if start != 4 or unequal:
+        raise AssertionError(f"lm train: resumed at {start}, leaves unequal "
+                             f"to 10 straight steps: {unequal[:5]}")
+    out["resume"] = dict(resumed_at=start, saved_steps=steps_saved,
+                         leaves=len(list(leaves(got))), bit_for_bit=True)
+    log(f"lm train resume ({cfg.name}): failed at step 5, resumed from "
+        f"step {start} (saved {steps_saved}), all {out['resume']['leaves']} "
+        "leaves of the train state equal to 10 straight steps bit for bit")
+
+    # microbatch 2 against 1
+    s1, i1, _ = build_train_step(cfg, run, opt_cfg, device=DEV)
+    s2, i2, _ = build_train_step(cfg, dataclasses.replace(run, microbatch=2),
+                                 opt_cfg, device=DEV)
+    a, b = i1(SEED), i2(SEED)
+    for bt in batches[:3]:
+        a, _ = s1(a, bt)
+        b, _ = s2(b, bt)
+    worst = 0.0
+    for (p, x), (_, y) in zip(leaves(export_params(a["params"])),
+                              leaves(export_params(b["params"]))):
+        np.testing.assert_allclose(y, x, err_msg=f"lm train microbatch {p}",
+                                   **LM_TRAIN_MB_TOL)
+        worst = max(worst, float(np.max(np.abs(x - y))))
+    out["microbatch_max_abs"] = worst
+    log(f"lm train microbatch 2 vs 1, 3 steps: params within "
+        f"{LM_TRAIN_MB_TOL} (max |diff| {worst:.3g})")
+
+    # bf16 and top-k compression
+    for comp in ("bf16", "topk"):
+        step, init, _ = build_train_step(
+            cfg, dataclasses.replace(run, grad_compression=comp), opt_cfg,
+            device=DEV)
+        state, losses = init(SEED), []
+        for bt in batches:
+            state, stats = step(state, bt)
+            losses.append(float(stats["loss"]))
+        density = float(stats["density"]) if comp == "topk" else None
+        if not losses[-1] < losses[0] or (density is not None
+                                          and not density <= 0.05):
+            raise AssertionError(f"lm train {comp}: losses {losses[0]:.4f} "
+                                 f"-> {losses[-1]:.4f}, density {density}")
+        out[comp] = dict(first_loss=losses[0], last_loss=losses[-1],
+                         density=density)
+        log(f"lm train {comp} compression, 15 steps: loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}" + (f", density {density:.4f}"
+                                   if density is not None else ""))
+    return out
+
+
+def lm_train_phase(torch):
+    """Phase 20: the dense decoders trained on the card (module
+    docstring)."""
+    from repro_torch.roofline import hw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.cuda.empty_cache()
+    losses, steps_s, printed, mem = lm_train_cli(torch)
+    m = re.match(r"init in [\d.]+s; params = ([\d,]+)", printed[0])
+    n_params = int(m.group(1).replace(",", ""))
+    batch = int(LM_TRAIN_ARGV[LM_TRAIN_ARGV.index("--batch") + 1])
+    seq = int(LM_TRAIN_ARGV[LM_TRAIN_ARGV.index("--seq") + 1])
+    tokens = batch * seq
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not all(np.isfinite(losses)) or not last <= first - LM_TRAIN_DROP:
+        raise AssertionError(f"lm train {LM_TRAIN_ARCH}: losses {losses}")
+    step_ms = 1e3 * float(np.mean(steps_s[1:]))
+    flops = 6 * n_params * tokens
+    share = flops / (step_ms / 1e3) / hw.F32_FLOPS
+    out = dict(arch=LM_TRAIN_ARCH, argv=list(LM_TRAIN_ARGV), params=n_params,
+               losses=losses, first5_mean=first, last5_mean=last,
+               step_ms=[1e3 * t for t in steps_s], mean_step_ms=step_ms,
+               tokens_per_s=tokens / (step_ms / 1e3), model_flops=flops,
+               f32_peak_share=share, **mem)
+    log(f"lm train {LM_TRAIN_ARCH}: {n_params} params, {len(losses)} steps "
+        f"of {tokens} tokens; loss {first:.4f} -> {last:.4f} (means of the "
+        f"first and last 5); {step_ms:.1f} ms a step over steps 2+ (first "
+        f"{1e3 * steps_s[0]:.1f}), {out['tokens_per_s']:.0f} tokens/s, "
+        f"{flops:.4g} model FLOPs a step = {100 * share:.1f} % of the "
+        f"float32 peak; card {mem['card_used_bytes']} bytes in use, torch "
+        f"peak {mem['torch_peak_bytes']}")
+    torch.cuda.empty_cache()
+    out["invariants"] = lm_train_invariants(torch)
+    torch.cuda.empty_cache()
+    return out
+
+
 def tune_case(r):
     what = (f"{r['spec']} spec" if r["kernel"] == "gab_fused"
             else r["spec"])
@@ -3318,6 +3534,13 @@ def main():
         log(f"lm serve launches: {lm_launches} (the LM path runs no "
             "kernel of the graph engine)")
         mark("lm serve", t0)
+        t0 = time.perf_counter()
+        reset_launches()
+        lm_train = lm_train_phase(torch)
+        lm_train_launches = read_launches()
+        log(f"lm train launches: {lm_train_launches} (the LM path runs no "
+            "kernel of the graph engine)")
+        mark("lm train", t0)
     finally:
         shutil.rmtree(store_root, ignore_errors=True)
         shutil.rmtree(ckpt_root, ignore_errors=True)
@@ -3326,7 +3549,8 @@ def main():
              "batched apps": batched_launches, "modes": mode_launches,
              "ooc": ooc_launches, **admission_launches, **mesh_launches,
              **cluster_launches, **ckpt_launches, **serve_launches,
-             "tune": tune_launches, "lm serve": lm_launches}
+             "tune": tune_launches, "lm serve": lm_launches,
+             "lm train": lm_train_launches}
     total = {k: sum(p[k] for p in paths.values()) for k in main_launches}
     log(f"launches by path: {paths}; total {total}")
 
@@ -3406,6 +3630,7 @@ def main():
                        serve=serve, tune_calibration=calibration,
                        tune=tune_rows, tune_runs=tune_runs,
                        baselines=baselines, lm_serve=lm_serve,
+                       lm_train=lm_train,
                        launches_by_path=paths, kernels=kernels,
                        phase_seconds=phase_s, seconds=seconds), f, indent=1)
     faulthandler.cancel_dump_traceback_later()

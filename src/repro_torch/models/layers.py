@@ -12,7 +12,7 @@ operands (``preferred_element_type``) take float32 copies of the
 operands, so a bfloat16 run rounds where the reference does.
 
 ``seq_sharded_decode_attention`` (flash-decoding over a device mesh)
-is ROADMAP.md A.13.2, and the reference's sharding constraints (``cns``)
+is ROADMAP.md A.13.2b, and the reference's sharding constraints (``cns``)
 are no-ops without a mesh, so the port has neither.
 """
 from __future__ import annotations
@@ -39,7 +39,8 @@ def dense_init_(w: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
 
 
 def new_param(*shape, device=None) -> nn.Parameter:
-    """An uninitialised float32 parameter (no gradient: the port serves)."""
+    """An uninitialised float32 parameter, without gradients until the
+    train step turns them on (``train_step.build_train_step``)."""
     return nn.Parameter(torch.empty(shape, dtype=torch.float32,
                                     device=device), requires_grad=False)
 

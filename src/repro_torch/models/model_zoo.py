@@ -9,6 +9,14 @@ plus ``"lm_head"`` when untied, where a block is ``{"ln1": {"scale"},
 "mlp": {"wi", "wo"(, "wg")}}`` and every ``cycles`` leaf is stacked
 ``[n_cycles, ...]``.  Block ``c·len(pattern) + i`` of the port is
 ``cycles/<i><kind>[c]``; the tail follows the cycles.
+
+The train state (``train/train_step.py``) is ``{"params": LM, "opt": {"m",
+"v", "step"}, "step"[, "ef": {"residual"}]}``, where m, v and the
+residual are :func:`param_tree`-shaped: one float32 tensor for each
+parameter, a ``cycles`` leaf a list of one tensor a cycle.
+:func:`export_state` writes it as the reference's train state (every
+``cycles`` leaf stacked) and :func:`load_state` reads that back, so a
+checkpoint of either package's train CLI resumes in the other.
 """
 from __future__ import annotations
 
@@ -129,24 +137,90 @@ def load_params(model: LM, tree) -> LM:
     return model
 
 
+def _tree_of(model: LM, value) -> dict:
+    """The reference's tree with ``value(path, parameter, cycle index or
+    None)`` at each parameter, a ``cycles`` leaf the list of its
+    per-cycle values."""
+    tree: dict = {"cycles": {}, "tail": {}}
+    for path, p, idx in _layout(model):
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        v = value(path, p, idx)
+        if idx is None:
+            node[path[-1]] = v
+        else:
+            node.setdefault(path[-1], []).append(v)
+    return tree
+
+
+def param_tree(model: LM) -> dict:
+    """The model's parameters in the reference's tree, a ``cycles`` leaf
+    the list of its per-cycle parameters (the optimizer's leaves)."""
+    return _tree_of(model, lambda path, p, idx: p)
+
+
+def _numpy(tree):
+    """A tree of tensors as numpy arrays, each list stacked."""
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return np.stack([_numpy(t) for t in tree])
+    return tree.detach().cpu().numpy()
+
+
 def export_params(model: LM) -> dict:
     """The model's parameters as the reference's tree of float32 numpy
     arrays (``cycles`` leaves stacked), the inverse of
     :func:`load_params`."""
-    tree: dict = {"cycles": {}, "tail": {}}
-    stacks: dict = {}
-    for path, p, idx in _layout(model):
-        arr = p.detach().float().cpu().numpy()
-        if idx is not None:
-            stacks.setdefault(path, []).append(arr)
-            continue
-        node = tree
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = arr
-    for path, arrs in stacks.items():
-        node = tree
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = np.stack(arrs)
-    return tree
+    return _numpy(param_tree(model))
+
+
+def export_state(state: dict) -> dict:
+    """The port's train state as the reference's (numpy; module
+    docstring)."""
+    out = {"params": export_params(state["params"]),
+           "opt": _numpy(state["opt"]), "step": _numpy(state["step"])}
+    if "ef" in state:
+        out["ef"] = _numpy(state["ef"])
+    return out
+
+
+def _like(model: LM, tree, device) -> dict:
+    """``tree`` (the reference's layout, stacked) as float32 tensors on
+    ``device`` shaped as :func:`param_tree`."""
+    def value(path, p, idx):
+        src = _get(tree, path)
+        src = _tensor(src if idx is None else src[idx], torch.float32,
+                      device)
+        if tuple(src.shape) != tuple(p.shape):
+            raise ValueError(f"{'/'.join(path)}: shape {tuple(src.shape)} "
+                             f"does not match the model's {tuple(p.shape)}")
+        return src
+    return _tree_of(model, value)
+
+
+def _tensor(x, dtype, device) -> torch.Tensor:
+    """A copy of a numpy array or tensor as ``dtype`` on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(device=device, dtype=dtype, copy=True)
+    return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def load_state(tree, cfg: ModelConfig, run: RunConfig = RunConfig(),
+               device=None) -> dict:
+    """The inverse of :func:`export_state`: a new model on ``device``
+    holding ``tree["params"]`` (parameters that take gradients), and the
+    optimizer (and error-feedback) state as tensors there."""
+    model = load_params(build_model(cfg, run, device), tree["params"])
+    model.requires_grad_(True)
+    opt = tree["opt"]
+    state = {"params": model,
+             "opt": {"m": _like(model, opt["m"], device),
+                     "v": _like(model, opt["v"], device),
+                     "step": _tensor(opt["step"], torch.int32, device)},
+             "step": _tensor(tree["step"], torch.int32, device)}
+    if "ef" in tree:
+        state["ef"] = {"residual": _like(model, tree["ef"]["residual"],
+                                         device)}
+    return state

@@ -16,16 +16,22 @@ Three entry modes share the block code:
   prefill — full-sequence forward building a decode cache
   decode  — one token per step against the cache
 
+Training (``loss``, ``chunked_xent``) runs train mode with autograd: with
+``run.remat`` "block" or "full" each cycle's blocks are one
+``torch.utils.checkpoint`` region (the reference checkpoints its
+``cycle_body``); the tail is not wrapped, as in the reference.
+
 Layer kinds ``R`` (RG-LRU) and ``K`` (RWKV6) and mixture-of-experts FFNs
-are ROADMAP.md A.13.3; ``loss``/``chunked_xent`` come with training
-(A.13.2).
+are ROADMAP.md A.13.3.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import layers as L
@@ -238,8 +244,10 @@ class LM(nn.Module):
     def _embed(self, tokens, extra_embeds):
         cfg = self.cfg
         cdt = getattr(torch, self.run.compute_dtype)
-        x = self.embed_tok[torch.as_tensor(tokens, device=self.device)
-                           .long()].to(cdt)
+        # F.embedding: its gradient sums repeated tokens in a fixed order
+        # on the card (index_put_ with accumulation uses atomics)
+        x = F.embedding(torch.as_tensor(tokens, device=self.device).long(),
+                        self.embed_tok).to(cdt)
         if extra_embeds is not None:
             x = torch.cat([extra_embeds.to(cdt), x], dim=1)
         if cfg.embed_scale:
@@ -262,13 +270,27 @@ class LM(nn.Module):
                 positions = torch.arange(S, device=x.device)[None, :]
         if mode != "train" and cache is None:
             raise ValueError(f"mode {mode!r} needs a cache")
-        for i, blk in enumerate(self.blocks):
-            c = None if cache is None else cache[i]
-            x, c = blk(x, mode, c, cache_len, positions)
-            if cache is not None:
-                cache[i] = c
+        if (mode == "train" and cache is None and torch.is_grad_enabled()
+                and self.run.remat in ("block", "full")):
+            n = self.n_full_cycles * len(self.pattern)
+            for lo in range(0, n, len(self.pattern)):
+                x = checkpoint(self._train_blocks, x, lo,
+                               lo + len(self.pattern), positions,
+                               use_reentrant=False)
+            x = self._train_blocks(x, n, len(self.blocks), positions)
+        else:
+            for i, blk in enumerate(self.blocks):
+                c = None if cache is None else cache[i]
+                x, c = blk(x, mode, c, cache_len, positions)
+                if cache is not None:
+                    cache[i] = c
         x = self.final_norm(x, self.cfg.norm, self.cfg.norm_eps)
         return x, cache
+
+    def _train_blocks(self, x, lo: int, hi: int, positions):
+        for blk in self.blocks[lo:hi]:
+            x, _ = blk(x, "train", None, None, positions)
+        return x
 
     def unembed(self) -> torch.Tensor:
         """``[D, padded_vocab]``: the embedding's transpose when tied."""
@@ -283,6 +305,46 @@ class LM(nn.Module):
         if cap:
             logits = torch.tanh(logits / cap) * cap
         return _mask_pad_logits(logits, self.cfg)
+
+    # -- loss (chunked over sequence) ----------------------------------------
+    def loss(self, tokens, labels, extra_embeds=None) -> torch.Tensor:
+        """Mean next-token cross-entropy of a train-mode forward."""
+        h, _ = self.hidden(tokens, extra_embeds, mode="train")
+        return self.chunked_xent(h, labels)
+
+    def chunked_xent(self, h: torch.Tensor, labels) -> torch.Tensor:
+        """Mean token xent over ``loss_chunk`` positions at a time, as the
+        reference: labels padded with -1 to a whole chunk, float32 logits
+        (softcapped, pad vocab at -1e30), logsumexp over the padded vocab,
+        the target gathered at max(label, 0), terms with label < 0
+        dropped, the sum over max(count, 1)."""
+        B, S, D = h.shape
+        labels = torch.as_tensor(labels, device=h.device).long()
+        chunk = min(self.run.loss_chunk, S)
+        n = (S + chunk - 1) // chunk
+        pad = n * chunk - S
+        if pad:
+            h = F.pad(h, (0, 0, 0, pad))
+            labels = F.pad(labels, (0, pad), value=-1)
+        emb = self.unembed()
+        cap = self.cfg.logit_softcap
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c in range(n):
+            hc = h[:, c * chunk:(c + 1) * chunk]
+            lc = labels[:, c * chunk:(c + 1) * chunk]
+            logits = (hc @ emb.to(hc.dtype)).float()
+            if cap:
+                logits = torch.tanh(logits / cap) * cap
+            logits = _mask_pad_logits(logits, self.cfg)
+            lse = torch.logsumexp(logits, dim=-1)
+            valid = lc >= 0
+            tgt = torch.gather(logits, -1,
+                               torch.clamp(lc, min=0)[..., None])[..., 0]
+            nll = (lse - tgt) * valid
+            tot = tot + nll.sum()
+            cnt = cnt + valid.sum()
+        return tot / torch.clamp(cnt, min=1.0)
 
     # -- serving ----------------------------------------------------------
     def prefill(self, tokens, cache, extra_embeds=None):

@@ -94,9 +94,13 @@ class FaultTolerantLoop:
     """
 
     def __init__(self, ckpt: CheckpointManager, save_every: int = 100,
-                 on_preempt_save: bool = True):
+                 on_preempt_save: bool = True,
+                 export: Optional[Callable] = None):
         self.ckpt = ckpt
         self.save_every = save_every
+        # state -> the tree a save writes, called only when one is due
+        # (the train CLI's model_zoo.export_state)
+        self.export = export
         self._guard = PreemptionGuard()
         if on_preempt_save:
             self._guard.install()
@@ -128,7 +132,8 @@ class FaultTolerantLoop:
         """Save when due (every ``save_every``), forced, or preempted."""
         if force or self.preempted or (self.save_every and
                                        step % self.save_every == 0 and step > 0):
-            self.ckpt.save(step, state)
+            self.ckpt.save(step, state if self.export is None
+                           else self.export(state))
             return True
         return False
 

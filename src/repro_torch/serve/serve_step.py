@@ -3,7 +3,7 @@ counterpart of ``repro/serve/serve_step.py`` for one device.
 
 The reference jit-compiles the two with mesh-aware shardings (KV caches
 over the data and model axes, ``cache_pspec``, ``_cache_shardings``);
-serving over a device mesh is ROADMAP.md A.13.2, so ``mesh`` must be
+serving over a device mesh is ROADMAP.md A.13.2b, so ``mesh`` must be
 None here.
 """
 from __future__ import annotations
@@ -24,7 +24,7 @@ def build_serve_fns(cfg: ModelConfig, run: RunConfig, mesh=None,
     which is loaded into ``model`` (once per tree object)."""
     if mesh is not None:
         raise NotImplementedError("serving over a device mesh is not "
-                                  "ported yet (ROADMAP.md A.13.2)")
+                                  "ported yet (ROADMAP.md A.13.2b)")
     if cfg.frontend is not None:
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend "
                                   "is not ported yet (ROADMAP.md A.13.3)")

@@ -1,4 +1,7 @@
-"""Training substrate of the port: so far the checkpoint manager that the
-graph engine's superstep checkpoints build on (``train/checkpoint.py``)
-and the LM serve CLI restores parameters through; the rest of the
-reference's ``train`` package is ROADMAP.md A.13.2."""
+"""Training substrate of the port: the checkpoint manager
+(``train/checkpoint.py``) that the graph engine's superstep checkpoints
+build on and both LM CLIs restore through, the synthetic and binary-corpus
+data with prefetch (``train/data.py``), AdamW with its schedule, clipping
+and gradient compression (``train/optimizer.py``), and the single-device
+train step (``train/train_step.py``).  Training over a device mesh is
+ROADMAP.md A.13.2b."""

@@ -47,7 +47,8 @@ def test_importing_every_module_loads_no_jax():
         assert name in names.split()
 
 
-# the A.13.1 modules: the configs, the dense decoders and their serving
+# the A.13.1 modules (the configs, the dense decoders and their serving)
+# and the training of A.13.2
 LM_MODULES = (
     "repro_torch.configs.base", "repro_torch.configs.registry",
     *(f"repro_torch.configs.{m}" for m in (
@@ -56,7 +57,10 @@ LM_MODULES = (
         "rwkv6_1_6b", "whisper_base")),
     "repro_torch.models.layers", "repro_torch.models.transformer",
     "repro_torch.models.model_zoo", "repro_torch.serve.engine",
-    "repro_torch.serve.serve_step", "repro_torch.launch.serve")
+    "repro_torch.serve.serve_step", "repro_torch.launch.serve",
+    # A.13.2's single-device half: training
+    "repro_torch.train.data", "repro_torch.train.optimizer",
+    "repro_torch.train.train_step", "repro_torch.launch.train")
 
 
 def test_config_modules_mirror_the_reference():
