@@ -256,6 +256,33 @@
     steps, the loss falls and top-k's density is at most 0.05.  This path
     runs no kernel of the graph engine: its counts are read and logged as
     zero.
+21. The other model families ("lm families"), float32, TF32 off, on the
+    card, parameters from each model's seeded init on the card: (a) at
+    the reference's full configs, a 24-token sequence, 23 prefilled and
+    the last decoded, against the full forward's last logits within
+    LM_LOGITS_ATOL, then 3 more greedy decode steps timed, for
+    recurrentgemma-9b (38 layers RRL, 9.40 B parameters), rwkv6-1.6b,
+    whisper-base (through serve_step.build_serve_fns with 12 seeded
+    enc_frames) and granite-moe-1b-a400m at moe_capacity_factor 8 (at
+    the default capacity decode and the full forward drop different
+    assignments); then rwkv6-1.6b through launch/serve.py:main at its
+    defaults, requests 0 and 5 alone in a 1-slot engine equal to the
+    batched tokens; (b) at full width with the depth cut (``reduced``):
+    dbrx-132b at 2 layers of 40 (capacity factor 8) and internvl2-76b at
+    4 of 80 with its 256 seeded patch_embeds before the tokens (decoded
+    at cache_len 256 + 23), the same check; (c) granite-moe-1b-a400m at
+    full width through launch/train.py:main with ``--steps 20 --batch 8
+    --seq 128 --log-every 5``, the criterion of phase 20 (a), its ms a
+    step, tokens/s, 6 · active params · tokens as a share of the float32
+    peak and torch's peak; then at the reduced granite-moe (8 x 256
+    tokens a batch, so that the MoE gathers' backward takes the sorted
+    path too): 10 straight steps against a job failing at step 5 and
+    resumed from step 4, bit for bit over every leaf (the expert combine
+    and both gathers' backward have no float atomics); and the
+    train-then-serve chain of tests/test_system.py::test_lm_train_then_serve
+    through both CLIs.  ms a prefill and a decode step, tokens/s and
+    torch's peak are logged for each arch.  This path runs no kernel of
+    the graph engine: its counts are read and logged as zero.
 
 Phase 11, the out-of-core part of 12 ("admission ooc", admission_ooc)
 and part c of 15 (checkpoint_ooc) run in three spawned side processes
@@ -265,7 +292,7 @@ work that leaves the card idle, so they run on other cores beside phases
 side's kernels count in its process and report; its lines are logged
 when it is joined.
 
-Phases 5, 6, 8, 9, 11, 13, 14, 16, 17c, 19 and 20, the in-memory session of
+Phases 5, 6, 8, 9, 11, 13, 14, 16, 17c, 19, 20 and 21, the in-memory session of
 12 and its out-of-core session ("admission ooc") and each part of 15
 ("checkpoint" sums a and b, then "checkpoint ooc", "cluster restart") set
 every kernel's launch counter to 0 just before and read it just after
@@ -287,6 +314,7 @@ end also goes to stderr with the seconds so far, and a run still going
 after WATCHDOG_S seconds prints every thread's stack there.
 """
 import faulthandler
+import gc
 import glob
 import json
 import os
@@ -336,6 +364,17 @@ LM_TRAIN_ARGV = ("--steps", "20", "--batch", "8", "--seq", "128",
                  "--log-every", "5")
 LM_TRAIN_DROP = 0.2          # first 5 losses' mean - last 5's, at least
 LM_TRAIN_MB_TOL = dict(rtol=2e-4, atol=2e-5)  # microbatch 2 vs 1, 3 steps
+LM_FAMILY_FULL = (                # phase 21 (a): (arch, config overrides)
+    ("recurrentgemma-9b", {}), ("rwkv6-1.6b", {}), ("whisper-base", {}),
+    ("granite-moe-1b-a400m", {"moe_capacity_factor": 8.0}))
+LM_FAMILY_CUT = (                 # phase 21 (b): full width, depth cut
+    ("dbrx-132b", {"num_layers": 2, "moe_capacity_factor": 8.0}),
+    ("internvl2-76b", {"num_layers": 4}))
+LM_FAMILY_SEQ = 24                # 23 prefilled, the last decoded
+LM_FAMILY_TIMED = 3               # greedy decode steps timed after it
+LM_FAMILY_SERVE_ARCH = "rwkv6-1.6b"   # phase 21 (a): through the serve CLI
+LM_FAMILY_TRAIN_ARCH = "granite-moe-1b-a400m"  # phase 21 (c)
+LM_FAMILY_RESUME_BATCH = (8, 256)  # reduced granite-moe: 4,096 assignments
 ADMIT_OOC_SUPERSTEPS = 2     # admission session compared out of core (cut
                              # from 3: its Q = 9 superstep took 78-103 s)
 CKPT_CRASH_SS = 3            # checkpoint: crash at the start of superstep 3
@@ -3170,10 +3209,10 @@ def lm_serve_phase(torch):
     return out
 
 
-def lm_train_cli(torch):
-    """Phase 20 (a): the train CLI at full width, each step timed (host
-    clock, synchronised on both sides) through a wrapper of the step
-    function the CLI builds."""
+def lm_train_cli(torch, arch=LM_TRAIN_ARCH):
+    """Phase 20 (a) and 21 (c): the train CLI at full width, each step
+    timed (host clock, synchronised on both sides) through a wrapper of
+    the step function the CLI builds."""
     import contextlib
     import io
 
@@ -3202,8 +3241,8 @@ def lm_train_cli(torch):
     ts.build_train_step = timed_build
     try:
         with contextlib.redirect_stdout(buf):
-            losses = train_cli.main(["--arch", LM_TRAIN_ARCH, "--device",
-                                     DEV, *LM_TRAIN_ARGV])
+            losses = train_cli.main(["--arch", arch, "--device", DEV,
+                                     *LM_TRAIN_ARGV])
     finally:
         ts.build_train_step = build
     printed = buf.getvalue().splitlines()
@@ -3214,42 +3253,30 @@ def lm_train_cli(torch):
             torch.cuda.max_memory_allocated()))
 
 
-def lm_train_invariants(torch):
-    """Phase 20 (b) at the reduced config on the card: resume bit for bit,
-    microbatch 2 against 1, bf16 and top-k compression."""
-    import dataclasses
+def state_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from state_leaves(tree[k], f"{path}/{k}")
+    else:
+        yield path, np.asarray(tree)
 
-    from repro_torch.configs import registry
-    from repro_torch.configs.base import RunConfig
-    from repro_torch.models.model_zoo import export_params, export_state
+
+def lm_resume_check(cfg, run, opt_cfg, batches):
+    """10 straight steps against a job that checkpoints every 2 steps,
+    fails at step 5 and resumes from step 4: every leaf of the train state
+    equal bit for bit."""
+    from repro_torch.models.model_zoo import export_state
     from repro_torch.runtime.ft import (FailureInjector, FaultTolerantLoop,
                                         SimulatedFailure)
     from repro_torch.train.checkpoint import CheckpointManager
-    from repro_torch.train.data import SyntheticLM
-    from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.train_step import build_train_step
 
-    cfg = registry.get_config(LM_TRAIN_ARCH, reduced=True)
-    run = RunConfig(remat="none", q_chunk=16, kv_chunk=16, loss_chunk=16,
-                    compute_dtype="float32")
-    opt_cfg = OptConfig(lr=1e-3, warmup_steps=2, decay_steps=100)
-    src = SyntheticLM(cfg, 4, 32, seed=SEED)
-    batches = [src.batch_at(i) for i in range(15)]
-    out = {}
-
-    def leaves(tree, path=""):
-        if isinstance(tree, dict):
-            for k in sorted(tree):
-                yield from leaves(tree[k], f"{path}/{k}")
-        else:
-            yield path, np.asarray(tree)
-
-    # 10 straight steps against a job that fails at step 5 and resumes
     step, init, _ = build_train_step(cfg, run, opt_cfg, device=DEV)
     state = init(SEED)
     for b in batches[:10]:
         state, _ = step(state, b)
     straight = export_state(state)
+    del state
     d = os.path.join(ROOT, "build", "chip_smoke_train_ckpt")
     shutil.rmtree(d, ignore_errors=True)
     mgr = CheckpointManager(d)
@@ -3273,16 +3300,43 @@ def lm_train_invariants(torch):
     steps_saved = mgr.all_steps()
     shutil.rmtree(d, ignore_errors=True)
     got = export_state(resumed)
-    unequal = [p for (p, a), (_, b) in zip(leaves(got), leaves(straight))
+    unequal = [p for (p, a), (_, b) in zip(state_leaves(got),
+                                           state_leaves(straight))
                if not np.array_equal(a, b)]
     if start != 4 or unequal:
-        raise AssertionError(f"lm train: resumed at {start}, leaves unequal "
-                             f"to 10 straight steps: {unequal[:5]}")
-    out["resume"] = dict(resumed_at=start, saved_steps=steps_saved,
-                         leaves=len(list(leaves(got))), bit_for_bit=True)
+        raise AssertionError(f"lm train {cfg.name}: resumed at {start}, "
+                             "leaves unequal to 10 straight steps: "
+                             f"{unequal[:5]}")
+    out = dict(resumed_at=start, saved_steps=steps_saved,
+               leaves=len(list(state_leaves(got))), bit_for_bit=True)
     log(f"lm train resume ({cfg.name}): failed at step 5, resumed from "
-        f"step {start} (saved {steps_saved}), all {out['resume']['leaves']} "
+        f"step {start} (saved {steps_saved}), all {out['leaves']} "
         "leaves of the train state equal to 10 straight steps bit for bit")
+    return out
+
+
+def lm_train_invariants(torch):
+    """Phase 20 (b) at the reduced config on the card: resume bit for bit,
+    microbatch 2 against 1, bf16 and top-k compression."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models.model_zoo import export_params
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import build_train_step
+
+    cfg = registry.get_config(LM_TRAIN_ARCH, reduced=True)
+    run = RunConfig(remat="none", q_chunk=16, kv_chunk=16, loss_chunk=16,
+                    compute_dtype="float32")
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=2, decay_steps=100)
+    src = SyntheticLM(cfg, 4, 32, seed=SEED)
+    batches = [src.batch_at(i) for i in range(15)]
+    out = {}
+    leaves = state_leaves
+
+    out["resume"] = lm_resume_check(cfg, run, opt_cfg, batches)
 
     # microbatch 2 against 1
     s1, i1, _ = build_train_step(cfg, run, opt_cfg, device=DEV)
@@ -3358,6 +3412,280 @@ def lm_train_phase(torch):
         f"peak {mem['torch_peak_bytes']}")
     torch.cuda.empty_cache()
     out["invariants"] = lm_train_invariants(torch)
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_family_decode(torch, arch, overrides):
+    """Phase 21 (a)/(b): one arch at full width on the card (``overrides``
+    on the reference's config): a LM_FAMILY_SEQ-token sequence prefilled
+    but for its last token, that token decoded, the logits against the
+    full forward's last; then LM_FAMILY_TIMED greedy decode steps timed."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models.model_zoo import (active_param_count,
+                                              build_model, param_count)
+    from repro_torch.serve.serve_step import build_serve_fns
+
+    dev = torch.device(DEV)
+    torch.cuda.reset_peak_memory_stats()
+    resident = int(torch.cuda.memory_allocated())
+    cfg = dataclasses.replace(registry.get_config(arch), **overrides)
+    run = RunConfig(remat="none", q_chunk=64, kv_chunk=64,
+                    compute_dtype="float32")
+    S, k = LM_FAMILY_SEQ, LM_FAMILY_TIMED
+    rng = np.random.default_rng(SEED + 21)
+    seq = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, S)).astype(
+        np.int32)).to(dev)
+    extra, fr = {}, 0
+    if cfg.encoder_layers > 0:
+        # whisper: served through build_serve_fns, which builds the model
+        fns = build_serve_fns(cfg, run, max_len=S + k, batch=1,
+                              cache_dtype=torch.float32, device=DEV)
+        model = fns["model"].init(SEED)
+        extra["enc_frames"] = torch.from_numpy(rng.normal(
+            size=(1, S // 2, cfg.d_model)).astype(np.float32)).to(dev)
+    else:
+        fns = None
+        model = build_model(cfg, run, DEV).init(SEED)
+        if cfg.frontend == "vision":
+            fr = cfg.frontend_tokens
+            extra["patch_embeds"] = torch.from_numpy(rng.normal(
+                size=(1, fr, cfg.d_model)).astype(np.float32)).to(dev)
+    n_params = param_count(model)
+    n_active = active_param_count(cfg, model)
+
+    def prefill(tokens, cache):
+        if fns is not None:
+            return fns["prefill"](model, cache, {"tokens": tokens, **extra})
+        with torch.inference_mode():
+            return model.prefill(tokens, cache,
+                                 extra_embeds=extra.get("patch_embeds"))
+
+    def decode(token, cache, cache_len):
+        with torch.inference_mode():
+            return model.decode_step(token, cache, cache_len)
+
+    with torch.inference_mode():
+        if fns is not None:
+            h, _ = model._dec_forward(
+                seq, model._cross_kv(model.encode(extra["enc_frames"])),
+                "train", None, None)
+            full = model._logits(h[:, -1:])[0, 0]
+        else:
+            h, _ = model.hidden(seq, extra.get("patch_embeds"), mode="train")
+            full = model.logits(h[:, -1:])[0, 0]
+        cache = model.init_cache(1, fr + S + k, torch.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, _ = prefill(seq[:, :S - 1], cache)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    cache, dec = decode(seq[:, S - 1:], cache, fr + S - 1)
+    err = float((dec[0, 0] - full).abs().max())
+    if not (bool(torch.isfinite(dec[0, 0, :cfg.vocab_size]).all())
+            and err <= LM_LOGITS_ATOL):
+        raise AssertionError(f"lm families {arch}: decode vs full forward "
+                             f"max |err| {err:.3g} > {LM_LOGITS_ATOL}")
+    step_ms, tok = [], int(torch.argmax(dec[0, 0]))
+    for i in range(k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, lg = decode(torch.tensor([[tok]], device=dev), cache,
+                           fr + S + i)
+        tok = int(torch.argmax(lg[0, 0]))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    mem = lm_memory(torch)
+    row = dict(arch=arch, overrides=overrides, params=n_params,
+               active_params=n_active, layers=cfg.num_layers,
+               frontend_tokens=fr, prefill_tokens=fr + S - 1,
+               prefill_ms=prefill_ms, decode_step_ms=step_ms,
+               mean_decode_step_ms=float(np.mean(step_ms)),
+               tokens_per_s=1e3 / float(np.mean(step_ms)),
+               decode_vs_full_max_abs=err, resident_at_start_bytes=resident,
+               **mem)
+    log(f"lm families {arch}{' ' + str(overrides) if overrides else ''}: "
+        f"{n_params} params ({n_active} active), prefill of {fr + S - 1} "
+        f"positions {prefill_ms:.1f} ms, decode {np.mean(step_ms):.2f} ms a "
+        f"step ({row['tokens_per_s']:.1f} tokens/s); decode vs full forward "
+        f"max |err| {err:.3g}; card {mem['card_used_bytes']} bytes in use, "
+        f"torch peak {mem['torch_peak_bytes']} ({resident} allocated before "
+        "the model)")
+    del model, cache, full, dec, h, fns, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def lm_family_serve_cli(torch):
+    """Phase 21 (a): LM_FAMILY_SERVE_ARCH through the serve CLI at its
+    defaults; LM_SINGLE_RIDS served alone in a 1-slot engine give the
+    batched tokens."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    arch = LM_FAMILY_SERVE_ARCH
+    torch.cuda.reset_peak_memory_stats()
+    args = serve_cli.parse_args(["--arch", arch])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        outs = serve_cli.main(["--arch", arch, "--device", DEV])
+    printed = buf.getvalue().splitlines()
+    for line in printed:
+        log(f"  {line}")
+    m = re.match(r"(\d+) completions, (\d+) tokens in [\d.]+s \(([\d.]+) "
+                 r"tok/s, (\d+) decode steps", printed[0])
+    steps = int(m.group(4))
+    by_rid = {o.rid: o for o in outs}
+    if sorted(by_rid) != list(range(args.requests)) \
+            or any(len(o.tokens) != args.max_new for o in outs):
+        raise AssertionError(f"lm families serve {arch}: completions "
+                             f"{sorted(by_rid)}, lengths "
+                             f"{sorted(len(o.tokens) for o in outs)}")
+    prefill_ms = 1e3 * float(np.mean([o.prefill_s for o in outs]))
+    decode_ms = 1e3 * sum(o.decode_s for o in outs) / steps
+    mem = lm_memory(torch)
+    torch.cuda.empty_cache()
+    cfg = registry.get_config(arch)
+    run = RunConfig(remat="none", q_chunk=64, kv_chunk=64,
+                    compute_dtype="float32")
+    model = build_model(cfg, run, DEV).init(args.seed)
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(0, cfg.vocab_size, args.prompt_len).astype(
+        np.int32) for _ in range(args.requests)]
+    for rid in LM_SINGLE_RIDS:
+        one = ServeEngine(cfg, run, model, slots=1, max_len=args.max_len,
+                          device=DEV).run_requests([Request(
+                              rid=rid, prompt=prompts[rid],
+                              max_new_tokens=args.max_new)])
+        if one[0].tokens != by_rid[rid].tokens:
+            raise AssertionError(f"lm families serve {arch}: request {rid} "
+                                 f"alone gave {one[0].tokens}, batched "
+                                 f"{by_rid[rid].tokens}")
+    del model, outs
+    torch.cuda.empty_cache()
+    row = dict(arch=arch, completions=len(by_rid), decode_steps=steps,
+               tokens_per_s=float(m.group(3)), prefill_ms=prefill_ms,
+               decode_step_ms=decode_ms, slots=args.slots,
+               single_slot_rids=list(LM_SINGLE_RIDS), **mem)
+    log(f"lm families serve {arch}: {len(by_rid)} completions of "
+        f"{args.max_new} tokens, {steps} decode steps; prefill "
+        f"{prefill_ms:.1f} ms a request, {decode_ms:.2f} ms a decode step "
+        f"({args.slots} slots), {row['tokens_per_s']:.1f} tokens/s; "
+        f"requests {list(LM_SINGLE_RIDS)} alone equal; torch peak "
+        f"{mem['torch_peak_bytes']}")
+    return row
+
+
+def lm_family_train(torch):
+    """Phase 21 (c): LM_FAMILY_TRAIN_ARCH trained at full width through the
+    CLI, its reduced config's resume bit for bit, and the train-then-serve
+    chain."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.model_zoo import active_param_count, build_model
+    from repro_torch.roofline import hw
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.optimizer import OptConfig
+
+    arch = LM_FAMILY_TRAIN_ARCH
+    cfg = registry.get_config(arch)
+    torch.cuda.empty_cache()
+    losses, steps_s, printed, mem = lm_train_cli(torch, arch)
+    m = re.match(r"init in [\d.]+s; params = ([\d,]+)", printed[0])
+    n_params = int(m.group(1).replace(",", ""))
+    n_active = active_param_count(cfg, build_model(cfg, RunConfig(),
+                                                   "meta"))
+    batch = int(LM_TRAIN_ARGV[LM_TRAIN_ARGV.index("--batch") + 1])
+    seq = int(LM_TRAIN_ARGV[LM_TRAIN_ARGV.index("--seq") + 1])
+    tokens = batch * seq
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not all(np.isfinite(losses)) or not last <= first - LM_TRAIN_DROP:
+        raise AssertionError(f"lm families train {arch}: losses {losses}")
+    step_ms = 1e3 * float(np.mean(steps_s[1:]))
+    flops = 6 * n_active * tokens
+    share = flops / (step_ms / 1e3) / hw.F32_FLOPS
+    out = dict(arch=arch, argv=list(LM_TRAIN_ARGV), params=n_params,
+               active_params=n_active, losses=losses, first5_mean=first,
+               last5_mean=last, step_ms=[1e3 * t for t in steps_s],
+               mean_step_ms=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
+               model_flops=flops, f32_peak_share=share, **mem)
+    log(f"lm families train {arch}: {n_params} params ({n_active} active), "
+        f"{len(losses)} steps of {tokens} tokens; loss {first:.4f} -> "
+        f"{last:.4f} (means of the first and last 5); {step_ms:.1f} ms a "
+        f"step over steps 2+ (first {1e3 * steps_s[0]:.1f}), "
+        f"{out['tokens_per_s']:.0f} tokens/s, {flops:.4g} model FLOPs a "
+        f"step (6 x active params x tokens) = {100 * share:.1f} % of the "
+        f"float32 peak; card {mem['card_used_bytes']} bytes in use, torch "
+        f"peak {mem['torch_peak_bytes']}")
+    torch.cuda.empty_cache()
+
+    small = registry.get_config(arch, reduced=True)
+    run = RunConfig(remat="none", q_chunk=16, kv_chunk=16, loss_chunk=16,
+                    compute_dtype="float32")
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=2, decay_steps=100)
+    src = SyntheticLM(small, *LM_FAMILY_RESUME_BATCH, seed=SEED)
+    out["resume"] = lm_resume_check(small, run, opt_cfg,
+                                    [src.batch_at(i) for i in range(10)])
+    out["resume"]["batch"] = list(LM_FAMILY_RESUME_BATCH)
+
+    # tests/test_system.py::test_lm_train_then_serve through the port's CLIs
+    d = os.path.join(ROOT, "build", "chip_smoke_family_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        tl = train_cli.main(["--arch", arch, "--reduced", "--steps", "12",
+                             "--batch", "4", "--seq", "32", "--ckpt-dir", d,
+                             "--ckpt-every", "6", "--log-every", "6",
+                             "--device", DEV])
+        outs = serve_cli.main(["--arch", arch, "--reduced", "--requests",
+                               "4", "--slots", "2", "--max-new", "4",
+                               "--max-len", "48", "--prompt-len", "6",
+                               "--ckpt-dir", d, "--device", DEV])
+    shutil.rmtree(d, ignore_errors=True)
+    if not tl[-1] < tl[0] or len(outs) != 4 \
+            or any(len(o.tokens) != 4 for o in outs):
+        raise AssertionError(f"lm families train then serve {arch}: losses "
+                             f"{tl[0]:.4f} -> {tl[-1]:.4f}, "
+                             f"{[len(o.tokens) for o in outs]} tokens")
+    out["train_then_serve"] = dict(first_loss=tl[0], last_loss=tl[-1],
+                                   completions=len(outs))
+    log(f"lm families train then serve ({small.name}): 12 steps, loss "
+        f"{tl[0]:.4f} -> {tl[-1]:.4f}, checkpoint served: "
+        f"{len(outs)} completions of 4 tokens")
+    return out
+
+
+def lm_families_phase(torch):
+    """Phase 21: the other model families served and trained on the card
+    (module docstring)."""
+    from repro_torch.configs import registry
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.cuda.empty_cache()
+    out = {"decode": [lm_family_decode(torch, arch, ov)
+                      for arch, ov in LM_FAMILY_FULL]}
+    out["serve_cli"] = lm_family_serve_cli(torch)
+    out["decode"] += [lm_family_decode(torch, arch, ov)
+                      for arch, ov in LM_FAMILY_CUT]
+    out["reduced"] = {arch: f"num_layers {ov['num_layers']} of "
+                      f"{registry.get_config(arch).num_layers}"
+                      for arch, ov in LM_FAMILY_CUT}
+    out["train"] = lm_family_train(torch)
+    out["logits_atol"] = LM_LOGITS_ATOL
     torch.cuda.empty_cache()
     return out
 
@@ -3541,6 +3869,13 @@ def main():
         log(f"lm train launches: {lm_train_launches} (the LM path runs no "
             "kernel of the graph engine)")
         mark("lm train", t0)
+        t0 = time.perf_counter()
+        reset_launches()
+        lm_families = lm_families_phase(torch)
+        lm_families_launches = read_launches()
+        log(f"lm families launches: {lm_families_launches} (the LM path runs "
+            "no kernel of the graph engine)")
+        mark("lm families", t0)
     finally:
         shutil.rmtree(store_root, ignore_errors=True)
         shutil.rmtree(ckpt_root, ignore_errors=True)
@@ -3550,7 +3885,8 @@ def main():
              "ooc": ooc_launches, **admission_launches, **mesh_launches,
              **cluster_launches, **ckpt_launches, **serve_launches,
              "tune": tune_launches, "lm serve": lm_launches,
-             "lm train": lm_train_launches}
+             "lm train": lm_train_launches,
+             "lm families": lm_families_launches}
     total = {k: sum(p[k] for p in paths.values()) for k in main_launches}
     log(f"launches by path: {paths}; total {total}")
 
@@ -3630,7 +3966,7 @@ def main():
                        serve=serve, tune_calibration=calibration,
                        tune=tune_rows, tune_runs=tune_runs,
                        baselines=baselines, lm_serve=lm_serve,
-                       lm_train=lm_train,
+                       lm_train=lm_train, lm_families=lm_families,
                        launches_by_path=paths, kernels=kernels,
                        phase_seconds=phase_s, seconds=seconds), f, indent=1)
     faulthandler.cancel_dump_traceback_later()

@@ -5,8 +5,12 @@
         --reduced --requests 16 --slots 4 --max-new 16 [--ckpt-dir DIR] \
         [--device cpu]
 
-Parameters are random from ``--seed`` (``LM.init``), or ``state["params"]``
-of a checkpoint that either package's ``CheckpointManager`` wrote
+Every decoder-only arch of the registry is served (dense, RG-LRU, RWKV6,
+mixture-of-experts, the vision frontend's text path); ``--arch
+whisper-base`` is refused before anything is built, as ``ServeEngine``
+refuses an encoder-decoder (``serve/engine.py``).  Parameters are random
+from ``--seed`` (the model's ``init``), or ``state["params"]`` of a
+checkpoint that either package's ``CheckpointManager`` wrote
 (``--ckpt-dir``).  Computes in float32 (TF32 off), on the card unless
 ``--device`` says otherwise.
 """
@@ -22,7 +26,7 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.configs.base import RunConfig
 from repro_torch.models.model_zoo import build_model, load_params
-from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.engine import Request, ServeEngine, check_servable
 from repro_torch.serve.graph_service import bind_device
 from repro_torch.train.checkpoint import CheckpointManager
 
@@ -55,6 +59,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     cfg = registry.get_config(args.arch, reduced=args.reduced)
+    check_servable(cfg)
     overrides = {}
     if args.d_model:
         overrides.update(d_model=args.d_model,

@@ -5,6 +5,9 @@ with ``--device``.
         --reduced --steps 200 --batch 8 --seq 128 --ckpt-dir DIR \
         [--device cpu]
 
+Every arch of the registry trains through the same flags: the dense,
+RG-LRU, RWKV6 and mixture-of-experts decoders, the vision frontend (its
+batches carry ``patch_embeds``) and the encoder-decoder (``enc_frames``).
 Features exercised: registry configs, synthetic deterministic data
 pipeline with prefetch, AdamW + schedule, microbatching, checkpointing
 every N steps in the reference's tree (``model_zoo.export_state``: either

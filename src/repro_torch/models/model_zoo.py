@@ -1,19 +1,29 @@
 """Build a model from a ModelConfig, count its parameters, and carry
 weights between the JAX package's parameter tree and the port's modules.
 
-The reference's tree (``LM.init``, or ``state["params"]`` of a
-``CheckpointManager`` restore) is ``{"embed": {"tok"}, "final_norm":
+The reference's decoder-only tree (``LM.init``, or ``state["params"]`` of
+a ``CheckpointManager`` restore) is ``{"embed": {"tok"}, "final_norm":
 {"scale"}, "cycles": {"<i><kind>": block}, "tail": {"<i><kind>": block}}``
-plus ``"lm_head"`` when untied, where a block is ``{"ln1": {"scale"},
-"attn": {"wq", "wk", "wv", "wo"(, "q_ln", "k_ln")}, "ln2": {"scale"},
-"mlp": {"wi", "wo"(, "wg")}}`` and every ``cycles`` leaf is stacked
-``[n_cycles, ...]``.  Block ``c·len(pattern) + i`` of the port is
-``cycles/<i><kind>[c]``; the tail follows the cycles.
+plus ``"lm_head"`` when untied, where every ``cycles`` leaf is stacked
+``[n_cycles, ...]``.  A block is ``{"ln1", "attn": {"wq", "wk", "wv",
+"wo"(, "q_ln", "k_ln")}, "ln2", "mlp": {"wi", "wo"(, "wg")}}`` for ``G``
+and ``L`` — ``"moe": {"router", "wi", "wg", "wo"}`` in place of ``mlp``
+with ``cfg.moe`` —, ``{"ln1", "rnn": {"wx", "wy", "conv", "gate_a",
+"gate_x", "a_param", "wo"}, "ln2", "mlp"}`` for ``R`` and ``{"ln1",
+"ln2", "rwkv": {"tmix": {"mix", "wr", "wk", "wv", "wg", "w_decay",
+"decay_lora_a", "decay_lora_b", "u", "ln_out", "wo"}, "cmix": {"mix",
+"wk", "wv", "wr"}}}`` for ``K`` (a norm is ``{"scale"}``).  Block
+``c·len(pattern) + i`` of the port is ``cycles/<i><kind>[c]``; the tail
+follows the cycles.  The encoder-decoder's tree is ``{"embed": {"tok"},
+"encoder": enc block, "enc_norm", "decoder": dec block, "final_norm"}``,
+every ``encoder`` and ``decoder`` leaf stacked over its layers: an enc
+block is ``{"ln1", "attn", "ln2", "mlp"}``, a dec block adds ``"ln_x"``
+and ``"cross": {"wq", "wk", "wv", "wo"}``.
 
-The train state (``train/train_step.py``) is ``{"params": LM, "opt": {"m",
-"v", "step"}, "step"[, "ef": {"residual"}]}``, where m, v and the
+The train state (``train/train_step.py``) is ``{"params": model, "opt":
+{"m", "v", "step"}, "step"[, "ef": {"residual"}]}``, where m, v and the
 residual are :func:`param_tree`-shaped: one float32 tensor for each
-parameter, a ``cycles`` leaf a list of one tensor a cycle.
+parameter, a stacked leaf a list of one tensor a cycle or layer.
 :func:`export_state` writes it as the reference's train state (every
 ``cycles`` leaf stacked) and :func:`load_state` reads that back, so a
 checkpoint of either package's train CLI resumes in the other.
@@ -23,18 +33,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from torch import nn
+
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.transformer import LM
 
 
 def build_model(cfg: ModelConfig, run: RunConfig = RunConfig(), device=None):
-    """An uninitialised :class:`LM` on ``device`` (parameters allocated,
-    filled by ``LM.init`` or :func:`load_params`).  Encoder-decoder
-    configs are ROADMAP.md A.13.3."""
+    """An uninitialised :class:`EncDecLM` for ``encoder_layers > 0``, else
+    an :class:`LM`, on ``device`` (parameters allocated, filled by
+    ``init`` or :func:`load_params`)."""
     if cfg.encoder_layers > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet "
-            "(ROADMAP.md A.13.3)")
+        return EncDecLM(cfg, run, device)
     return LM(cfg, run, device)
 
 
@@ -43,6 +54,9 @@ def _leaves(tree):
         yield from (p for _, p in tree.named_parameters())
     elif isinstance(tree, dict):
         for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
             yield from _leaves(v)
     else:
         yield tree
@@ -54,10 +68,13 @@ def param_count(params) -> int:
 
 
 def active_param_count(cfg: ModelConfig, params) -> int:
-    """MoE-aware: router + top-k experts only (for MODEL_FLOPS = 6*N_active*D)."""
+    """MoE-aware: router + top-k experts only (for MODEL_FLOPS =
+    6*N_active*D).  ``params``: a model or the reference's tree."""
     n = param_count(params)
     if not cfg.moe:
         return n
+    if isinstance(params, nn.Module):
+        params = param_tree(params)
     expert = 0
 
     def walk(tree, path=""):
@@ -66,34 +83,78 @@ def active_param_count(cfg: ModelConfig, params) -> int:
             for k, v in tree.items():
                 walk(v, path + "/" + k)
         elif "/moe/" in path and path.rsplit("/", 1)[-1] in ("wi", "wg", "wo"):
-            expert += int(np.prod(tree.shape))
+            expert += sum(int(np.prod(t.shape)) for t in
+                          (tree if isinstance(tree, list) else [tree]))
     walk(params)
     inactive = expert * (1 - cfg.experts_per_token / max(cfg.num_experts, 1))
     return int(n - inactive)
 
 
+def _norm(n) -> dict:
+    return {"scale": n.scale}
+
+
+def _attn_params(attn) -> dict:
+    out = {"wq": attn.wq, "wk": attn.wk, "wv": attn.wv, "wo": attn.wo}
+    if attn.cfg.qk_norm:
+        out["q_ln"] = _norm(attn.q_ln)
+        out["k_ln"] = _norm(attn.k_ln)
+    return out
+
+
+def _mlp_params(mlp) -> dict:
+    out = {"wi": mlp.wi, "wo": mlp.wo}
+    if mlp.wg is not None:
+        out["wg"] = mlp.wg
+    return out
+
+
 def _block_params(blk) -> dict:
     """A block's parameters in the reference's block layout."""
-    attn = {"wq": blk.attn.wq, "wk": blk.attn.wk, "wv": blk.attn.wv,
-            "wo": blk.attn.wo}
-    if blk.cfg.qk_norm:
-        attn["q_ln"] = {"scale": blk.attn.q_ln.scale}
-        attn["k_ln"] = {"scale": blk.attn.k_ln.scale}
-    mlp = {"wi": blk.mlp.wi, "wo": blk.mlp.wo}
-    if blk.mlp.wg is not None:
-        mlp["wg"] = blk.mlp.wg
-    return {"ln1": {"scale": blk.ln1.scale}, "attn": attn,
-            "ln2": {"scale": blk.ln2.scale}, "mlp": mlp}
+    if blk.kind == "K":
+        tm, cm = blk.rwkv.tmix, blk.rwkv.cmix
+        return {"ln1": _norm(blk.ln1), "ln2": _norm(blk.ln2), "rwkv": {
+            "tmix": {"mix": tm.mix, "wr": tm.wr, "wk": tm.wk, "wv": tm.wv,
+                     "wg": tm.wg, "w_decay": tm.w_decay,
+                     "decay_lora_a": tm.decay_lora_a,
+                     "decay_lora_b": tm.decay_lora_b, "u": tm.u,
+                     "ln_out": _norm(tm.ln_out), "wo": tm.wo},
+            "cmix": {"mix": cm.mix, "wk": cm.wk, "wv": cm.wv,
+                     "wr": cm.wr}}}
+    out = {"ln1": _norm(blk.ln1), "ln2": _norm(blk.ln2)}
+    if blk.kind == "R":
+        r = blk.rnn
+        out["rnn"] = {"wx": r.wx, "wy": r.wy, "conv": r.conv,
+                      "gate_a": r.gate_a, "gate_x": r.gate_x,
+                      "a_param": r.a_param, "wo": r.wo}
+    else:
+        out["attn"] = _attn_params(blk.attn)
+    if hasattr(blk, "moe"):
+        m = blk.moe
+        out["moe"] = {"router": m.router, "wi": m.wi, "wg": m.wg,
+                      "wo": m.wo}
+    else:
+        out["mlp"] = _mlp_params(blk.mlp)
+    return out
 
 
-def _layout(model: LM):
-    """(path, parameter, index into the leaf's cycle axis or None) for
+def _enc_block_params(blk) -> dict:
+    return {"ln1": _norm(blk.ln1), "attn": _attn_params(blk.attn),
+            "ln2": _norm(blk.ln2), "mlp": _mlp_params(blk.mlp)}
+
+
+def _dec_block_params(blk) -> dict:
+    c = blk.cross
+    return {"ln1": _norm(blk.ln1), "attn": _attn_params(blk.attn),
+            "ln_x": _norm(blk.ln_x),
+            "cross": {"wq": c.wq, "wk": c.wk, "wv": c.wv, "wo": c.wo},
+            "ln2": _norm(blk.ln2), "mlp": _mlp_params(blk.mlp)}
+
+
+def _layout(model):
+    """(path, parameter, index into the leaf's stack axis or None) for
     every parameter of the model, in the reference tree's paths."""
-    out = [(("embed", "tok"), model.embed_tok, None),
-           (("final_norm", "scale"), model.final_norm.scale, None)]
-    if model.lm_head is not None:
-        out.append((("lm_head",), model.lm_head, None))
-    pat, n = model.pattern, model.n_full_cycles
+    out = []
 
     def walk(tree, path, idx):
         for k, v in tree.items():
@@ -101,6 +162,21 @@ def _layout(model: LM):
                 walk(v, path + (k,), idx)
             else:
                 out.append((path + (k,), v, idx))
+
+    if isinstance(model, EncDecLM):
+        walk({"embed": {"tok": model.embed_tok},
+              "enc_norm": _norm(model.enc_norm),
+              "final_norm": _norm(model.final_norm)}, (), None)
+        for j, blk in enumerate(model.encoder):
+            walk(_enc_block_params(blk), ("encoder",), j)
+        for j, blk in enumerate(model.decoder):
+            walk(_dec_block_params(blk), ("decoder",), j)
+        return out
+    out += [(("embed", "tok"), model.embed_tok, None),
+            (("final_norm", "scale"), model.final_norm.scale, None)]
+    if model.lm_head is not None:
+        out.append((("lm_head",), model.lm_head, None))
+    pat, n = model.pattern, model.n_full_cycles
     for j, blk in enumerate(model.blocks):
         c, i = divmod(j, len(pat))
         if c < n:
@@ -118,7 +194,7 @@ def _get(tree, path):
     return tree
 
 
-def load_params(model: LM, tree) -> LM:
+def load_params(model, tree):
     """Copy the reference's parameter tree (numpy arrays or tensors) into
     ``model``; shapes must match exactly, and every parameter of the model
     must be in the tree.  Returns the model."""
@@ -137,11 +213,12 @@ def load_params(model: LM, tree) -> LM:
     return model
 
 
-def _tree_of(model: LM, value) -> dict:
-    """The reference's tree with ``value(path, parameter, cycle index or
-    None)`` at each parameter, a ``cycles`` leaf the list of its
-    per-cycle values."""
-    tree: dict = {"cycles": {}, "tail": {}}
+def _tree_of(model, value) -> dict:
+    """The reference's tree with ``value(path, parameter, stack index or
+    None)`` at each parameter, a stacked leaf the list of its per-cycle
+    (or per-layer) values."""
+    tree: dict = {} if isinstance(model, EncDecLM) else {"cycles": {},
+                                                         "tail": {}}
     for path, p, idx in _layout(model):
         node = tree
         for k in path[:-1]:
@@ -154,7 +231,7 @@ def _tree_of(model: LM, value) -> dict:
     return tree
 
 
-def param_tree(model: LM) -> dict:
+def param_tree(model) -> dict:
     """The model's parameters in the reference's tree, a ``cycles`` leaf
     the list of its per-cycle parameters (the optimizer's leaves)."""
     return _tree_of(model, lambda path, p, idx: p)
@@ -169,7 +246,7 @@ def _numpy(tree):
     return tree.detach().cpu().numpy()
 
 
-def export_params(model: LM) -> dict:
+def export_params(model) -> dict:
     """The model's parameters as the reference's tree of float32 numpy
     arrays (``cycles`` leaves stacked), the inverse of
     :func:`load_params`."""
@@ -186,7 +263,7 @@ def export_state(state: dict) -> dict:
     return out
 
 
-def _like(model: LM, tree, device) -> dict:
+def _like(model, tree, device) -> dict:
     """``tree`` (the reference's layout, stacked) as float32 tensors on
     ``device`` shaped as :func:`param_tree`."""
     def value(path, p, idx):

@@ -1,0 +1,117 @@
+"""Mixture-of-Experts FFN with sort-based dispatch — counterpart of
+``repro/models/moe.py`` on one device.
+
+Dispatch as in the reference (no ``[T, E, C]`` one-hot):
+
+  1. router top-k per token -> (expert_id, gate) pairs, flattened [T*k]
+  2. stable-sort assignments by expert; position-within-expert via
+     ``searchsorted``; drop assignments past the per-expert capacity
+     C = k*T/E * cf (rounded up to 8, at least 8)
+  3. token ids into an ``[E, C]`` grid, tokens gathered to ``[E, C, D]``,
+     the expert FFNs as batched matmuls, the gated outputs combined back
+     to ``[T, D]``.
+
+The reference combines with a scatter-add.  Here each token gathers its k
+expert outputs ``[T, k, D]`` and sums them in ascending expert order (the
+reference's scatter order), and both gathers are ``F.embedding``, whose
+backward sums repeated rows in a fixed order on the card: no float
+atomics, so two equal train steps give equal bits.  The reference shards
+the experts over a mesh axis (``cns``); serving and training over a mesh
+are ROADMAP.md A.13.2b.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models import layers as L
+
+
+def moe_capacity(num_tokens: int, cfg) -> int:
+    c = int(cfg.experts_per_token * num_tokens * cfg.moe_capacity_factor
+            / cfg.num_experts)
+    return max(8, ((c + 7) // 8) * 8)
+
+
+class MoE(nn.Module):
+    """``moe_init``: router ``[d, E]``, wi and wg ``[E, d, f]``, wo ``[E,
+    f, d]``."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+        self.cfg = cfg
+        self.router = L.new_param(d, e, device=device)
+        self.wi = L.new_param(e, d, f, device=device)
+        self.wg = L.new_param(e, d, f, device=device)
+        self.wo = L.new_param(e, f, d, device=device)
+
+    def init(self, gen: torch.Generator) -> None:
+        for w in (self.router, self.wi, self.wg, self.wo):
+            L.dense_init_(w, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return moe_apply(self, x, self.cfg)
+
+
+def moe_dispatch(eids: torch.Tensor, cfg, capacity: int):
+    """Sort-based dispatch of the top-k expert ids ``[T, K]``: returns
+    ``(slot [T, K], grid_tok [E, C])``.  ``slot`` is each assignment's
+    place ``e·C + pos`` in the flat grid, ``E·C`` where capacity dropped
+    it; ``grid_tok`` holds the token of each slot, ``T`` where none."""
+    T, K = eids.shape
+    E, C = cfg.num_experts, capacity
+    dev = eids.device
+    flat_e = eids.reshape(-1)
+    flat_t = torch.arange(T, device=dev).repeat_interleave(K)
+    order = torch.argsort(flat_e, stable=True)
+    se, st = flat_e[order], flat_t[order]
+    seg_start = torch.searchsorted(se, torch.arange(E, device=dev),
+                                   side="left")
+    pos = torch.arange(T * K, device=dev) - seg_start[se]
+    lin = torch.where(pos < C, se * C + pos, torch.full_like(se, E * C))
+    # one slot past the grid takes the dropped assignments, then goes
+    grid_tok = torch.full((E * C + 1,), T, dtype=torch.long, device=dev)
+    grid_tok[lin] = st
+    slot = torch.empty_like(lin)
+    slot[order] = lin
+    return slot.reshape(T, K), grid_tok[:E * C].reshape(E, C)
+
+
+def moe_apply(p: MoE, x: torch.Tensor, cfg) -> torch.Tensor:
+    """x: [B, S, D] -> [B, S, D]."""
+    B, S, D = x.shape
+    T = B * S
+    E = cfg.num_experts
+    C = moe_capacity(T, cfg)
+    cdt = x.dtype
+    xt = x.reshape(T, D)
+
+    logits = (xt @ p.router.to(cdt)).float()                     # [T, E]
+    gates, eids = torch.topk(logits, cfg.experts_per_token, dim=-1,
+                             sorted=True)
+    gates = torch.softmax(gates, dim=-1)
+    slot, grid_tok = moe_dispatch(eids, cfg, C)
+
+    # gather tokens -> [E, C, D]; empty slots read row T, a zero row
+    xpad = torch.cat([xt, xt.new_zeros(1, D)])
+    xe = F.embedding(grid_tok, xpad)
+
+    # expert FFN, batched over E
+    hi = torch.bmm(xe, p.wi.to(cdt))
+    hg = torch.bmm(xe, p.wg.to(cdt))
+    h = L._act(hg, cfg.act) * hi
+    ye = torch.bmm(h, p.wo.to(cdt)).reshape(E * C, D)
+
+    # combine: each token's k outputs in ascending expert order; a dropped
+    # assignment reads row E*C, a zero row
+    by_e = torch.argsort(eids, dim=-1)
+    slot = torch.gather(slot, 1, by_e)
+    g = torch.gather(gates, 1, by_e).to(cdt)
+    yk = F.embedding(slot, torch.cat([ye, ye.new_zeros(1, D)]))  # [T, K, D]
+    yk = yk * g[..., None]
+    out = yk[:, 0]
+    for k in range(1, yk.shape[1]):
+        out = out + yk[:, k]
+    return out.reshape(B, S, D)

@@ -1,0 +1,194 @@
+"""RWKV6 "Finch" block (arXiv:2404.05892): attention-free time mixing with
+data-dependent per-channel decay, plus the squared-ReLU channel mix —
+counterpart of ``repro/models/rwkv6.py``.
+
+Time mix (per head, Dk = Dv = head size):
+    state_t = diag(w_t) state_{t-1} + k_t^T v_t          [Dk, Dv]
+    out_t   = r_t (state_{t-1} + diag(u) k_t^T v_t)
+with w_t = exp(-exp(w0 + lora_w(x_t))) in (0,1) data-dependent.
+
+Train and prefill loop over time, one step at a time as the reference's
+``lax.scan``; decode is the single step.  Under autograd every step keeps
+its ``[B, H, 64, 64]`` float32 state, so a long full-width train step
+holds S of them a layer.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models import layers as L
+
+LORA_RANK = 32
+
+
+def rwkv_head_dim(cfg) -> int:
+    return 64
+
+
+class TimeMix(nn.Module):
+    """``rwkv_init``'s ``tmix``: mix ``[5, d]`` (r, k, v, g, w), wr, wk,
+    wv, wg and wo ``[d, d]``, w_decay and u ``[H, 64]``, decay_lora_a
+    ``[d, 32]``, decay_lora_b ``[32, d]``, ln_out."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        d = cfg.d_model
+        dh = rwkv_head_dim(cfg)
+        h = d // dh
+        self.mix = L.new_param(5, d, device=device)
+        self.wr = L.new_param(d, d, device=device)
+        self.wk = L.new_param(d, d, device=device)
+        self.wv = L.new_param(d, d, device=device)
+        self.wg = L.new_param(d, d, device=device)
+        self.w_decay = L.new_param(h, dh, device=device)
+        self.decay_lora_a = L.new_param(d, LORA_RANK, device=device)
+        self.decay_lora_b = L.new_param(LORA_RANK, d, device=device)
+        self.u = L.new_param(h, dh, device=device)
+        self.ln_out = L.Norm(d, device)
+        self.wo = L.new_param(d, d, device=device)
+
+    def init(self, gen: torch.Generator) -> None:
+        """The reference's distributions: mix uniform in [0, 1), w_decay
+        -2 + normal · 0.1, decay_lora_b dense · 0.1, u normal · 0.5."""
+        for w in (self.wr, self.wk, self.wv, self.wg, self.decay_lora_a,
+                  self.decay_lora_b, self.wo):
+            L.dense_init_(w, gen)
+        with torch.no_grad():
+            self.mix.uniform_(0.0, 1.0, generator=gen)
+            self.w_decay.normal_(generator=gen).mul_(0.1).add_(-2.0)
+            self.decay_lora_b.mul_(0.1)
+            self.u.normal_(generator=gen).mul_(0.5)
+        self.ln_out.init(gen)
+
+
+class ChannelMix(nn.Module):
+    """``rwkv_init``'s ``cmix``: mix ``[2, d]`` (k, r), wk ``[d, f]``, wv
+    ``[f, d]``, wr ``[d, d]``."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        d = cfg.d_model
+        self.mix = L.new_param(2, d, device=device)
+        self.wk = L.new_param(d, cfg.d_ff, device=device)
+        self.wv = L.new_param(cfg.d_ff, d, device=device)
+        self.wr = L.new_param(d, d, device=device)
+
+    def init(self, gen: torch.Generator) -> None:
+        for w in (self.wk, self.wv, self.wr):
+            L.dense_init_(w, gen)
+        with torch.no_grad():
+            self.mix.uniform_(0.0, 1.0, generator=gen)
+
+
+class RWKV(nn.Module):
+    """``{"tmix", "cmix"}``."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        self.tmix = TimeMix(cfg, device)
+        self.cmix = ChannelMix(cfg, device)
+
+    def init(self, gen: torch.Generator) -> None:
+        self.tmix.init(gen)
+        self.cmix.init(gen)
+
+
+def _token_shift(x, last):
+    """previous token's activation; last: [B, 1, D] carried state."""
+    return torch.cat([last.to(x.dtype), x[:, :-1]], dim=1)
+
+
+def _tm_inputs(p: TimeMix, x, prev):
+    xx = prev - x
+    mix = p.mix.to(x.dtype)
+    return tuple(x + xx * mix[i] for i in range(5))   # xr, xk, xv, xg, xw
+
+
+def time_mix(p: TimeMix, x, cfg, cache=None):
+    """x: [B, S, D]; cache: ``{"shift": [B,1,D], "state": [B,H,Dk,Dv]}``
+    or None.  Returns (out, new cache); a given cache is written in place
+    (shift in its dtype, state float32)."""
+    B, S, D = x.shape
+    dh = rwkv_head_dim(cfg)
+    H = D // dh
+    cdt = x.dtype
+    last = x.new_zeros((B, 1, D)) if cache is None else cache["shift"]
+    prev = _token_shift(x, last)
+    xr, xk, xv, xg, xw = _tm_inputs(p, x, prev)
+
+    r = (xr @ p.wr.to(cdt)).reshape(B, S, H, dh)
+    k = (xk @ p.wk.to(cdt)).reshape(B, S, H, dh)
+    v = (xv @ p.wv.to(cdt)).reshape(B, S, H, dh)
+    g = F.silu(xg @ p.wg.to(cdt))
+    lora = torch.tanh(xw @ p.decay_lora_a.to(cdt)) @ p.decay_lora_b.to(cdt)
+    w = torch.exp(-torch.exp(
+        (p.w_decay.reshape(1, 1, H, dh) + lora.reshape(B, S, H, dh))
+        .float()))                                               # [B,S,H,dh]
+
+    u = p.u.float()[None, :, :, None]
+    state = (x.new_zeros((B, H, dh, dh), dtype=torch.float32)
+             if cache is None else cache["state"].float())
+    rf, kf, vf = r.float(), k.float(), v.float()
+    outs = []
+    for t in range(S):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]        # [B,H,dk,dv]
+        outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], state + u * kv))
+        state = w[:, t, :, :, None] * state + kv
+    out = torch.stack(outs, dim=1).reshape(B, S, D).to(cdt)
+
+    out = p.ln_out(out, "rmsnorm", cfg.norm_eps) * g
+    out = out @ p.wo.to(cdt)
+    if cache is None:
+        return out, {"shift": x[:, -1:], "state": state}
+    cache["shift"].copy_(x[:, -1:])
+    cache["state"].copy_(state)
+    return out, cache
+
+
+def channel_mix(p: ChannelMix, x, cfg, cache=None):
+    """Returns (out, new cache ``{"shift"}``); a given cache is written in
+    place."""
+    B, S, D = x.shape
+    cdt = x.dtype
+    last = x.new_zeros((B, 1, D)) if cache is None else cache["shift"]
+    prev = _token_shift(x, last)
+    xx = prev - x
+    mix = p.mix.to(cdt)
+    xk = x + xx * mix[0]
+    xr = x + xx * mix[1]
+    k = torch.square(torch.relu(xk @ p.wk.to(cdt)))
+    r = torch.sigmoid(xr @ p.wr.to(cdt))
+    out = r * (k @ p.wv.to(cdt))
+    if cache is None:
+        return out, {"shift": x[:, -1:]}
+    cache["shift"].copy_(x[:, -1:])
+    return out, cache
+
+
+def rwkv_block_apply(p: RWKV, x, cfg, ln1, ln2, cache=None):
+    """Full RWKV block: x + TimeMix(ln1(x)); x + ChannelMix(ln2(x)).
+    Returns (x, cache): the given cache written in place, or without one
+    a new cache, as the reference returns one in train mode too."""
+    tc = None if cache is None else cache["tmix"]
+    cc = None if cache is None else cache["cmix"]
+    h, new_tc = time_mix(p.tmix, ln1(x, cfg.norm, cfg.norm_eps), cfg, tc)
+    x = x + h
+    h, new_cc = channel_mix(p.cmix, ln2(x, cfg.norm, cfg.norm_eps), cfg, cc)
+    x = x + h
+    return x, {"tmix": new_tc, "cmix": new_cc}
+
+
+def rwkv_cache_init(batch: int, cfg, dtype=torch.bfloat16, device=None):
+    d = cfg.d_model
+    dh = rwkv_head_dim(cfg)
+    h = d // dh
+    return {
+        "tmix": {"shift": torch.zeros((batch, 1, d), dtype=dtype,
+                                      device=device),
+                 "state": torch.zeros((batch, h, dh, dh),
+                                      dtype=torch.float32, device=device)},
+        "cmix": {"shift": torch.zeros((batch, 1, d), dtype=dtype,
+                                      device=device)},
+    }

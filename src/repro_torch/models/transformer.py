@@ -1,6 +1,8 @@
-"""Decoder-only LM over the dense layer patterns ``G`` (global attention)
-and ``L`` (sliding-window attention) — counterpart of
-``repro/models/transformer.py``.
+"""Decoder-only LM over heterogeneous layer patterns — counterpart of
+``repro/models/transformer.py``.  Layer kinds: ``G`` (global attention),
+``L`` (sliding-window attention), ``R`` (RG-LRU, ``models/rglru.py``) and
+``K`` (RWKV6, ``models/rwkv6.py``); with ``cfg.moe`` the attention blocks'
+FFN is a mixture of experts (``models/moe.py``).
 
 The reference stacks full cycles of ``cfg.layer_pattern`` and scans over
 them; here :class:`LM` holds its blocks in a ``ModuleList`` in the order
@@ -8,8 +10,10 @@ they run (cycle c applies pattern[0], pattern[1], ... in turn, then the
 tail), so block ``c·len(pattern) + i`` is the reference's stacked leaf
 ``cycles/<i><kind>[c]`` and block ``n_cycles·len(pattern) + i`` its
 ``tail/<i><kind>`` (``model_zoo.load_params`` / ``export_params``).  A
-cache is a list of ``{"k", "v"}`` tensors ``[B, S, Hkv, Dh]``, one a
-block; the writes go into it in place.
+cache is a list with one entry a block, written in place: ``{"k", "v"}``
+``[B, S, Hkv, Dh]`` for ``G`` and ``L``, ``{"conv" [B, W-1, R], "h" [B,
+R]}`` for ``R``, ``{"tmix": {"shift" [B, 1, D], "state" [B, H, 64, 64]},
+"cmix": {"shift"}}`` for ``K`` (``h`` and ``state`` float32).
 
 Three entry modes share the block code:
   train   — full-sequence forward, no cache, blockwise attention
@@ -21,8 +25,9 @@ Training (``loss``, ``chunked_xent``) runs train mode with autograd: with
 ``torch.utils.checkpoint`` region (the reference checkpoints its
 ``cycle_body``); the tail is not wrapped, as in the reference.
 
-Layer kinds ``R`` (RG-LRU) and ``K`` (RWKV6) and mixture-of-experts FFNs
-are ROADMAP.md A.13.3.
+A vision frontend's ``patch_embeds`` (``extra_embeds``) go before the
+token embeddings, ahead of ``embed_scale``; a decode after a prefill of
+F of them and S tokens runs at ``cache_len = F + S``.
 """
 from __future__ import annotations
 
@@ -35,8 +40,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import layers as L
-
-_LATER_KINDS = {"R": "RG-LRU", "K": "RWKV6"}
+from repro_torch.models import moe as M
+from repro_torch.models import rglru as R
+from repro_torch.models import rwkv6 as K
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -57,22 +63,8 @@ def _mask_pad_logits(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _check_kind(kind: str) -> None:
-    if kind in _LATER_KINDS:
-        raise NotImplementedError(
-            f"layer kind {kind} ({_LATER_KINDS[kind]}) is not ported yet "
-            "(ROADMAP.md A.13.3)")
-    if kind not in ("G", "L"):
+    if kind not in ("G", "L", "R", "K"):
         raise ValueError(f"unknown layer kind {kind}")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what this slice does not serve."""
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts FFNs are not ported yet "
-            "(ROADMAP.md A.13.3)")
-    for kind in cfg.layer_pattern:
-        _check_kind(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -81,9 +73,14 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
-    """One block's K/V buffers: max_len positions for ``G``, the last
-    min(max_len, sliding_window) for ``L`` (a rolling buffer)."""
+    """One block's cache: K/V buffers of max_len positions for ``G``, of
+    the last min(max_len, sliding_window) for ``L`` (a rolling buffer);
+    the recurrent states of ``R`` and ``K``."""
     _check_kind(kind)
+    if kind == "R":
+        return R.rnn_cache_init(batch, cfg, dtype, device)
+    if kind == "K":
+        return K.rwkv_cache_init(batch, cfg, dtype, device)
     hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim()
     s = max_len if kind == "G" else min(max_len, cfg.sliding_window)
     return {"k": torch.zeros((batch, s, hkv, dh), dtype=dtype, device=device),
@@ -125,8 +122,9 @@ def _write_decode_cache(cache_kv: dict, k1, v1, cache_len,
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """An attention block of kind ``G`` or ``L`` (``block_init``): ln1,
-    attn, ln2, mlp."""
+    """One block (``block_init``): ln1, attn, ln2 and mlp — or moe — for
+    ``G`` and ``L``; ln1, rnn, ln2, mlp for ``R``; ln1, ln2, rwkv for
+    ``K``."""
 
     def __init__(self, cfg: ModelConfig, run: RunConfig, kind: str,
                  device=None):
@@ -134,17 +132,41 @@ class Block(nn.Module):
         _check_kind(kind)
         self.cfg, self.run, self.kind = cfg, run, kind
         self.ln1 = L.Norm(cfg.d_model, device)
-        self.attn = L.Attention(cfg, device)
+        if kind == "K":
+            self.ln2 = L.Norm(cfg.d_model, device)
+            self.rwkv = K.RWKV(cfg, device)
+            return
+        if kind == "R":
+            self.rnn = R.RGLRU(cfg, device)
+        else:
+            self.attn = L.Attention(cfg, device)
         self.ln2 = L.Norm(cfg.d_model, device)
-        self.mlp = L.MLP(cfg, device=device)
+        if cfg.moe and kind != "R":
+            self.moe = M.MoE(cfg, device)
+        else:
+            self.mlp = L.MLP(cfg, device=device)
 
     def init(self, gen: torch.Generator) -> None:
-        for m in (self.ln1, self.attn, self.ln2, self.mlp):
+        for m in self.children():
             m.init(gen)
+
+    def ffn(self, h):
+        return self.moe(h) if hasattr(self, "moe") else self.mlp(h)
 
     def forward(self, x, mode: str, cache, cache_len, positions):
         """Returns (x, cache)."""
         cfg, run = self.cfg, self.run
+        if mode not in ("train", "prefill", "decode"):
+            raise ValueError(f"unknown mode {mode}")
+        c = cache if mode != "train" else None
+        if self.kind == "K":
+            return K.rwkv_block_apply(self.rwkv, x, cfg, self.ln1, self.ln2,
+                                      cache=c)
+        if self.kind == "R":
+            h, c = self.rnn(self.ln1(x, cfg.norm, cfg.norm_eps), c)
+            x = x + h
+            h = self.ln2(x, cfg.norm, cfg.norm_eps)
+            return x + self.ffn(h), c
         window = cfg.sliding_window if self.kind == "L" else None
         h = self.ln1(x, cfg.norm, cfg.norm_eps)
         q, k, v = self.attn.qkv(h, positions)
@@ -155,18 +177,52 @@ class Block(nn.Module):
                 q_chunk=run.q_chunk, kv_chunk=run.kv_chunk, scores_dtype=sdt)
             if mode == "prefill":
                 cache = _write_prefill_cache(cache, k, v, window)
-        elif mode == "decode":
+        else:
             cache = _write_decode_cache(cache, k, v, cache_len, window)
             cl = torch.as_tensor(cache_len, device=x.device) + 1
             if window is not None:
                 cl = torch.clamp(cl, max=cache["k"].shape[1])
             o = L.decode_attention(q, cache["k"], cache["v"], cl,
                                    window=None, softcap=cfg.attn_softcap)
-        else:
-            raise ValueError(f"unknown mode {mode}")
         x = x + self.attn.out(o)
         h = self.ln2(x, cfg.norm, cfg.norm_eps)
-        return x + self.mlp(h), cache
+        return x + self.ffn(h), cache
+
+
+def chunked_xent(h: torch.Tensor, labels, emb: torch.Tensor,
+                 cfg: ModelConfig, loss_chunk: int) -> torch.Tensor:
+    """Mean token xent of hidden states ``h`` against ``emb [D, V]`` over
+    ``loss_chunk`` positions at a time, as the reference: labels padded
+    with -1 to a whole chunk, float32 logits (softcapped, pad vocab at
+    -1e30), logsumexp over the padded vocab, the target gathered at
+    max(label, 0), terms with label < 0 dropped, the sum over max(count,
+    1)."""
+    B, S, D = h.shape
+    labels = torch.as_tensor(labels, device=h.device).long()
+    chunk = min(loss_chunk, S)
+    n = (S + chunk - 1) // chunk
+    pad = n * chunk - S
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    cap = cfg.logit_softcap
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(n):
+        hc = h[:, c * chunk:(c + 1) * chunk]
+        lc = labels[:, c * chunk:(c + 1) * chunk]
+        logits = (hc @ emb.to(hc.dtype)).float()
+        if cap:
+            logits = torch.tanh(logits / cap) * cap
+        logits = _mask_pad_logits(logits, cfg)
+        lse = torch.logsumexp(logits, dim=-1)
+        valid = lc >= 0
+        tgt = torch.gather(logits, -1,
+                           torch.clamp(lc, min=0)[..., None])[..., 0]
+        nll = (lse - tgt) * valid
+        tot = tot + nll.sum()
+        cnt = cnt + valid.sum()
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -182,7 +238,6 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, run: RunConfig = RunConfig(),
                  device=None):
         super().__init__()
-        check_supported(cfg)
         self.cfg, self.run = cfg, run
         vp = padded_vocab(cfg)
         self.embed_tok = L.new_param(vp, cfg.d_model, device=device)
@@ -249,7 +304,8 @@ class LM(nn.Module):
         x = F.embedding(torch.as_tensor(tokens, device=self.device).long(),
                         self.embed_tok).to(cdt)
         if extra_embeds is not None:
-            x = torch.cat([extra_embeds.to(cdt), x], dim=1)
+            x = torch.cat([torch.as_tensor(extra_embeds, device=x.device)
+                           .to(cdt), x], dim=1)
         if cfg.embed_scale:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdt,
                                  device=x.device)
@@ -313,38 +369,8 @@ class LM(nn.Module):
         return self.chunked_xent(h, labels)
 
     def chunked_xent(self, h: torch.Tensor, labels) -> torch.Tensor:
-        """Mean token xent over ``loss_chunk`` positions at a time, as the
-        reference: labels padded with -1 to a whole chunk, float32 logits
-        (softcapped, pad vocab at -1e30), logsumexp over the padded vocab,
-        the target gathered at max(label, 0), terms with label < 0
-        dropped, the sum over max(count, 1)."""
-        B, S, D = h.shape
-        labels = torch.as_tensor(labels, device=h.device).long()
-        chunk = min(self.run.loss_chunk, S)
-        n = (S + chunk - 1) // chunk
-        pad = n * chunk - S
-        if pad:
-            h = F.pad(h, (0, 0, 0, pad))
-            labels = F.pad(labels, (0, pad), value=-1)
-        emb = self.unembed()
-        cap = self.cfg.logit_softcap
-        tot = torch.zeros((), dtype=torch.float32, device=h.device)
-        cnt = torch.zeros((), dtype=torch.float32, device=h.device)
-        for c in range(n):
-            hc = h[:, c * chunk:(c + 1) * chunk]
-            lc = labels[:, c * chunk:(c + 1) * chunk]
-            logits = (hc @ emb.to(hc.dtype)).float()
-            if cap:
-                logits = torch.tanh(logits / cap) * cap
-            logits = _mask_pad_logits(logits, self.cfg)
-            lse = torch.logsumexp(logits, dim=-1)
-            valid = lc >= 0
-            tgt = torch.gather(logits, -1,
-                               torch.clamp(lc, min=0)[..., None])[..., 0]
-            nll = (lse - tgt) * valid
-            tot = tot + nll.sum()
-            cnt = cnt + valid.sum()
-        return tot / torch.clamp(cnt, min=1.0)
+        return chunked_xent(h, labels, self.unembed(), self.cfg,
+                            self.run.loss_chunk)
 
     # -- serving ----------------------------------------------------------
     def prefill(self, tokens, cache, extra_embeds=None):

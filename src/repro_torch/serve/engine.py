@@ -4,15 +4,20 @@ counterpart of ``repro/serve/engine.py``.
 Requests carry their own prompt/length; the engine keeps B cache slots:
 
   * empty slots are filled one at a time: the request's prompt is
-    prefilled into a fresh 1-slot cache, whose K/V is inserted into the
-    batched cache, with a per-slot cache_len vector;
+    prefilled into a fresh 1-slot cache, whose state — K/V, RG-LRU's conv
+    and h, RWKV6's shifts and state — is inserted into the batched cache,
+    with a per-slot cache_len vector;
   * one decode step advances every active slot;
   * finished slots (EOS or max_new) are refilled from the queue.
 
-Only the dense decoders (layer kinds ``G`` and ``L``) are served in this
-slice; the stateful kinds are ROADMAP.md A.13.3.  The engine runs on one
-device, ``"cuda"`` by default, and raises when CUDA is asked for and
-PyTorch sees no card; it never falls back to the CPU.
+Every decoder-only family is served: layer kinds ``G``, ``L``, ``R`` and
+``K``, mixture-of-experts FFNs, and a vision frontend's text path (a
+request carries tokens only).  An encoder-decoder config is refused: its
+prefill needs ``enc_frames``, which a request does not carry (the
+reference's engine dies on it, ROADMAP.md C); serve it through
+``serve_step.build_serve_fns``.  The engine runs on one device,
+``"cuda"`` by default, and raises when CUDA is asked for and PyTorch sees
+no card; it never falls back to the CPU.
 """
 from __future__ import annotations
 
@@ -49,14 +54,30 @@ class Completion:
     decode_s: float = 0.0
 
 
-def _insert_slot(batched: list, single: list, slot: int) -> list:
-    """Insert a 1-batch cache (a list of per-block ``{"k", "v"}``) into
-    slot ``slot`` of a batched cache, in place — batch axis 0 of every
-    tensor (the reference's axis 1 under its stacked ``cycles``)."""
-    for full, one in zip(batched, single):
-        for name, t in full.items():
-            t[slot] = one[name][0]
+def _insert_slot(batched, single, slot: int):
+    """Insert a 1-batch cache (a list of per-block dicts of tensors, nested
+    for ``K``) into slot ``slot`` of a batched cache, in place — batch
+    axis 0 of every tensor (the reference's axis 1 under its stacked
+    ``cycles``)."""
+    if isinstance(batched, torch.Tensor):
+        batched[slot] = single[0]
+        return batched
+    items = (batched.items() if isinstance(batched, dict)
+             else enumerate(batched))
+    for key, full in items:
+        _insert_slot(full, single[key], slot)
     return batched
+
+
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise ValueError for an encoder-decoder config (module docstring)."""
+    if cfg.encoder_layers > 0:
+        raise ValueError(
+            f"{cfg.name}: ServeEngine serves decoder-only models; an "
+            "encoder-decoder's prefill needs enc_frames, which a request "
+            "does not carry (the reference's engine calls model.prefill "
+            "without them and dies with a TypeError).  Serve it through "
+            "serve_step.build_serve_fns.")
 
 
 class ServeEngine:
@@ -71,6 +92,7 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, run: RunConfig, params,
                  slots: int = 4, max_len: int = 512,
                  cache_dtype=torch.float32, device: str = "cuda"):
+        check_servable(cfg)
         self.device = torch.device(bind_device(device))
         self.cfg = cfg
         self.run = run

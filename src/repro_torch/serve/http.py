@@ -178,6 +178,12 @@ class _Handler(BaseHTTPRequestHandler):
                 self.close_connection = True
                 return
         body = json.dumps(payload).encode("utf-8")
+        # counted before the body goes out: a client holding its answer
+        # always finds it in the counters
+        if status >= 500:
+            self._count("errors_5xx")
+        elif status >= 400:
+            self._count("errors_4xx")
         self.send_response(status)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(body)))
@@ -185,10 +191,6 @@ class _Handler(BaseHTTPRequestHandler):
             self.send_header("Retry-After", str(retry_after))
         self.end_headers()
         self.wfile.write(body)
-        if status >= 500:
-            self._count("errors_5xx")
-        elif status >= 400:
-            self._count("errors_4xx")
 
     def _guarded(self, fn) -> None:
         """Run one route; any uncaught exception becomes a structured 500

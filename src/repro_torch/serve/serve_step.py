@@ -20,14 +20,14 @@ def build_serve_fns(cfg: ModelConfig, run: RunConfig, mesh=None,
     """Returns dict(model, init_cache, prefill, decode, shardings=None,
     rules=None).  ``prefill(params, cache, batch_inputs)`` and
     ``decode(params, cache, token, cache_len)`` return ``(cache,
-    logits)``; ``params`` is an LM, or the reference's parameter tree,
-    which is loaded into ``model`` (once per tree object)."""
+    logits)``; ``params`` is a model, or the reference's parameter tree,
+    which is loaded into ``model`` (once per tree object).
+    ``batch_inputs`` holds ``tokens`` and, for an encoder-decoder,
+    ``enc_frames`` (the prefilled cache then carries the cross-attention
+    K/V), or for a vision frontend ``patch_embeds``."""
     if mesh is not None:
         raise NotImplementedError("serving over a device mesh is not "
                                   "ported yet (ROADMAP.md A.13.2b)")
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend "
-                                  "is not ported yet (ROADMAP.md A.13.3)")
     model = model_zoo.build_model(cfg, run, device)
     loaded = [None]
 
@@ -44,7 +44,12 @@ def build_serve_fns(cfg: ModelConfig, run: RunConfig, mesh=None,
 
     @torch.inference_mode()
     def prefill(params, cache, batch_inputs):
-        return _model(params).prefill(batch_inputs["tokens"], cache)
+        m = _model(params)
+        tokens = torch.as_tensor(batch_inputs["tokens"], device=m.device)
+        if cfg.encoder_layers > 0:
+            return m.prefill(tokens, cache, batch_inputs["enc_frames"])
+        return m.prefill(tokens, cache,
+                         extra_embeds=batch_inputs.get("patch_embeds"))
 
     @torch.inference_mode()
     def decode(params, cache, token, cache_len):

@@ -3,7 +3,7 @@ gradient compression — the counterpart of ``repro/train/train_step.py``
 on one device.
 
 ``build_train_step`` returns ``(step_fn, init_state, None)``.  The train
-state is ``{"params": LM, "opt": {"m", "v", "step"}, "step"[, "ef":
+state is ``{"params": model, "opt": {"m", "v", "step"}, "step"[, "ef":
 {"residual"}]}`` (``models/model_zoo.py``); ``step_fn(state, batch)``
 updates it in place, as the reference donates it, and returns ``(state,
 stats)`` with the reference's stats: ``loss``, ``lr``, ``grad_norm``, and
@@ -28,10 +28,15 @@ from repro_torch.train import optimizer as opt
 
 def model_loss_fn(model, cfg: ModelConfig):
     """Uniform loss entry point across families: ``loss_fn(params,
-    batch)``, where ``params`` is the LM whose weights to use (the port's
-    modules hold their weights; ``model`` when None)."""
+    batch)``, where ``params`` is the model whose weights to use (the
+    port's modules hold their weights; ``model`` when None).  An
+    encoder-decoder takes ``batch["enc_frames"]``, a vision frontend
+    ``batch["patch_embeds"]``."""
     def loss_fn(params, batch):
         m = model if params is None else params
+        if cfg.encoder_layers > 0:
+            return m.loss(batch["tokens"], batch["labels"],
+                          batch["enc_frames"])
         if cfg.frontend == "vision":
             return m.loss(batch["tokens"], batch["labels"],
                           extra_embeds=batch["patch_embeds"])
@@ -73,18 +78,14 @@ def build_train_step(
     device: str = "cuda",
 ):
     """Returns ``(step_fn, init_state, None)`` (module docstring).
-    ``init_state(seed)`` builds ``LM.init(seed)`` and zeroed optimizer
+    ``init_state(seed)`` builds the model's ``init(seed)`` and zeroed optimizer
     state on ``device``, which is the card unless the caller asks for
     another: without one it raises, as ``ServeEngine`` does.  With
     ``donate=False`` the step leaves its input state as it was."""
     if mesh is not None or rules is not None:
         raise NotImplementedError("training over a device mesh is not "
                                   "ported yet (ROADMAP.md A.13.2b)")
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend "
-                                  "is not ported yet (ROADMAP.md A.13.3)")
     device = bind_device(device)
-    model_zoo.build_model(cfg, run, "meta")   # refuses what is not ported
     loss_fn = model_loss_fn(None, cfg)
     use_ef = run.grad_compression == "topk"
 

@@ -47,8 +47,8 @@ def test_importing_every_module_loads_no_jax():
         assert name in names.split()
 
 
-# the A.13.1 modules (the configs, the dense decoders and their serving)
-# and the training of A.13.2
+# the A.13.1 modules (the configs, the dense decoders and their serving),
+# the training of A.13.2 and the families of A.13.3
 LM_MODULES = (
     "repro_torch.configs.base", "repro_torch.configs.registry",
     *(f"repro_torch.configs.{m}" for m in (
@@ -60,7 +60,10 @@ LM_MODULES = (
     "repro_torch.serve.serve_step", "repro_torch.launch.serve",
     # A.13.2's single-device half: training
     "repro_torch.train.data", "repro_torch.train.optimizer",
-    "repro_torch.train.train_step", "repro_torch.launch.train")
+    "repro_torch.train.train_step", "repro_torch.launch.train",
+    # A.13.3: the other families
+    "repro_torch.models.moe", "repro_torch.models.rglru",
+    "repro_torch.models.rwkv6", "repro_torch.models.encdec")
 
 
 def test_config_modules_mirror_the_reference():

@@ -282,14 +282,6 @@ def test_load_params_refuses_a_wrong_shape():
         tzoo.load_params(tm, tree)
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-1.6b",
-                                  "dbrx-132b", "granite-moe-1b-a400m",
-                                  "whisper-base"])
-def test_later_families_raise_naming_their_slice(arch):
-    with pytest.raises(NotImplementedError, match="A.13.3"):
-        tzoo.build_model(treg.get_config(arch, reduced=True))
-
-
 def test_registry_matches_reference():
     """ARCH_IDS, every config, the rule sets, default run configs,
     input_specs' shapes and dtypes and synthetic_batch equal the

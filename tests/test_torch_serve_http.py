@@ -591,6 +591,17 @@ def test_error_statuses_equal_reference(store):
         port, ref = (answers(fe) for fe in fes)
         assert port == ref
         assert port[-2][:2] == (503, "1") and port[-1][0] == 503
+        # the reference counts an error after writing its body, so a client
+        # can hold its last answer before the handler has counted it: wait
+        # until each frontend has counted every error it answered
+        for fe, out in zip(fes, (port, ref)):
+            n_err = sum(1 for a in out if a[0] >= 400)
+            deadline = time.monotonic() + 5.0
+            while time.monotonic() < deadline:
+                c = fe.counters()
+                if c.get("errors_4xx", 0) + c.get("errors_5xx", 0) == n_err:
+                    break
+                time.sleep(0.01)
         assert fes[0].counters() == fes[1].counters()
     finally:
         for fe in fes:

@@ -421,11 +421,6 @@ def test_build_train_step_needs_a_card_unless_told_cpu():
 def test_build_train_step_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="A.13.2b"):
         tts.build_train_step(CFG, RUN, mesh=object(), device="cpu")
-    for arch in ("granite-moe-1b-a400m", "rwkv6-1.6b", "whisper-base",
-                 "internvl2-76b"):
-        with pytest.raises(NotImplementedError, match="A.13.3"):
-            tts.build_train_step(treg.get_config(arch, reduced=True), RUN,
-                                 device="cpu")
 
 
 STEP_LINE = re.compile(r"step +(\d+) loss ([\d.]+) lr \S+ gnorm [\d.]+ \| "
@@ -494,8 +489,9 @@ def test_cli_prints_the_reference_lines_and_resumes(tmp_path, capsys):
 
 def test_cli_train_then_serve(tmp_path):
     """Dense counterpart of tests/test_system.py::test_lm_train_then_serve
-    (whose granite-moe waits for A.13.3): train qwen3-1.7b reduced with
-    checkpoints, then serve the trained checkpoint through --ckpt-dir."""
+    (granite-moe's is in tests/test_torch_families_lm.py): train qwen3-1.7b
+    reduced with checkpoints, then serve the trained checkpoint through
+    --ckpt-dir."""
     from repro_torch.launch import serve as tserve
     from repro_torch.launch import train as ttrain
 
