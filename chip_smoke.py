@@ -283,6 +283,23 @@
     through both CLIs.  ms a prefill and a decode step, tokens/s and
     torch's peak are logged for each arch.  This path runs no kernel of
     the graph engine: its counts are read and logged as zero.
+22. The language models over a device mesh ("lm mesh"), float32, TF32
+    off: a process group of one rank (NCCL) and a (1, 1) ("data",
+    "model") mesh, every parameter a DTensor.  (a) Phase 20 (a)'s job
+    through train_step.build_train_step(mesh=...), fsdp and ZeRO-1: its
+    losses against phase 20 (a)'s within LM_TRAIN_MB_TOL, ms a step beside
+    phase 20 (a)'s, torch's peak; (b) qwen3-1.7b through
+    serve_step.build_serve_fns(mesh=...), batch 4, 23 prefilled and 1
+    decoded, KV heads and then the sequence over "model": the logits
+    against the full forward within LM_LOGITS_ATOL and the mesh-free
+    functions' within LM_MESH_SERVE_ATOL, 3 decode steps timed, then one
+    more under torch.profiler (wall, device busy, host ops) beside the
+    mesh-free one's; (c) at the reduced config: a mesh job failed at step
+    5 and resumed against 10 straight steps, runtime/elastic.reshard off
+    the mesh and back and rescale_via_checkpoint, each bit for bit, and
+    seq_sharded_decode_attention at one shard within LM_MESH_FLASH_ATOL of
+    decode_attention.  Its counts are read and logged as zero.  The
+    process group is destroyed at the phase's end.
 
 Phase 11, the out-of-core part of 12 ("admission ooc", admission_ooc)
 and part c of 15 (checkpoint_ooc) run in three spawned side processes
@@ -292,7 +309,7 @@ work that leaves the card idle, so they run on other cores beside phases
 side's kernels count in its process and report; its lines are logged
 when it is joined.
 
-Phases 5, 6, 8, 9, 11, 13, 14, 16, 17c, 19, 20 and 21, the in-memory session of
+Phases 5, 6, 8, 9, 11, 13, 14, 16, 17c, 19, 20, 21 and 22, the in-memory session of
 12 and its out-of-core session ("admission ooc") and each part of 15
 ("checkpoint" sums a and b, then "checkpoint ooc", "cluster restart") set
 every kernel's launch counter to 0 just before and read it just after
@@ -375,6 +392,10 @@ LM_FAMILY_TIMED = 3               # greedy decode steps timed after it
 LM_FAMILY_SERVE_ARCH = "rwkv6-1.6b"   # phase 21 (a): through the serve CLI
 LM_FAMILY_TRAIN_ARCH = "granite-moe-1b-a400m"  # phase 21 (c)
 LM_FAMILY_RESUME_BATCH = (8, 256)  # reduced granite-moe: 4,096 assignments
+LM_MESH_SHAPE = (1, 1)            # phase 22: ("data", "model"), NCCL
+LM_MESH_SERVE = dict(batch=4, max_len=256)  # phase 22 (b)
+LM_MESH_SERVE_ATOL = 1e-5         # mesh vs mesh-free build_serve_fns logits
+LM_MESH_FLASH_ATOL = 1e-6         # seq_sharded vs decode_attention
 ADMIT_OOC_SUPERSTEPS = 2     # admission session compared out of core (cut
                              # from 3: its Q = 9 superstep took 78-103 s)
 CKPT_CRASH_SS = 3            # checkpoint: crash at the start of superstep 3
@@ -3261,17 +3282,19 @@ def state_leaves(tree, path=""):
         yield path, np.asarray(tree)
 
 
-def lm_resume_check(cfg, run, opt_cfg, batches):
+def lm_resume_check(cfg, run, opt_cfg, batches, mesh=None):
     """10 straight steps against a job that checkpoints every 2 steps,
     fails at step 5 and resumes from step 4: every leaf of the train state
-    equal bit for bit."""
+    equal bit for bit (over ``mesh`` when one is given: the restored tree
+    is placed on it by the step)."""
     from repro_torch.models.model_zoo import export_state
     from repro_torch.runtime.ft import (FailureInjector, FaultTolerantLoop,
                                         SimulatedFailure)
     from repro_torch.train.checkpoint import CheckpointManager
     from repro_torch.train.train_step import build_train_step
 
-    step, init, _ = build_train_step(cfg, run, opt_cfg, device=DEV)
+    step, init, _ = build_train_step(cfg, run, opt_cfg, mesh=mesh,
+                                     device=DEV)
     state = init(SEED)
     for b in batches[:10]:
         state, _ = step(state, b)
@@ -3309,7 +3332,8 @@ def lm_resume_check(cfg, run, opt_cfg, batches):
                              f"{unequal[:5]}")
     out = dict(resumed_at=start, saved_steps=steps_saved,
                leaves=len(list(state_leaves(got))), bit_for_bit=True)
-    log(f"lm train resume ({cfg.name}): failed at step 5, resumed from "
+    log(f"lm train resume ({cfg.name}{', mesh' if mesh else ''}): failed "
+        f"at step 5, resumed from "
         f"step {start} (saved {steps_saved}), all {out['leaves']} "
         "leaves of the train state equal to 10 straight steps bit for bit")
     return out
@@ -3696,6 +3720,291 @@ def tune_case(r):
     return f"tile, {what}, Q={r['q']}, tuned blocks {tuple(r['pick'])}"
 
 
+def lm_mesh_train(torch, mesh, lm_train):
+    """Phase 22 (a): phase 20 (a)'s job through build_train_step over the
+    mesh, each step timed (host clock, synchronised on both sides)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import model_zoo
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.optimizer import OptConfig
+
+    argv = dict(zip(LM_TRAIN_ARGV[::2], LM_TRAIN_ARGV[1::2]))
+    steps, batch, seq = (int(argv[k]) for k in ("--steps", "--batch",
+                                                "--seq"))
+    cfg = registry.get_config(LM_TRAIN_ARCH)
+    # launch/train.py's run and schedule, FSDP and ZeRO-1 over the mesh
+    run = RunConfig(remat="block", q_chunk=min(512, seq),
+                    kv_chunk=min(512, seq), loss_chunk=min(512, seq),
+                    compute_dtype="float32", sharding_mode="fsdp",
+                    zero1=True)
+    opt_cfg = OptConfig(lr=3e-4, warmup_steps=max(steps // 20, 10),
+                        decay_steps=steps)
+    torch.cuda.reset_peak_memory_stats()
+    step, init, sh = ts.build_train_step(cfg, run, opt_cfg, mesh=mesh,
+                                         device=DEV)
+    state = init(0)
+    params = list(state["params"].parameters())
+    on_mesh = sum(isinstance(p, DTensor) and p.device_mesh == mesh
+                  for p in params)
+    if on_mesh != len(params):
+        raise AssertionError(f"lm mesh train: {on_mesh} of {len(params)} "
+                             "parameters are DTensors on the mesh")
+    src = SyntheticLM(cfg, batch, seq, seed=0)
+    losses, steps_s = [], []
+    for i in range(steps):
+        b = src.batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, stats = step(state, b)
+        torch.cuda.synchronize()
+        steps_s.append(time.perf_counter() - t0)
+        losses.append(float(stats["loss"]))
+    n_params = model_zoo.param_count(state["params"])
+    peak = int(torch.cuda.max_memory_allocated())
+    del state, step, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not all(np.isfinite(losses)) or not last <= first - LM_TRAIN_DROP:
+        raise AssertionError(f"lm mesh train {LM_TRAIN_ARCH}: losses "
+                             f"{losses}")
+    ref = np.asarray(lm_train["losses"])
+    np.testing.assert_allclose(losses, ref, err_msg="lm mesh train vs "
+                               "phase 20 (a)", **LM_TRAIN_MB_TOL)
+    diff = float(np.max(np.abs(np.asarray(losses) - ref)))
+    step_ms = 1e3 * float(np.mean(steps_s[1:]))
+    out = dict(arch=LM_TRAIN_ARCH, mesh=list(LM_MESH_SHAPE),
+               sharding_mode=run.sharding_mode, zero1=run.zero1,
+               params=n_params, dtensor_params=on_mesh, losses=losses,
+               first5_mean=first, last5_mean=last,
+               max_abs_loss_diff_vs_phase20=diff,
+               equal_to_phase20=diff == 0.0,
+               step_ms=[1e3 * t for t in steps_s], mean_step_ms=step_ms,
+               phase20_mean_step_ms=lm_train["mean_step_ms"],
+               tokens_per_s=batch * seq / (step_ms / 1e3),
+               torch_peak_bytes=peak, specs_leaves=len(
+                   list(state_leaves(sh["specs"]["params"]))))
+    log(f"lm mesh train {LM_TRAIN_ARCH} on a {LM_MESH_SHAPE} mesh (fsdp, "
+        f"ZeRO-1; {on_mesh} DTensor parameters): {steps} steps, loss "
+        f"{first:.4f} -> {last:.4f}; vs phase 20 (a) max |diff| {diff:.3g}"
+        f" ({'equal' if diff == 0 else 'within ' + str(LM_TRAIN_MB_TOL)});"
+        f" {step_ms:.1f} ms a step over steps 2+ (phase 20 (a) "
+        f"{lm_train['mean_step_ms']:.1f}), torch peak {peak}")
+    return out
+
+
+def profiled_call(torch, fn):
+    """``fn()`` once under torch.profiler: its wall ms (the profiler's
+    overhead included), the device's busy ms (kernels and copies, as in
+    profiled_step) and the ops the host dispatched (CPU events: aten ops,
+    DTensor's among them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.key_averages()
+    busy = sum(e.device_time_total for e in events
+               if e.device_type == cuda
+               and not e.key.startswith("Activity Buffer")) / 1e3
+    host_ops = sum(e.count for e in events if e.device_type != cuda)
+    return dict(wall_ms=1e3 * wall, device_busy_ms=busy,
+                device_busy_share=busy / (1e3 * wall) if wall else 0.0,
+                host_ops=host_ops)
+
+
+def profile_line(p):
+    return (f"wall {p['wall_ms']:.2f} ms, device busy "
+            f"{p['device_busy_ms']:.2f} ms "
+            f"({100 * p['device_busy_share']:.1f}%), {p['host_ops']} host "
+            "ops")
+
+
+def lm_mesh_serve(torch, mesh):
+    """Phase 22 (b): qwen3-1.7b through build_serve_fns over the mesh, KV
+    heads and then the sequence over the model axis, against the full
+    forward and the mesh-free functions."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import model_zoo
+    from repro_torch.serve.serve_step import build_serve_fns
+
+    cfg = registry.get_config(LM_SERVE_ARCH)
+    run = RunConfig(remat="none", compute_dtype="float32")
+    B, S = LM_MESH_SERVE["batch"], LM_FAMILY_SEQ
+    kw = dict(max_len=LM_MESH_SERVE["max_len"], batch=B,
+              cache_dtype=torch.float32, device=DEV)
+    model = model_zoo.build_model(cfg, run, DEV).init(SEED)
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         dtype=torch.int32).to(DEV)
+    with torch.inference_mode():
+        h, _ = model.hidden(toks, mode="train")
+        full = model.logits(h[:, -2:]).float()
+
+    def serve(fns):
+        cache, pre = fns["prefill"](model, fns["init_cache"](),
+                                    {"tokens": toks[:, :-1]})
+        cache, dec = fns["decode"](model, cache, toks[:, -1:], S - 1)
+        got = torch.cat([pre, dec], dim=1).float()
+        nxt, ms = dec.argmax(-1).to(torch.int32), []
+        for t in range(LM_FAMILY_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache, lg = fns["decode"](model, cache, nxt, S + t)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            nxt = lg.argmax(-1).to(torch.int32)
+        prof = profiled_call(torch, lambda: fns["decode"](
+            model, cache, nxt, S + LM_FAMILY_TIMED))
+        return got, ms, prof
+
+    free, free_ms, free_prof = serve(build_serve_fns(cfg, run, **kw))
+    out = dict(arch=LM_SERVE_ARCH, batch=B, prefill=S - 1, decoded=1,
+               timed_decode_steps=LM_FAMILY_TIMED,
+               mesh_free_decode_ms=free_ms,
+               mesh_free_decode_profile=free_prof)
+    log(f"lm mesh serve {LM_SERVE_ARCH} (mesh-free) decode step profiled: "
+        f"{profile_line(free_prof)}")
+    for seq_shard in (False, True):
+        r = dataclasses.replace(run, seq_shard_decode=seq_shard)
+        fns = build_serve_fns(cfg, r, mesh=mesh, **kw)
+        got, ms, prof = serve(fns)
+        err_full = float((got - full).abs().max())
+        err_free = float((got - free).abs().max())
+        if err_full > LM_LOGITS_ATOL or err_free > LM_MESH_SERVE_ATOL:
+            raise AssertionError(
+                f"lm mesh serve seq_shard={seq_shard}: vs full forward "
+                f"{err_full:.3g} (atol {LM_LOGITS_ATOL}), vs mesh-free "
+                f"{err_free:.3g} (atol {LM_MESH_SERVE_ATOL})")
+        key = "seq_shard" if seq_shard else "heads"
+        out[key] = dict(max_abs_err_vs_full=err_full,
+                        max_abs_err_vs_mesh_free=err_free, decode_ms=ms,
+                        decode_profile=prof)
+        log(f"lm mesh serve {LM_SERVE_ARCH} ({key}): B={B}, {S - 1} "
+            f"prefilled + 1 decoded vs full forward max |err| "
+            f"{err_full:.3g}, vs mesh-free {err_free:.3g}; decode "
+            f"{np.mean(ms):.2f} ms a step (mesh-free "
+            f"{np.mean(free_ms):.2f}); profiled: {profile_line(prof)}")
+    del model, fns
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(logits_atol=LM_LOGITS_ATOL, mesh_free_atol=LM_MESH_SERVE_ATOL)
+    return out
+
+
+def lm_mesh_reduced(torch, mesh):
+    """Phase 22 (c) at the reduced config: resume over the mesh, reshard
+    and rescale, flash-decoding at world size 1."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import layers
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.model_zoo import export_state
+    from repro_torch.runtime import elastic
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.optimizer import OptConfig
+
+    cfg = registry.get_config(LM_TRAIN_ARCH, reduced=True)
+    run = RunConfig(remat="block", q_chunk=16, kv_chunk=16, loss_chunk=16,
+                    compute_dtype="float32")
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=2, decay_steps=100)
+    src = SyntheticLM(cfg, 4, 32, seed=SEED)
+    batches = [src.batch_at(i) for i in range(10)]
+    out = {"resume": lm_resume_check(cfg, run, opt_cfg, batches, mesh)}
+
+    step, init, sh = ts.build_train_step(cfg, run, opt_cfg, mesh=mesh,
+                                         device=DEV)
+    plain = ts.StateShardings(cfg, run, None, None, DEV)
+    state = init(SEED)
+    for b in batches[:2]:
+        state, _ = step(state, b)
+    off = elastic.reshard(state, plain)
+    back = elastic.reshard(off, sh["state"])
+    d = os.path.join(ROOT, "build", "chip_smoke_mesh_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    _, rescaled = elastic.rescale_via_checkpoint(CheckpointManager(d), 2,
+                                                 state, sh["state"])
+    shutil.rmtree(d, ignore_errors=True)
+    free_step, _, _ = ts.build_train_step(cfg, run, opt_cfg, device=DEV)
+    want = export_state(step(state, batches[2])[0])
+    unequal = {}
+    for name, st, fn in (("reshard off and back", back, step),
+                         ("rescale_via_checkpoint", rescaled, step),
+                         ("reshard off, mesh-free step", off, free_step)):
+        got = export_state(fn(st, batches[2])[0])
+        unequal[name] = [p for (p, a), (_, b) in zip(state_leaves(got),
+                                                     state_leaves(want))
+                         if not np.array_equal(a, b)]
+    if unequal["reshard off and back"] or unequal["rescale_via_checkpoint"]:
+        raise AssertionError(f"lm mesh reshard: leaves unequal {unequal}")
+    out["reshard"] = {k: dict(bit_for_bit=not v, unequal_leaves=len(v))
+                      for k, v in unequal.items()}
+    log("lm mesh reshard (reduced): the step after reshard off the mesh "
+        "and back, and after rescale_via_checkpoint, equal to the step on "
+        "the mesh bit for bit; mesh-free step from the resharded state "
+        + ("equal too" if not unequal["reshard off, mesh-free step"]
+           else f"{len(unequal['reshard off, mesh-free step'])} leaves "
+           "unequal"))
+
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    q, k, v = (torch.randn(shape, generator=g).to(DEV) for shape in
+               ((2, 1, 4, 16), (2, 64, 2, 16), (2, 64, 2, 16)))
+    cl = torch.tensor([40, 64], device=DEV)
+    want = layers.decode_attention(q, k, v, cl)
+    got = layers.seq_sharded_decode_attention(
+        q, shd.distribute(k, shd.P(None, "model"), mesh),
+        shd.distribute(v, shd.P(None, "model"), mesh), cl, mesh, "model")
+    err = float((got - want).abs().max())
+    if err > LM_MESH_FLASH_ATOL:
+        raise AssertionError(f"lm mesh seq_sharded_decode_attention: "
+                             f"{err:.3g} > {LM_MESH_FLASH_ATOL}")
+    out["flash_decode"] = dict(max_abs_err=err, atol=LM_MESH_FLASH_ATOL,
+                               shards=1)
+    log(f"lm mesh seq_sharded_decode_attention (1 shard): max |err| vs "
+        f"decode_attention {err:.3g}")
+    return out
+
+
+def lm_mesh_phase(torch, lm_train):
+    """Phase 22: the language models over a device mesh at world size 1,
+    NCCL (module docstring).  The process group is destroyed at the end."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import init_process_group
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.cuda.empty_cache()
+    backend = init_process_group(0, 1, f"tcp://localhost:{free_port()}",
+                                 device=DEV)
+    try:
+        mesh = make_mesh(LM_MESH_SHAPE, ("data", "model"), device=DEV)
+        out = dict(backend=backend,
+                   train=lm_mesh_train(torch, mesh, lm_train))
+        out["serve"] = lm_mesh_serve(torch, mesh)
+        out["reduced"] = lm_mesh_reduced(torch, mesh)
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, by_path, err, row, case):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=row["kernel_ms"],
@@ -3876,6 +4185,14 @@ def main():
         log(f"lm families launches: {lm_families_launches} (the LM path runs "
             "no kernel of the graph engine)")
         mark("lm families", t0)
+        gc.collect()
+        t0 = time.perf_counter()
+        reset_launches()
+        lm_mesh = lm_mesh_phase(torch, lm_train)
+        lm_mesh_launches = read_launches()
+        log(f"lm mesh launches: {lm_mesh_launches} (the mesh path runs no "
+            "kernel of the graph engine)")
+        mark("lm mesh", t0)
     finally:
         shutil.rmtree(store_root, ignore_errors=True)
         shutil.rmtree(ckpt_root, ignore_errors=True)
@@ -3886,7 +4203,8 @@ def main():
              **cluster_launches, **ckpt_launches, **serve_launches,
              "tune": tune_launches, "lm serve": lm_launches,
              "lm train": lm_train_launches,
-             "lm families": lm_families_launches}
+             "lm families": lm_families_launches,
+             "lm mesh": lm_mesh_launches}
     total = {k: sum(p[k] for p in paths.values()) for k in main_launches}
     log(f"launches by path: {paths}; total {total}")
 
@@ -3967,6 +4285,7 @@ def main():
                        tune=tune_rows, tune_runs=tune_runs,
                        baselines=baselines, lm_serve=lm_serve,
                        lm_train=lm_train, lm_families=lm_families,
+                       lm_mesh=lm_mesh,
                        launches_by_path=paths, kernels=kernels,
                        phase_seconds=phase_s, seconds=seconds), f, indent=1)
     faulthandler.cancel_dump_traceback_later()

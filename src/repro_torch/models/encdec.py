@@ -26,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import layers as L
+from repro_torch.models.sharding import cns, gathered, matmul, split_heads
 from repro_torch.models.transformer import (_mask_pad_logits,
                                             _write_decode_cache,
                                             _write_prefill_cache,
@@ -136,10 +137,10 @@ class EncDecLM(nn.Module):
     def _enc_body(self, blk: EncBlock, x, positions):
         cfg, run = self.cfg, self.run
         h = blk.ln1(x, cfg.norm, cfg.norm_eps)
-        q, k, v = blk.attn.qkv(h, positions)
+        q, k, v = blk.attn.qkv(h, positions, run.attn_shard)
         o = L.blockwise_attention(q, k, v, causal=False, q_chunk=run.q_chunk,
                                   kv_chunk=run.kv_chunk)
-        x = x + blk.attn.out(o)
+        x = x + blk.attn.out(o, run.attn_shard)
         h = blk.ln2(x, cfg.norm, cfg.norm_eps)
         return x + blk.mlp(h)
 
@@ -152,6 +153,7 @@ class EncDecLM(nn.Module):
         x = torch.as_tensor(frames, device=self.device).to(cdt)
         pos = torch.arange(x.shape[1], device=x.device)
         x = x + sinusoidal(pos, cfg.d_model, cdt)[None]
+        x = cns(x, ("pod", "data"), None, None)
         positions = pos[None, :]
         for blk in self.encoder:
             if self._remat():
@@ -166,10 +168,9 @@ class EncDecLM(nn.Module):
         Dh]``."""
         cfg = self.cfg
         h, dh = cfg.num_heads, cfg.resolved_head_dim()
-        B, Se, _ = enc_out.shape
         dt = enc_out.dtype
-        return [{"k": (enc_out @ blk.cross.wk.to(dt)).reshape(B, Se, h, dh),
-                 "v": (enc_out @ blk.cross.wv.to(dt)).reshape(B, Se, h, dh)}
+        return [{"k": split_heads(matmul(enc_out, blk.cross.wk.to(dt)), h, dh),
+                 "v": split_heads(matmul(enc_out, blk.cross.wv.to(dt)), h, dh)}
                 for blk in self.decoder]
 
     # -- decoder -----------------------------------------------------------
@@ -177,7 +178,7 @@ class EncDecLM(nn.Module):
                   positions):
         cfg, run = self.cfg, self.run
         h = blk.ln1(x, cfg.norm, cfg.norm_eps)
-        q, k, v = blk.attn.qkv(h, positions)
+        q, k, v = blk.attn.qkv(h, positions, run.attn_shard)
         if mode in ("train", "prefill"):
             o = L.blockwise_attention(q, k, v, causal=True,
                                       q_chunk=run.q_chunk,
@@ -189,14 +190,16 @@ class EncDecLM(nn.Module):
             o = L.decode_attention(q, c["k"], c["v"],
                                    torch.as_tensor(cache_len,
                                                    device=x.device) + 1)
-        x = x + blk.attn.out(o)
+        x = x + blk.attn.out(o, run.attn_shard)
         h = blk.ln_x(x, cfg.norm, cfg.norm_eps)
         B, Sq, _ = h.shape
         hq, dh = cfg.num_heads, cfg.resolved_head_dim()
-        cq = (h @ blk.cross.wq.to(h.dtype)).reshape(B, Sq, hq, dh)
+        cq = split_heads(matmul(h, blk.cross.wq.to(h.dtype)), hq, dh)
+        cq = cns(cq, None, None, "model", None)
         o = L.blockwise_attention(cq, xk, xv, causal=False, softcap=None,
                                   q_chunk=run.q_chunk, kv_chunk=run.kv_chunk)
-        x = x + o.reshape(B, Sq, hq * dh) @ blk.cross.wo.to(h.dtype)
+        x = x + matmul(o.reshape(B, Sq, hq * dh),
+                       blk.cross.wo.to(h.dtype))
         h = blk.ln2(x, cfg.norm, cfg.norm_eps)
         return x + blk.mlp(h), c
 
@@ -212,7 +215,7 @@ class EncDecLM(nn.Module):
         cfg = self.cfg
         cdt = self._cdt()
         tok = torch.as_tensor(tokens, device=self.device).long()
-        x = F.embedding(tok, self.embed_tok).to(cdt)
+        x = F.embedding(tok, gathered(self.embed_tok)).to(cdt)  # LM._embed
         B, S = x.shape[0], x.shape[1]
         if mode == "decode":
             positions = torch.as_tensor(cache_len, device=x.device).to(
@@ -220,6 +223,7 @@ class EncDecLM(nn.Module):
         else:
             positions = torch.arange(S, device=x.device)[None, :]
         x = x + sinusoidal(positions, cfg.d_model, cdt)
+        x = cns(x, ("pod", "data"), None, None)
         for i, blk in enumerate(self.decoder):
             xk, xv = xkv[i]["k"], xkv[i]["v"]
             if mode == "train":
@@ -268,5 +272,6 @@ class EncDecLM(nn.Module):
         return cache, self._logits(h)
 
     def _logits(self, h) -> torch.Tensor:
-        logits = h @ self.embed_tok.t().to(h.dtype)
-        return _mask_pad_logits(logits, self.cfg)
+        logits = matmul(h, self.embed_tok.t().to(h.dtype))
+        logits = _mask_pad_logits(logits, self.cfg)
+        return cns(logits, ("pod", "data"), None, "model")

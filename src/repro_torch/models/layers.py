@@ -9,19 +9,31 @@ weights with the reference's names and shapes (``x @ w``: ``wq`` is
 softmax and normalisation statistics are float32, as in the reference.
 Products whose reference asks for float32 results of low-precision
 operands (``preferred_element_type``) take float32 copies of the
-operands, so a bfloat16 run rounds where the reference does.
+operands, so a bfloat16 run rounds where the reference does.  The
+attention products are matmuls where the reference has einsums: over a
+mesh DTensor caches the sharding of a matmul's ops, and propagates an
+einsum's afresh at every call.
 
-``seq_sharded_decode_attention`` (flash-decoding over a device mesh)
-is ROADMAP.md A.13.2b, and the reference's sharding constraints (``cns``)
-are no-ops without a mesh, so the port has neither.
+The reference's sharding constraints stand where it has them
+(``sharding.cns``): over a device mesh the activations are DTensors and
+``cns`` redistributes them; without one it returns its input.
+:func:`seq_sharded_decode_attention` is the reference's flash-decoding over
+a KV cache sharded along the sequence, merged with collectives over the
+sequence axis's process group; the reference defines it and calls it
+nowhere, and so does the port.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.models.sharding import (batch_only, cns, is_dtensor, like,
+                                         matmul, moved, shard_box,
+                                         split_heads)
 
 NEG_INF = -1e30
 
@@ -137,6 +149,7 @@ def blockwise_attention(
     Hkv = k.shape[2]
     G = H // Hkv
     scale = Dh ** -0.5
+    q, k, v = batch_only(q), batch_only(k), batch_only(v)
 
     q, Sq = _pad_seq(q, q_chunk, 1)
     k, Skv = _pad_seq(k, kv_chunk, 1)
@@ -184,8 +197,10 @@ def blockwise_attention(
                 continue
             k_pos = ki * kv_chunk + k_pos0
             kblk, vblk = kb[:, ki], vb[:, ki]
-            s = torch.einsum("bqhgd,bkhd->bhgqk", qblk.to(scores_dtype),
-                             kblk.to(scores_dtype)).float()
+            # [B, Hkv, G, qc, Dh] @ [B, Hkv, 1, Dh, kc]
+            s = matmul(
+                qblk.to(scores_dtype).permute(0, 2, 3, 1, 4),
+                kblk.to(scores_dtype).permute(0, 2, 3, 1)[:, :, None]).float()
             s = _softcap(s, softcap)
             if causal:
                 mask = k_pos[None, :] <= q_pos[:, None]
@@ -201,8 +216,9 @@ def blockwise_attention(
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
-            pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(vb.dtype).float(),
-                              vblk.float())
+            # [B, Hkv, G, qc, kc] @ [B, Hkv, 1, kc, Dh]
+            pv = matmul(p.to(vb.dtype).float(),
+                        vblk.float().permute(0, 2, 1, 3)[:, :, None])
             o = o * corr[..., None] + pv
             m = m_new
         out = o / torch.clamp(l[..., None], min=1e-30)
@@ -226,12 +242,15 @@ def decode_attention(
     window: Optional[int] = None,
     softcap: Optional[float] = None,
 ) -> torch.Tensor:
+    if is_dtensor(k_cache):
+        return _decode_attention_on_shards(q, k_cache, v_cache, cache_len,
+                                           window=window, softcap=softcap)
     B, _, H, Dh = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = H // Hkv
     scale = Dh ** -0.5
     qg = q.reshape(B, Hkv, G, Dh) * scale
-    s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k_cache.float())
+    s = matmul(qg.float(), k_cache.float().permute(0, 2, 3, 1))
     s = _softcap(s, softcap)
     pos = torch.arange(S, device=q.device)
     cl = torch.as_tensor(cache_len, device=q.device)
@@ -241,8 +260,75 @@ def decode_attention(
         valid = valid & (pos[None, :] >= cl - window)
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype).float(),
-                     v_cache.float())
+    o = matmul(p.to(v_cache.dtype).float(),
+               v_cache.float().permute(0, 2, 1, 3))
+    return o.reshape(B, 1, H, Dh).to(q.dtype)
+
+
+def _decode_attention_on_shards(q, k_cache, v_cache, cache_len, **kw):
+    """:func:`decode_attention` over a mesh, each rank on its local rows
+    and kv heads.  A query head stays with its kv head when q's heads are
+    split as the cache's (a GQA group is contiguous), so only a cache
+    split along its sequence moves: it is gathered, where GSPMD
+    partitions the softmax (flash-decoding is
+    :func:`seq_sharded_decode_attention`, which the reference leaves
+    unwired).  Returns a DTensor placed as the local work was."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = k_cache.device_mesh
+    pl = [Replicate() if p.is_shard(1) else p for p in k_cache.placements]
+    k_cache, v_cache = (moved(t, pl) for t in (k_cache, v_cache))
+    q = moved(q if is_dtensor(q) else like(q, k_cache), pl, mesh)
+    cl = torch.as_tensor(cache_len, device=q.device)
+    if cl.dim() == 1:                              # per-row: this rank's
+        off, size = shard_box(k_cache)
+        cl = cl[off[0]:off[0] + size[0]]
+    o = decode_attention(q.to_local(), k_cache.to_local(), v_cache.to_local(),
+                         cl, **kw)
+    return DTensor.from_local(o, mesh, pl, run_check=False)
+
+
+def seq_sharded_decode_attention(q, k_cache, v_cache, cache_len, mesh,
+                                 seq_axis: str, *,
+                                 softcap: Optional[float] = None):
+    """Flash-decoding over a KV cache sharded along its sequence over the
+    mesh axis ``seq_axis``: each rank scores its local slice, and the
+    partial max, sum and output are merged with all-reduces (MAX, SUM,
+    SUM) over that axis's process group.  ``q`` and ``cache_len`` are the
+    same on every rank; ``k_cache``/``v_cache`` are ``[B, S, Hkv, Dh]``
+    DTensors sharded on dim 1 over ``seq_axis`` (or a rank's local slice
+    ``[B, S / n, Hkv, Dh]`` as plain tensors).  Returns ``[B, 1, H, Dh]``
+    on every rank, as ``decode_attention``."""
+    from repro_torch.models.sharding import is_dtensor
+
+    group = mesh.get_group(seq_axis)
+    n = mesh.size(mesh.mesh_dim_names.index(seq_axis))
+    idx = mesh.get_local_rank(seq_axis)
+    if is_dtensor(k_cache):
+        k_cache, v_cache = k_cache.to_local(), v_cache.to_local()
+    B, _, H, Dh = q.shape
+    shard, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = H // Hkv
+    scale = Dh ** -0.5
+    qg = q.reshape(B, Hkv, G, Dh) * scale
+    s = matmul(qg.float(), k_cache.float().permute(0, 2, 3, 1))
+    s = _softcap(s, softcap)
+    pos = idx * shard + torch.arange(shard, device=q.device)
+    cl = torch.as_tensor(cache_len, device=q.device)
+    cl = cl[:, None] if cl.dim() == 1 else cl.reshape(1, 1)
+    valid = pos[None, :] < cl
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    if n > 1:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    p = torch.exp(s - m[..., None])
+    lsum = p.sum(dim=-1)
+    o = matmul(p.to(v_cache.dtype).float(),
+               v_cache.float().permute(0, 2, 1, 3))
+    if n > 1:
+        dist.all_reduce(lsum, group=group)
+        dist.all_reduce(o, group=group)
+    o = o / torch.clamp(lsum[..., None], min=1e-30)
     return o.reshape(B, 1, H, Dh).to(q.dtype)
 
 
@@ -274,15 +360,28 @@ class Attention(nn.Module):
             self.q_ln.init(gen)
             self.k_ln.init(gen)
 
-    def qkv(self, x: torch.Tensor, positions: torch.Tensor):
-        """Project + rope.  x: [B, S, D] -> q [B,S,H,Dh], k/v [B,S,Hkv,Dh]."""
+    def qkv(self, x: torch.Tensor, positions: torch.Tensor,
+            attn_shard: str = "heads"):
+        """Project + rope.  x: [B, S, D] -> q [B,S,H,Dh], k/v [B,S,Hkv,Dh].
+        Over a mesh, ``attn_shard="flat"`` constrains the projections'
+        flattened H·Dh outputs over the model axis, ``"heads"`` q's heads
+        (the reference's ``attn_qkv``)."""
         cfg = self.cfg
         B, S, _ = x.shape
         h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
         cdt = x.dtype
-        q = (x @ self.wq.to(cdt)).reshape(B, S, h, dh)
-        k = (x @ self.wk.to(cdt)).reshape(B, S, hkv, dh)
-        v = (x @ self.wv.to(cdt)).reshape(B, S, hkv, dh)
+        qf = matmul(x, self.wq.to(cdt))
+        kf = matmul(x, self.wk.to(cdt))
+        vf = matmul(x, self.wv.to(cdt))
+        if attn_shard == "flat":
+            qf = cns(qf, ("pod", "data"), None, "model")
+            kf = cns(kf, ("pod", "data"), None, "model")
+            vf = cns(vf, ("pod", "data"), None, "model")
+        q = split_heads(qf, h, dh)
+        k = split_heads(kf, hkv, dh)
+        v = split_heads(vf, hkv, dh)
+        if attn_shard == "heads":
+            q = cns(q, ("pod", "data"), None, "model", None)
         if cfg.qk_norm:
             q = self.q_ln(q, cfg.norm, cfg.norm_eps)
             k = self.k_ln(k, cfg.norm, cfg.norm_eps)
@@ -290,9 +389,13 @@ class Attention(nn.Module):
         k = rope(k, positions, cfg.rope_theta)
         return q, k, v
 
-    def out(self, o: torch.Tensor) -> torch.Tensor:
+    def out(self, o: torch.Tensor, attn_shard: str = "heads") -> torch.Tensor:
         B, S, h, dh = o.shape
-        return o.reshape(B, S, h * dh) @ self.wo.to(o.dtype)
+        of = o.reshape(B, S, h * dh)
+        if attn_shard == "flat":
+            of = cns(of, ("pod", "data"), None, "model")  # row-parallel
+        y = matmul(of, self.wo.to(o.dtype))
+        return cns(y, ("pod", "data"), None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -323,9 +426,11 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cdt = x.dtype
-        hi = x @ self.wi.to(cdt)
+        hi = matmul(x, self.wi.to(cdt))
+        hi = cns(hi, ("pod", "data"), None, "model")
         if self.wg is not None:
-            hi = _act(x @ self.wg.to(cdt), self.act) * hi
+            hi = _act(matmul(x, self.wg.to(cdt)), self.act) * hi
         else:
             hi = _act(hi, self.act)
-        return hi @ self.wo.to(cdt)
+        y = matmul(hi, self.wo.to(cdt))
+        return cns(y, ("pod", "data"), None, None)

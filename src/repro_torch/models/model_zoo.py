@@ -37,6 +37,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models.encdec import EncDecLM
+from repro_torch.models.sharding import full
 from repro_torch.models.transformer import LM
 
 
@@ -237,29 +238,38 @@ def param_tree(model) -> dict:
     return _tree_of(model, lambda path, p, idx: p)
 
 
-def _numpy(tree):
-    """A tree of tensors as numpy arrays, each list stacked."""
+def _numpy(tree, host: bool = True):
+    """A tree of tensors as numpy arrays, each list stacked; a DTensor
+    (a model or state on a device mesh) gathered whole first.  With
+    ``host=False``, as whole tensors where they lie."""
     if isinstance(tree, dict):
-        return {k: _numpy(v) for k, v in tree.items()}
+        return {k: _numpy(v, host) for k, v in tree.items()}
     if isinstance(tree, list):
-        return np.stack([_numpy(t) for t in tree])
-    return tree.detach().cpu().numpy()
+        parts = [_numpy(t, host) for t in tree]
+        return np.stack(parts) if host else torch.stack(parts)
+    t = full(tree.detach())
+    # a copy: a CPU tensor's numpy() would alias the live state
+    return t.to("cpu", copy=True).numpy() if host else t
 
 
-def export_params(model) -> dict:
+def export_params(model, host: bool = True) -> dict:
     """The model's parameters as the reference's tree of float32 numpy
     arrays (``cycles`` leaves stacked), the inverse of
-    :func:`load_params`."""
-    return _numpy(param_tree(model))
+    :func:`load_params`; whole tensors where they lie with
+    ``host=False``."""
+    return _numpy(param_tree(model), host)
 
 
-def export_state(state: dict) -> dict:
+def export_state(state: dict, host: bool = True) -> dict:
     """The port's train state as the reference's (numpy; module
-    docstring)."""
-    out = {"params": export_params(state["params"]),
-           "opt": _numpy(state["opt"]), "step": _numpy(state["step"])}
+    docstring).  Over a device mesh every leaf is gathered whole, so the
+    tree is the one the mesh-free state gives.  With ``host=False`` the
+    leaves are whole tensors where they lie."""
+    out = {"params": export_params(state["params"], host),
+           "opt": _numpy(state["opt"], host),
+           "step": _numpy(state["step"], host)}
     if "ef" in state:
-        out["ef"] = _numpy(state["ef"])
+        out["ef"] = _numpy(state["ef"], host)
     return out
 
 

@@ -15,9 +15,15 @@ The reference combines with a scatter-add.  Here each token gathers its k
 expert outputs ``[T, k, D]`` and sums them in ascending expert order (the
 reference's scatter order), and both gathers are ``F.embedding``, whose
 backward sums repeated rows in a fixed order on the card: no float
-atomics, so two equal train steps give equal bits.  The reference shards
-the experts over a mesh axis (``cns``); serving and training over a mesh
-are ROADMAP.md A.13.2b.
+atomics, so two equal train steps give equal bits.
+
+Over a device mesh the token grid and the expert FFN shard the experts
+over the model axis and the capacity over the data axes (``cns``, as the
+reference).  The routing — top-k, the stable sort, ``searchsorted`` and
+the two ``F.embedding`` gathers — has no DTensor sharding rule, so it runs
+on the whole ``[T, E]`` logits and ``[T, D]`` tokens on every rank
+(``sharding.full``; gradients flow back to the shards), the same
+routing as without a mesh.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers as L
+from repro_torch.models.sharding import cns, full, like, matmul
 
 
 def moe_capacity(num_tokens: int, cfg) -> int:
@@ -88,21 +95,25 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg) -> torch.Tensor:
     cdt = x.dtype
     xt = x.reshape(T, D)
 
-    logits = (xt @ p.router.to(cdt)).float()                     # [T, E]
+    # routing has no DTensor sharding rule: whole tensors on every rank
+    logits = full(matmul(xt, p.router.to(cdt)).float())     # [T, E]
     gates, eids = torch.topk(logits, cfg.experts_per_token, dim=-1,
                              sorted=True)
     gates = torch.softmax(gates, dim=-1)
     slot, grid_tok = moe_dispatch(eids, cfg, C)
 
     # gather tokens -> [E, C, D]; empty slots read row T, a zero row
-    xpad = torch.cat([xt, xt.new_zeros(1, D)])
-    xe = F.embedding(grid_tok, xpad)
+    xr = full(xt)
+    xpad = torch.cat([xr, xr.new_zeros(1, D)])
+    xe = like(F.embedding(grid_tok, xpad), x)
+    xe = cns(xe, "model", ("pod", "data"), None)  # EP x DP: tokens over dp
 
     # expert FFN, batched over E
     hi = torch.bmm(xe, p.wi.to(cdt))
     hg = torch.bmm(xe, p.wg.to(cdt))
     h = L._act(hg, cfg.act) * hi
-    ye = torch.bmm(h, p.wo.to(cdt)).reshape(E * C, D)
+    h = cns(h, "model", ("pod", "data"), None)
+    ye = full(torch.bmm(h, p.wo.to(cdt))).reshape(E * C, D)
 
     # combine: each token's k outputs in ascending expert order; a dropped
     # assignment reads row E*C, a zero row
@@ -114,4 +125,4 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg) -> torch.Tensor:
     out = yk[:, 0]
     for k in range(1, yk.shape[1]):
         out = out + yk[:, k]
-    return out.reshape(B, S, D)
+    return cns(like(out, x).reshape(B, S, D), ("pod", "data"), None, None)

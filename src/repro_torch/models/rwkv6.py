@@ -19,6 +19,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers as L
+from repro_torch.models.sharding import (assign_, batch_only, cns, matmul,
+                                         split_heads)
 
 LORA_RANK = 32
 
@@ -118,32 +120,36 @@ def time_mix(p: TimeMix, x, cfg, cache=None):
     prev = _token_shift(x, last)
     xr, xk, xv, xg, xw = _tm_inputs(p, x, prev)
 
-    r = (xr @ p.wr.to(cdt)).reshape(B, S, H, dh)
-    k = (xk @ p.wk.to(cdt)).reshape(B, S, H, dh)
-    v = (xv @ p.wv.to(cdt)).reshape(B, S, H, dh)
-    g = F.silu(xg @ p.wg.to(cdt))
-    lora = torch.tanh(xw @ p.decay_lora_a.to(cdt)) @ p.decay_lora_b.to(cdt)
+    r = split_heads(matmul(xr, p.wr.to(cdt)), H, dh)
+    k = split_heads(matmul(xk, p.wk.to(cdt)), H, dh)
+    v = split_heads(matmul(xv, p.wv.to(cdt)), H, dh)
+    g = F.silu(matmul(xg, p.wg.to(cdt)))
+    lora = matmul(torch.tanh(matmul(xw, p.decay_lora_a.to(cdt))),
+                  p.decay_lora_b.to(cdt))
     w = torch.exp(-torch.exp(
-        (p.w_decay.reshape(1, 1, H, dh) + lora.reshape(B, S, H, dh))
+        (p.w_decay.reshape(1, 1, H, dh) + split_heads(lora, H, dh))
         .float()))                                               # [B,S,H,dh]
 
     u = p.u.float()[None, :, :, None]
     state = (x.new_zeros((B, H, dh, dh), dtype=torch.float32)
              if cache is None else cache["state"].float())
-    rf, kf, vf = r.float(), k.float(), v.float()
+    # the loop's batched matmuls flatten batch and heads: heads whole
+    rf, kf, vf = (batch_only(t).float() for t in (r, k, v))
+    w, state = batch_only(w), batch_only(state)
     outs = []
     for t in range(S):
         kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]        # [B,H,dk,dv]
-        outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], state + u * kv))
+        # [B, H, 1, dk] @ [B, H, dk, dv] (a matmul: layers.py's docstring)
+        outs.append(matmul(rf[:, t, :, None], state + u * kv)[:, :, 0])
         state = w[:, t, :, :, None] * state + kv
     out = torch.stack(outs, dim=1).reshape(B, S, D).to(cdt)
 
     out = p.ln_out(out, "rmsnorm", cfg.norm_eps) * g
-    out = out @ p.wo.to(cdt)
+    out = cns(matmul(out, p.wo.to(cdt)), ("pod", "data"), None, None)
     if cache is None:
         return out, {"shift": x[:, -1:], "state": state}
-    cache["shift"].copy_(x[:, -1:])
-    cache["state"].copy_(state)
+    assign_(cache["shift"], x[:, -1:])
+    assign_(cache["state"], state)
     return out, cache
 
 
@@ -158,12 +164,13 @@ def channel_mix(p: ChannelMix, x, cfg, cache=None):
     mix = p.mix.to(cdt)
     xk = x + xx * mix[0]
     xr = x + xx * mix[1]
-    k = torch.square(torch.relu(xk @ p.wk.to(cdt)))
-    r = torch.sigmoid(xr @ p.wr.to(cdt))
-    out = r * (k @ p.wv.to(cdt))
+    k = torch.square(torch.relu(matmul(xk, p.wk.to(cdt))))
+    k = cns(k, ("pod", "data"), None, "model")
+    r = torch.sigmoid(matmul(xr, p.wr.to(cdt)))
+    out = cns(r * matmul(k, p.wv.to(cdt)), ("pod", "data"), None, None)
     if cache is None:
         return out, {"shift": x[:, -1:]}
-    cache["shift"].copy_(x[:, -1:])
+    assign_(cache["shift"], x[:, -1:])
     return out, cache
 
 

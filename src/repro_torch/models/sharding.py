@@ -1,0 +1,516 @@
+"""Sharding rules: logical -> mesh axis mapping for parameters, optimizer
+state and activations — counterpart of ``repro/models/sharding.py``.
+
+The reference hands its ``PartitionSpec`` trees to GSPMD.  Here a mesh is
+a ``torch.distributed.device_mesh.DeviceMesh`` with the same axis names
+(``launch/mesh.py``), a spec :class:`P` becomes a DTensor placement list
+(:func:`placements`: a mesh dim gets ``Shard(i)`` where the spec names its
+axis at tensor dim i, ``Replicate()`` elsewhere; a tuple entry such as
+``("pod", "data")`` shards dim i over both mesh dims, major first, as jax
+does), and every ``nn.Parameter`` of a distributed model holds a DTensor
+with those placements (:func:`distribute_model_`).  Activations are
+DTensors too: the ops between them follow DTensor's sharding rules, and
+:func:`cns` — the reference's ``with_sharding_constraint`` — redistributes
+one to the spec's placements.  A contextvar carries ``(mesh, rules)`` so
+layer code can call it plainly; without a mesh, or on a plain tensor, it
+returns its input.
+
+Rules:
+  dp axes  = ("pod", "data") when present — batch parallel
+  tp axis  = "model"          — heads / ffn / vocab / experts
+  fsdp     = params (and optimizer state) additionally sharded over "data"
+
+The reference stacks each ``cycles`` leaf (and an encoder-decoder's
+``encoder``/``decoder`` leaves) as ``[n_stack, ...]``; the port keeps one
+tensor a cycle (``model_zoo``), so a member's spec is the reference
+leaf's spec without its leading stack entry (:func:`member_spec`).  The
+rules leave that entry None, except at the experts of a stacked MoE leaf,
+whose reference spec is written for ``[E, D, F]`` and lands on the stack
+axis: a member takes the intended ``P(tp, f, None)`` (``wo``: ``P(tp,
+None, f)``) — ROADMAP.md C, known defects of the reference.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import functools
+from contextvars import ContextVar
+from typing import Optional
+
+import torch
+
+
+class P(tuple):
+    """A partition spec: one entry a tensor dim, each None (replicated), a
+    mesh axis name, or a tuple of names (sharded over all of them, major
+    first).  Trailing dims past the spec are replicated."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+@dataclasses.dataclass(frozen=True)
+class Rules:
+    dp_axes: tuple[str, ...] = ("data",)
+    tp_axis: str = "model"
+    fsdp: bool = True                 # shard params over dp_axes[-1]
+    zero1: bool = True                # shard optimizer state over dp
+
+    @property
+    def dp(self):
+        return self.dp_axes if len(self.dp_axes) > 1 else self.dp_axes[0]
+
+    @property
+    def fsdp_axis(self) -> Optional[str]:
+        return self.dp_axes[-1] if self.fsdp else None
+
+
+_CTX: ContextVar[Optional[tuple]] = ContextVar("mesh_rules", default=None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh, rules: Rules):
+    """Set ``(mesh, rules)`` for :func:`cns`.  With a mesh, plain tensors
+    that meet DTensors inside count as replicated (DTensor's
+    ``implicit_replication``): positions, masks and index tensors, which
+    every rank builds alike."""
+    tok = _CTX.set((mesh, rules) if mesh is not None else None)
+    try:
+        if mesh is None:
+            yield
+        else:
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            with implicit_replication():
+                yield
+    finally:
+        _CTX.reset(tok)
+
+
+def current() -> Optional[tuple]:
+    return _CTX.get()
+
+
+def mesh_shape(mesh) -> dict:
+    """``{axis name: size}`` of a DeviceMesh, or of any object whose
+    ``.shape`` is such a dict (jax's meshes, abstract ones included)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if isinstance(mesh, DeviceMesh):
+        return dict(_device_mesh_shape(mesh))
+    return dict(mesh.shape)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_mesh_shape(mesh) -> tuple:
+    # a DeviceMesh computes its shape anew at every call
+    return tuple(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+
+
+def axis_size(mesh, axes) -> int:
+    if axes is None:
+        return 1
+    shape = mesh_shape(mesh)
+    if isinstance(axes, str):
+        return shape[axes]
+    n = 1
+    for a in axes:
+        n *= shape[a]
+    return n
+
+
+def _names(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def sanitize_spec(spec, shape, mesh) -> P:
+    """Make a spec legal for this mesh: drop axes the mesh doesn't have and
+    axes whose size doesn't divide the dim (such a dim is replicated, never
+    sharded unevenly, as the reference does)."""
+    names = mesh_shape(mesh)
+    out = []
+    for i, s in enumerate(spec):
+        if s is None or i >= len(shape):
+            out.append(None if i >= len(shape) else s)
+            continue
+        axes = tuple(a for a in _names(s) if a in names)
+        if not axes:
+            out.append(None)
+            continue
+        s2 = axes[0] if len(axes) == 1 else axes
+        out.append(None if shape[i] % axis_size(mesh, s2) != 0 else s2)
+    return P(*out)
+
+
+def placements(spec, mesh) -> list:
+    """The DTensor placements of ``spec`` on ``mesh``: ``Shard(i)`` on each
+    mesh dim that entry i names, ``Replicate()`` on the others and on a
+    mesh dim of size 1 (one shard is the whole tensor; DTensor refuses
+    some views of a dim sharded even one way).  A tuple entry must list
+    its axes in the mesh's order (major first)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    dims = list(mesh.mesh_dim_names)
+    sizes = mesh_shape(mesh)
+    out = [Replicate() for _ in dims]
+    named = set()
+    for i, s in enumerate(spec):
+        idx = [dims.index(a) for a in _names(s)]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {s!r} is not in the mesh's axis "
+                             f"order {tuple(dims)}")
+        for d in idx:
+            if d in named:
+                raise ValueError(f"mesh axis {dims[d]!r} named twice in "
+                                 f"{spec!r}")
+            named.add(d)
+            if sizes[dims[d]] > 1:
+                out[d] = Shard(i)
+    return out
+
+
+@functools.lru_cache(maxsize=4096)
+def _placements_of(spec: P, shape: tuple, mesh) -> tuple:
+    # cns's placements, computed once for each (spec, shape, mesh)
+    return tuple(placements(sanitize_spec(spec, shape, mesh), mesh))
+
+
+def moved(x, pl, mesh=None):
+    """The DTensor ``x`` redistributed to the placements ``pl`` on
+    ``mesh`` (its own when None); ``x`` itself when it is placed so
+    already (a redistribute costs the host even when it moves nothing)."""
+    mesh = x.device_mesh if mesh is None else mesh
+    if tuple(x.placements) == tuple(pl) and (x.device_mesh is mesh
+                                             or x.device_mesh == mesh):
+        return x
+    return x.redistribute(mesh, pl)
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def cns(x, *spec):
+    """Constrain an activation's sharding: redistribute a DTensor to the
+    spec's placements, divisibility-sanitized against the current mesh; a
+    no-op without a mesh context or on a plain tensor."""
+    ctx = _CTX.get()
+    if ctx is None or not is_dtensor(x):
+        return x
+    mesh, _ = ctx
+    return moved(x, _placements_of(P(*spec), tuple(x.shape), mesh), mesh)
+
+
+def distribute(x: torch.Tensor, spec, mesh=None):
+    """A plain tensor, the same on every rank, as a DTensor on ``mesh``
+    (the context's when None) placed by ``spec`` (sanitized): each rank
+    keeps its own shard, no data moves."""
+    mesh = mesh if mesh is not None else _CTX.get()[0]
+    sp = sanitize_spec(spec, x.shape, mesh)
+    return distribute_as(x, placements(sp, mesh), mesh)
+
+
+def distribute_as(x: torch.Tensor, pl, mesh):
+    """:func:`distribute` by a placement list."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(x, mesh, pl, src_data_rank=None)
+
+
+def gathered(x):
+    """A DTensor replicated on every mesh dim (differentiable: the gradient
+    goes back to the shards, reduced where it is partial); a plain tensor
+    as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return moved(x, [Replicate()] * x.device_mesh.ndim)
+
+
+def batch_only(x):
+    """A DTensor sharded on dim 0 at most (every other sharded dim
+    replicated); anything else as it is.  For the attention products:
+    DTensor (torch 2.11) cannot flatten the batch and head dims of a
+    batched matmul when the heads are sharded."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return moved(x, [pl if not pl.is_shard() or pl.is_shard(0)
+                     else Replicate() for pl in x.placements])
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as ``mm`` or ``bmm`` on the batch dims broadcast and
+    flattened: over a mesh DTensor (torch 2.11) propagates
+    ``aten.matmul``'s sharding afresh at every call, an ``mm``'s or
+    ``bmm``'s once.  Without a mesh too, so that a mesh of one rank runs
+    the same GEMMs as none."""
+    if b.dim() == 2:
+        return torch.mm(a.reshape(-1, a.shape[-1]), b).reshape(
+            *a.shape[:-1], b.shape[-1])
+    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    a3 = a.expand(*batch, *a.shape[-2:]).reshape(-1, *a.shape[-2:])
+    b3 = b.expand(*batch, *b.shape[-2:]).reshape(-1, *b.shape[-2:])
+    return torch.bmm(a3, b3).reshape(*batch, a.shape[-2], b.shape[-1])
+
+
+def split_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    """``x [..., n·d]`` as ``[..., n, d]``.  DTensor cannot unflatten a
+    dim sharded over more ranks than ``n`` divides into (GSPMD pads
+    there), so such a DTensor is replicated on that dim first."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+
+        last, mesh = x.dim() - 1, x.device_mesh
+        ways = 1
+        for i, pl in enumerate(x.placements):
+            ways *= mesh.size(i) if pl.is_shard(last) else 1
+        if n % ways:
+            x = x.redistribute(mesh, [Replicate() if pl.is_shard(last)
+                                      else pl for pl in x.placements])
+    return x.reshape(*x.shape[:-1], n, d)
+
+
+def like(x: torch.Tensor, ref):
+    """A plain tensor ``x``, equal on every rank, as a replicated DTensor
+    on ``ref``'s mesh when ``ref`` is a DTensor; else ``x``."""
+    if not is_dtensor(ref):
+        return x
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = ref.device_mesh
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def full(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value as a plain tensor on every rank (gathered;
+    differentiable: the gradient goes back to the shards); a plain tensor
+    as it is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def placed_as(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``x`` in ``ref``'s placements when both are DTensors."""
+    if is_dtensor(x) and is_dtensor(ref):
+        return moved(x, ref.placements, ref.device_mesh)
+    return x
+
+
+def shard_box(x) -> tuple[list, list]:
+    """This rank's shard of the DTensor ``x``: its offset and its size
+    along each tensor dim.  The shards must be even, as
+    :func:`sanitize_spec` makes them; a tensor dim sharded over several
+    mesh dims is split in the mesh's order, major first."""
+    mesh, coord = x.device_mesh, x.device_mesh.get_coordinate()
+    off, size = [0] * x.dim(), list(x.shape)
+    for md, pl in enumerate(x.placements):
+        if pl.is_shard():
+            size[pl.dim] //= mesh.size(md)
+            off[pl.dim] += coord[md] * size[pl.dim]
+    return off, size
+
+
+def _local_value(buf, value, dims):
+    """This rank's part of ``value`` for a write into the DTensor ``buf``:
+    ``value``'s dim j is ``buf``'s dim ``dims[j]``; ``value`` is placed as
+    ``buf`` on those dims, except ``buf``'s sequence dim 1, which it keeps
+    whole (a rank picks the positions it holds)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = [Shard(dims.index(p.dim)) if p.is_shard() and p.dim != 1
+          else Replicate() for p in buf.placements]
+    if not is_dtensor(value):
+        value = like(value, buf)
+    return moved(value, pl, buf.device_mesh).to_local()
+
+
+def write_span_(buf: torch.Tensor, start: int, value) -> torch.Tensor:
+    """``buf[:, start:start + n] = value`` in place, ``value [B, n, ...]``
+    (a cache's prefill write).  A DTensor ``buf`` is written shard by
+    shard: each rank copies the positions of its own sequence slice into
+    its local tensor, and no rank gathers the cache.  Returns ``buf``."""
+    n = value.shape[1]
+    if not is_dtensor(buf):
+        buf[:, start:start + n] = value
+        return buf
+    local = _local_value(buf, value, tuple(range(buf.dim())))
+    off, size = shard_box(buf)
+    lo, hi = max(start, off[1]), min(start + n, off[1] + size[1])
+    if lo < hi:
+        buf.to_local()[:, lo - off[1]:hi - off[1]] = \
+            local[:, lo - start:hi - start]
+    return buf
+
+
+def write_slots_(buf: torch.Tensor, slot: torch.Tensor,
+                 value) -> torch.Tensor:
+    """``buf[b, slot[b]] = value[b]`` in place for every row b, ``slot
+    [B]`` (a cache's decode write).  A DTensor ``buf`` is written shard by
+    shard: each rank writes its own rows, and under a sequence split only
+    the slots it holds (a masked write: no host sync).  Returns ``buf``."""
+    if not is_dtensor(buf):
+        buf[torch.arange(buf.shape[0], device=slot.device), slot] = value
+        return buf
+    local = _local_value(buf, value, (0,) + tuple(range(2, buf.dim())))
+    off, size = shard_box(buf)
+    lbuf = buf.to_local()
+    rows = torch.arange(size[0], device=slot.device)
+    idx = slot[off[0]:off[0] + size[0]] - off[1]
+    if size[1] == buf.shape[1]:
+        lbuf[rows, idx] = local
+        return buf
+    held = ((idx >= 0) & (idx < size[1])).reshape(-1, *[1] * (local.dim()
+                                                               - 1))
+    idx = idx.clamp(0, size[1] - 1)
+    lbuf[rows, idx] = torch.where(held, local, lbuf[rows, idx])
+    return buf
+
+
+def assign_(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``dst.copy_(src)``, a DTensor ``src`` first redistributed to
+    ``dst``'s placements (an in-place op keeps its output's)."""
+    if is_dtensor(dst):
+        if not is_dtensor(src):
+            src = like(src, dst)
+        src = moved(src, dst.placements, dst.device_mesh)
+    return dst.copy_(src)
+
+
+# ---------------------------------------------------------------------------
+# Parameter shardings by path-name heuristics
+# ---------------------------------------------------------------------------
+
+_COL_PARALLEL = ("wq", "wk", "wv", "wi", "wg", "w_rkvg", "wx",
+                 "wy")                                  # [.., D, F*]
+_ROW_PARALLEL = ("wo",)                                 # [.., F*, D]
+_REPLICATED = ("scale", "bias", "router", "conv", "a_param", "u", "decay_lora",
+               "mix", "pos", "w_decay", "ln")
+
+
+def _leaf_spec(path: str, ndim: int, rules: Rules) -> P:
+    f = rules.fsdp_axis
+    tp = rules.tp_axis
+    last = path.split("/")[-1]
+    if last in ("tok", "lm_head"):                 # [V, D] / [D, V]
+        if last == "tok":
+            return P(tp, f)
+        return P(f, tp)
+    if is_expert(path):                             # [E, D, F] / [E, F, D]
+        if last == "wo":
+            return P(tp, None, f)
+        return P(tp, f, None)
+    if any(last == n or last.startswith(n) for n in _REPLICATED):
+        return P(*([None] * ndim))
+    if last in _COL_PARALLEL:                       # [..., D, F] col-parallel
+        spec = [None] * ndim
+        spec[-1] = tp
+        if ndim >= 2:
+            spec[-2] = f
+        return P(*spec)
+    if last in _ROW_PARALLEL:                       # [..., F, D] row-parallel
+        spec = [None] * ndim
+        if ndim >= 2:
+            spec[-2] = tp
+        spec[-1] = f
+        return P(*spec)
+    return P(*([None] * ndim))
+
+
+def is_expert(path: str) -> bool:
+    return "/moe/" in path and path.split("/")[-1] in ("wi", "wg", "wo")
+
+
+def member_spec(path: str, ndim: int, stacked: bool, rules: Rules) -> P:
+    """The spec of one port tensor of ``ndim`` dims at the reference path
+    ``path``; ``stacked`` when the reference stacks it with the other
+    cycles' (or layers') members.  A stacked member takes the leaf's spec
+    without its stack entry; an expert member takes its ``[E, ...]`` spec
+    (module docstring)."""
+    if not stacked or is_expert(path):
+        return _leaf_spec(path, ndim, rules)
+    return P(*_leaf_spec(path, ndim + 1, rules)[1:])
+
+
+def param_specs(model, rules: Rules, mesh=None) -> dict:
+    """The spec of every parameter of ``model``, in the reference's tree
+    (``model_zoo.param_tree``: a stacked leaf is a list of its members'
+    specs).  With a mesh, specs are divisibility-sanitized against the
+    members' shapes."""
+    from repro_torch.models import model_zoo
+
+    def value(path, p, idx):
+        sp = member_spec("/".join(path), p.dim(), idx is not None, rules)
+        return sanitize_spec(sp, p.shape, mesh) if mesh is not None else sp
+    return model_zoo._tree_of(model, value)
+
+
+def param_shardings(model, mesh, rules: Rules) -> dict:
+    """The DTensor placements of every parameter, in :func:`param_specs`'s
+    tree."""
+    from repro_torch.train.optimizer import member_map
+
+    return member_map(lambda sp: placements(sp, mesh),
+                      param_specs(model, rules, mesh))
+
+
+def opt_state_spec_from_param(spec, rules: Rules, shape=None,
+                              mesh=None) -> P:
+    """ZeRO-1: give optimizer-state copies an extra shard over the dp axis
+    on the first unsharded dim that divides (falls back to the param spec)."""
+    if not rules.zero1:
+        return P(*spec)
+    dp = rules.dp_axes[-1]
+    used = {a for s in spec for a in _names(s)}
+    if dp in used:
+        return P(*spec)
+    new = list(spec)
+    for i, s in enumerate(new):
+        if s is None:
+            if shape is not None and mesh is not None and \
+                    shape[i] % axis_size(mesh, dp) != 0:
+                continue
+            new[i] = dp
+            return P(*new)
+    return P(*spec)
+
+
+def distribute_model_(model, mesh, rules: Rules):
+    """Replace every parameter of ``model`` in place by a DTensor placed by
+    :func:`param_specs` on ``mesh`` (each rank keeps its shard of the
+    values it holds, which must be equal on every rank).  Returns the
+    model."""
+    from repro_torch.models import model_zoo
+
+    owner = {id(p): (mod, name) for mod in model.modules()
+             for name, p in mod._parameters.items() if p is not None}
+    for path, p, idx in model_zoo._layout(model):
+        if is_dtensor(p):
+            continue
+        sp = sanitize_spec(member_spec("/".join(path), p.dim(),
+                                       idx is not None, rules), p.shape, mesh)
+        mod, name = owner[id(p)]
+        mod._parameters[name] = torch.nn.Parameter(
+            distribute_as(p.detach(), placements(sp, mesh), mesh),
+            requires_grad=p.requires_grad)
+    return model
+
+
+def undistribute_model_(model):
+    """The inverse of :func:`distribute_model_`: every DTensor parameter
+    back to a plain tensor holding its whole value.  Returns the model."""
+    for mod in model.modules():
+        for name, p in list(mod._parameters.items()):
+            if p is not None and is_dtensor(p):
+                mod._parameters[name] = torch.nn.Parameter(
+                    p.detach().full_tensor(), requires_grad=p.requires_grad)
+    return model

@@ -43,6 +43,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import rwkv6 as K
+from repro_torch.models.sharding import (cns, gathered, matmul, write_slots_,
+                                        write_span_)
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -91,15 +93,18 @@ def _write_prefill_cache(cache_kv: dict, k, v, window: Optional[int]) -> dict:
     """Write full-sequence K/V into a (possibly rolling) cache buffer."""
     S = k.shape[1]
     W = cache_kv["k"].shape[1]
-    if window is None or S <= W:
-        n = min(S, W)
-        cache_kv["k"][:, :n] = k[:, :n].to(cache_kv["k"].dtype)
-        cache_kv["v"][:, :n] = v[:, :n].to(cache_kv["v"].dtype)
-        return cache_kv
-    # rolling: keep the last W entries at slot = pos % W
-    slots = (S - W + torch.arange(W, device=k.device)) % W
-    cache_kv["k"][:, slots] = k[:, -W:].to(cache_kv["k"].dtype)
-    cache_kv["v"][:, slots] = v[:, -W:].to(cache_kv["v"].dtype)
+    for name, x in (("k", k), ("v", v)):
+        buf = cache_kv[name]
+        if window is None or S <= W:
+            write_span_(buf, 0, x[:, :min(S, W)].to(buf.dtype))
+            continue
+        # rolling: the last W entries at slot = pos % W, entry j of them
+        # at (S - W + j) % W — two spans of the buffer
+        s = (S - W) % W
+        x = x[:, -W:].to(buf.dtype)
+        write_span_(buf, s, x[:, :W - s])
+        if s:
+            write_span_(buf, 0, x[:, W - s:])
     return cache_kv
 
 
@@ -111,9 +116,8 @@ def _write_decode_cache(cache_kv: dict, k1, v1, cache_len,
     B, W = cache_kv["k"].shape[0], cache_kv["k"].shape[1]
     cl = torch.as_tensor(cache_len, device=k1.device).long().expand(B)
     slot = cl % W if window is not None else torch.clamp(cl, max=W - 1)
-    b = torch.arange(B, device=k1.device)
-    cache_kv["k"][b, slot] = k1[:, 0].to(cache_kv["k"].dtype)
-    cache_kv["v"][b, slot] = v1[:, 0].to(cache_kv["v"].dtype)
+    write_slots_(cache_kv["k"], slot, k1[:, 0].to(cache_kv["k"].dtype))
+    write_slots_(cache_kv["v"], slot, v1[:, 0].to(cache_kv["v"].dtype))
     return cache_kv
 
 
@@ -169,7 +173,7 @@ class Block(nn.Module):
             return x + self.ffn(h), c
         window = cfg.sliding_window if self.kind == "L" else None
         h = self.ln1(x, cfg.norm, cfg.norm_eps)
-        q, k, v = self.attn.qkv(h, positions)
+        q, k, v = self.attn.qkv(h, positions, run.attn_shard)
         sdt = getattr(torch, run.scores_dtype)
         if mode in ("train", "prefill"):
             o = L.blockwise_attention(
@@ -184,7 +188,7 @@ class Block(nn.Module):
                 cl = torch.clamp(cl, max=cache["k"].shape[1])
             o = L.decode_attention(q, cache["k"], cache["v"], cl,
                                    window=None, softcap=cfg.attn_softcap)
-        x = x + self.attn.out(o)
+        x = x + self.attn.out(o, run.attn_shard)
         h = self.ln2(x, cfg.norm, cfg.norm_eps)
         return x + self.ffn(h), cache
 
@@ -211,13 +215,16 @@ def chunked_xent(h: torch.Tensor, labels, emb: torch.Tensor,
     for c in range(n):
         hc = h[:, c * chunk:(c + 1) * chunk]
         lc = labels[:, c * chunk:(c + 1) * chunk]
-        logits = (hc @ emb.to(hc.dtype)).float()
+        logits = matmul(hc, emb.to(hc.dtype)).float()
         if cap:
             logits = torch.tanh(logits / cap) * cap
         logits = _mask_pad_logits(logits, cfg)
+        logits = cns(logits, ("pod", "data"), None, "model")
         lse = torch.logsumexp(logits, dim=-1)
         valid = lc >= 0
-        tgt = torch.gather(logits, -1,
+        # DTensor's rule for a gather along a sharded vocab fails on
+        # batch-sharded ids: the target reads the vocab whole
+        tgt = torch.gather(cns(logits, ("pod", "data"), None, None), -1,
                            torch.clamp(lc, min=0)[..., None])[..., 0]
         nll = (lse - tgt) * valid
         tot = tot + nll.sum()
@@ -300,16 +307,19 @@ class LM(nn.Module):
         cfg = self.cfg
         cdt = getattr(torch, self.run.compute_dtype)
         # F.embedding: its gradient sums repeated tokens in a fixed order
-        # on the card (index_put_ with accumulation uses atomics)
+        # on the card (index_put_ with accumulation uses atomics).  Over a
+        # mesh the table is gathered first: DTensor's rule for a vocab-
+        # sharded table fails on batch-sharded ids (its mask has the local
+        # ids' shape, the output the global one)
         x = F.embedding(torch.as_tensor(tokens, device=self.device).long(),
-                        self.embed_tok).to(cdt)
+                        gathered(self.embed_tok)).to(cdt)
         if extra_embeds is not None:
             x = torch.cat([torch.as_tensor(extra_embeds, device=x.device)
                            .to(cdt), x], dim=1)
         if cfg.embed_scale:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdt,
                                  device=x.device)
-        return x
+        return cns(x, ("pod", "data"), None, None)
 
     def hidden(self, tokens, extra_embeds=None, mode="train", cache=None,
                cache_len=None, positions=None):
@@ -356,11 +366,12 @@ class LM(nn.Module):
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         cdt = hidden.dtype
-        logits = hidden @ self.unembed().to(cdt)
+        logits = matmul(hidden, self.unembed().to(cdt))
         cap = self.cfg.logit_softcap
         if cap:
             logits = torch.tanh(logits / cap) * cap
-        return _mask_pad_logits(logits, self.cfg)
+        logits = _mask_pad_logits(logits, self.cfg)
+        return cns(logits, ("pod", "data"), None, "model")
 
     # -- loss (chunked over sequence) ----------------------------------------
     def loss(self, tokens, labels, extra_embeds=None) -> torch.Tensor:

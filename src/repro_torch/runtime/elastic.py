@@ -1,5 +1,16 @@
-"""Elastic rescale of the graph engine — the port's copy of
-``remap_assignment`` and ``handoff_plan`` from ``repro/runtime/elastic.py``.
+"""Elastic rescale: move a train state between meshes of another size or
+shape, and the graph engine's warmth-preserving tile assignment — the
+counterpart of ``repro/runtime/elastic.py``.
+
+Checkpoints store full logical arrays (``train/checkpoint.py``), so
+rescaling is "restore with the new mesh's shardings"
+(:func:`rescale_via_checkpoint`); :func:`reshard` is the in-memory
+variant: every tensor gathered whole on its device and each rank keeping
+its shard of the new placement, no disk round trip.  A shardings object
+is ``build_train_step``'s ``shardings["state"]``
+(``train_step.StateShardings``, which also places a state on no mesh):
+
+    state = reshard(state, new_shardings["state"])
 
 The graph engine rescales by re-running stage-2 tile assignment for the
 new N — tiles are mesh-agnostic and vertex state is replicated.  The
@@ -7,13 +18,38 @@ multi-process cluster runtime (DESIGN.md §11) uses a warmth-preserving
 variant: ``remap_assignment`` resizes an existing per-server tile
 assignment to a new server count while keeping every tile that can stay on
 its current server there, so surviving servers keep their edge caches hot
-across the resize.  (The reference's ``reshard`` and
-``rescale_via_checkpoint`` move jax arrays between meshes of the
-language-model template: ROADMAP.md A.13.2b.)
+across the resize.
 """
 from __future__ import annotations
 
 import numpy as np
+
+
+def reshard(state, new_shardings):
+    """``state`` (a train state on any mesh or none) placed by
+    ``new_shardings`` (a ``train_step.StateShardings``): a new state; the
+    old one is left as it was."""
+    return new_shardings.place(state)
+
+
+def rescale_via_checkpoint(ckpt_mgr, step, state, new_shardings):
+    """Disk-mediated rescale (what a real job restart does): save ``state``
+    at ``step`` through ``ckpt_mgr`` (on rank 0 of a process group; every
+    rank gathers), then restore it placed by ``new_shardings``."""
+    import torch.distributed as dist
+    from torch import nn
+
+    from repro_torch.models import model_zoo
+
+    if isinstance(state["params"], nn.Module):
+        state = model_zoo.export_state(state)
+    ranks = dist.is_available() and dist.is_initialized()
+    if not ranks or dist.get_rank() == 0:
+        ckpt_mgr.save(step, state)
+    if ranks:
+        dist.barrier()
+    return ckpt_mgr.restore(step, shardings=new_shardings)
+
 
 
 def remap_assignment(old: list[list[int]], new_n: int,

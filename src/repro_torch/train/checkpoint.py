@@ -67,8 +67,12 @@ def _unflatten(flat: dict):
 
 def _to_numpy(leaf) -> np.ndarray:
     """A leaf as a host numpy array (a torch tensor is copied off its
-    device)."""
+    device; a DTensor gathered whole first)."""
+    from torch.distributed.tensor import DTensor
+
     if isinstance(leaf, torch.Tensor):
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 
@@ -216,11 +220,14 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: Optional[int] = None, device=None,
-                like=None) -> tuple[int, Any]:
+                like=None, shardings=None) -> tuple[int, Any]:
         """Restore (step, state): numpy leaves, or torch tensors on
         ``device`` when one is given.  ``like``: an optional nested dict
         of arrays or tensors; each of its leaves must be in the
-        checkpoint with the same shape and dtype, else ValueError."""
+        checkpoint with the same shape and dtype, else ValueError.
+        ``shardings`` (elastic reshard): an object with ``place(tree)``,
+        such as ``train_step.StateShardings``, which places the restored
+        train state — on its mesh, with its own device."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -249,4 +256,6 @@ class CheckpointManager:
                 flat[path] = arr            # the marker is structure, not data
             else:
                 flat[path] = torch.from_numpy(arr).to(device)
+        if shardings is not None:
+            return step, shardings.place(_unflatten(flat))
         return step, _unflatten(flat)

@@ -16,6 +16,13 @@ decays the norm scales of its stacked cycles, and only those).
 
 ``adamw_update`` updates params, m and v in place (the reference donates
 their buffers) and returns them.
+
+Over a device mesh every tensor here is a DTensor: a parameter and its
+gradient in the parameter's placements, m, v and the residual in their
+ZeRO-1 placements (``train_step.state_specs``).  Each member's sum of
+squares, top-k's threshold and its kept count are reduced across ranks to
+one value on every rank; the update runs on m's shard and is gathered
+back to the parameter's placements.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ import dataclasses
 import math
 
 import torch
+
+from repro_torch.models.sharding import full, placed_as
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +61,7 @@ def leaves(tree) -> list:
 
 def members(leaf) -> list:
     """The tensors of one leaf: a stacked leaf's members, or the leaf."""
-    return list(leaf) if isinstance(leaf, (list, tuple)) else [leaf]
+    return list(leaf) if isinstance(leaf, list) else [leaf]
 
 
 def tree_map(fn, tree, *rest):
@@ -66,7 +75,7 @@ def tree_map(fn, tree, *rest):
 def member_map(fn, tree, *rest):
     """``fn`` over every member tensor; a stacked leaf stays a list."""
     def one(leaf, *others):
-        if isinstance(leaf, (list, tuple)):
+        if isinstance(leaf, list):
             return [fn(*xs) for xs in zip(leaf, *others)]
         return fn(leaf, *others)
     return tree_map(one, tree, *rest)
@@ -96,7 +105,7 @@ def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum, leaf by leaf in tree order, of each leaf's sum of
     squares in float32."""
     return torch.sqrt(sum(
-        sum(torch.sum(torch.square(x.float())) for x in members(leaf))
+        sum(full(torch.sum(torch.square(x.float()))) for x in members(leaf))
         for leaf in leaves(tree)))
 
 
@@ -141,13 +150,13 @@ def adamw_update(params, grads, state, cfg: OptConfig):
     bc2 = 1 - b2 ** stepf
 
     def upd(p, g, m, v):
-        g = (g * scale.to(g.dtype)).float()
+        g = placed_as((g * scale.to(g.dtype)).float(), m)
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * g * g)
         delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
         if p.dim() >= 2:  # decoupled weight decay on matrices only
-            delta = delta + cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr * delta).to(p.dtype))
+            delta = delta + cfg.weight_decay * placed_as(p, m).float()
+        p.copy_((p.float() - lr * placed_as(delta, p)).to(p.dtype))
 
     for lp, lg, lm, lv in zip(leaves(params), leaves(grads),
                               leaves(state["m"]), leaves(state["v"])):
@@ -179,8 +188,10 @@ def topk_compress(grads, ef_state, density: float = 0.01):
     """
     def one(g_leaf, r_leaf):
         gs, rs = members(g_leaf), members(r_leaf)
-        accs = [g.float() + r for g, r in zip(gs, rs)]
-        flat = torch.cat([a.abs().reshape(-1) for a in accs])
+        accs = [placed_as(g.float(), r) + r for g, r in zip(gs, rs)]
+        # the leaf's global top k, as GSPMD computes it: over a mesh each
+        # member is gathered whole for the threshold
+        flat = torch.cat([full(a).abs().reshape(-1) for a in accs])
         size = flat.shape[0]
         k = max(1, int(density * size))
         thresh = torch.topk(flat, k).values[-1]
@@ -191,9 +202,9 @@ def topk_compress(grads, ef_state, density: float = 0.01):
             s = torch.where(mask, a, 0.0)
             sent.append(s.to(g.dtype))
             resid.append(a - s)
-            kept = kept + mask.sum()
+            kept = kept + full(mask.sum())
         dens = kept.to(torch.float32) / size
-        if not isinstance(g_leaf, (list, tuple)):
+        if not isinstance(g_leaf, list):
             return sent[0], resid[0], dens
         return sent, resid, dens
 

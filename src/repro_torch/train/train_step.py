@@ -1,8 +1,9 @@
 """The train step: microbatched gradient accumulation, remat, optional
-gradient compression — the counterpart of ``repro/train/train_step.py``
-on one device.
+gradient compression, mesh-aware shardings — the counterpart of
+``repro/train/train_step.py``.
 
-``build_train_step`` returns ``(step_fn, init_state, None)``.  The train
+``build_train_step`` returns ``(step_fn, init_state, None)`` without a
+mesh, ``(step_fn, init_state, shardings)`` with one.  The train
 state is ``{"params": model, "opt": {"m", "v", "step"}, "step"[, "ef":
 {"residual"}]}`` (``models/model_zoo.py``); ``step_fn(state, batch)``
 updates it in place, as the reference donates it, and returns ``(state,
@@ -11,17 +12,30 @@ under top-k ``density`` and ``wire_ratio`` (0-d tensors).  It also takes
 the reference's train state as numpy, a restored checkpoint of either
 package, and loads it into a new model first.
 
-The reference jit-compiles the step with mesh-aware shardings
-(``state_specs``, ZeRO-1, FSDP); training over a device mesh is
-ROADMAP.md A.13.2b, so ``mesh`` must be None here.
+Over a device mesh (``launch/mesh.py``; every rank calls the step with
+the same global batch) the state lives where the reference's specs put it
+(:func:`state_specs`): each parameter is a DTensor placed by
+``sharding.param_specs`` (FSDP over the data axis under
+``sharding_mode="fsdp"``, the model axis by the tensor-parallel rules),
+m, v and top-k's residual in their ZeRO-1 placements, the step counters
+replicated.  Each microbatch is sharded over the data axes; the forward
+and backward run on DTensors (``sharding.use_mesh``); the gradients come
+back in the parameters' placements, and AdamW updates m and v on their
+shards and writes each parameter back in its own.  ``shardings["state"]``
+is a :class:`StateShardings`, which places a train state — the port's,
+or the reference's tree restored from a checkpoint — on its mesh
+(``runtime/elastic.py``).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import model_zoo
+from repro_torch.models import sharding as shd
 from repro_torch.serve.graph_service import bind_device
 from repro_torch.train import optimizer as opt
 
@@ -62,10 +76,88 @@ def _fresh_state(model, use_ef: bool) -> dict:
     return state
 
 
-def _clone_state(state: dict, cfg, run, device) -> dict:
-    """A copy that shares no storage with ``state``."""
-    return model_zoo.load_state(model_zoo.export_state(state), cfg, run,
-                                device)
+def default_rules(mesh, run: RunConfig) -> shd.Rules:
+    """The reference's rules for a mesh: the batch over its pod and data
+    axes, FSDP under ``sharding_mode="fsdp"``, ZeRO-1 as ``run.zero1``."""
+    names = mesh.mesh_dim_names
+    return shd.Rules(dp_axes=tuple(a for a in ("pod", "data") if a in names),
+                     fsdp=run.sharding_mode == "fsdp", zero1=run.zero1)
+
+
+def state_specs(state, rules: shd.Rules, mesh=None) -> dict:
+    """PartitionSpec tree for the full train state: the parameters'
+    (``sharding.param_specs``; ``state["params"]`` is a model, on the meta
+    device will do), m, v and the residual by ZeRO-1
+    (``opt_state_spec_from_param`` on each member's spec and shape), the
+    step counters replicated."""
+    model = state["params"]
+    param_sp = shd.param_specs(model, rules, mesh)
+    shapes = opt.member_map(lambda p: tuple(p.shape),
+                            model_zoo.param_tree(model))
+
+    def map_opt():
+        return opt.member_map(
+            lambda sp, shape: shd.opt_state_spec_from_param(sp, rules, shape,
+                                                            mesh),
+            param_sp, shapes)
+
+    out = {"params": param_sp,
+           "opt": {"m": map_opt(), "v": map_opt(), "step": shd.P()},
+           "step": shd.P()}
+    if "ef" in state:
+        out["ef"] = {"residual": map_opt()}
+    return out
+
+
+class StateShardings:
+    """Where a train state lives: ``mesh`` (None: plain tensors on
+    ``device``) with ``rules`` for ``cfg`` and ``run``.  :meth:`place`
+    puts a state there."""
+
+    def __init__(self, cfg: ModelConfig, run: RunConfig, mesh, rules,
+                 device):
+        self.cfg, self.run, self.mesh, self.device = cfg, run, mesh, device
+        self.rules = rules if mesh is None or rules is not None else \
+            default_rules(mesh, run)
+
+    def specs(self, use_ef: bool) -> Optional[dict]:
+        """:func:`state_specs` of this placement (None without a mesh)."""
+        if self.mesh is None:
+            return None
+        model = model_zoo.build_model(self.cfg, self.run, "meta")
+        return state_specs({"params": model, **({"ef": {}} if use_ef else {})},
+                           self.rules, self.mesh)
+
+    def place(self, state) -> dict:
+        """A new train state here holding ``state``'s values: the port's
+        state (on any mesh or none; gathered whole first) or the
+        reference's tree (numpy or tensors, a restored checkpoint)."""
+        if isinstance(state["params"], nn.Module):
+            state = model_zoo.export_state(state, host=False)
+        new = model_zoo.load_state(state, self.cfg, self.run, self.device)
+        if self.mesh is None:
+            return new
+        return _distribute_state(new, self.mesh, self.rules)
+
+
+def _distribute_state(state: dict, mesh, rules: shd.Rules) -> dict:
+    """A plain train state, equal on every rank, placed on ``mesh`` by
+    :func:`state_specs` (each rank keeps its shards)."""
+    specs = state_specs(state, rules, mesh)
+    shd.distribute_model_(state["params"], mesh, rules)
+
+    def put(x, sp):
+        return shd.distribute(x, sp, mesh)
+
+    state["opt"] = {"m": opt.member_map(put, state["opt"]["m"],
+                                        specs["opt"]["m"]),
+                    "v": opt.member_map(put, state["opt"]["v"],
+                                        specs["opt"]["v"]),
+                    "step": state["opt"]["step"]}
+    if "ef" in state:
+        state["ef"] = {"residual": opt.member_map(
+            put, state["ef"]["residual"], specs["ef"]["residual"])}
+    return state
 
 
 def build_train_step(
@@ -77,27 +169,40 @@ def build_train_step(
     donate: bool = True,
     device: str = "cuda",
 ):
-    """Returns ``(step_fn, init_state, None)`` (module docstring).
-    ``init_state(seed)`` builds the model's ``init(seed)`` and zeroed optimizer
-    state on ``device``, which is the card unless the caller asks for
-    another: without one it raises, as ``ServeEngine`` does.  With
-    ``donate=False`` the step leaves its input state as it was."""
-    if mesh is not None or rules is not None:
-        raise NotImplementedError("training over a device mesh is not "
-                                  "ported yet (ROADMAP.md A.13.2b)")
+    """Returns ``(step_fn, init_state, shardings)`` (module docstring):
+    ``shardings`` is None without a mesh, else ``dict(state=
+    StateShardings, batch=placements, rules=Rules, specs=state_specs)``
+    with the reference's default rules unless ``rules`` is given.
+    ``init_state(seed)`` builds the model's ``init(seed)`` and zeroed
+    optimizer state on ``device``, which is the card unless the caller
+    asks for another: without one it raises, as ``ServeEngine`` does.
+    Over a mesh every rank builds the same values from the seed's
+    generator and keeps its shards.  With ``donate=False`` the step leaves
+    its input state as it was."""
     device = bind_device(device)
     loss_fn = model_loss_fn(None, cfg)
     use_ef = run.grad_compression == "topk"
+    where = StateShardings(cfg, run, mesh, rules, device)
+    rules = where.rules
 
     def init_state(seed: int = 0) -> dict:
         model = model_zoo.build_model(cfg, run, device).init(seed)
-        return _fresh_state(model, use_ef)
+        state = _fresh_state(model, use_ef)
+        if mesh is not None:
+            state = _distribute_state(state, mesh, rules)
+        return state
+
+    def shard_batch(mb: dict) -> dict:
+        if mesh is None:
+            return mb
+        return {k: shd.distribute(v, shd.P(rules.dp), mesh)
+                for k, v in mb.items()}
 
     def step_fn(state, batch):
         if not isinstance(state["params"], nn.Module):
-            state = model_zoo.load_state(state, cfg, run, device)
+            state = where.place(state)
         elif not donate:
-            state = _clone_state(state, cfg, run, device)
+            state = where.place(state)          # a copy
         model = state["params"]
         params = model_zoo.param_tree(model)
         flat = [p for leaf in opt.leaves(params) for p in opt.members(leaf)]
@@ -105,44 +210,53 @@ def build_train_step(
                  for k, v in batch.items()}
         nmb = run.microbatch
         loss_sum, acc = None, None
-        for i in range(nmb):
-            mb = _microbatch(batch, nmb, i) if nmb > 1 else batch
-            with torch.enable_grad():
-                loss = loss_fn(model, mb)
-                grads = torch.autograd.grad(loss, flat)
-            loss = loss.detach()
-            if nmb == 1:
-                # 0 + g and g / 1 are exact: the reference's accumulator
-                # would hold the gradients as they are
-                loss_sum, acc = loss, [g.float() for g in grads]
-                continue
-            if acc is None:
-                loss_sum = torch.zeros((), dtype=torch.float32,
-                                       device=loss.device)
-                acc = [torch.zeros(p.shape, dtype=torch.float32,
-                                   device=p.device) for p in flat]
-            loss_sum = loss_sum + loss
-            for a, g in zip(acc, grads):
-                a.add_(g.float())
-            del grads
-        if nmb > 1:
-            loss = loss_sum / nmb
-            acc = [a / nmb for a in acc]
-        it = iter(acc)
-        grads = opt.member_map(lambda _: next(it), params)
-        del acc
+        with shd.use_mesh(mesh, rules):
+            for i in range(nmb):
+                mb = shard_batch(_microbatch(batch, nmb, i) if nmb > 1
+                                 else batch)
+                with torch.enable_grad():
+                    loss = loss_fn(model, mb)
+                    grads = torch.autograd.grad(loss, flat)
+                # the gradients in their parameters' placements (a partial
+                # sum over the data axes is reduced here)
+                grads = [shd.placed_as(g, p) for g, p in zip(grads, flat)]
+                loss = shd.full(loss.detach())
+                if nmb == 1:
+                    # 0 + g and g / 1 are exact: the reference's accumulator
+                    # would hold the gradients as they are
+                    loss_sum, acc = loss, [g.float() for g in grads]
+                    continue
+                if acc is None:
+                    loss_sum = torch.zeros((), dtype=torch.float32,
+                                           device=loss.device)
+                    acc = [torch.zeros_like(g, dtype=torch.float32)
+                           for g in grads]
+                loss_sum = loss_sum + loss
+                for a, g in zip(acc, grads):
+                    a.add_(g.float())
+                del grads
+            if nmb > 1:
+                loss = loss_sum / nmb
+                acc = [a / nmb for a in acc]
+            it = iter(acc)
+            grads = opt.member_map(lambda _: next(it), params)
+            del acc
 
-        if run.grad_compression == "bf16":
-            grads = opt.member_map(
-                lambda g: g.to(torch.bfloat16).float(), grads)
-        stats_extra = {}
-        if use_ef:
-            grads, state["ef"], stats_extra = opt.topk_compress(
-                grads, state["ef"])
+            if run.grad_compression == "bf16":
+                grads = opt.member_map(
+                    lambda g: g.to(torch.bfloat16).float(), grads)
+            stats_extra = {}
+            if use_ef:
+                grads, state["ef"], stats_extra = opt.topk_compress(
+                    grads, state["ef"])
 
-        _, state["opt"], stats = opt.adamw_update(params, grads,
-                                                  state["opt"], opt_cfg)
+            _, state["opt"], stats = opt.adamw_update(params, grads,
+                                                      state["opt"], opt_cfg)
         state["step"] = state["step"] + 1
         return state, {**stats, **stats_extra, "loss": loss}
 
-    return step_fn, init_state, None
+    if mesh is None:
+        return step_fn, init_state, None
+    return step_fn, init_state, dict(
+        state=where, batch=shd.placements(shd.P(rules.dp), mesh),
+        rules=rules, specs=where.specs(use_ef))

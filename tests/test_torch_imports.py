@@ -48,7 +48,7 @@ def test_importing_every_module_loads_no_jax():
 
 
 # the A.13.1 modules (the configs, the dense decoders and their serving),
-# the training of A.13.2 and the families of A.13.3
+# the training of A.13.2, the families of A.13.3 and the mesh of A.13.2b
 LM_MODULES = (
     "repro_torch.configs.base", "repro_torch.configs.registry",
     *(f"repro_torch.configs.{m}" for m in (
@@ -63,7 +63,9 @@ LM_MODULES = (
     "repro_torch.train.train_step", "repro_torch.launch.train",
     # A.13.3: the other families
     "repro_torch.models.moe", "repro_torch.models.rglru",
-    "repro_torch.models.rwkv6", "repro_torch.models.encdec")
+    "repro_torch.models.rwkv6", "repro_torch.models.encdec",
+    # A.13.2b: the mesh
+    "repro_torch.models.sharding", "repro_torch.launch.mesh")
 
 
 def test_config_modules_mirror_the_reference():
@@ -81,7 +83,8 @@ def test_config_modules_mirror_the_reference():
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py", ROOT / "chip_probe_c1.py"],
+                         + [ROOT / "chip_smoke.py", ROOT / "chip_probe_c1.py",
+                            ROOT / "chip_probe_mesh.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_has_no_jax_or_reference_import(path):
     bad = [line for line in path.read_text().splitlines()

@@ -1,0 +1,658 @@
+"""The language models over a device mesh: spawned gloo ranks on the CPU
+(one launch per world size — 1, 2 and 4 — runs every case, each rank on
+one torch thread), held against the port's mesh-free functions and the
+JAX package's jitted single-device step.
+
+* Train (reduced qwen3-1.7b under fsdp and tp, reduced granite-moe under
+  fsdp; remat "block", ZeRO-1, weight decay 0): three whole steps on
+  meshes (2, 2), (4, 1), (1, 4), (2, 1), (1, 2) and (1, 1) equal the
+  mesh-free step and the reference's within ``rtol=2e-4, atol=2e-5`` (the
+  reference's microbatch tolerance) — losses and every leaf of the
+  state; every parameter and moment is a DTensor placed by its spec with
+  the local shard's expected shape.  The same run twice, and a run failed
+  after step 2 and resumed from its checkpoint, are equal bit for bit.
+* Serve (reduced qwen3-1.7b — also under ``seq_shard_decode`` —,
+  gemma2-2b, recurrentgemma-9b, rwkv6-1.6b, whisper-base with
+  ``enc_frames``) on (2, 2): prefill and two decode steps within 1e-5 of
+  the mesh-free ``build_serve_fns`` and of the reference's on the same
+  parameters; every cache tensor placed by its spec.
+* ``seq_sharded_decode_attention`` over 2 and 4 sequence shards within
+  1e-6 of ``decode_attention``; the cache writes on shards equal to plain
+  indexing.
+* Elastic: (4, 1) -> (2, 2) through ``rescale_via_checkpoint`` and
+  ``reshard``; the next loss within 1e-5 of continuing on (4, 1) (the
+  reference's test allows 1e-3); the mesh checkpoint restores into the
+  reference's ``CheckpointManager`` with the port's leaves.
+* World 1: ``build_train_step`` and ``build_serve_fns`` take a (1, 1)
+  mesh; ``make_cluster_mesh(1)`` works and a wider one raises, as does a
+  mesh whose size is not the world's.
+
+The JAX package is imported inside the tests only: the spawned ranks
+import this module and need only torch.
+"""
+import multiprocessing as mp
+import os
+import queue
+import tempfile
+import traceback
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs import registry as treg
+from repro_torch.configs.base import RunConfig
+from repro_torch.core.distributed import init_process_group
+from repro_torch.launch import mesh as tmesh
+from repro_torch.models import layers as tlayers
+from repro_torch.models import model_zoo as tzoo
+from repro_torch.models import sharding as shd
+from repro_torch.runtime import elastic
+from repro_torch.serve import serve_step as tserve
+from repro_torch.train import data as tdata
+from repro_torch.train import optimizer as topt
+from repro_torch.train import train_step as tts
+from repro_torch.train.checkpoint import CheckpointManager
+
+TOL = dict(rtol=2e-4, atol=2e-5)
+SERVE_ATOL = 1e-5
+FLASH_ATOL = 1e-6
+ELASTIC_ATOL = 1e-5
+OPT_KW = dict(lr=1e-3, warmup_steps=2, decay_steps=100, weight_decay=0.0)
+SEED = 3
+B, S, STEPS = 4, 16, 3
+TRAIN = {"qwen-fsdp": ("qwen3-1.7b", "fsdp"),
+         "qwen-tp": ("qwen3-1.7b", "tp"),
+         "moe": ("granite-moe-1b-a400m", "fsdp")}
+MESHES = {1: {"1x1": (1, 1)},
+          2: {"2x1": (2, 1), "1x2": (1, 2)},
+          4: {"2x2": (2, 2), "4x1": (4, 1), "1x4": (1, 4)}}
+SERVE = ("qwen3-1.7b", "gemma2-2b", "recurrentgemma-9b", "rwkv6-1.6b",
+         "whisper-base")
+SERVE_B, PROMPT, DECODES, MAX_LEN = 2, 12, 2, 32
+AXES = ("data", "model")
+
+
+def _train_run(mode):
+    return RunConfig(sharding_mode=mode, remat="block", q_chunk=16,
+                     kv_chunk=16, loss_chunk=16, compute_dtype="float32")
+
+
+def _serve_run(seq_shard=False):
+    return RunConfig(remat="none", q_chunk=16, kv_chunk=16,
+                     compute_dtype="float32", seq_shard_decode=seq_shard)
+
+
+def _batches(cfg, n=STEPS):
+    src = tdata.SyntheticLM(cfg, B, S, seed=0)
+    return [src.batch_at(i) for i in range(n)]
+
+
+def _serve_inputs(cfg):
+    rng = np.random.default_rng(11)
+    toks = rng.integers(0, cfg.vocab_size,
+                        (SERVE_B, PROMPT + DECODES)).astype(np.int32)
+    inputs = {"tokens": toks[:, :PROMPT]}
+    if cfg.encoder_layers > 0:
+        inputs["enc_frames"] = rng.normal(
+            size=(SERVE_B, MAX_LEN // 2, cfg.d_model)).astype(np.float32)
+    return inputs, toks[:, PROMPT:]
+
+
+def _serve(fns, model, cfg):
+    """Prefill logits, then each decode step's."""
+    inputs, nxt = _serve_inputs(cfg)
+    cache, logits = fns["prefill"](model, fns["init_cache"](), inputs)
+    out = [logits]
+    for t in range(DECODES):
+        cache, logits = fns["decode"](model, cache,
+                                      torch.from_numpy(nxt[:, t:t + 1]),
+                                      PROMPT + t)
+        out.append(logits)
+    return [o.float().numpy() for o in out], cache
+
+
+# ---------------------------------------------------------------------------
+# the ranks
+# ---------------------------------------------------------------------------
+
+def _local_shape(shape, spec, mesh):
+    return tuple(n // shd.axis_size(mesh, s) if s is not None else n
+                 for n, s in zip(shape, tuple(spec) + (None,) * len(shape)))
+
+
+def _misplaced(tensors, specs, mesh):
+    """Every (tensor, spec) pair whose tensor is not a DTensor on ``mesh``
+    with the spec's placements and local shape."""
+    bad = []
+    for t, sp in zip(tensors, specs):
+        if (not shd.is_dtensor(t) or t.device_mesh != mesh
+                or list(t.placements) != shd.placements(sp, mesh)
+                or tuple(t.to_local().shape)
+                != _local_shape(t.shape, sp, mesh)):
+            bad.append((tuple(t.shape), sp))
+    return bad
+
+
+def _flat(tree):
+    return [m for leaf in topt.leaves(tree) for m in topt.members(leaf)]
+
+
+def _state_misplaced(state, specs, mesh):
+    model = state["params"]
+    bad = _misplaced(_flat(tzoo.param_tree(model)), _flat(specs["params"]),
+                     mesh)
+    for k in ("m", "v"):
+        bad += _misplaced(_flat(state["opt"][k]), _flat(specs["opt"][k]),
+                          mesh)
+    return bad
+
+
+def _train_case(name, mesh):
+    arch, mode = TRAIN[name]
+    cfg = treg.get_config(arch, reduced=True)
+    step, init, sh = tts.build_train_step(
+        cfg, _train_run(mode), topt.OptConfig(**OPT_KW), mesh=mesh,
+        device="cpu")
+    state = init(SEED)
+    bad = _state_misplaced(state, sh["specs"], mesh)
+    losses = []
+    for b in _batches(cfg):
+        state, stats = step(state, b)
+        losses.append(float(stats["loss"]))
+    bad += _state_misplaced(state, sh["specs"], mesh)
+    return {"misplaced": bad, "losses": losses,
+            "state": tzoo.export_state(state)}
+
+
+def _resume_case(mesh, ckpt_dir, rank):
+    """qwen-fsdp: two steps, a checkpoint, the state dropped (a failed
+    job), the restore placed on the mesh, the third step."""
+    cfg = treg.get_config("qwen3-1.7b", reduced=True)
+    step, init, sh = tts.build_train_step(
+        cfg, _train_run("fsdp"), topt.OptConfig(**OPT_KW), mesh=mesh,
+        device="cpu")
+    state = init(SEED)
+    batches = _batches(cfg)
+    for b in batches[:2]:
+        state, _ = step(state, b)
+    tree = tzoo.export_state(state)
+    mgr = CheckpointManager(ckpt_dir)
+    if rank == 0:
+        mgr.save(2, tree)
+    dist.barrier()
+    del state
+    _, state = mgr.restore(shardings=sh["state"])
+    misplaced = _state_misplaced(state, sh["specs"], mesh)
+    state, _ = step(state, batches[2])
+    return {"state": tzoo.export_state(state), "misplaced": misplaced}
+
+
+def _serve_case(arch, mesh, seq_shard=False):
+    cfg = treg.get_config(arch, reduced=True)
+    run = _serve_run(seq_shard)
+    fns = tserve.build_serve_fns(cfg, run, mesh=mesh, max_len=MAX_LEN,
+                                 batch=SERVE_B, cache_dtype=torch.float32,
+                                 device="cpu")
+    model = tzoo.build_model(cfg, run, "cpu").init(SEED)
+    logits, cache = _serve(fns, model, cfg)
+    specs = tserve.cache_specs(model, cache, fns["rules"], mesh, seq_shard)
+    tensors, want = [], []
+    for _, _, node, key in tserve._cache_paths(model, cache):
+        tensors.append(node[key])
+    for _, _, node, key in tserve._cache_paths(model, specs):
+        want.append(node[key])
+    bad = _misplaced(tensors, want, mesh)
+    bad += _misplaced(_flat(tzoo.param_tree(model)),
+                      _flat(shd.param_specs(model, fns["rules"], mesh)),
+                      mesh)
+    return {"logits": logits, "misplaced": bad}
+
+
+def _flash_case(mesh, axis):
+    g = torch.Generator().manual_seed(5)
+    q = torch.randn(2, 1, 4, 16, generator=g)
+    k = torch.randn(2, 32, 2, 16, generator=g)
+    v = torch.randn(2, 32, 2, 16, generator=g)
+    out = {}
+    for cap in (None, 50.0):
+        for cl in (torch.tensor([20, 32]), torch.tensor(7)):
+            want = tlayers.decode_attention(q, k, v, cl, softcap=cap)
+            kd = shd.distribute(k, shd.P(None, axis), mesh)
+            vd = shd.distribute(v, shd.P(None, axis), mesh)
+            got = tlayers.seq_sharded_decode_attention(q, kd, vd, cl, mesh,
+                                                       axis, softcap=cap)
+            out[(cap, cl.dim())] = float((got - want).abs().max())
+    return out
+
+
+def _write_case(meshes):
+    """The cache writes on shards against plain indexing — a span, the
+    rolling prefill's two spans, a decode's slots — under the placements a
+    cache takes (kv heads, the sequence, the sequence over both axes):
+    the count of elements that differ, by mesh and spec."""
+    g = torch.Generator().manual_seed(7)
+    buf0 = torch.randn(4, 8, 2, 3, generator=g)
+    span = torch.randn(4, 5, 2, 3, generator=g)
+    row = torch.randn(4, 2, 3, generator=g)
+    slot = torch.tensor([0, 7, 3, 4])
+    want = buf0.clone()
+    want[:, 2:7] = span
+    want[:, 6:8] = span[:, :2]
+    want[:, 0:3] = span[:, 2:]
+    want[torch.arange(4), slot] = row
+    out = {}
+    for mname, mesh in meshes.items():
+        for spec in (shd.P("data", None, "model"), shd.P("data", "model"),
+                     shd.P(None, ("data", "model"))):
+            buf = shd.distribute(buf0, spec, mesh)
+            shd.write_span_(buf, 2, shd.distribute(span, shd.P("data"), mesh))
+            shd.write_span_(buf, 6, span[:, :2])
+            shd.write_span_(buf, 0, span[:, 2:])
+            shd.write_slots_(buf, slot, shd.distribute(
+                row, shd.P(None, "model"), mesh))
+            out[f"{mname} {spec!r}"] = int((buf.full_tensor() != want).sum())
+    return out
+
+
+def _elastic_case(ckpt_dir, rank):
+    cfg = treg.get_config("qwen3-1.7b", reduced=True)
+    run = RunConfig(remat="none", q_chunk=16, kv_chunk=16, loss_chunk=16,
+                    compute_dtype="float32")
+    mesh_a = tmesh.make_mesh((4, 1), AXES, device="cpu")
+    mesh_b = tmesh.make_mesh((2, 2), AXES, device="cpu")
+    opt_cfg = topt.OptConfig(**OPT_KW)
+    step_a, init, sh_a = tts.build_train_step(cfg, run, opt_cfg,
+                                              mesh=mesh_a, device="cpu")
+    step_b, _, sh_b = tts.build_train_step(cfg, run, opt_cfg, mesh=mesh_b,
+                                           device="cpu")
+    b0, b1 = _batches(cfg, 2)
+    state, _ = step_a(init(SEED), b0)
+    saved = tzoo.export_state(state)
+    _, state_c = elastic.rescale_via_checkpoint(
+        CheckpointManager(ckpt_dir), 1, state, sh_b["state"])
+    state_r = elastic.reshard(state, sh_b["state"])
+    bad = (_state_misplaced(state_c, sh_b["specs"], mesh_b)
+           + _state_misplaced(state_r, sh_b["specs"], mesh_b))
+    _, s_c = step_b(state_c, b1)
+    _, s_r = step_b(state_r, b1)
+    _, s_a = step_a(state, b1)
+    return {"loss_a": float(s_a["loss"]), "loss_c": float(s_c["loss"]),
+            "loss_r": float(s_r["loss"]), "misplaced": bad,
+            "saved": saved if rank == 0 else None}
+
+
+def _world1_cases():
+    out = {}
+    mesh = tmesh.make_mesh((1, 1), AXES, device="cpu")
+    cfg = treg.get_config("qwen3-1.7b", reduced=True)
+    run = _serve_run()
+    fns = tserve.build_serve_fns(cfg, run, mesh=mesh, max_len=MAX_LEN,
+                                 batch=SERVE_B, cache_dtype=torch.float32,
+                                 device="cpu")
+    out["serve_shardings"] = fns["shardings"] is not None
+    out["serve_logits"], _ = _serve(
+        fns, tzoo.build_model(cfg, run, "cpu").init(SEED), cfg)
+    out["cluster_axes"] = tmesh.make_cluster_mesh(1, "cpu").mesh_dim_names
+    for name, fn in (("cluster2", lambda: tmesh.make_cluster_mesh(2, "cpu")),
+                     ("mesh2", lambda: tmesh.make_mesh((2, 1), AXES, "cpu"))):
+        try:
+            fn()
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def _worker(rank, world, init_file, ckpt_root, results):
+    try:
+        torch.set_num_threads(1)
+        init_process_group(rank, world, f"file://{init_file}", device="cpu")
+        out = {"train": {}}
+        meshes = {k: tmesh.make_mesh(v, AXES, device="cpu")
+                  for k, v in MESHES[world].items()}
+        for mname, mesh in meshes.items():
+            for name in TRAIN:
+                r = _train_case(name, mesh)
+                out["train"][(mname, name)] = r if rank == 0 else \
+                    {"misplaced": r["misplaced"]}
+        if world == 4:
+            mesh = meshes["2x2"]
+            out["again"] = _train_case("qwen-fsdp", mesh)["state"]
+            out["resume"] = _resume_case(mesh, os.path.join(ckpt_root, "r"),
+                                         rank)
+            out["serve"] = {
+                (arch, seq): _serve_case(arch, mesh, seq)
+                for arch, seq in [(a, False) for a in SERVE]
+                + [("qwen3-1.7b", True)]}
+            out["elastic"] = _elastic_case(os.path.join(ckpt_root, "e"), rank)
+            out["write"] = _write_case({k: meshes[k] for k in ("2x2", "1x4")})
+            out["flash"] = {2: _flash_case(mesh, "model"),
+                            4: _flash_case(meshes["1x4"], "model")}
+        if world == 2:
+            out["flash"] = {2: _flash_case(meshes["1x2"], "model")}
+        if world == 1:
+            out.update(_world1_cases())
+        results.put((rank, "ok", out))
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+_LAUNCHES = {}
+WORLDS = (1, 2, 4)
+
+
+def _start(world):
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    root = tempfile.mkdtemp(prefix="mesh_")
+    init_file = os.path.join(root, "init")
+    procs = [ctx.Process(target=_worker,
+                         args=(r, world, init_file, root, results),
+                         daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs, results, root
+
+
+def _collect(world, procs, results, root):
+    got = {}
+    try:
+        for _ in range(world):
+            rank, status, payload = results.get(timeout=600)
+            assert status == "ok", f"rank {rank}:\n{payload}"
+            got[rank] = payload
+    except queue.Empty:
+        pytest.fail(f"world {world}: ranks "
+                    f"{sorted(set(range(world)) - set(got))} reported nothing")
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=5)
+    return got, root
+
+
+def _launch(world):
+    """The results of world size ``world``'s launch, {rank: results}, and
+    its scratch directory.  The first call starts the launches of every
+    world size at once (one thread a rank), then waits for this one."""
+    if not _LAUNCHES:
+        _LAUNCHES.update({w: _start(w) for w in WORLDS})
+    if not isinstance(_LAUNCHES[world], dict):
+        _LAUNCHES[world] = dict(zip(("got", "root"),
+                                    _collect(world, *_LAUNCHES[world])))
+    return _LAUNCHES[world]["got"], _LAUNCHES[world]["root"]
+
+
+# ---------------------------------------------------------------------------
+# the mesh-free references (in the test process)
+# ---------------------------------------------------------------------------
+
+_FREE = {}
+
+
+def _free_train(name):
+    """The port's mesh-free steps and the reference's jitted ones from the
+    same initial state: (port losses, port state, reference losses,
+    reference state)."""
+    if name in _FREE:
+        return _FREE[name]
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import registry as jreg
+    from repro.configs.base import RunConfig as JRun
+    from repro.train import train_step as jts
+    from repro.train.optimizer import OptConfig as JOpt
+
+    arch, mode = TRAIN[name]
+    cfg = treg.get_config(arch, reduced=True)
+    run = _train_run(mode)
+    step, init, _ = tts.build_train_step(cfg, run, topt.OptConfig(**OPT_KW),
+                                         device="cpu")
+    state = init(SEED)
+    jstate = jax.tree.map(jnp.asarray, tzoo.export_state(state))
+    jstep, _, _ = jts.build_train_step(
+        jreg.get_config(arch, reduced=True),
+        JRun(**{k: getattr(run, k) for k in (
+            "sharding_mode", "remat", "q_chunk", "kv_chunk", "loss_chunk",
+            "compute_dtype")}), JOpt(**OPT_KW))
+    losses, jlosses = [], []
+    for b in _batches(cfg):
+        state, stats = step(state, b)
+        losses.append(float(stats["loss"]))
+        jstate, jstats = jstep(jstate, {k: jnp.asarray(v)
+                                        for k, v in b.items()})
+        jlosses.append(float(jstats["loss"]))
+    jtree = jax.tree.map(np.asarray, jstate)
+    _FREE[name] = (losses, tzoo.export_state(state), jlosses, jtree)
+    return _FREE[name]
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{path}/{k}")
+    else:
+        yield path, np.asarray(tree)
+
+
+def _assert_trees(got, want, **tol):
+    gl, wl = dict(_leaves(got)), dict(_leaves(want))
+    assert sorted(gl) == sorted(wl)
+    for k in wl:
+        assert gl[k].shape == wl[k].shape, k
+        np.testing.assert_allclose(gl[k].astype(np.float64), wl[k],
+                                   err_msg=k, **tol)
+
+
+def _assert_bits(got, want):
+    gl, wl = dict(_leaves(got)), dict(_leaves(want))
+    assert sorted(gl) == sorted(wl)
+    for k in wl:
+        g, w = np.atleast_1d(gl[k]), np.atleast_1d(wl[k])
+        assert g.dtype == w.dtype and np.array_equal(
+            g.view(np.uint8), w.view(np.uint8)), k
+
+
+def _free_serve(arch, seq_shard=False):
+    cfg = treg.get_config(arch, reduced=True)
+    run = _serve_run(seq_shard)
+    fns = tserve.build_serve_fns(cfg, run, max_len=MAX_LEN, batch=SERVE_B,
+                                 cache_dtype=torch.float32, device="cpu")
+    return _serve(fns, tzoo.build_model(cfg, run, "cpu").init(SEED), cfg)[0]
+
+
+_REF_SERVE = {}
+
+
+def _ref_serve(arch):
+    """The reference's jitted ``build_serve_fns`` (no mesh) on the same
+    parameters (``export_params``), tokens and ``enc_frames``: prefill
+    logits, then each decode step's."""
+    if arch in _REF_SERVE:
+        return _REF_SERVE[arch]
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import registry as jreg
+    from repro.configs.base import RunConfig as JRun
+    from repro.serve import serve_step as jss
+
+    cfg = treg.get_config(arch, reduced=True)
+    run = _serve_run()
+    params = jax.tree.map(jnp.asarray, tzoo.export_params(
+        tzoo.build_model(cfg, run, "cpu").init(SEED)))
+    fns = jss.build_serve_fns(
+        jreg.get_config(arch, reduced=True),
+        JRun(**{k: getattr(run, k) for k in (
+            "remat", "q_chunk", "kv_chunk", "compute_dtype")}),
+        max_len=MAX_LEN, batch=SERVE_B, cache_dtype=jnp.float32)
+    inputs, nxt = _serve_inputs(cfg)
+    cache, logits = fns["prefill"](params, fns["init_cache"](),
+                                   {k: jnp.asarray(v)
+                                    for k, v in inputs.items()})
+    out = [logits]
+    for t in range(DECODES):
+        cache, logits = fns["decode"](params, cache,
+                                      jnp.asarray(nxt[:, t:t + 1]),
+                                      jnp.int32(PROMPT + t))
+        out.append(logits)
+    _REF_SERVE[arch] = [np.asarray(o, np.float32) for o in out]
+    return _REF_SERVE[arch]
+
+
+def _assert_serve(got, arch, seq_shard=False):
+    """Logits within ``SERVE_ATOL`` of the port's mesh-free functions and
+    of the reference's (on the real vocab: the padded columns are masked
+    in both)."""
+    v = treg.get_config(arch, reduced=True).vocab_size
+    for g, w, j in zip(got, _free_serve(arch, seq_shard), _ref_serve(arch)):
+        np.testing.assert_allclose(g, w, rtol=0, atol=SERVE_ATOL)
+        np.testing.assert_allclose(g[..., :v], j[..., :v], rtol=0,
+                                   atol=SERVE_ATOL)
+
+
+# ---------------------------------------------------------------------------
+# tests
+# ---------------------------------------------------------------------------
+
+TRAIN_IDS = [(w, m, n) for w in (4, 2, 1) for m in MESHES[w] for n in TRAIN]
+
+
+@pytest.mark.parametrize("world,mname,name", TRAIN_IDS,
+                         ids=[f"w{w}-{m}-{n}" for w, m, n in TRAIN_IDS])
+def test_train_steps_match_mesh_free_and_reference(world, mname, name):
+    got, _ = _launch(world)
+    losses, state, jlosses, jstate = _free_train(name)
+    r = got[0]["train"][(mname, name)]
+    np.testing.assert_allclose(r["losses"], losses, **TOL)
+    np.testing.assert_allclose(r["losses"], jlosses, **TOL)
+    _assert_trees(r["state"], state, **TOL)
+    _assert_trees(r["state"], jstate, **TOL)
+    for rank in got:
+        assert got[rank]["train"][(mname, name)]["misplaced"] == []
+
+
+def test_train_state_is_sharded_by_the_specs():
+    """The rules reach the ranks: under fsdp on (2, 2) the embedding is
+    split over both axes, and granite-moe's experts over the model axis."""
+    got, _ = _launch(4)
+    # misplaced == [] above checks placements and shard shapes per rank;
+    # here the specs themselves
+    mesh = _AbstractMesh({"data": 2, "model": 2})
+    cfg = treg.get_config("granite-moe-1b-a400m", reduced=True)
+    model = tzoo.build_model(cfg, _train_run("fsdp"), "meta")
+    rules = tts.default_rules(_Named(("data", "model")), _train_run("fsdp"))
+    specs = tts.state_specs({"params": model}, rules, mesh)
+    assert specs["params"]["embed"]["tok"] == shd.P("model", "data")
+    assert specs["params"]["cycles"]["0G"]["moe"]["wi"][0] == \
+        shd.P("model", "data", None)
+    assert specs["opt"]["m"]["final_norm"]["scale"] == shd.P("data")
+    assert all(not r["train"][("2x2", "moe")]["misplaced"]
+               for r in got.values())
+
+
+class _AbstractMesh:
+    def __init__(self, shape):
+        self.shape = shape
+
+
+class _Named:
+    def __init__(self, names):
+        self.mesh_dim_names = names
+
+
+def test_mesh_run_twice_is_bitwise_equal():
+    got, _ = _launch(4)
+    _assert_bits(got[0]["again"], got[0]["train"][("2x2", "qwen-fsdp")]
+                 ["state"])
+
+
+def test_mesh_resume_is_bitwise_equal():
+    got, _ = _launch(4)
+    assert all(r["resume"]["misplaced"] == [] for r in got.values())
+    _assert_bits(got[0]["resume"]["state"],
+                 got[0]["train"][("2x2", "qwen-fsdp")]["state"])
+
+
+SERVE_IDS = [(a, False) for a in SERVE] + [("qwen3-1.7b", True)]
+
+
+@pytest.mark.parametrize("arch,seq", SERVE_IDS,
+                         ids=[a + ("-seq" if s else "") for a, s in SERVE_IDS])
+def test_serve_matches_mesh_free(arch, seq):
+    """(2, 2): every rank's logits as the mesh-free port's and the
+    reference's; every cache tensor and parameter placed by its spec."""
+    got, _ = _launch(4)
+    for rank in got:
+        r = got[rank]["serve"][(arch, seq)]
+        assert r["misplaced"] == []
+        _assert_serve(r["logits"], arch, seq)
+
+
+@pytest.mark.parametrize("world,shards", [(2, 2), (4, 2), (4, 4)])
+def test_seq_sharded_decode_attention(world, shards):
+    got, _ = _launch(world)
+    for rank in got:
+        errs = got[rank]["flash"][shards]
+        assert max(errs.values()) <= FLASH_ATOL, errs
+
+
+def test_cache_writes_on_shards():
+    got, _ = _launch(4)
+    for rank in got:
+        w = got[rank]["write"]
+        assert len(w) == 6 and not any(w.values()), w
+
+
+def test_elastic_reshard_across_meshes():
+    got, _ = _launch(4)
+    for rank in got:
+        e = got[rank]["elastic"]
+        assert e["misplaced"] == []
+        assert abs(e["loss_c"] - e["loss_a"]) <= ELASTIC_ATOL
+        assert abs(e["loss_r"] - e["loss_a"]) <= ELASTIC_ATOL
+
+
+def test_mesh_checkpoint_restores_in_the_reference():
+    from repro.train.checkpoint import CheckpointManager as JManager
+
+    got, root = _launch(4)
+    _, tree = JManager(os.path.join(root, "e")).restore(1)
+    _assert_bits(tree, got[0]["elastic"]["saved"])
+
+
+def test_build_train_step_takes_a_mesh():
+    """A (1, 1) gloo mesh in a spawned rank: the step that raised before
+    the mesh was ported runs, and matches the mesh-free one."""
+    got, _ = _launch(1)
+    losses = _free_train("qwen-fsdp")[0]
+    np.testing.assert_allclose(got[0]["train"][("1x1", "qwen-fsdp")]
+                               ["losses"], losses, **TOL)
+
+
+def test_build_serve_fns_takes_a_mesh():
+    got, _ = _launch(1)
+    r = got[0]
+    assert r["serve_shardings"]
+    _assert_serve(r["serve_logits"], "qwen3-1.7b")
+
+
+def test_cluster_mesh_and_world_size_checks():
+    got, _ = _launch(1)
+    r = got[0]
+    assert r["cluster_axes"] == ("server",)
+    assert "need 2 ranks" in r["cluster2"]
+    assert "world size 2" in r["mesh2"]
+
+
+def test_make_mesh_refuses_without_a_process_group():
+    with pytest.raises(ValueError, match="none is initialised"):
+        tmesh.make_mesh((1, 1), AXES, device="cpu")
+    with pytest.raises(ValueError, match="need 1 ranks"):
+        tmesh.make_cluster_mesh(1, device="cpu")
