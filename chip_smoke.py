@@ -300,6 +300,28 @@
     seq_sharded_decode_attention at one shard within LM_MESH_FLASH_ATOL of
     decode_attention.  Its counts are read and logged as zero.  The
     process group is destroyed at the phase's end.
+23. The dry run, roofline and report tools ("lm dryrun"): (a) five cells
+    of launch/dryrun.py at full width and the reference's production
+    shapes, each ``python -m repro_torch.launch.dryrun --arch A --cell C
+    --mesh M`` in a process of its own (DryRuns), all started together
+    after phase 7, beside phases 8-10 and the side processes, and
+    joined in phase 23 (on the H100 machine, started beside phases 19-22
+    instead, they made the smoke 825.5 s against 695.8 s: phase 23
+    waited 108.2 s for them): qwen3-1.7b train_4k, prefill_32k (its
+    depth cut to 2 of 28 layers: 2,080 chunk pairs a layer) and
+    decode_32k on the single mesh (16 x 16, a fake process group of 256
+    ranks) and decode_32k on the multi mesh (2 x 16 x 16, 512), and
+    granite-moe-1b-a400m train_4k on the single mesh (the MoE dispatch); each on fake CUDA tensors (nothing allocated), status
+    ok, every roofline term above 0 and the peak bytes a device below the
+    card's 80 GiB (roofline/hw.py); then launch/report.py over their
+    directory.  (b) hlo_cost.run around phase 20 (a)'s qwen3-1.7b train
+    step (8 x 128 tokens, no mesh) and around one phase 19 (a) decode
+    step (4 slots of 256, cache length 16) on the card, and the same
+    functions on fake tensors of the same shapes: FLOPs, bytes and fused
+    bytes equal (else the ops that differ are named); each timed on the
+    card (CUDA events, the mean of LM_DRYRUN_REPS calls after a warm one)
+    beside analysis.roofline's step_s_bound of its count, which it must
+    not beat.  Its counts are read and logged as zero.
 
 Phase 11, the out-of-core part of 12 ("admission ooc", admission_ooc)
 and part c of 15 (checkpoint_ooc) run in three spawned side processes
@@ -309,8 +331,9 @@ work that leaves the card idle, so they run on other cores beside phases
 side's kernels count in its process and report; its lines are logged
 when it is joined.
 
-Phases 5, 6, 8, 9, 11, 13, 14, 16, 17c, 19, 20, 21 and 22, the in-memory session of
-12 and its out-of-core session ("admission ooc") and each part of 15
+Phases 5, 6, 8, 9, 11, 13, 14, 16, 17c, 19, 20, 21, 22 and 23, the
+in-memory session of 12 and its out-of-core session ("admission ooc")
+and each part of 15
 ("checkpoint" sums a and b, then "checkpoint ooc", "cluster restart") set
 every kernel's launch counter to 0 just before and read it just after
 (the cluster ranks and phase 13's gloo ranks count in their processes
@@ -396,6 +419,16 @@ LM_MESH_SHAPE = (1, 1)            # phase 22: ("data", "model"), NCCL
 LM_MESH_SERVE = dict(batch=4, max_len=256)  # phase 22 (b)
 LM_MESH_SERVE_ATOL = 1e-5         # mesh vs mesh-free build_serve_fns logits
 LM_MESH_FLASH_ATOL = 1e-6         # seq_sharded vs decode_attention
+LM_DRYRUN_JOBS = (                # phase 23 (a): (arch, cell, mesh, layers)
+    ("qwen3-1.7b", "train_4k", "single", None),
+    # 2,080 causal chunk pairs a layer: at 28 layers the count ran past
+    # 900 s on one core of the H100 machine's host, so the depth is cut
+    ("qwen3-1.7b", "prefill_32k", "single", 2),
+    ("qwen3-1.7b", "decode_32k", "single", None),
+    ("qwen3-1.7b", "decode_32k", "multi", None),
+    ("granite-moe-1b-a400m", "train_4k", "single", None))
+LM_DRYRUN_TIMEOUT_S = 1000        # each cell, from the start of them all
+LM_DRYRUN_REPS = 5                # phase 23 (b): timed calls after a warm one
 ADMIT_OOC_SUPERSTEPS = 2     # admission session compared out of core (cut
                              # from 3: its Q = 9 superstep took 78-103 s)
 CKPT_CRASH_SS = 3            # checkpoint: crash at the start of superstep 3
@@ -4005,6 +4038,278 @@ def lm_mesh_phase(torch, lm_train):
     return out
 
 
+class DryRuns:
+    """Phase 23 (a): each dry-run cell (``python -m
+    repro_torch.launch.dryrun --arch A --cell C --mesh M``) in a process of
+    its own, started together beside the main sequence (host work: fake
+    tensors allocate nothing on the card); ``join`` waits for them."""
+
+    def __init__(self, jobs, out_dir):
+        shutil.rmtree(out_dir, ignore_errors=True)
+        os.makedirs(out_dir)
+        self.out_dir, self.procs = out_dir, []
+        self.t0, self.wall0 = time.perf_counter(), time.time()
+        env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+               "REPRO_TORCH_DRYRUN_DIR": out_dir, "OMP_NUM_THREADS": "1"}
+        for arch, cell, mesh, layers in jobs:
+            logf = open(os.path.join(out_dir, f"{arch}__{cell}__{mesh}.log"),
+                        "w")
+            cut = [] if layers is None else ["--layers", str(layers)]
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--cell", cell, "--mesh", mesh, "--device", DEV, *cut],
+                stdout=logf, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+            self.procs.append(((arch, cell, mesh), proc, logf))
+
+    def join(self, timeout):
+        """{(arch, cell, mesh): (exit code, seconds from the start to its
+        log's last write)}."""
+        out = {}
+        while len(out) < len(self.procs):
+            for key, proc, logf in self.procs:
+                if key not in out and proc.poll() is not None:
+                    logf.close()
+                    out[key] = (proc.returncode, os.path.getmtime(logf.name)
+                                - self.wall0)
+            if time.perf_counter() - self.t0 > timeout:
+                self.kill()
+                left = [k for k, _, _ in self.procs if k not in out]
+                raise AssertionError(f"lm dryrun: {left} still running "
+                                     f"{timeout} s after their start")
+            time.sleep(0.5)
+        return {key: out[key] for key, _, _ in self.procs}
+
+    def kill(self):
+        for _, proc, logf in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            logf.close()
+
+
+def lm_dryrun_cells(torch, dry):
+    """Phase 23 (a): the dry-run cells' results checked, then the report
+    over their directory."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import report
+    from repro_torch.roofline import hw
+
+    ends = dry.join(LM_DRYRUN_TIMEOUT_S)
+    rows = []
+    for (arch, cell, mesh), (rc, end_s) in ends.items():
+        path = os.path.join(dry.out_dir, f"{arch}__{cell}__{mesh}.json")
+        with open(os.path.join(dry.out_dir,
+                               f"{arch}__{cell}__{mesh}.log")) as f:
+            tail = f.read()[-3000:]
+        if rc != 0 or not os.path.exists(path):
+            raise AssertionError(f"lm dryrun {arch} {cell} {mesh}: exit "
+                                 f"code {rc}\n{tail}")
+        with open(path) as f:
+            r = json.load(f)
+        rf, mem = r["roofline"], r["memory"]
+        terms = {k: rf[k] for k in ("compute_s", "memory_s",
+                                    "memory_fused_s", "collective_s")}
+        if r["status"] != "ok" or not all(v > 0 for v in terms.values()) \
+                or not mem["peak_bytes_estimate"] < hw.HBM_BYTES:
+            raise AssertionError(f"lm dryrun {arch} {cell} {mesh}: status "
+                                 f"{r['status']}, terms {terms}, memory "
+                                 f"{mem}")
+        row = dict(arch=arch, cell=cell, mesh=mesh, n_chips=r["n_chips"],
+                   layers=r["layers"], seconds=end_s, build_s=r["lower_s"],
+                   count_s=r["compile_s"], ops=r["ops"], memory=mem,
+                   collectives=r["collectives"], roofline=rf)
+        rows.append(row)
+        log(f"lm dryrun {arch} {cell} {mesh} ({r['n_chips']} fake ranks, "
+            f"{r['layers']} layers): "
+            f"ok {end_s:.1f} s after the start on the card's host (build "
+            f"{r['lower_s']} s, "
+            f"count {r['compile_s']} s, {r['ops']} ops a device); "
+            f"modelled on {r['n_chips']} H100s: compute "
+            f"{rf['compute_s']:.4g} s, memory {rf['memory_fused_s']:.4g} / "
+            f"{rf['memory_s']:.4g} s, collective {rf['collective_s']:.4g} s, "
+            f"{rf['bottleneck']}-bound, MFU bound {rf['mfu_bound']:.4f}; "
+            f"peak {mem['peak_bytes_estimate']} bytes a device")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        report.main(["--dir", dry.out_dir])
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"  {line}")
+    if f"{len(rows)} compiled ok, 0 skipped (assignment rules), 0 errors" \
+            not in text:
+        raise AssertionError(f"lm dryrun report: {text[:500]}")
+    return rows, text
+
+
+def count_diff(real, fake):
+    """The ops whose counts differ between two records: {(name, args):
+    (real count, fake count)}."""
+    from collections import Counter
+
+    def key(r):
+        return (r.name, json.dumps(r.args), json.dumps(r.outs))
+
+    a, b = Counter(map(key, real)), Counter(map(key, fake))
+    return {k: (a[k], b[k]) for k in set(a) | set(b) if a[k] != b[k]}
+
+
+def card_and_fake_counts(torch, what, build, inputs, call, reps, smi):
+    """Phase 23 (b) for one function: ``build(device)`` makes its state,
+    ``inputs(state, device)`` its arguments, ``call(state, *args)`` runs
+    it.  Counted on the card (hlo_cost.run) and on fake tensors of the same
+    shapes, which must agree; timed on the card (CUDA events, mean of
+    ``reps`` calls after a warm one) beside analysis.roofline's bound."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.roofline import analysis, hlo_cost
+
+    state = build(DEV)
+    args = inputs(state, DEV)
+    call(state, *args)                      # warm
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        call(state, *args)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    t0 = time.perf_counter()
+    real = hlo_cost.run(call, state, *args)
+    real_s = time.perf_counter() - t0
+    real.result = None
+    del state, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        fstate = build(DEV)
+        fake = hlo_cost.run(call, fstate, *inputs(fstate, DEV))
+    fake_s = time.perf_counter() - t0
+    rc, fc = real.cost, fake.cost
+    if (rc.flops, rc.bytes, rc.bytes_fused) != (fc.flops, fc.bytes,
+                                                fc.bytes_fused):
+        diff = count_diff(real.records, fake.records)
+        raise AssertionError(
+            f"lm dryrun {what}: the card counts {rc.flops} FLOPs, "
+            f"{rc.bytes} bytes, fake tensors {fc.flops}, {fc.bytes}; ops "
+            f"that differ: {list(diff.items())[:20]}")
+    terms = analysis.roofline(rc.flops, rc.bytes, rc.coll_bytes, 1, 0.0,
+                              hbm_bytes_fused=rc.bytes_fused)
+    bound_ms = 1e3 * terms.step_s_bound
+    ratio = ms / bound_ms
+    if not ms >= bound_ms:
+        raise AssertionError(f"lm dryrun {what}: {ms:.4g} ms on the card, "
+                             f"below its bound {bound_ms:.4g} ms")
+    out = dict(what=what, card=smi, ms=ms, bound_ms=bound_ms,
+               measured_over_bound=ratio,
+               bottleneck=terms.bottleneck, flops=rc.flops, bytes=rc.bytes,
+               bytes_fused=rc.bytes_fused, ops=len(real.records),
+               count_card_s=real_s, count_fake_s=fake_s,
+               memory_card=real.memory.as_dict(),
+               memory_fake=fake.memory.as_dict())
+    log(f"lm dryrun {what}: {len(real.records)} ops, {rc.flops:.6g} FLOPs, "
+        f"{rc.bytes:.6g} bytes ({rc.bytes_fused:.6g} fused) on the card and "
+        f"on fake tensors alike (counted in {real_s:.1f} s and "
+        f"{fake_s:.1f} s); {ms:.3f} ms on the card ({smi}) against a bound "
+        f"of {bound_ms:.4g} ms ({terms.bottleneck}), measured / bound "
+        f"{ratio:.2f}")
+    return out
+
+
+def lm_dryrun_card(torch, smi):
+    """Phase 23 (b): phase 20 (a)'s train step and one phase 19 (a) decode
+    step counted on the card and on fake tensors, timed against their
+    bound."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.optimizer import OptConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    argv = dict(zip(LM_TRAIN_ARGV[::2], LM_TRAIN_ARGV[1::2]))
+    steps, batch, seq = (int(argv[k]) for k in ("--steps", "--batch",
+                                                "--seq"))
+    cfg = registry.get_config(LM_TRAIN_ARCH)
+    # launch/train.py's run and schedule
+    run = RunConfig(remat="block", q_chunk=min(512, seq),
+                    kv_chunk=min(512, seq), loss_chunk=min(512, seq),
+                    compute_dtype="float32")
+    opt_cfg = OptConfig(lr=3e-4, warmup_steps=max(steps // 20, 10),
+                        decay_steps=steps)
+    data = SyntheticLM(cfg, batch, seq, seed=0).batch_at(0)
+
+    def train_build(dev):
+        step, init, _ = ts.build_train_step(cfg, run, opt_cfg, device=dev)
+        return dict(step=step, state=init(0))
+
+    def train_inputs(st, dev):
+        b = {k: torch.empty(v.shape, dtype=torch.int32, device=dev)
+             for k, v in data.items()}
+        if not isinstance(b["tokens"], FakeTensor):
+            for k, v in data.items():
+                b[k].copy_(torch.from_numpy(v))
+        return (b,)
+
+    def train_call(st, b):
+        st["state"], stats = st["step"](st["state"], b)
+        return st["state"], stats
+
+    out = dict(train=card_and_fake_counts(
+        torch, f"train {LM_TRAIN_ARCH} {batch} x {seq}", train_build,
+        train_inputs, train_call, LM_DRYRUN_REPS, smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 19 (a): launch/serve.py's run, 4 slots of 256, 16 tokens a
+    # prompt, one decode step of every slot
+    scfg = registry.get_config(LM_SERVE_ARCH)
+    srun = RunConfig(remat="none", q_chunk=64, kv_chunk=64,
+                     compute_dtype="float32")
+    slots, max_len, prompt = 4, 256, 16
+
+    def serve_build(dev):
+        model = build_model(scfg, srun, dev)
+        if not isinstance(model.embed_tok, FakeTensor):
+            model.init(0)
+        return dict(model=model,
+                    cache=model.init_cache(slots, max_len, torch.bfloat16))
+
+    def serve_inputs(st, dev):
+        return (torch.zeros((slots, 1), dtype=torch.int32, device=dev),
+                torch.full((slots,), prompt, dtype=torch.int32, device=dev))
+
+    def serve_call(st, tok, cl):
+        with torch.inference_mode():
+            st["cache"], logits = st["model"].decode_step(tok, st["cache"], cl)
+        return logits
+
+    out["decode"] = card_and_fake_counts(
+        torch, f"decode {LM_SERVE_ARCH} {slots} slots of {max_len}",
+        serve_build, serve_inputs, serve_call, LM_DRYRUN_REPS, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_dryrun_phase(torch, dry, smi):
+    """Phase 23: the dry-run cells (a) and the counter on the card (b)
+    (module docstring); ``smi`` names the card and its power limit."""
+    t0 = time.perf_counter()
+    out = dict(card=lm_dryrun_card(torch, smi))
+    out["card_s"] = time.perf_counter() - t0
+    out["cells"], out["report"] = lm_dryrun_cells(torch, dry)
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, by_path, err, row, case):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=row["kernel_ms"],
@@ -4057,6 +4362,7 @@ def main():
     ckpt_root = os.path.join(ROOT, "build", "chip_smoke_ckpt")
     shutil.rmtree(store_root, ignore_errors=True)
     shutil.rmtree(ckpt_root, ignore_errors=True)
+    dry = None
     try:
         t0 = time.perf_counter()
         store, plan, src, dst, store_info = build_store(store_root)
@@ -4101,8 +4407,11 @@ def main():
         del eng
         mark("profile pagerank", t0)
 
-        # phase 11 and the out-of-core parts of phases 12 and 15 run in
-        # side processes beside phases 8-10 (host work; the card idles)
+        # phase 11, the out-of-core parts of phases 12 and 15 and phase
+        # 23's dry-run cells run in side processes beside phases 8-10
+        # (host work; the card idles)
+        dry = DryRuns(LM_DRYRUN_JOBS,
+                      os.path.join(ROOT, "build", "chip_smoke_dryrun"))
         out_degree = store.load_degrees()[1]
         sources = pick_sources(out_degree)
         s9, s10 = pick_admitted(src, dst, out_degree, sources)
@@ -4193,7 +4502,17 @@ def main():
         log(f"lm mesh launches: {lm_mesh_launches} (the mesh path runs no "
             "kernel of the graph engine)")
         mark("lm mesh", t0)
+        gc.collect()
+        t0 = time.perf_counter()
+        reset_launches()
+        lm_dryrun = lm_dryrun_phase(torch, dry, smi)
+        lm_dryrun_launches = read_launches()
+        log(f"lm dryrun launches: {lm_dryrun_launches} (the dry run and the "
+            "counter run no kernel of the graph engine)")
+        mark("lm dryrun", t0)
     finally:
+        if dry is not None:
+            dry.kill()
         shutil.rmtree(store_root, ignore_errors=True)
         shutil.rmtree(ckpt_root, ignore_errors=True)
 
@@ -4204,7 +4523,7 @@ def main():
              "tune": tune_launches, "lm serve": lm_launches,
              "lm train": lm_train_launches,
              "lm families": lm_families_launches,
-             "lm mesh": lm_mesh_launches}
+             "lm mesh": lm_mesh_launches, "lm dryrun": lm_dryrun_launches}
     total = {k: sum(p[k] for p in paths.values()) for k in main_launches}
     log(f"launches by path: {paths}; total {total}")
 
@@ -4285,7 +4604,7 @@ def main():
                        tune=tune_rows, tune_runs=tune_runs,
                        baselines=baselines, lm_serve=lm_serve,
                        lm_train=lm_train, lm_families=lm_families,
-                       lm_mesh=lm_mesh,
+                       lm_mesh=lm_mesh, lm_dryrun=lm_dryrun,
                        launches_by_path=paths, kernels=kernels,
                        phase_seconds=phase_s, seconds=seconds), f, indent=1)
     faulthandler.cancel_dump_traceback_later()

@@ -306,6 +306,34 @@ def placed_as(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def gather_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``torch.gather(x, -1, idx[..., None])[..., 0]``.  On a DTensor ``x``
+    each rank reads the ids that fall in its slice of the last dim and the
+    hits are summed over the mesh dims that shard that dim (one term a
+    position is not zero: exact).  A gather on the DTensor would read the
+    last dim whole on every rank, and its backward zero a tensor of the
+    global shape there (a vocab's logits: ROADMAP C.2)."""
+    if not is_dtensor(x):
+        return torch.gather(x, -1, idx[..., None])[..., 0]
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    last, mesh = x.dim() - 1, x.device_mesh
+    idx_pl = [p if p.is_shard() and p.dim != last else Replicate()
+              for p in x.placements]
+    idx = (moved(idx, idx_pl, mesh) if is_dtensor(idx)
+           else distribute_as(idx, idx_pl, mesh))
+    off, size = shard_box(x)
+    lo, n = off[last], size[last]
+    rel = idx.to_local() - lo
+    hit = torch.gather(x.to_local(), -1,
+                       rel.clamp(0, n - 1)[..., None])[..., 0]
+    hit = torch.where((rel >= 0) & (rel < n), hit,
+                      torch.zeros((), dtype=hit.dtype, device=hit.device))
+    out_pl = [Partial() if p.is_shard() and p.dim == last else q
+              for p, q in zip(x.placements, idx_pl)]
+    return DTensor.from_local(hit, mesh, out_pl, run_check=False)
+
+
 def shard_box(x) -> tuple[list, list]:
     """This rank's shard of the DTensor ``x``: its offset and its size
     along each tensor dim.  The shards must be even, as

@@ -43,8 +43,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import rwkv6 as K
-from repro_torch.models.sharding import (cns, gathered, matmul, write_slots_,
-                                        write_span_)
+from repro_torch.models.sharding import (cns, gather_last, gathered, matmul,
+                                        write_slots_, write_span_)
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -222,10 +222,8 @@ def chunked_xent(h: torch.Tensor, labels, emb: torch.Tensor,
         logits = cns(logits, ("pod", "data"), None, "model")
         lse = torch.logsumexp(logits, dim=-1)
         valid = lc >= 0
-        # DTensor's rule for a gather along a sharded vocab fails on
-        # batch-sharded ids: the target reads the vocab whole
-        tgt = torch.gather(cns(logits, ("pod", "data"), None, None), -1,
-                           torch.clamp(lc, min=0)[..., None])[..., 0]
+        # each rank reads the target from its own shard of the vocab
+        tgt = gather_last(logits, torch.clamp(lc, min=0))
         nll = (lse - tgt) * valid
         tot = tot + nll.sum()
         cnt = cnt + valid.sum()

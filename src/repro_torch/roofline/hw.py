@@ -22,6 +22,16 @@ SMEM_RESERVED_PER_BLOCK = 1024  # the system's share of each resident block
 REGS_PER_SM = 65536             # 32-bit registers an SM
 THREADS_PER_SM = 2048
 BLOCKS_PER_SM = 32
+# --- datasheet: the roofline's figures (``roofline/analysis.py``); not
+# measured on the card ---
+# dense BF16 tensor-core rate, H100 datasheet, SXM5 column (its 1,979
+# TFLOP/s is with 2:4 sparsity)
+PEAK_FLOPS_BF16 = 989.4e12
+# float32 products run on the FP32 cores: the port keeps TF32 off
+PEAK_FLOPS_F32 = F32_FLOPS
+# one direction of NVLink 4 (the datasheet's 900 GB/s counts both)
+LINK_BW = 450e9
+HBM_BYTES = 80 * 1024**3        # 80 GiB of HBM3
 
 # --- measured by chip_smoke.py phase 17a (calibrate_tuner) on MEASURED_ON,
 # on the SCALE 22 R-MAT store's largest tile (E = 1,058,944, R = 622,320) ---

@@ -48,7 +48,8 @@ def test_importing_every_module_loads_no_jax():
 
 
 # the A.13.1 modules (the configs, the dense decoders and their serving),
-# the training of A.13.2, the families of A.13.3 and the mesh of A.13.2b
+# the training of A.13.2, the families of A.13.3, the mesh of A.13.2b and
+# the dry run, roofline and report tools of A.13.4
 LM_MODULES = (
     "repro_torch.configs.base", "repro_torch.configs.registry",
     *(f"repro_torch.configs.{m}" for m in (
@@ -65,7 +66,11 @@ LM_MODULES = (
     "repro_torch.models.moe", "repro_torch.models.rglru",
     "repro_torch.models.rwkv6", "repro_torch.models.encdec",
     # A.13.2b: the mesh
-    "repro_torch.models.sharding", "repro_torch.launch.mesh")
+    "repro_torch.models.sharding", "repro_torch.launch.mesh",
+    # A.13.4: the dry run, roofline and report tools
+    "repro_torch.launch.dryrun", "repro_torch.launch.perf",
+    "repro_torch.launch.report", "repro_torch.launch.compare",
+    "repro_torch.roofline.analysis", "repro_torch.roofline.hlo_cost")
 
 
 def test_config_modules_mirror_the_reference():
