@@ -200,10 +200,19 @@ def test_cli_sigterm_checkpoint_drill_resumes(store, tmp_path):
                               "--checkpoint-dir", ck,
                               "--drain-linger-ms", "0")
     try:
-        for seed in (3, 77):
-            _http(base + "/v1/query", dict(app="ppr", seed=seed))
+        rids = [_http(base + "/v1/query", dict(app="ppr", seed=seed))["rid"]
+                for seed in (3, 77)]
         deadline = time.monotonic() + 60
-        while _http(base + "/v1/stats")["stats"]["supersteps"] < 2:
+        # both queries in the session's columns: a query admitted after
+        # the session opened is spliced in at the next barrier, and one
+        # still queued or unspliced at the drain is not checkpointed
+        while any(_http(f"{base}/v1/query/{rid}")["status"] != "running"
+                  for rid in rids):
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        start = _http(base + "/v1/stats")["stats"]["supersteps"]
+        while _http(base + "/v1/stats")["stats"]["supersteps"] < \
+                max(start + 2, 2):
             assert time.monotonic() < deadline
             time.sleep(0.01)
         p.send_signal(signal.SIGTERM)
