@@ -14,9 +14,14 @@
    (``launch/dryrun.py:run_cell``, as ``tests/test_torch_dryrun.py`` runs
    them): FLOPs, bytes, collective bytes, temporary bytes and ops a
    device, to hold against the same cells on another torch release.
+3. Reduced qwen3-1.7b train_4k and prefill_32k on (1, 1), (2, 2) and
+   (1, 4) fake meshes: the dot FLOPs a device times the ranks against
+   (1, 1)'s and the largest attention ``bmm`` batch (ROADMAP C.4, as
+   ``tests/test_torch_dryrun.py`` holds them).
 
 Prints one JSON line and writes it to chiprun_out/chip_probe_dryrun.json;
-exits non-zero when the trap counts anything but the local product.
+exits non-zero when the trap counts anything but the local product or a
+product in 3 runs on more than its rank's share.
 """
 import json
 import os
@@ -64,6 +69,42 @@ for arch, cell in (("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "prefill_32k"),
 print(json.dumps(out))
 '''
 
+SHARES = r'''
+import json
+from repro_torch.launch import dryrun
+from repro_torch.roofline import hlo_cost
+import tempfile
+dryrun.RESULTS_DIR = tempfile.mkdtemp()
+out = {}
+for cell in ("train_4k", "prefill_32k"):
+    for shape in ((1, 1), (2, 2), (1, 4)):
+        dryrun.run_cell("qwen3-1.7b", cell, "single", device="cpu",
+                        reduced=True, mesh_shape=shape, batch=4, seq=32,
+                        save=True)
+        rec = dryrun.load_record("qwen3-1.7b", cell, "single")
+        out[f"{cell} {shape[0]}x{shape[1]}"] = dict(
+            dot=hlo_cost.dot_flops(rec),
+            bmm_batch=max(r[1][0][1][0] for r in rec
+                          if r[0].startswith("aten.bmm.")))
+print(json.dumps(out))
+'''
+SHARE_RTOL = 0.02      # tests/test_torch_dryrun.py's MESH_DOT_RTOL
+
+
+def shares_ok(shares):
+    """Every product on its rank's share: the dot FLOPs a device times the
+    ranks within SHARE_RTOL of (1, 1)'s, the attention bmm's batch (rows
+    times query heads) at most (1, 1)'s over the ranks."""
+    ok = True
+    for cell in ("train_4k", "prefill_32k"):
+        one = shares[f"{cell} 1x1"]
+        for shape in ("2x2", "1x4"):
+            r = shares[f"{cell} {shape}"]
+            r["dot_x_ranks_vs_1x1"] = 4 * r["dot"] / one["dot"]
+            ok &= abs(r["dot_x_ranks_vs_1x1"] - 1) <= SHARE_RTOL
+            ok &= 4 * r["bmm_batch"] <= one["bmm_batch"]
+    return ok
+
 
 def run(code, *args):
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
@@ -83,7 +124,9 @@ def main():
     out = dict(torch=torch.__version__,
                card=torch.cuda.get_device_name(0) if len(devices) > 1
                else None,
-               trap={d: run(TRAP, d) for d in devices}, cells=run(CELLS))
+               trap={d: run(TRAP, d) for d in devices}, cells=run(CELLS),
+               shares=run(SHARES))
+    shares = shares_ok(out["shares"])
     line = json.dumps(out)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_probe_dryrun.json"),
@@ -91,7 +134,7 @@ def main():
         f.write(line + "\n")
     print(line)
     bad = [d for d, t in out["trap"].items() if t["flops"] != want]
-    return 1 if bad else 0
+    return 1 if bad or not shares else 0
 
 
 if __name__ == "__main__":

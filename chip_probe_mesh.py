@@ -7,9 +7,11 @@ Runs the spawned CPU ranks of ``tests/test_torch_mesh.py`` (gloo, world
 sizes 2 and 4, one torch thread a rank: three train steps of reduced
 qwen3-1.7b under fsdp and tp and of granite-moe on every mesh of the
 world size, serving five families on (2, 2), flash-decoding, the elastic
-rescale) and holds each against the port's mesh-free functions: the
-largest difference of the losses and of the train state's leaves, of the
-served logits, and the placements that differ from the specs.  The test
+rescale, ``sharding.linear`` and ``sharding.logsumexp`` on shards) and
+holds each against the port's mesh-free functions: the largest
+difference of the losses and of the train state's leaves, of the served
+logits, of the sharded products and log-sum-exps and their gradients,
+and the placements that differ from the specs.  The test
 file also holds them against the JAX package, which a machine without
 jax cannot; this probe tries another torch release's DTensor (the chip
 machine's) on the same cases.  Writes ``chiprun_out/chip_probe_mesh.json``;
@@ -76,6 +78,12 @@ def check(world):
     out["flash"] = {str(n): max(v.values())
                     for n, v in got[0]["flash"].items()}
     ok &= max(out["flash"].values()) <= T.FLASH_ATOL
+    out["linear"] = max(max(e) for r in got.values()
+                        for e in r["linear"].values())
+    out["logsumexp"] = max(max(e[:2]) for r in got.values()
+                           for e in r["lse"].values())
+    ok &= out["linear"] <= T.LINEAR_ATOL and out["logsumexp"] <= T.LSE_ATOL
+    ok &= all(e[2] for r in got.values() for e in r["lse"].values())
     if "elastic" in got[0]:
         e = got[0]["elastic"]
         out["elastic"] = dict(checkpoint=e["loss_c"] - e["loss_a"],

@@ -26,7 +26,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import cns, gathered, matmul, split_heads
+from repro_torch.models.sharding import (cns, gathered, linear, merge_heads,
+                                         split_heads)
 from repro_torch.models.transformer import (_mask_pad_logits,
                                             _write_decode_cache,
                                             _write_prefill_cache,
@@ -169,8 +170,8 @@ class EncDecLM(nn.Module):
         cfg = self.cfg
         h, dh = cfg.num_heads, cfg.resolved_head_dim()
         dt = enc_out.dtype
-        return [{"k": split_heads(matmul(enc_out, blk.cross.wk.to(dt)), h, dh),
-                 "v": split_heads(matmul(enc_out, blk.cross.wv.to(dt)), h, dh)}
+        return [{"k": split_heads(linear(enc_out, blk.cross.wk.to(dt)), h, dh),
+                 "v": split_heads(linear(enc_out, blk.cross.wv.to(dt)), h, dh)}
                 for blk in self.decoder]
 
     # -- decoder -----------------------------------------------------------
@@ -192,14 +193,12 @@ class EncDecLM(nn.Module):
                                                    device=x.device) + 1)
         x = x + blk.attn.out(o, run.attn_shard)
         h = blk.ln_x(x, cfg.norm, cfg.norm_eps)
-        B, Sq, _ = h.shape
         hq, dh = cfg.num_heads, cfg.resolved_head_dim()
-        cq = split_heads(matmul(h, blk.cross.wq.to(h.dtype)), hq, dh)
+        cq = split_heads(linear(h, blk.cross.wq.to(h.dtype)), hq, dh)
         cq = cns(cq, None, None, "model", None)
         o = L.blockwise_attention(cq, xk, xv, causal=False, softcap=None,
                                   q_chunk=run.q_chunk, kv_chunk=run.kv_chunk)
-        x = x + matmul(o.reshape(B, Sq, hq * dh),
-                       blk.cross.wo.to(h.dtype))
+        x = x + linear(merge_heads(o), blk.cross.wo.to(h.dtype))
         h = blk.ln2(x, cfg.norm, cfg.norm_eps)
         return x + blk.mlp(h), c
 
@@ -272,6 +271,6 @@ class EncDecLM(nn.Module):
         return cache, self._logits(h)
 
     def _logits(self, h) -> torch.Tensor:
-        logits = matmul(h, self.embed_tok.t().to(h.dtype))
+        logits = linear(h, self.embed_tok.t().to(h.dtype))
         logits = _mask_pad_logits(logits, self.cfg)
         return cns(logits, ("pod", "data"), None, "model")

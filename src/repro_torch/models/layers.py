@@ -16,7 +16,11 @@ einsum's afresh at every call.
 
 The reference's sharding constraints stand where it has them
 (``sharding.cns``): over a device mesh the activations are DTensors and
-``cns`` redistributes them; without one it returns its input.
+``cns`` redistributes them; without one it returns its input.  Over a
+mesh the projections are ``sharding.linear`` on each rank's share, and
+attention, train, prefill and decode alike, runs on each rank's batch
+rows and query heads, a rank slicing out the kv heads its query heads
+use where the model axis has more ranks than kv heads.
 :func:`seq_sharded_decode_attention` is the reference's flash-decoding over
 a KV cache sharded along the sequence, merged with collectives over the
 sequence axis's process group; the reference defines it and calls it
@@ -31,9 +35,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.sharding import (batch_only, cns, is_dtensor, like,
-                                         matmul, moved, shard_box,
-                                         split_heads)
+from repro_torch.models.sharding import (batch_heads, cns, is_dtensor,
+                                         like, linear, matmul, merge_heads,
+                                         moved, shard_box, split_heads)
 
 NEG_INF = -1e30
 
@@ -145,11 +149,15 @@ def blockwise_attention(
     chunk down, clamped duplicates skipped), chunks wholly masked skipped,
     masked scores at NEG_INF, the output divided by max(l, 1e-30).  Memory
     stays one score block ``[B, Hkv, G, q_chunk, kv_chunk]`` at a time."""
+    if is_dtensor(q):
+        return _blockwise_attention_on_shards(
+            q, k, v, causal=causal, window=window, softcap=softcap,
+            q_chunk=q_chunk, kv_chunk=kv_chunk, q_offset=q_offset,
+            scores_dtype=scores_dtype)
     B, Sq0, H, Dh = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
     scale = Dh ** -0.5
-    q, k, v = batch_only(q), batch_only(k), batch_only(v)
 
     q, Sq = _pad_seq(q, q_chunk, 1)
     k, Skv = _pad_seq(k, kv_chunk, 1)
@@ -229,6 +237,53 @@ def blockwise_attention(
     return out[:, :Sq0]
 
 
+def _local_heads(q, k, v, qpl, kpl):
+    """The local tensors of q, k and v for attention on each rank's own
+    batch rows and query heads: q placed by ``qpl``, k and v by ``kpl``
+    (the same batch split; a head split only where q's is the same).
+    Where k and v are whole on a mesh dim that splits q's heads (fewer kv
+    heads than ranks), each rank slices out the kv heads of its query
+    heads (a GQA group is contiguous), and their gradient is a partial
+    sum over the ranks that share them."""
+    from torch.distributed.tensor import Partial
+
+    mesh = q.device_mesh
+    kg = [Partial() if p.is_shard(2) and not kp.is_shard() else kp
+          for p, kp in zip(qpl, kpl)]
+    q = moved(q, qpl, mesh)
+    k, v = moved(k, kpl, mesh), moved(v, kpl, mesh)
+    G = q.shape[2] // k.shape[2]
+    h0, k0 = shard_box(q)[0][2], shard_box(k)[0][2]
+    ql = q.to_local()
+    kl, vl = (t.to_local(grad_placements=kg) for t in (k, v))
+    hl = ql.shape[2]
+    if hl % G == 0 or G % hl == 0:      # whole groups, or one group's part
+        idx = slice(h0 // G - k0, h0 // G - k0 + max(hl // G, 1))
+    else:                               # a group split across ranks
+        idx = torch.arange(h0, h0 + hl, device=kl.device) // G - k0
+    return ql, kl[:, :, idx], vl[:, :, idx]
+
+
+def _blockwise_attention_on_shards(q, k, v, **kw):
+    """:func:`blockwise_attention` over a mesh, each rank on its own batch
+    rows and query heads (``sharding.batch_heads``), as GSPMD partitions
+    the reference's einsums: the batch split by q's or by k's (a whole
+    q, as the cross-attention's, is sliced to k's rows), the heads by
+    q's, k and v following (:func:`_local_heads`).  Returns a DTensor
+    placed as q's shard."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = q.device_mesh
+    k = k if is_dtensor(k) else like(k, q)
+    v = v if is_dtensor(v) else like(v, q)
+    qpl = [Shard(0) if kp.is_shard(0) else p
+           for p, kp in zip(batch_heads(q), k.placements)]
+    kpl = [p if p.is_shard(0) or (p.is_shard(2) and kp.is_shard(2))
+           else Replicate() for p, kp in zip(qpl, k.placements)]
+    o = blockwise_attention(*_local_heads(q, k, v, qpl, kpl), **kw)
+    return DTensor.from_local(o, mesh, qpl, run_check=False)
+
+
 # ---------------------------------------------------------------------------
 # decode attention (single new token against a cache)
 # ---------------------------------------------------------------------------
@@ -267,25 +322,27 @@ def decode_attention(
 
 def _decode_attention_on_shards(q, k_cache, v_cache, cache_len, **kw):
     """:func:`decode_attention` over a mesh, each rank on its local rows
-    and kv heads.  A query head stays with its kv head when q's heads are
-    split as the cache's (a GQA group is contiguous), so only a cache
-    split along its sequence moves: it is gathered, where GSPMD
-    partitions the softmax (flash-decoding is
-    :func:`seq_sharded_decode_attention`, which the reference leaves
-    unwired).  Returns a DTensor placed as the local work was."""
-    from torch.distributed.tensor import DTensor, Replicate
+    and query heads (:func:`_local_heads`): q follows the cache's batch
+    split and kv-head split, and keeps its own head split where the cache
+    is whole (fewer kv heads than ranks).  Only a cache split along its
+    sequence moves: it is gathered, where GSPMD partitions the softmax
+    (flash-decoding is :func:`seq_sharded_decode_attention`, which the
+    reference leaves unwired).  Returns a DTensor placed as q's shard."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
 
     mesh = k_cache.device_mesh
-    pl = [Replicate() if p.is_shard(1) else p for p in k_cache.placements]
-    k_cache, v_cache = (moved(t, pl) for t in (k_cache, v_cache))
-    q = moved(q if is_dtensor(q) else like(q, k_cache), pl, mesh)
-    cl = torch.as_tensor(cache_len, device=q.device)
+    kpl = [Replicate() if p.is_shard(1) else p for p in k_cache.placements]
+    q = q if is_dtensor(q) else like(q, k_cache)
+    qpl = [Shard(0) if kp.is_shard(0) else Shard(2)
+           if kp.is_shard(2) or (p.is_shard(2) and not kp.is_shard())
+           else Replicate() for p, kp in zip(q.placements, kpl)]
+    ql, kl, vl = _local_heads(q, k_cache, v_cache, qpl, kpl)
+    cl = torch.as_tensor(cache_len, device=ql.device)
     if cl.dim() == 1:                              # per-row: this rank's
-        off, size = shard_box(k_cache)
+        off, size = shard_box(moved(k_cache, kpl, mesh))
         cl = cl[off[0]:off[0] + size[0]]
-    o = decode_attention(q.to_local(), k_cache.to_local(), v_cache.to_local(),
-                         cl, **kw)
-    return DTensor.from_local(o, mesh, pl, run_check=False)
+    o = decode_attention(ql, kl, vl, cl, **kw)
+    return DTensor.from_local(o, mesh, qpl, run_check=False)
 
 
 def seq_sharded_decode_attention(q, k_cache, v_cache, cache_len, mesh,
@@ -370,9 +427,9 @@ class Attention(nn.Module):
         B, S, _ = x.shape
         h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
         cdt = x.dtype
-        qf = matmul(x, self.wq.to(cdt))
-        kf = matmul(x, self.wk.to(cdt))
-        vf = matmul(x, self.wv.to(cdt))
+        qf = linear(x, self.wq.to(cdt))
+        kf = linear(x, self.wk.to(cdt))
+        vf = linear(x, self.wv.to(cdt))
         if attn_shard == "flat":
             qf = cns(qf, ("pod", "data"), None, "model")
             kf = cns(kf, ("pod", "data"), None, "model")
@@ -390,11 +447,10 @@ class Attention(nn.Module):
         return q, k, v
 
     def out(self, o: torch.Tensor, attn_shard: str = "heads") -> torch.Tensor:
-        B, S, h, dh = o.shape
-        of = o.reshape(B, S, h * dh)
+        of = merge_heads(o)
         if attn_shard == "flat":
             of = cns(of, ("pod", "data"), None, "model")  # row-parallel
-        y = matmul(of, self.wo.to(o.dtype))
+        y = linear(of, self.wo.to(o.dtype))
         return cns(y, ("pod", "data"), None, None)
 
 
@@ -426,11 +482,11 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cdt = x.dtype
-        hi = matmul(x, self.wi.to(cdt))
+        hi = linear(x, self.wi.to(cdt))
         hi = cns(hi, ("pod", "data"), None, "model")
         if self.wg is not None:
-            hi = _act(matmul(x, self.wg.to(cdt)), self.act) * hi
+            hi = _act(linear(x, self.wg.to(cdt)), self.act) * hi
         else:
             hi = _act(hi, self.act)
-        y = matmul(hi, self.wo.to(cdt))
+        y = linear(hi, self.wo.to(cdt))
         return cns(y, ("pod", "data"), None, None)

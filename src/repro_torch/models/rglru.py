@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import assign_, cns, matmul
+from repro_torch.models.sharding import assign_, cns, linear
 
 _C = 8.0
 
@@ -84,8 +84,8 @@ def _conv1d(x, w, state=None):
 
 def _gates(p: RGLRU, xb):
     """(a, sqrt(1 - a²)·i·x), float32 [B, S, R]."""
-    rf = torch.sigmoid(matmul(xb, p.gate_a.to(xb.dtype)).float())
-    i = torch.sigmoid(matmul(xb, p.gate_x.to(xb.dtype)).float())
+    rf = torch.sigmoid(linear(xb, p.gate_a.to(xb.dtype)).float())
+    i = torch.sigmoid(linear(xb, p.gate_x.to(xb.dtype)).float())
     log_a = -_C * F.softplus(p.a_param.float()) * rf
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
@@ -128,8 +128,8 @@ def rnn_block_apply(p: RGLRU, x, cfg, cache=None):
     R], "h": [B, R]}``, written in place (conv in the cache's dtype, h in
     float32).  Returns (out, cache)."""
     cdt = x.dtype
-    xb = matmul(x, p.wx.to(cdt))
-    gate = F.gelu(matmul(x, p.wy.to(cdt)), approximate="tanh")
+    xb = linear(x, p.wx.to(cdt))
+    gate = F.gelu(linear(x, p.wy.to(cdt)), approximate="tanh")
     xb = cns(xb, ("pod", "data"), None, "model")
     conv_state = None if cache is None else cache["conv"]
     xb, new_conv = _conv1d(xb, p.conv, conv_state)
@@ -144,7 +144,7 @@ def rnn_block_apply(p: RGLRU, x, cfg, cache=None):
         if new_conv is not None:
             assign_(cache["conv"], new_conv)
         assign_(cache["h"], h_last)
-    out = matmul(gate * y, p.wo.to(cdt))
+    out = linear(gate * y, p.wo.to(cdt))
     return cns(out, ("pod", "data"), None, None), cache
 
 

@@ -19,7 +19,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import (assign_, batch_only, cns, matmul,
+from repro_torch.models.sharding import (assign_, batch_heads, cns,
+                                         is_dtensor, like, linear, matmul,
+                                         merge_heads, moved, shard_box,
                                          split_heads)
 
 LORA_RANK = 32
@@ -97,6 +99,20 @@ class RWKV(nn.Module):
         self.cmix.init(gen)
 
 
+def _cols_as(w, ref):
+    """``w`` ``[d, n]``, which the rules replicate (``wr``), split over the
+    mesh as ``ref``'s columns are (a local slice, nothing moves): each
+    rank computes only the heads or channels its consumer holds, as GSPMD
+    partitions a product whose result is consumed split.  ``w`` itself
+    off a mesh."""
+    if not is_dtensor(w) or not is_dtensor(ref):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    return moved(w, [p if p.is_shard(1) else Replicate()
+                     for p in ref.placements])
+
+
 def _token_shift(x, last):
     """previous token's activation; last: [B, 1, D] carried state."""
     return torch.cat([last.to(x.dtype), x[:, :-1]], dim=1)
@@ -120,37 +136,71 @@ def time_mix(p: TimeMix, x, cfg, cache=None):
     prev = _token_shift(x, last)
     xr, xk, xv, xg, xw = _tm_inputs(p, x, prev)
 
-    r = split_heads(matmul(xr, p.wr.to(cdt)), H, dh)
-    k = split_heads(matmul(xk, p.wk.to(cdt)), H, dh)
-    v = split_heads(matmul(xv, p.wv.to(cdt)), H, dh)
-    g = F.silu(matmul(xg, p.wg.to(cdt)))
-    lora = matmul(torch.tanh(matmul(xw, p.decay_lora_a.to(cdt))),
-                  p.decay_lora_b.to(cdt))
+    r = split_heads(linear(xr, _cols_as(p.wr, p.wk).to(cdt)), H, dh)
+    k = split_heads(linear(xk, p.wk.to(cdt)), H, dh)
+    v = split_heads(linear(xv, p.wv.to(cdt)), H, dh)
+    g = F.silu(linear(xg, p.wg.to(cdt)))
+    lora = linear(torch.tanh(linear(xw, p.decay_lora_a.to(cdt))),
+                  _cols_as(p.decay_lora_b, p.wk).to(cdt))
     w = torch.exp(-torch.exp(
         (p.w_decay.reshape(1, 1, H, dh) + split_heads(lora, H, dh))
         .float()))                                               # [B,S,H,dh]
+    state = None if cache is None else cache["state"]
+    out, state = wkv(r, k, v, w, p.u.float(), state)
+    out = merge_heads(out).to(cdt)
 
-    u = p.u.float()[None, :, :, None]
-    state = (x.new_zeros((B, H, dh, dh), dtype=torch.float32)
-             if cache is None else cache["state"].float())
-    # the loop's batched matmuls flatten batch and heads: heads whole
-    rf, kf, vf = (batch_only(t).float() for t in (r, k, v))
-    w, state = batch_only(w), batch_only(state)
+    out = p.ln_out(out, "rmsnorm", cfg.norm_eps) * g
+    out = cns(linear(out, p.wo.to(cdt)), ("pod", "data"), None, None)
+    if cache is None:
+        return out, {"shift": x[:, -1:], "state": state}
+    assign_(cache["shift"], x[:, -1:])
+    assign_(cache["state"], state)
+    return out, cache
+
+
+def _wkv_loop(r, k, v, w, u, state):
+    """The recurrence on plain tensors: r, k, v, w ``[B, S, H, dh]``, u
+    ``[H, dh]``, state ``[B, H, dh, dh]`` or None (zeros).  Returns
+    (out ``[B, S, H, dh]``, the last state), float32."""
+    B, S, H, dh = r.shape
+    rf, kf, vf, w = r.float(), k.float(), v.float(), w.float()
+    u = u[None, :, :, None]
+    state = (rf.new_zeros((B, H, dh, dh)) if state is None
+             else state.float())
     outs = []
     for t in range(S):
         kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]        # [B,H,dk,dv]
         # [B, H, 1, dk] @ [B, H, dk, dv] (a matmul: layers.py's docstring)
         outs.append(matmul(rf[:, t, :, None], state + u * kv)[:, :, 0])
         state = w[:, t, :, :, None] * state + kv
-    out = torch.stack(outs, dim=1).reshape(B, S, D).to(cdt)
+    return torch.stack(outs, dim=1), state
 
-    out = p.ln_out(out, "rmsnorm", cfg.norm_eps) * g
-    out = cns(matmul(out, p.wo.to(cdt)), ("pod", "data"), None, None)
-    if cache is None:
-        return out, {"shift": x[:, -1:], "state": state}
-    assign_(cache["shift"], x[:, -1:])
-    assign_(cache["state"], state)
-    return out, cache
+
+def wkv(r, k, v, w, u, state=None):
+    """:func:`_wkv_loop`; over a mesh each rank loops over its own batch
+    rows and heads (``sharding.batch_heads``), its slice of ``u`` taken
+    from the whole (its gradient a partial sum over the ranks), and the
+    results are DTensors placed as that split."""
+    if not is_dtensor(r):
+        return _wkv_loop(r, k, v, w, u, state)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = r.device_mesh
+    pl = batch_heads(r)
+    spl = [Shard(1) if p.is_shard(2) else p for p in pl]   # [B, H, ...]
+    r, k, v, w = (moved(t, pl, mesh) for t in (r, k, v, w))
+    h0, hl = shard_box(r)[0][2], r.to_local().shape[2]
+    u = like(u, r) if not is_dtensor(u) else moved(
+        u, [Replicate()] * mesh.ndim, mesh)
+    ul = u.to_local(grad_placements=[Partial() if p.is_shard() else
+                                     Replicate() for p in pl])[h0:h0 + hl]
+    if state is not None:
+        state = moved(state if is_dtensor(state) else like(state, r), spl,
+                      mesh).to_local()
+    out, state = _wkv_loop(r.to_local(), k.to_local(), v.to_local(),
+                           w.to_local(), ul, state)
+    return (DTensor.from_local(out, mesh, pl, run_check=False),
+            DTensor.from_local(state, mesh, spl, run_check=False))
 
 
 def channel_mix(p: ChannelMix, x, cfg, cache=None):
@@ -164,10 +214,10 @@ def channel_mix(p: ChannelMix, x, cfg, cache=None):
     mix = p.mix.to(cdt)
     xk = x + xx * mix[0]
     xr = x + xx * mix[1]
-    k = torch.square(torch.relu(matmul(xk, p.wk.to(cdt))))
+    k = torch.square(torch.relu(linear(xk, p.wk.to(cdt))))
     k = cns(k, ("pod", "data"), None, "model")
-    r = torch.sigmoid(matmul(xr, p.wr.to(cdt)))
-    out = cns(r * matmul(k, p.wv.to(cdt)), ("pod", "data"), None, None)
+    r = torch.sigmoid(linear(xr, _cols_as(p.wr, p.wk).to(cdt)))
+    out = cns(r * linear(k, p.wv.to(cdt)), ("pod", "data"), None, None)
     if cache is None:
         return out, {"shift": x[:, -1:]}
     assign_(cache["shift"], x[:, -1:])

@@ -11,9 +11,14 @@ does), and every ``nn.Parameter`` of a distributed model holds a DTensor
 with those placements (:func:`distribute_model_`).  Activations are
 DTensors too: the ops between them follow DTensor's sharding rules, and
 :func:`cns` — the reference's ``with_sharding_constraint`` — redistributes
-one to the spec's placements.  A contextvar carries ``(mesh, rules)`` so
-layer code can call it plainly; without a mesh, or on a plain tensor, it
-returns its input.
+one to the spec's placements.  The work GSPMD partitions runs on each
+rank's local shard instead, so that no rank computes what another does
+(ROADMAP C.4): the products (:func:`linear`: data, column and row
+parallel, the gradients placed by hand), attention and the RWKV loop
+(each rank's batch rows and heads, :func:`batch_heads`) and the loss's
+:func:`logsumexp` and :func:`gather_last` (each rank's vocab shard).  A
+contextvar carries ``(mesh, rules)`` so layer code can call :func:`cns`
+plainly; without a mesh, or on a plain tensor, it returns its input.
 
 Rules:
   dp axes  = ("pod", "data") when present — batch parallel
@@ -235,17 +240,111 @@ def gathered(x):
     return moved(x, [Replicate()] * x.device_mesh.ndim)
 
 
-def batch_only(x):
-    """A DTensor sharded on dim 0 at most (every other sharded dim
-    replicated); anything else as it is.  For the attention products:
-    DTensor (torch 2.11) cannot flatten the batch and head dims of a
-    batched matmul when the heads are sharded."""
-    if not is_dtensor(x):
-        return x
+def batch_heads(x, head_dim: int = 2) -> list:
+    """The placements of ``x`` with every split replicated but those of
+    the batch (dim 0) and the heads (``head_dim``): the split that
+    attention and the RWKV loop run on, each rank on its own rows and
+    heads."""
     from torch.distributed.tensor import Replicate
 
-    return moved(x, [pl if not pl.is_shard() or pl.is_shard(0)
-                     else Replicate() for pl in x.placements])
+    return [p if p.is_shard(0) or p.is_shard(head_dim) else Replicate()
+            for p in x.placements]
+
+
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [..., K] @ w [K, N]``, over a mesh on each rank's own share.
+    On each mesh dim: where ``x`` is split on a batch dim, ``w`` is
+    gathered there (data parallel; FSDP's all-gather, its gradient
+    reduce-scattered); else where ``w`` splits its columns, the output is
+    split on its last dim (column parallel); where ``x`` or ``w`` splits
+    the contraction, each rank takes its slice of the other and the
+    output is a partial sum (row parallel).  The product runs on the
+    local tensors (:func:`matmul`) with the gradients' placements given
+    by hand (``to_local(grad_placements=...)``), so that neither the
+    forward nor the backward runs a product on a gathered operand, as
+    DTensor's own propagation did (ROADMAP C.4).  Plain tensors:
+    :func:`matmul`."""
+    if not is_dtensor(x) and not is_dtensor(w):
+        return matmul(x, w)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    x = x if is_dtensor(x) else like(x, w)
+    w = w if is_dtensor(w) else like(w, x)
+    mesh, last = x.device_mesh, x.dim() - 1
+    xpl = [Replicate() if p.is_partial() else p for p in x.placements]
+    batch = [p.is_shard() and p.dim != last for p in xpl]
+    sx = {i for i, p in enumerate(xpl) if p.is_shard(last)}
+    sw = {i for i, p in enumerate(w.placements)
+          if p.is_shard(0) and not batch[i]}
+    if sx and sw and sx != sw:
+        # the two split the contraction differently: x whole there
+        xpl = [Replicate() if i in sx else p for i, p in enumerate(xpl)]
+        sx = set()
+    wpl, out, xg, wg = [], [], [], []
+    for i, (a, b) in enumerate(zip(xpl, w.placements)):
+        if batch[i]:                      # data parallel: w whole here
+            wpl.append(Replicate())
+            out.append(a)
+            xg.append(a)
+            wg.append(Partial())
+        elif i in sx or i in sw:          # the contraction split
+            wpl.append(b if i in sw else Replicate())
+            out.append(Partial())
+            xg.append(a if i in sx else Partial())
+            wg.append(b if i in sw else Partial())
+        elif b.is_shard(1):               # column parallel
+            wpl.append(b)
+            out.append(Shard(last))
+            xg.append(Partial())
+            wg.append(b)
+        else:
+            wpl.append(Replicate())
+            out.append(Replicate())
+            xg.append(Replicate())
+            wg.append(Replicate())
+    x, w = moved(x, xpl, mesh), moved(w, wpl, mesh)
+    xl = x.to_local(grad_placements=xg)
+    wl = w.to_local(grad_placements=wg)
+    if sx and not sw:                     # w's rows to x's columns
+        lo, n = shard_box(x)[0][last], xl.shape[-1]
+        wl = wl[lo:lo + n]
+    elif sw and not sx:                   # x's columns to w's rows
+        lo, n = shard_box(w)[0][0], wl.shape[0]
+        xl = xl[..., lo:lo + n]
+    return DTensor.from_local(matmul(xl, wl), mesh, out, run_check=False)
+
+
+def logsumexp(x: torch.Tensor) -> torch.Tensor:
+    """``torch.logsumexp(x, -1)``.  On a DTensor split along its last dim
+    (a vocab's logits) each rank reduces its own shard: a detached local
+    max, its MAX over the mesh dims that split the dim, then the local
+    sum of ``exp(x - m)`` as a partial sum reduced over those dims, and
+    ``m + log(sum)``; the gradient is the local softmax.  Elsewhere
+    ``torch.logsumexp`` itself, so that a one-rank mesh computes the
+    mesh-free loss bit for bit."""
+    last = x.dim() - 1
+    if not is_dtensor(x) or not any(p.is_shard(last) for p in x.placements):
+        return torch.logsumexp(x, dim=-1)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = x.device_mesh
+    pl = [Replicate() if p.is_partial() else p for p in x.placements]
+    x = moved(x, pl, mesh)
+    split = [p.is_shard(last) for p in pl]
+    out_pl = [Replicate() if s else p for s, p in zip(split, pl)]
+
+    def reduced(t, op):
+        t = DTensor.from_local(t, mesh, [Partial(op) if s else p for s, p
+                                         in zip(split, out_pl)],
+                               run_check=False)
+        return moved(t, out_pl, mesh).to_local()
+
+    xl = x.to_local()
+    m = reduced(xl.detach().amax(dim=-1), "max")
+    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    s = reduced(torch.exp(xl - m[..., None]).sum(dim=-1), "sum")
+    return DTensor.from_local(m + torch.log(s), mesh, out_pl,
+                              run_check=False)
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -278,6 +377,23 @@ def split_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
             x = x.redistribute(mesh, [Replicate() if pl.is_shard(last)
                                       else pl for pl in x.placements])
     return x.reshape(*x.shape[:-1], n, d)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """``x [..., n, d]`` as ``[..., n·d]``, the inverse of
+    :func:`split_heads`.  A DTensor is reshaped shard by shard (a split of
+    the heads is the same split of the merged dim; a split of ``d`` is
+    gathered first), with no view for DTensor to propagate."""
+    if not is_dtensor(x):
+        return x.reshape(*x.shape[:-2], -1)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    last = x.dim() - 1
+    pl = [Replicate() if p.is_shard(last) or p.is_partial() else p
+          for p in x.placements]
+    local = moved(x, pl).to_local()
+    return DTensor.from_local(local.reshape(*local.shape[:-2], -1),
+                              x.device_mesh, pl, run_check=False)
 
 
 def like(x: torch.Tensor, ref):

@@ -43,8 +43,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import rwkv6 as K
-from repro_torch.models.sharding import (cns, gather_last, gathered, matmul,
-                                        write_slots_, write_span_)
+from repro_torch.models.sharding import (cns, gather_last, gathered, linear,
+                                         logsumexp, write_slots_,
+                                         write_span_)
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -215,14 +216,15 @@ def chunked_xent(h: torch.Tensor, labels, emb: torch.Tensor,
     for c in range(n):
         hc = h[:, c * chunk:(c + 1) * chunk]
         lc = labels[:, c * chunk:(c + 1) * chunk]
-        logits = matmul(hc, emb.to(hc.dtype)).float()
+        logits = linear(hc, emb.to(hc.dtype)).float()
         if cap:
             logits = torch.tanh(logits / cap) * cap
         logits = _mask_pad_logits(logits, cfg)
         logits = cns(logits, ("pod", "data"), None, "model")
-        lse = torch.logsumexp(logits, dim=-1)
+        # each rank reduces, and reads the target from, its own shard of
+        # the vocab
+        lse = logsumexp(logits)
         valid = lc >= 0
-        # each rank reads the target from its own shard of the vocab
         tgt = gather_last(logits, torch.clamp(lc, min=0))
         nll = (lse - tgt) * valid
         tot = tot + nll.sum()
@@ -364,7 +366,7 @@ class LM(nn.Module):
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         cdt = hidden.dtype
-        logits = matmul(hidden, self.unembed().to(cdt))
+        logits = linear(hidden, self.unembed().to(cdt))
         cap = self.cfg.logit_softcap
         if cap:
             logits = torch.tanh(logits / cap) * cap

@@ -351,6 +351,19 @@ def count(records) -> Cost:
     return total
 
 
+def dot_flops(records) -> float:
+    """The FLOPs of a record's products (the ``dot`` ops: ``mm``, ``bmm``
+    and the others the flop counter knows), per device: over a mesh each
+    rank's share, which times the ranks is a one-rank step's when no
+    product is replicated (ROADMAP C.4)."""
+    total = 0.0
+    for r in records:
+        r = r if isinstance(r, OpRecord) else OpRecord.from_list(r)
+        if op_kind(r.name) == "dot":
+            total += _dot_flops(r)
+    return total
+
+
 def collectives(records) -> list:
     """``(kind, operand bytes)`` of every collective in a record."""
     out = []

@@ -383,3 +383,54 @@ def test_reanalyze_gives_the_same_terms(tmp_path, monkeypatch):
     with contextlib.redirect_stdout(buf):
         assert dryrun.main(["--reanalyze"]) == 0
     assert buf.getvalue().strip() == "reanalyzed 1 cells"
+
+
+# the dot FLOPs a device times the ranks against the one-rank mesh's: every
+# product runs on each rank's share (ROADMAP C.4; before, 1.20x on (2, 2)
+# and 1.60x on (1, 4) for train)
+MESH_DOT_RTOL = 0.02
+
+
+def test_every_product_runs_on_its_rank_share():
+    """Reduced qwen3-1.7b train_4k and prefill_32k (batch 4, seq 32) on
+    fake meshes (1, 1), (2, 2) and (1, 4), in one subprocess: the dot
+    FLOPs a device times the ranks within MESH_DOT_RTOL of the (1, 1)
+    count, and no ``bmm`` (the attention products: batch rows times
+    query heads) with a batch over (1, 1)'s divided by the ranks, so no
+    rank computes more than H / (model ranks) query heads."""
+    code = textwrap.dedent("""
+        import json, tempfile
+        from repro_torch.launch import dryrun
+        from repro_torch.roofline import hlo_cost
+        dryrun.RESULTS_DIR = tempfile.mkdtemp()
+        out = {}
+        for cell in ("train_4k", "prefill_32k"):
+            for shape in ((1, 1), (2, 2), (1, 4)):
+                res = dryrun.run_cell("qwen3-1.7b", cell, "single",
+                                      device="cpu", reduced=True,
+                                      mesh_shape=shape, batch=4, seq=32,
+                                      save=True)
+                rec = dryrun.load_record("qwen3-1.7b", cell, "single")
+                bmm = [r[1][0][1][0] for r in rec
+                       if r[0].startswith("aten.bmm.")]
+                out[f"{cell} {shape[0]}x{shape[1]}"] = dict(
+                    status=res["status"], dot=hlo_cost.dot_flops(rec),
+                    bmm_batch=max(bmm), n_bmm=len(bmm))
+        print(json.dumps(out))
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    for cell in ("train_4k", "prefill_32k"):
+        one = got[f"{cell} 1x1"]
+        assert one["status"] == "ok" and one["dot"] > 0 and one["n_bmm"] > 0
+        for shape, ranks in (("2x2", 4), ("1x4", 4)):
+            r = got[f"{cell} {shape}"]
+            assert r["status"] == "ok"
+            assert r["dot"] * ranks == pytest.approx(one["dot"],
+                                                     rel=MESH_DOT_RTOL), \
+                (cell, shape, r["dot"] * ranks / one["dot"])
+            assert r["n_bmm"] == one["n_bmm"], (cell, shape)
+            assert r["bmm_batch"] * ranks <= one["bmm_batch"], (cell, shape)

@@ -59,6 +59,8 @@ TOL = dict(rtol=2e-4, atol=2e-5)
 SERVE_ATOL = 1e-5
 FLASH_ATOL = 1e-6
 ELASTIC_ATOL = 1e-5
+LINEAR_ATOL = 1e-5      # float32 products of 8 terms, partial sums reduced
+LSE_ATOL = 4e-6         # float32 at values up to ~16: two ulps
 OPT_KW = dict(lr=1e-3, warmup_steps=2, decay_steps=100, weight_decay=0.0)
 SEED = 3
 B, S, STEPS = 4, 16, 3
@@ -256,6 +258,77 @@ def _write_case(meshes):
     return out
 
 
+# (x spec, w spec) of sharding.linear's cases on x [4, 6, 8], w [8, 16]:
+# data parallel + column parallel (FSDP), row parallel (FSDP), x's
+# contraction split against a whole w, a whole x against w's split rows,
+# the two split over different axes, w's columns over both axes
+LINEAR_SPECS = ((shd.P("data", None, None), shd.P("data", "model")),
+                (shd.P("data", None, "model"), shd.P("model", "data")),
+                (shd.P("data", None, "model"), shd.P(None, None)),
+                (shd.P("data", None, None), shd.P("model", None)),
+                (shd.P(None, None, "model"), shd.P("data", None)),
+                (shd.P(None, None, None), shd.P(None, ("data", "model"))))
+LSE_SPECS = (shd.P("data", None, "model"), shd.P(None, None, ("data", "model")),
+             shd.P("data", "model", None), shd.P(None, None, None))
+
+
+def _max_err(got, want):
+    return float((got.full_tensor() - want).abs().max())
+
+
+def _linear_case(meshes):
+    """``sharding.linear`` against ``x @ w`` and its gradients under
+    autograd, by mesh and (x spec, w spec): the largest differences."""
+    g = torch.Generator().manual_seed(9)
+    x0 = torch.randn(4, 6, 8, generator=g)
+    w0 = torch.randn(8, 16, generator=g)
+    dy = torch.randn(4, 6, 16, generator=g)
+    x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    want = x @ w
+    gx, gw = torch.autograd.grad((want * dy).sum(), (x, w))
+    out = {}
+    for mname, mesh in meshes.items():
+        for xs, ws in LINEAR_SPECS:
+            xd = shd.distribute(x0, xs, mesh).requires_grad_()
+            wd = shd.distribute(w0, ws, mesh).requires_grad_()
+            y = shd.linear(xd, wd)
+            loss = (y * shd.like(dy, y)).sum().full_tensor()
+            dx, dw = torch.autograd.grad(loss, (xd, wd))
+            out[(mname, repr(xs), repr(ws))] = (
+                _max_err(y, want), _max_err(dx, gx), _max_err(dw, gw))
+    return out
+
+
+def _lse_case(meshes):
+    """``sharding.logsumexp`` against ``torch.logsumexp`` over the last
+    dim and its gradient, rows with -inf and -1e30 entries among them, by
+    mesh and spec: the largest differences and whether the result keeps
+    the input's splits but the last dim's."""
+    from torch.distributed.tensor import Replicate
+
+    g = torch.Generator().manual_seed(10)
+    x0 = torch.randn(4, 6, 16, generator=g) * 4
+    x0[0, 1, 3:] = -1e30
+    x0[2, 0, :7] = float("-inf")
+    w = torch.randn(4, 6, generator=g)
+    x = x0.clone().requires_grad_()
+    want = torch.logsumexp(x, dim=-1)
+    gx, = torch.autograd.grad((want * w).sum(), x)
+    out = {}
+    for mname, mesh in meshes.items():
+        for spec in LSE_SPECS:
+            xd = shd.distribute(x0, spec, mesh).requires_grad_()
+            lse = shd.logsumexp(xd)
+            dx, = torch.autograd.grad(
+                (lse * shd.like(w, lse)).sum().full_tensor(), xd)
+            kept = [Replicate() if p.is_shard(2) else p
+                    for p in xd.placements]
+            out[(mname, repr(spec))] = (_max_err(lse, want),
+                                        _max_err(dx, gx),
+                                        list(lse.placements) == kept)
+    return out
+
+
 def _elastic_case(ckpt_dir, rank):
     cfg = treg.get_config("qwen3-1.7b", reduced=True)
     run = RunConfig(remat="none", q_chunk=16, kv_chunk=16, loss_chunk=16,
@@ -312,6 +385,8 @@ def _worker(rank, world, init_file, ckpt_root, results):
         out = {"train": {}}
         meshes = {k: tmesh.make_mesh(v, AXES, device="cpu")
                   for k, v in MESHES[world].items()}
+        out["linear"] = _linear_case(meshes)
+        out["lse"] = _lse_case(meshes)
         for mname, mesh in meshes.items():
             for name in TRAIN:
                 r = _train_case(name, mesh)
@@ -593,6 +668,33 @@ def test_serve_matches_mesh_free(arch, seq):
         r = got[rank]["serve"][(arch, seq)]
         assert r["misplaced"] == []
         _assert_serve(r["logits"], arch, seq)
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_linear_on_shards_matches_matmul(world):
+    """``sharding.linear`` on each rank's share: the product and both
+    gradients within LINEAR_ATOL of the plain ones (float32 sums in
+    another order)."""
+    got, _ = _launch(world)
+    for rank in got:
+        cases = got[rank]["linear"]
+        assert len(cases) == len(MESHES[world]) * len(LINEAR_SPECS)
+        for key, errs in cases.items():
+            assert max(errs) <= LINEAR_ATOL, (key, errs)
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_sharded_logsumexp_matches_torch(world):
+    """``sharding.logsumexp`` on each rank's vocab shard against
+    ``torch.logsumexp`` and its gradient, within LSE_ATOL; the batch
+    split kept, the reduced dim's replicated."""
+    got, _ = _launch(world)
+    for rank in got:
+        cases = got[rank]["lse"]
+        assert len(cases) == len(MESHES[world]) * len(LSE_SPECS)
+        for key, (ev, eg, placed) in cases.items():
+            assert ev <= LSE_ATOL and eg <= LSE_ATOL, (key, ev, eg)
+            assert placed, key
 
 
 @pytest.mark.parametrize("world,shards", [(2, 2), (4, 2), (4, 4)])
