@@ -7,7 +7,8 @@ Runs the spawned CPU ranks of ``tests/test_torch_mesh.py`` (gloo, world
 sizes 2 and 4, one torch thread a rank: three train steps of reduced
 qwen3-1.7b under fsdp and tp and of granite-moe on every mesh of the
 world size, serving five families on (2, 2), flash-decoding, the elastic
-rescale, ``sharding.linear`` and ``sharding.logsumexp`` on shards) and
+rescale, ``sharding.linear`` and ``sharding.logsumexp`` on shards, a
+remat backward on a thread without the mesh context) and
 holds each against the port's mesh-free functions: the largest
 difference of the losses and of the train state's leaves, of the served
 logits, of the sharded products and log-sum-exps and their gradients,
@@ -84,6 +85,9 @@ def check(world):
                            for e in r["lse"].values())
     ok &= out["linear"] <= T.LINEAR_ATOL and out["logsumexp"] <= T.LSE_ATOL
     ok &= all(e[2] for r in got.values() for e in r["lse"].values())
+    if "remat_thread" in got[0]:
+        out["remat_thread"] = got[0]["remat_thread"]
+        ok &= all(r["remat_thread"] == 0.0 for r in got.values())
     if "elastic" in got[0]:
         e = got[0]["elastic"]
         out["elastic"] = dict(checkpoint=e["loss_c"] - e["loss_a"],

@@ -22,12 +22,11 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import layers as L
 from repro_torch.models.sharding import (cns, gathered, linear, merge_heads,
-                                         split_heads)
+                                         remat, split_heads)
 from repro_torch.models.transformer import (_mask_pad_logits,
                                             _write_decode_cache,
                                             _write_prefill_cache,
@@ -158,8 +157,7 @@ class EncDecLM(nn.Module):
         positions = pos[None, :]
         for blk in self.encoder:
             if self._remat():
-                x = checkpoint(self._enc_body, blk, x, positions,
-                               use_reentrant=False)
+                x = remat(self._enc_body, blk, x, positions)
             else:
                 x = self._enc_body(blk, x, positions)
         return self.enc_norm(x, cfg.norm, cfg.norm_eps)
@@ -227,8 +225,8 @@ class EncDecLM(nn.Module):
             xk, xv = xkv[i]["k"], xkv[i]["v"]
             if mode == "train":
                 if self._remat():
-                    x = checkpoint(self._dec_train_body, blk, x, xk, xv,
-                                   positions, use_reentrant=False)
+                    x = remat(self._dec_train_body, blk, x, xk, xv,
+                              positions)
                 else:
                     x = self._dec_train_body(blk, x, xk, xv, positions)
                 continue

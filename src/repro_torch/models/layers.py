@@ -274,8 +274,6 @@ def _blockwise_attention_on_shards(q, k, v, **kw):
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     mesh = q.device_mesh
-    k = k if is_dtensor(k) else like(k, q)
-    v = v if is_dtensor(v) else like(v, q)
     qpl = [Shard(0) if kp.is_shard(0) else p
            for p, kp in zip(batch_heads(q), k.placements)]
     kpl = [p if p.is_shard(0) or (p.is_shard(2) and kp.is_shard(2))

@@ -19,7 +19,8 @@ atomics, so two equal train steps give equal bits.
 
 Over a device mesh the token grid and the expert FFN shard the experts
 over the model axis and the capacity over the data axes (``cns``, as the
-reference).  The routing — top-k, the stable sort, ``searchsorted`` and
+reference), each rank running its own experts on its own slots
+(``sharding.linear``).  The routing — top-k, the stable sort, ``searchsorted`` and
 the two ``F.embedding`` gathers — has no DTensor sharding rule, so it runs
 on the whole ``[T, E]`` logits and ``[T, D]`` tokens on every rank
 (``sharding.full``; gradients flow back to the shards), the same
@@ -32,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import cns, full, like, matmul
+from repro_torch.models.sharding import cns, full, like, linear, matmul
 
 
 def moe_capacity(num_tokens: int, cfg) -> int:
@@ -109,11 +110,11 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg) -> torch.Tensor:
     xe = cns(xe, "model", ("pod", "data"), None)  # EP x DP: tokens over dp
 
     # expert FFN, batched over E
-    hi = torch.bmm(xe, p.wi.to(cdt))
-    hg = torch.bmm(xe, p.wg.to(cdt))
+    hi = linear(xe, p.wi.to(cdt))
+    hg = linear(xe, p.wg.to(cdt))
     h = L._act(hg, cfg.act) * hi
     h = cns(h, "model", ("pod", "data"), None)
-    ye = full(torch.bmm(h, p.wo.to(cdt))).reshape(E * C, D)
+    ye = full(linear(h, p.wo.to(cdt))).reshape(E * C, D)
 
     # combine: each token's k outputs in ascending expert order; a dropped
     # assignment reads row E*C, a zero row

@@ -20,7 +20,7 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models.sharding import (assign_, batch_heads, cns,
-                                         is_dtensor, like, linear, matmul,
+                                         is_dtensor, linear, matmul,
                                          merge_heads, moved, shard_box,
                                          split_heads)
 
@@ -178,9 +178,9 @@ def _wkv_loop(r, k, v, w, u, state):
 
 def wkv(r, k, v, w, u, state=None):
     """:func:`_wkv_loop`; over a mesh each rank loops over its own batch
-    rows and heads (``sharding.batch_heads``), its slice of ``u`` taken
-    from the whole (its gradient a partial sum over the ranks), and the
-    results are DTensors placed as that split."""
+    rows and heads (``sharding.batch_heads``), its slice of the replicated
+    ``u`` taken locally (its gradient a partial sum over the ranks), and
+    the results are DTensors placed as that split."""
     if not is_dtensor(r):
         return _wkv_loop(r, k, v, w, u, state)
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -190,13 +190,10 @@ def wkv(r, k, v, w, u, state=None):
     spl = [Shard(1) if p.is_shard(2) else p for p in pl]   # [B, H, ...]
     r, k, v, w = (moved(t, pl, mesh) for t in (r, k, v, w))
     h0, hl = shard_box(r)[0][2], r.to_local().shape[2]
-    u = like(u, r) if not is_dtensor(u) else moved(
-        u, [Replicate()] * mesh.ndim, mesh)
     ul = u.to_local(grad_placements=[Partial() if p.is_shard() else
                                      Replicate() for p in pl])[h0:h0 + hl]
     if state is not None:
-        state = moved(state if is_dtensor(state) else like(state, r), spl,
-                      mesh).to_local()
+        state = moved(state, spl, mesh).to_local()
     out, state = _wkv_loop(r.to_local(), k.to_local(), v.to_local(),
                            w.to_local(), ul, state)
     return (DTensor.from_local(out, mesh, pl, run_check=False),

@@ -99,6 +99,30 @@ def current() -> Optional[tuple]:
     return _CTX.get()
 
 
+def remat(fn, *args):
+    """``torch.utils.checkpoint.checkpoint(fn, *args)`` (non-reentrant)
+    with its recompute under the forward's :func:`use_mesh` context:
+    autograd runs a CUDA backward on a thread of its own, where the
+    context variable is unset, so that the recompute's :func:`cns` would
+    do nothing and its tensors would not be placed as the forward's."""
+    from torch.utils.checkpoint import checkpoint
+
+    ctx = _CTX.get()
+
+    @contextlib.contextmanager
+    def recompute():
+        # the context variable only: implicit replication is a global flag
+        # that the backward's caller holds, and use_mesh would clear it
+        tok = _CTX.set(ctx)
+        try:
+            yield
+        finally:
+            _CTX.reset(tok)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          recompute()))
+
+
 def mesh_shape(mesh) -> dict:
     """``{axis name: size}`` of a DeviceMesh, or of any object whose
     ``.shape`` is such a dict (jax's meshes, abstract ones included)."""
@@ -240,28 +264,29 @@ def gathered(x):
     return moved(x, [Replicate()] * x.device_mesh.ndim)
 
 
-def batch_heads(x, head_dim: int = 2) -> list:
-    """The placements of ``x`` with every split replicated but those of
-    the batch (dim 0) and the heads (``head_dim``): the split that
-    attention and the RWKV loop run on, each rank on its own rows and
-    heads."""
+def batch_heads(x) -> list:
+    """The placements of ``x [B, S, H, Dh]`` with every split replicated
+    but those of the batch and the heads: the split that attention and
+    the RWKV loop run on, each rank on its own rows and heads."""
     from torch.distributed.tensor import Replicate
 
-    return [p if p.is_shard(0) or p.is_shard(head_dim) else Replicate()
+    return [p if p.is_shard(0) or p.is_shard(2) else Replicate()
             for p in x.placements]
 
 
 def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x [..., K] @ w [K, N]``, over a mesh on each rank's own share.
-    On each mesh dim: where ``x`` is split on a batch dim, ``w`` is
-    gathered there (data parallel; FSDP's all-gather, its gradient
-    reduce-scattered); else where ``w`` splits its columns, the output is
-    split on its last dim (column parallel); where ``x`` or ``w`` splits
-    the contraction, each rank takes its slice of the other and the
-    output is a partial sum (row parallel).  The product runs on the
-    local tensors (:func:`matmul`) with the gradients' placements given
-    by hand (``to_local(grad_placements=...)``), so that neither the
-    forward nor the backward runs a product on a gathered operand, as
+    """``x [..., K] @ w [K, N]``, or for stacked experts ``x [E, ..., K] @
+    w [E, K, N]``, over a mesh on each rank's own share.  On each mesh
+    dim: where ``w``'s or ``x``'s expert dim E is split, both are split
+    alike and each rank runs its experts; where ``x`` is split on a batch
+    dim, ``w`` is gathered there (data parallel; FSDP's all-gather, its
+    gradient reduce-scattered); else where ``w`` splits its columns, the
+    output is split on its last dim (column parallel); where ``x`` or
+    ``w`` splits the contraction, each rank takes its slice of the other
+    and the output is a partial sum (row parallel).  The product runs on
+    the local tensors (:func:`matmul`) with the gradients' placements
+    given by hand (``to_local(grad_placements=...)``), so that neither
+    the forward nor the backward runs a product on a gathered operand, as
     DTensor's own propagation did (ROADMAP C.4).  Plain tensors:
     :func:`matmul`."""
     if not is_dtensor(x) and not is_dtensor(w):
@@ -270,19 +295,28 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
     x = x if is_dtensor(x) else like(x, w)
     w = w if is_dtensor(w) else like(w, x)
-    mesh, last = x.device_mesh, x.dim() - 1
+    mesh, last, wk = x.device_mesh, x.dim() - 1, w.dim() - 2
     xpl = [Replicate() if p.is_partial() else p for p in x.placements]
-    batch = [p.is_shard() and p.dim != last for p in xpl]
+    expert = [w.dim() == 3 and (a.is_shard(0) or b.is_shard(0))
+              for a, b in zip(xpl, w.placements)]
+    xpl = [Shard(0) if e else p for e, p in zip(expert, xpl)]
+    batch = [not e and p.is_shard() and p.dim != last
+             for e, p in zip(expert, xpl)]
     sx = {i for i, p in enumerate(xpl) if p.is_shard(last)}
     sw = {i for i, p in enumerate(w.placements)
-          if p.is_shard(0) and not batch[i]}
+          if p.is_shard(wk) and not batch[i] and not expert[i]}
     if sx and sw and sx != sw:
         # the two split the contraction differently: x whole there
         xpl = [Replicate() if i in sx else p for i, p in enumerate(xpl)]
         sx = set()
     wpl, out, xg, wg = [], [], [], []
     for i, (a, b) in enumerate(zip(xpl, w.placements)):
-        if batch[i]:                      # data parallel: w whole here
+        if expert[i]:                     # each rank its own experts
+            wpl.append(Shard(0))
+            out.append(a)
+            xg.append(a)
+            wg.append(Shard(0))
+        elif batch[i]:                    # data parallel: w whole here
             wpl.append(Replicate())
             out.append(a)
             xg.append(a)
@@ -292,7 +326,7 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             out.append(Partial())
             xg.append(a if i in sx else Partial())
             wg.append(b if i in sw else Partial())
-        elif b.is_shard(1):               # column parallel
+        elif b.is_shard(wk + 1):          # column parallel
             wpl.append(b)
             out.append(Shard(last))
             xg.append(Partial())
@@ -306,11 +340,9 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     xl = x.to_local(grad_placements=xg)
     wl = w.to_local(grad_placements=wg)
     if sx and not sw:                     # w's rows to x's columns
-        lo, n = shard_box(x)[0][last], xl.shape[-1]
-        wl = wl[lo:lo + n]
+        wl = wl.narrow(wk, shard_box(x)[0][last], xl.shape[-1])
     elif sw and not sx:                   # x's columns to w's rows
-        lo, n = shard_box(w)[0][0], wl.shape[0]
-        xl = xl[..., lo:lo + n]
+        xl = xl.narrow(last, shard_box(w)[0][wk], wl.shape[wk])
     return DTensor.from_local(matmul(xl, wl), mesh, out, run_check=False)
 
 

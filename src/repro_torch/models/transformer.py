@@ -22,8 +22,10 @@ Three entry modes share the block code:
 
 Training (``loss``, ``chunked_xent``) runs train mode with autograd: with
 ``run.remat`` "block" or "full" each cycle's blocks are one
-``torch.utils.checkpoint`` region (the reference checkpoints its
-``cycle_body``); the tail is not wrapped, as in the reference.
+``torch.utils.checkpoint`` region (``sharding.remat``: over a mesh the
+recompute runs under the forward's mesh context; the reference
+checkpoints its ``cycle_body``); the tail is not wrapped, as in the
+reference.
 
 A vision frontend's ``patch_embeds`` (``extra_embeds``) go before the
 token embeddings, ahead of ``embed_scale``; a decode after a prefill of
@@ -36,7 +38,6 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import layers as L
@@ -44,7 +45,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import rwkv6 as K
 from repro_torch.models.sharding import (cns, gather_last, gathered, linear,
-                                         logsumexp, write_slots_,
+                                         logsumexp, remat, write_slots_,
                                          write_span_)
 
 
@@ -340,9 +341,8 @@ class LM(nn.Module):
                 and self.run.remat in ("block", "full")):
             n = self.n_full_cycles * len(self.pattern)
             for lo in range(0, n, len(self.pattern)):
-                x = checkpoint(self._train_blocks, x, lo,
-                               lo + len(self.pattern), positions,
-                               use_reentrant=False)
+                x = remat(self._train_blocks, x, lo, lo + len(self.pattern),
+                          positions)
             x = self._train_blocks(x, n, len(self.blocks), positions)
         else:
             for i, blk in enumerate(self.blocks):

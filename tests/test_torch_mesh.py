@@ -329,6 +329,54 @@ def _lse_case(meshes):
     return out
 
 
+def _remat_thread_case(mesh):
+    """Reduced granite-moe's loss under remat "block" over the mesh, its
+    gradients taken on this thread and on a new one, where the mesh
+    context is unset, as autograd runs a CUDA backward on a thread of its
+    own: the largest difference of the gradients, or the error raised
+    (the recompute's ``cns`` did nothing there: the expert grid came back
+    whole, ``CheckpointError``)."""
+    import threading
+
+    cfg = treg.get_config("granite-moe-1b-a400m", reduced=True)
+    run = _train_run("fsdp")
+    rules = tts.default_rules(mesh, run)
+    model = shd.distribute_model_(
+        tzoo.build_model(cfg, run, "cpu").init(SEED), mesh, rules)
+    model.requires_grad_(True)
+    params = list(model.parameters())
+    batch = _batches(cfg, 1)[0]
+
+    def loss():
+        b = {k: shd.distribute(torch.as_tensor(v), shd.P(rules.dp), mesh)
+             for k, v in batch.items()}
+        with torch.enable_grad():
+            return model.loss(b["tokens"], b["labels"])
+
+    out = {}
+    with shd.use_mesh(mesh, rules):             # as build_train_step's
+        here = torch.autograd.grad(loss(), params)
+        other = loss()
+
+        def backward():
+            # the card's autograd thread inherits the caller's implicit
+            # replication, not its context variables
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            try:
+                with implicit_replication():
+                    out["grads"] = torch.autograd.grad(other, params)
+            except Exception as e:              # reported to the test
+                out["error"] = repr(e)[:500]
+        t = threading.Thread(target=backward)
+        t.start()
+        t.join()
+    if "error" in out:
+        return out["error"]
+    return max(float((a.full_tensor() - b.full_tensor()).abs().max())
+               for a, b in zip(out["grads"], here))
+
+
 def _elastic_case(ckpt_dir, rank):
     cfg = treg.get_config("qwen3-1.7b", reduced=True)
     run = RunConfig(remat="none", q_chunk=16, kv_chunk=16, loss_chunk=16,
@@ -402,6 +450,7 @@ def _worker(rank, world, init_file, ckpt_root, results):
                 for arch, seq in [(a, False) for a in SERVE]
                 + [("qwen3-1.7b", True)]}
             out["elastic"] = _elastic_case(os.path.join(ckpt_root, "e"), rank)
+            out["remat_thread"] = _remat_thread_case(mesh)
             out["write"] = _write_case({k: meshes[k] for k in ("2x2", "1x4")})
             out["flash"] = {2: _flash_case(mesh, "model"),
                             4: _flash_case(meshes["1x4"], "model")}
@@ -695,6 +744,16 @@ def test_sharded_logsumexp_matches_torch(world):
         for key, (ev, eg, placed) in cases.items():
             assert ev <= LSE_ATOL and eg <= LSE_ATOL, (key, ev, eg)
             assert placed, key
+
+
+def test_remat_recompute_keeps_the_mesh_context():
+    """(2, 2): granite-moe's gradients taken on a thread without the mesh
+    context (autograd's CUDA thread) equal those taken on the forward's
+    thread bit for bit: the checkpoint's recompute places its tensors as
+    the forward did (``sharding.remat``)."""
+    got, _ = _launch(4)
+    for rank in got:
+        assert got[rank]["remat_thread"] == 0.0, got[rank]["remat_thread"]
 
 
 @pytest.mark.parametrize("world,shards", [(2, 2), (4, 2), (4, 4)])
