@@ -315,10 +315,10 @@
     ok, every roofline term above 0 and the peak bytes a device below the
     card's 80 GiB (roofline/hw.py), and each cell's useful FLOPs ratio
     and dot FLOPs a device (hlo_cost.dot_flops of its op record) logged
-    beside PR 25's ratio (LM_DRYRUN_PR25_USEFUL), qwen3-1.7b train_4k at
-    LM_DRYRUN_MIN_USEFUL or above (each rank computes only its own heads,
-    hidden columns and vocab: ROADMAP C.4); then launch/report.py over
-    their directory.  (b) hlo_cost.run around phase 20 (a)'s qwen3-1.7b train
+    beside the ratio before ROADMAP C.4 (LM_DRYRUN_C4_USEFUL),
+    qwen3-1.7b train_4k at LM_DRYRUN_MIN_USEFUL or above (each rank
+    computes only its own heads, hidden columns and vocab); then
+    launch/report.py over their directory.  (b) hlo_cost.run around phase 20 (a)'s qwen3-1.7b train
     step (8 x 128 tokens, no mesh) and around one phase 19 (a) decode
     step (4 slots of 256, cache length 16) on the card, and the same
     functions on fake tensors of the same shapes: FLOPs, bytes and fused
@@ -431,12 +431,12 @@ LM_DRYRUN_JOBS = (                # phase 23 (a): (arch, cell, mesh, layers)
     ("qwen3-1.7b", "decode_32k", "single", None),
     ("qwen3-1.7b", "decode_32k", "multi", None),
     ("granite-moe-1b-a400m", "train_4k", "single", None))
-LM_DRYRUN_PR25_USEFUL = {         # phase 23 (a): the useful FLOPs ratio
-    ("qwen3-1.7b", "train_4k", "single"): 0.131,      # of each cell in
-    ("qwen3-1.7b", "prefill_32k", "single"): 0.0438,  # PR 25, when every
-    ("qwen3-1.7b", "decode_32k", "single"): 0.0183,   # rank of the model
-    ("granite-moe-1b-a400m", "train_4k", "single"): 0.0702}  # axis ran
-LM_DRYRUN_MIN_USEFUL = {          # whole heads, vocab and some products
+LM_DRYRUN_C4_USEFUL = {          # phase 23 (a): the useful FLOPs ratio
+    ("qwen3-1.7b", "train_4k", "single"): 0.131,      # of each cell while
+    ("qwen3-1.7b", "prefill_32k", "single"): 0.0438,  # every rank of the
+    ("qwen3-1.7b", "decode_32k", "single"): 0.0183,   # model axis ran
+    ("granite-moe-1b-a400m", "train_4k", "single"): 0.0702}  # whole
+LM_DRYRUN_MIN_USEFUL = {          # heads, vocab and some products
     ("qwen3-1.7b", "train_4k", "single"): 0.45}       # (ROADMAP C.4)
 LM_DRYRUN_TIMEOUT_S = 1000        # each cell, from the start of them all
 LM_DRYRUN_REPS = 5                # phase 23 (b): timed calls after a warm one
@@ -4137,11 +4137,11 @@ def lm_dryrun_cells(torch, dry):
                    count_s=r["compile_s"], ops=r["ops"], memory=mem,
                    collectives=r["collectives"], roofline=rf,
                    dot_flops_a_device=dot, useful_flops_ratio=useful,
-                   pr25_useful_flops_ratio=LM_DRYRUN_PR25_USEFUL.get(key),
+                   useful_flops_ratio_before_c4=LM_DRYRUN_C4_USEFUL.get(key),
                    min_useful_flops_ratio=LM_DRYRUN_MIN_USEFUL.get(key))
         rows.append(row)
         log(f"lm dryrun {arch} {cell} {mesh}: useful FLOPs ratio "
-            f"{useful:.4f} (PR 25: {LM_DRYRUN_PR25_USEFUL.get(key)}), "
+            f"{useful:.4f} (before C.4: {LM_DRYRUN_C4_USEFUL.get(key)}), "
             f"{dot:.6g} dot FLOPs a device of {rf['flops']:.6g}")
         if useful < LM_DRYRUN_MIN_USEFUL.get(key, 0.0):
             raise AssertionError(f"lm dryrun {arch} {cell} {mesh}: useful "

@@ -4,7 +4,7 @@ checkpointing and preemption-safe resume, on an H100 (or the CPU).
 
     PYTHONPATH=src python examples/train_lm_torch.py [--steps 300] [--device cpu]
 
-The same driver as ``examples/train_lm.py``, through
+The same training run as ``examples/train_lm.py``, through
 ``repro_torch.launch.train`` (rerunning resumes from the checkpoint;
 ``examples/serve_lm_torch.py`` serves it).  ``--d-model``, ``--layers``,
 ``--vocab``, ``--batch`` and ``--seq`` shrink the model and the batch
