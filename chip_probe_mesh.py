@@ -6,9 +6,11 @@
 Runs the spawned CPU ranks of ``tests/test_torch_mesh.py`` (gloo, world
 sizes 2 and 4, one torch thread a rank: three train steps of reduced
 qwen3-1.7b under fsdp and tp and of granite-moe on every mesh of the
-world size, serving five families on (2, 2), flash-decoding, the elastic
-rescale, ``sharding.linear`` and ``sharding.logsumexp`` on shards, a
-remat backward on a thread without the mesh context) and
+world size, and on (1, 4) of rwkv6 and of qwen3 with 6 query heads,
+serving five families on (2, 2), flash-decoding, the elastic rescale,
+``sharding.linear`` and ``sharding.logsumexp`` on shards, a remat
+backward on a thread without the mesh context, per-shard init against
+the whole init's shards) and
 holds each against the port's mesh-free functions: the largest
 difference of the losses and of the train state's leaves, of the served
 logits, of the sharded products and log-sum-exps and their gradients,
@@ -38,8 +40,7 @@ from repro_torch.train import optimizer, train_step  # noqa: E402
 
 def free_train(name):
     """The mesh-free port's three steps of a train case."""
-    arch, mode = T.TRAIN[name]
-    cfg = registry.get_config(arch, reduced=True)
+    cfg, mode = T._train_config(name)
     step, init, _ = train_step.build_train_step(
         cfg, T._train_run(mode), optimizer.OptConfig(**T.OPT_KW),
         device="cpu")
@@ -85,6 +86,13 @@ def check(world):
                            for e in r["lse"].values())
     ok &= out["linear"] <= T.LINEAR_ATOL and out["logsumexp"] <= T.LSE_ATOL
     ok &= all(e[2] for r in got.values() for e in r["lse"].values())
+    out["init_unequal_leaves"] = sum(len(c["unequal"]) for r in got.values()
+                                     for c in r["init"].values())
+    out["init_largest_over_leaf"] = max(
+        c["largest_made"] / c["largest_leaf"] for r in got.values()
+        for c in r["init"].values())
+    ok &= (out["init_unequal_leaves"] == 0
+           and out["init_largest_over_leaf"] <= 1.0)
     if "remat_thread" in got[0]:
         out["remat_thread"] = got[0]["remat_thread"]
         ok &= all(r["remat_thread"] == 0.0 for r in got.values())

@@ -287,6 +287,10 @@
     off: a process group of one rank (NCCL) and a (1, 1) ("data",
     "model") mesh, every parameter a DTensor.  (a) Phase 20 (a)'s job
     through train_step.build_train_step(mesh=...), fsdp and ZeRO-1: its
+    state made leaf by leaf (model_zoo.init_on_mesh; m and v as zero
+    shards), every parameter's shard equal bit for bit to phase 20 (a)'s
+    whole init(0) on the card and m and v zero, the largest tensor the
+    init made at most the largest leaf (torch's peak over the init); its
     losses against phase 20 (a)'s within LM_TRAIN_MB_TOL, ms a step beside
     phase 20 (a)'s, torch's peak; (b) qwen3-1.7b through
     serve_step.build_serve_fns(mesh=...), batch 4, 23 prefilled and 1
@@ -318,7 +322,14 @@
     beside the ratio before ROADMAP C.4 (LM_DRYRUN_C4_USEFUL),
     qwen3-1.7b train_4k at LM_DRYRUN_MIN_USEFUL or above (each rank
     computes only its own heads, hidden columns and vocab); then
-    launch/report.py over their directory.  (b) hlo_cost.run around phase 20 (a)'s qwen3-1.7b train
+    launch/report.py over their directory.  Beside them, in one more
+    process, dryrun.rank_shares (ROADMAP C.5): reduced gemma2-2b,
+    granite-moe, rwkv6-1.6b, recurrentgemma-9b and whisper-base train_4k
+    (batch 4 x 32) on fake (1, 1), (2, 2) and (1, 4) meshes, each mesh's
+    dot FLOPs a device times its ranks within LM_SHARE_RTOL of (1, 1)'s,
+    logged beside the ratios before C.5 (LM_SHARE_BEFORE_C5); reduced
+    qwen3-1.7b with 6 query heads on them, no rank's attention bmm over
+    ceil(6 / model ranks) heads.  (b) hlo_cost.run around phase 20 (a)'s qwen3-1.7b train
     step (8 x 128 tokens, no mesh) and around one phase 19 (a) decode
     step (4 slots of 256, cache length 16) on the card, and the same
     functions on fake tensors of the same shapes: FLOPs, bytes and fused
@@ -438,6 +449,13 @@ LM_DRYRUN_C4_USEFUL = {          # phase 23 (a): the useful FLOPs ratio
     ("granite-moe-1b-a400m", "train_4k", "single"): 0.0702}  # whole
 LM_DRYRUN_MIN_USEFUL = {          # heads, vocab and some products
     ("qwen3-1.7b", "train_4k", "single"): 0.45}       # (ROADMAP C.4)
+LM_SHARE_ARCHS = ("gemma2-2b", "granite-moe-1b-a400m", "rwkv6-1.6b",
+                  "recurrentgemma-9b", "whisper-base")   # phase 23: C.5
+LM_SHARE_HEADS = ("qwen3-1.7b", 6)    # query heads not dividing 4 ranks
+LM_SHARE_RTOL = 0.005             # dot FLOPs x ranks vs (1, 1)
+LM_SHARE_BEFORE_C5 = {            # (2, 2), (1, 4) before C.5 (CPU, PR 27)
+    "granite-moe-1b-a400m:0": (1.0043, 1.0129),
+    "rwkv6-1.6b:0": (1.02, 1.18), "qwen3-1.7b:6": (1.0, 1.3214)}
 LM_DRYRUN_TIMEOUT_S = 1000        # each cell, from the start of them all
 LM_DRYRUN_REPS = 5                # phase 23 (b): timed calls after a warm one
 ADMIT_OOC_SUPERSTEPS = 2     # admission session compared out of core (cut
@@ -3787,9 +3805,10 @@ def lm_mesh_train(torch, mesh, lm_train):
                     zero1=True)
     opt_cfg = OptConfig(lr=3e-4, warmup_steps=max(steps // 20, 10),
                         decay_steps=steps)
-    torch.cuda.reset_peak_memory_stats()
     step, init, sh = ts.build_train_step(cfg, run, opt_cfg, mesh=mesh,
                                          device=DEV)
+    init_check = lm_mesh_init_check(torch, cfg, run, init)
+    torch.cuda.reset_peak_memory_stats()
     state = init(0)
     params = list(state["params"].parameters())
     on_mesh = sum(isinstance(p, DTensor) and p.device_mesh == mesh
@@ -3831,13 +3850,59 @@ def lm_mesh_train(torch, mesh, lm_train):
                phase20_mean_step_ms=lm_train["mean_step_ms"],
                tokens_per_s=batch * seq / (step_ms / 1e3),
                torch_peak_bytes=peak, specs_leaves=len(
-                   list(state_leaves(sh["specs"]["params"]))))
+                   list(state_leaves(sh["specs"]["params"]))),
+               per_shard_init=init_check)
     log(f"lm mesh train {LM_TRAIN_ARCH} on a {LM_MESH_SHAPE} mesh (fsdp, "
         f"ZeRO-1; {on_mesh} DTensor parameters): {steps} steps, loss "
         f"{first:.4f} -> {last:.4f}; vs phase 20 (a) max |diff| {diff:.3g}"
         f" ({'equal' if diff == 0 else 'within ' + str(LM_TRAIN_MB_TOL)});"
         f" {step_ms:.1f} ms a step over steps 2+ (phase 20 (a) "
         f"{lm_train['mean_step_ms']:.1f}), torch peak {peak}")
+    return out
+
+
+def lm_mesh_init_check(torch, cfg, run, init):
+    """Phase 22 (a)'s per-shard init: ``init(0)`` over the mesh (leaf by
+    leaf) against phase 20 (a)'s whole ``init(0)`` on the card, bit for
+    bit shard by shard; m and v zero; torch's peak over the init at most
+    the largest leaf above what it keeps."""
+    from repro_torch.models import model_zoo
+    from repro_torch.train import optimizer as opt
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated() - base
+    over = torch.cuda.max_memory_allocated() - base - held
+    whole = model_zoo.build_model(cfg, run, DEV).init(0)
+    largest = max(p.numel() * p.element_size() for p in whole.parameters())
+    def flat(model):
+        return [t for leaf in opt.leaves(model_zoo.param_tree(model))
+                for t in opt.members(leaf)]
+    mine, theirs = flat(state["params"]), flat(whole)
+    unequal = [i for i, (x, y) in enumerate(zip(mine, theirs))
+               if not torch.equal(x.to_local().view(torch.int32),
+                                  y.view(torch.int32))]
+    unequal += [-1] * abs(len(mine) - len(theirs))
+    nonzero = sum(int(t.to_local().count_nonzero()) for k in ("m", "v")
+                  for leaf in opt.leaves(state["opt"][k])
+                  for t in opt.members(leaf))
+    del state, whole, mine, theirs
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(unequal_leaves=unequal, nonzero_moments=nonzero,
+               init_s=init_s, held_bytes=int(held),
+               peak_over_held_bytes=int(over), largest_leaf_bytes=largest)
+    log(f"lm mesh per-shard init {cfg.name}: every shard equal to the whole "
+        f"init(0)'s: {not unequal}; m and v nonzero entries {nonzero}; "
+        f"{init_s:.2f} s, peak {over} B over the {held} B it keeps (largest "
+        f"leaf {largest} B)")
+    if unequal or nonzero or over > largest:
+        raise AssertionError(f"lm mesh per-shard init: {out}")
     return out
 
 
@@ -4062,6 +4127,17 @@ class DryRuns:
         self.t0, self.wall0 = time.perf_counter(), time.time()
         env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
                "REPRO_TORCH_DRYRUN_DIR": out_dir, "OMP_NUM_THREADS": "1"}
+        self.shares = os.path.join(out_dir, "rank_shares.json")
+        code = ("import json, sys\n"
+                "from repro_torch.launch import dryrun\n"
+                "out = {f'{a}:{h}': dryrun.rank_shares(a, 'train_4k', "
+                "heads=h or None) for a, h in json.loads(sys.argv[1])}\n"
+                "json.dump(out, open(sys.argv[2], 'w'))\n")
+        jobs_c5 = [(a, 0) for a in LM_SHARE_ARCHS] + [LM_SHARE_HEADS]
+        logf = open(os.path.join(out_dir, "rank_shares.log"), "w")
+        self.procs.append((("rank_shares", "train_4k", "c5"), subprocess.Popen(
+            [sys.executable, "-c", code, json.dumps(jobs_c5), self.shares],
+            stdout=logf, stderr=subprocess.STDOUT, env=env, cwd=ROOT), logf))
         for arch, cell, mesh, layers in jobs:
             logf = open(os.path.join(out_dir, f"{arch}__{cell}__{mesh}.log"),
                         "w")
@@ -4109,6 +4185,7 @@ def lm_dryrun_cells(torch, dry):
     from repro_torch.roofline import hlo_cost, hw
 
     ends = dry.join(LM_DRYRUN_TIMEOUT_S)
+    shares = lm_rank_shares(dry, ends.pop(("rank_shares", "train_4k", "c5")))
     rows = []
     for (arch, cell, mesh), (rc, end_s) in ends.items():
         path = os.path.join(dry.out_dir, f"{arch}__{cell}__{mesh}.json")
@@ -4167,7 +4244,49 @@ def lm_dryrun_cells(torch, dry):
     if f"{len(rows)} compiled ok, 0 skipped (assignment rules), 0 errors" \
             not in text:
         raise AssertionError(f"lm dryrun report: {text[:500]}")
-    return rows, text
+    return rows, text, shares
+
+
+def lm_rank_shares(dry, end):
+    """Phase 23's C.5 check on the side process's dryrun.rank_shares:
+    each mesh's dot FLOPs a device times its ranks over (1, 1)'s, and the
+    largest attention bmm with 6 heads on 4 model ranks."""
+    rc = end[0]
+    with open(os.path.join(dry.out_dir, "rank_shares.log")) as f:
+        tail = f.read()[-3000:]
+    if rc != 0 or not os.path.exists(dry.shares):
+        raise AssertionError(f"lm rank shares: exit code {rc}\n{tail}")
+    end_s = os.path.getmtime(dry.shares) - dry.wall0
+    with open(dry.shares) as f:
+        got = json.load(f)
+    out = {}
+    for key, meshes in got.items():
+        one = meshes["1x1"]
+        ratios = {m: r["dot"] * 4 / one["dot"] for m, r in meshes.items()
+                  if m != "1x1"}
+        out[key] = dict(ratios=ratios, bmm_batch={m: r["bmm_batch"] for m, r
+                                                  in meshes.items()},
+                        before_c5=LM_SHARE_BEFORE_C5.get(key))
+        log(f"lm rank shares {key} train_4k (reduced, 4 x 32): dot FLOPs x "
+            f"ranks / (1, 1) " + ", ".join(f"{m} {v:.4f}" for m, v
+                                          in ratios.items())
+            + f" (before C.5: {LM_SHARE_BEFORE_C5.get(key)}); largest bmm "
+            f"batch {out[key]['bmm_batch']}")
+        arch, heads = key.split(":")
+        if int(heads) == 0 and any(abs(v - 1.0) > LM_SHARE_RTOL
+                                   for v in ratios.values()):
+            raise AssertionError(f"lm rank shares {key}: {ratios} (a "
+                                 "product runs whole on every rank, C.5)")
+        if int(heads):
+            rows = one["bmm_batch"] // int(heads)
+            for m, (data, model) in (("2x2", (2, 2)), ("1x4", (1, 4))):
+                cap = rows // data * -(-int(heads) // model)
+                if meshes[m]["bmm_batch"] > cap:
+                    raise AssertionError(f"lm rank shares {key} {m}: bmm "
+                                         f"batch {meshes[m]['bmm_batch']} > "
+                                         f"{cap}")
+    log(f"lm rank shares: {end_s:.1f} s after the start")
+    return dict(seconds=end_s, cells=out)
 
 
 def count_diff(real, fake):
@@ -4333,7 +4452,8 @@ def lm_dryrun_phase(torch, dry, smi):
     t0 = time.perf_counter()
     out = dict(card=lm_dryrun_card(torch, smi))
     out["card_s"] = time.perf_counter() - t0
-    out["cells"], out["report"] = lm_dryrun_cells(torch, dry)
+    out["cells"], out["report"], out["rank_shares"] = lm_dryrun_cells(
+        torch, dry)
     return out
 
 

@@ -60,20 +60,47 @@ class DistConfig:
     device: str = "cuda"
 
 
+GROUP_TIMEOUT_S = 300.0
+
+
+def rank_device(device: str, rank: int) -> str:
+    """The device rank ``rank`` computes on: an indexed device as given,
+    a bare ``"cuda"`` as card ``rank % device_count`` (one card a rank on
+    a host of several), any other device as given."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        n = torch.cuda.device_count()
+        if n == 0:
+            raise RuntimeError(f"device {device!r} requested but PyTorch "
+                               "sees no CUDA device")
+        return f"cuda:{rank % n}"
+    return device
+
+
 def init_process_group(rank: int, world_size: int, init_method: str,
                        device: str = "cuda",
-                       backend: Optional[str] = None) -> str:
+                       backend: Optional[str] = None,
+                       timeout_s: float = GROUP_TIMEOUT_S) -> str:
     """Join the default process group as ``rank`` of ``world_size`` at
     ``init_method`` (e.g. ``tcp://localhost:29500``).  The backend is
     ``backend`` when given, else NCCL for a CUDA ``device`` and gloo for
-    the CPU.  Returns the backend."""
+    the CPU.  On the card this rank's card (:func:`rank_device`) is made
+    the current device first, so that NCCL and every bare ``"cuda"``
+    tensor of the rank land there, not all on card 0.  A collective that
+    waits longer than ``timeout_s`` fails instead of holding the cards.
+    Returns the backend."""
+    import datetime
+
+    kind = torch.device(device).type
     if backend is None:
-        kind = torch.device(device).type
         if kind not in ("cuda", "cpu"):
             raise ValueError(f"no default backend for device {device!r}")
         backend = "nccl" if kind == "cuda" else "gloo"
+    if kind == "cuda" and torch.cuda.is_available():
+        torch.cuda.set_device(torch.device(rank_device(device, rank)))
     dist.init_process_group(backend, init_method=init_method, rank=rank,
-                            world_size=world_size)
+                            world_size=world_size,
+                            timeout=datetime.timedelta(seconds=timeout_s))
     return backend
 
 

@@ -45,6 +45,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.distributed import rank_device
 from repro_torch.core.engine import EngineConfig, OutOfCoreEngine
 
 
@@ -129,15 +130,6 @@ class ClusterResult:
         return [h.wire_bytes for h in self.results[app_index].history]
 
 
-def _rank_device(device: str, rank: int) -> str:
-    """The device rank ``rank`` computes on: an indexed device as given,
-    bare ``"cuda"`` as card ``rank % device_count``."""
-    d = torch.device(device)
-    if d.type == "cuda" and d.index is None:
-        return f"cuda:{rank % torch.cuda.device_count()}"
-    return device
-
-
 def _launch_counts() -> dict:
     """Every kernel wrapper's launch counter in this process."""
     from repro_torch.kernels import compact, gab_fused, gab_gather
@@ -179,7 +171,7 @@ def _server_main(rank: int, store_root: str, cfg: ClusterConfig,
                                   // cfg.num_servers))
         store = TileStore(store_root)
         store.load_meta()
-        device = _rank_device(cfg.device, rank)
+        device = rank_device(cfg.device, rank)
         # checkpoints go to a subdirectory per program (configured below,
         # where resume may remap the assignment before the exchange uses
         # it), so the engine must not claim the shared root

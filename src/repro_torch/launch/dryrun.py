@@ -206,10 +206,11 @@ def _terms(cost, n_chips, mflops):
 
 def count(arch: str, cell_name: str, mesh_kind: str, device: str, *,
           reduced: bool = False, mesh_shape=None, batch=None, seq=None,
-          layers=None, overrides=None):
+          layers=None, overrides=None, model_overrides=None):
     """``(CellCount, n_chips, RunConfig)`` of one cell (:func:`run_cell`'s
-    arguments; ``overrides`` replace fields of the cell's RunConfig),
-    inside the emulated world its mesh needs."""
+    arguments; ``overrides`` replace fields of the cell's RunConfig,
+    ``model_overrides`` those of its ModelConfig), inside the emulated
+    world its mesh needs."""
     cell = SHAPE_CELLS[cell_name]
     if batch is not None or seq is not None:
         cell = dataclasses.replace(
@@ -218,6 +219,8 @@ def count(arch: str, cell_name: str, mesh_kind: str, device: str, *,
     cfg = registry.get_config(arch, reduced=reduced)
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=layers)
+    if model_overrides:
+        cfg = dataclasses.replace(cfg, **model_overrides)
     n_chips = 1 if mesh_kind == "one" else _world(mesh_kind, mesh_shape)
     run = registry.default_run_config(arch, cell, n_chips)
     if overrides:
@@ -229,6 +232,35 @@ def count(arch: str, cell_name: str, mesh_kind: str, device: str, *,
             mesh = _make_mesh(mesh_kind, device, mesh_shape)
         cc = count_cell(cfg, run, cell, mesh, device)
     return cc, n_chips, run
+
+
+SHARE_MESHES = ((1, 1), (2, 2), (1, 4))
+
+
+def rank_shares(arch: str, cell_name: str, *, heads=None, batch: int = 4,
+                seq: int = 32, shapes=SHARE_MESHES,
+                device: str = "cpu") -> dict:
+    """What one rank computes of the reduced ``arch``'s cell (its query
+    heads ``heads`` when given) on each fake ("data", "model") mesh of
+    ``shapes``: ``{"DxM": {"dot": its dot FLOPs (hlo_cost.dot_flops),
+    "bmm_batch": the largest bmm's batch, "n_bmm": its bmm count}}``.  A
+    mesh's dot FLOPs times its ranks against (1, 1)'s say whether some
+    product runs whole on every rank of an axis (ROADMAP C.4, C.5); the
+    bmm batch is attention's batch rows times query heads."""
+    from repro_torch.roofline import hlo_cost
+
+    out = {}
+    for shape in shapes:
+        cc, _, _ = count(arch, cell_name, "single", device, reduced=True,
+                         mesh_shape=shape, batch=batch, seq=seq,
+                         model_overrides=(None if heads is None
+                                          else {"num_heads": heads}))
+        rec = [r.as_list() for r in cc.counted.records]
+        bmm = [r[1][0][1][0] for r in rec if r[0].startswith("aten.bmm.")]
+        out[f"{shape[0]}x{shape[1]}"] = dict(
+            dot=hlo_cost.dot_flops(rec), bmm_batch=max(bmm, default=0),
+            n_bmm=len(bmm))
+    return out
 
 
 def run_cell(arch: str, cell_name: str, mesh_kind: str,

@@ -4,7 +4,10 @@
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with the
 reference's axis names, one rank a device: the caller joins the default
 process group first (``core.distributed.init_process_group``: NCCL on the
-card, gloo on the CPU), with as many ranks as the mesh has slots.  Where
+card, gloo on the CPU), with as many ranks as the mesh has slots.  On the
+card a bare ``"cuda"`` is rank r's card ``r % device_count``
+(``core.distributed.rank_device``), made current before the mesh's
+groups.  Where
 the reference emulates devices in one process
 (``--xla_force_host_platform_device_count``), the port spawns processes.
 Functions only: importing this module touches no process group.
@@ -14,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.distributed import rank_device
 from repro_torch.serve.graph_service import bind_device
 
 
@@ -40,6 +44,10 @@ def _mesh(shape: tuple[int, ...], axes: tuple[str, ...], device: str):
             + ("none is initialised" if have == 0 else f"this one has {have}")
             + " (core.distributed.init_process_group, one rank a device)")
     kind = torch.device(bind_device(device)).type
+    if kind == "cuda":
+        # this rank's card before the mesh makes its NCCL groups
+        torch.cuda.set_device(torch.device(rank_device(device,
+                                                       dist.get_rank())))
     return init_device_mesh(kind, shape, mesh_dim_names=axes)
 
 

@@ -55,8 +55,8 @@ class CrossAttention(nn.Module):
         self.wo = L.new_param(h * dh, d, device=device)
 
     def init(self, gen: torch.Generator) -> None:
-        for w in (self.wq, self.wk, self.wv, self.wo):
-            L.dense_init_(w, gen)
+        for name in ("wq", "wk", "wv", "wo"):
+            L.init_(self, name, lambda t: L.dense_init_(t, gen))
 
 
 class EncBlock(nn.Module):
@@ -118,9 +118,10 @@ class EncDecLM(nn.Module):
         """Random parameters from a ``torch.Generator`` seeded with
         ``seed`` (the reference's distributions; other values than its
         ``init``).  Returns the model."""
-        gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        with torch.no_grad():
-            self.embed_tok.normal_(generator=gen).mul_(0.02)
+        gen = torch.Generator(device=L.init_device(self.device)).manual_seed(
+            int(seed))
+        L.init_(self, "embed_tok",
+                lambda t: t.normal_(generator=gen).mul_(0.02))
         for m in (*self.encoder, self.enc_norm, *self.decoder,
                   self.final_norm):
             m.init(gen)

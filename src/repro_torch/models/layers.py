@@ -28,6 +28,8 @@ nowhere, and so does the port.
 """
 from __future__ import annotations
 
+import contextlib
+from contextvars import ContextVar
 from typing import Optional
 
 import torch
@@ -35,9 +37,11 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.sharding import (batch_heads, cns, is_dtensor,
-                                         like, linear, matmul, merge_heads,
-                                         moved, shard_box, split_heads)
+from repro_torch.models.sharding import (batch_heads, cns, head_chunk,
+                                         is_dtensor, like, linear, matmul,
+                                         merge_heads, moved, shard_box,
+                                         split_heads, spread,
+                                         whole_heads_dim)
 
 NEG_INF = -1e30
 
@@ -52,6 +56,42 @@ def dense_init_(w: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
     with torch.no_grad():
         w.normal_(generator=gen).mul_(fan_in ** -0.5)
     return w
+
+
+_FILL: ContextVar[Optional[tuple]] = ContextVar("init_fill", default=None)
+
+
+def init_(module: nn.Module, name: str, fill) -> None:
+    """Initialise ``module``'s parameter ``name`` by ``fill(tensor)``, which
+    fills it in place (the modules' ``init(gen)`` call this once a
+    parameter, in the order they draw from ``gen``).  Under
+    :func:`leaf_by_leaf` the context's hook makes the leaf instead."""
+    ctx = _FILL.get()
+    if ctx is not None:
+        ctx[0](module, name, fill)
+        return
+    with torch.no_grad():
+        fill(module._parameters[name])
+
+
+@contextlib.contextmanager
+def leaf_by_leaf(hook, device):
+    """Run ``init`` with every :func:`init_` handed to ``hook(module, name,
+    fill)``, and the model's generator on ``device``
+    (:func:`init_device`): a model on the meta device is then initialised
+    one leaf at a time (``model_zoo.init_on_mesh``)."""
+    tok = _FILL.set((hook, device))
+    try:
+        yield
+    finally:
+        _FILL.reset(tok)
+
+
+def init_device(default):
+    """The device of the generator ``init`` draws from: the one
+    :func:`leaf_by_leaf` names, else ``default`` (the model's)."""
+    ctx = _FILL.get()
+    return default if ctx is None else ctx[1]
 
 
 def new_param(*shape, device=None) -> nn.Parameter:
@@ -69,8 +109,7 @@ class Norm(nn.Module):
         self.scale = new_param(dim, device=device)
 
     def init(self, gen: torch.Generator) -> None:
-        with torch.no_grad():
-            self.scale.fill_(1.0)
+        init_(self, "scale", lambda t: t.fill_(1.0))
 
     def forward(self, x, kind="rmsnorm", eps=1e-6):
         return norm_apply(self.scale, x, kind, eps)
@@ -239,29 +278,47 @@ def blockwise_attention(
 
 def _local_heads(q, k, v, qpl, kpl):
     """The local tensors of q, k and v for attention on each rank's own
-    batch rows and query heads: q placed by ``qpl``, k and v by ``kpl``
-    (the same batch split; a head split only where q's is the same).
-    Where k and v are whole on a mesh dim that splits q's heads (fewer kv
-    heads than ranks), each rank slices out the kv heads of its query
-    heads (a GQA group is contiguous), and their gradient is a partial
-    sum over the ranks that share them."""
-    from torch.distributed.tensor import Partial
+    batch rows and query heads, and the function that places a local
+    output: q placed by ``qpl``, k and v by ``kpl`` (the same batch
+    split; a head split only where q's is the same).  Where q is whole
+    on the model axis (its heads do not divide the axis), each rank
+    takes its chunk of them there (``sharding.head_chunk``: at most
+    ``ceil(H / ranks)``, as GSPMD pads), q's gradient and the output a
+    partial sum there.  Where k and v are whole on a mesh dim that splits
+    q's heads (fewer kv heads than ranks), each rank slices out the kv
+    heads of its query heads (a GQA group is contiguous), and their
+    gradient is a partial sum over the ranks that share them."""
+    from torch.distributed.tensor import DTensor, Partial
 
     mesh = q.device_mesh
-    kg = [Partial() if p.is_shard(2) and not kp.is_shard() else kp
-          for p, kp in zip(qpl, kpl)]
     q = moved(q, qpl, mesh)
+    pad = whole_heads_dim(q)
+    H = q.shape[2]
+    kg = [Partial() if (p.is_shard(2) or d == pad) and not kp.is_shard()
+          else kp for d, (p, kp) in enumerate(zip(qpl, kpl))]
     k, v = moved(k, kpl, mesh), moved(v, kpl, mesh)
-    G = q.shape[2] // k.shape[2]
+    G = H // k.shape[2]
     h0, k0 = shard_box(q)[0][2], shard_box(k)[0][2]
-    ql = q.to_local()
+    ql = q.to_local(grad_placements=[Partial() if d == pad else p
+                                     for d, p in enumerate(qpl)])
     kl, vl = (t.to_local(grad_placements=kg) for t in (k, v))
+    if pad is not None:
+        c0, n = head_chunk(H, mesh, pad)
+        ql = ql[:, :, c0:c0 + n]
+        h0 += c0
     hl = ql.shape[2]
-    if hl % G == 0 or G % hl == 0:      # whole groups, or one group's part
+    if hl == 0:                         # no heads here: any one kv head
+        idx = slice(0, 1)
+    elif hl % G == 0 or G % hl == 0:    # whole groups, or one group's part
         idx = slice(h0 // G - k0, h0 // G - k0 + max(hl // G, 1))
     else:                               # a group split across ranks
         idx = torch.arange(h0, h0 + hl, device=kl.device) // G - k0
-    return ql, kl[:, :, idx], vl[:, :, idx]
+
+    def place(o):
+        if pad is None:
+            return DTensor.from_local(o, mesh, qpl, run_check=False)
+        return spread(o, {2: (h0, H)}, mesh, qpl, pad)
+    return ql, kl[:, :, idx], vl[:, :, idx], place
 
 
 def _blockwise_attention_on_shards(q, k, v, **kw):
@@ -271,15 +328,14 @@ def _blockwise_attention_on_shards(q, k, v, **kw):
     q, as the cross-attention's, is sliced to k's rows), the heads by
     q's, k and v following (:func:`_local_heads`).  Returns a DTensor
     placed as q's shard."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor import Replicate, Shard
 
-    mesh = q.device_mesh
     qpl = [Shard(0) if kp.is_shard(0) else p
            for p, kp in zip(batch_heads(q), k.placements)]
     kpl = [p if p.is_shard(0) or (p.is_shard(2) and kp.is_shard(2))
            else Replicate() for p, kp in zip(qpl, k.placements)]
-    o = blockwise_attention(*_local_heads(q, k, v, qpl, kpl), **kw)
-    return DTensor.from_local(o, mesh, qpl, run_check=False)
+    ql, kl, vl, place = _local_heads(q, k, v, qpl, kpl)
+    return place(blockwise_attention(ql, kl, vl, **kw))
 
 
 # ---------------------------------------------------------------------------
@@ -326,7 +382,7 @@ def _decode_attention_on_shards(q, k_cache, v_cache, cache_len, **kw):
     sequence moves: it is gathered, where GSPMD partitions the softmax
     (flash-decoding is :func:`seq_sharded_decode_attention`, which the
     reference leaves unwired).  Returns a DTensor placed as q's shard."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor import Replicate, Shard
 
     mesh = k_cache.device_mesh
     kpl = [Replicate() if p.is_shard(1) else p for p in k_cache.placements]
@@ -334,13 +390,12 @@ def _decode_attention_on_shards(q, k_cache, v_cache, cache_len, **kw):
     qpl = [Shard(0) if kp.is_shard(0) else Shard(2)
            if kp.is_shard(2) or (p.is_shard(2) and not kp.is_shard())
            else Replicate() for p, kp in zip(q.placements, kpl)]
-    ql, kl, vl = _local_heads(q, k_cache, v_cache, qpl, kpl)
+    ql, kl, vl, place = _local_heads(q, k_cache, v_cache, qpl, kpl)
     cl = torch.as_tensor(cache_len, device=ql.device)
     if cl.dim() == 1:                              # per-row: this rank's
         off, size = shard_box(moved(k_cache, kpl, mesh))
         cl = cl[off[0]:off[0] + size[0]]
-    o = decode_attention(ql, kl, vl, cl, **kw)
-    return DTensor.from_local(o, mesh, qpl, run_check=False)
+    return place(decode_attention(ql, kl, vl, cl, **kw))
 
 
 def seq_sharded_decode_attention(q, k_cache, v_cache, cache_len, mesh,
@@ -409,8 +464,8 @@ class Attention(nn.Module):
             self.k_ln = Norm(dh, device)
 
     def init(self, gen: torch.Generator) -> None:
-        for w in (self.wq, self.wk, self.wv, self.wo):
-            dense_init_(w, gen)
+        for name in ("wq", "wk", "wv", "wo"):
+            init_(self, name, lambda t: dense_init_(t, gen))
         if self.cfg.qk_norm:
             self.q_ln.init(gen)
             self.k_ln.init(gen)
@@ -474,9 +529,9 @@ class MLP(nn.Module):
         self.wg = new_param(d, f, device=device) if gated else None
 
     def init(self, gen: torch.Generator) -> None:
-        for w in (self.wi, self.wo, self.wg):
-            if w is not None:
-                dense_init_(w, gen)
+        for name in ("wi", "wo", "wg"):
+            if getattr(self, name) is not None:
+                init_(self, name, lambda t: dense_init_(t, gen))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cdt = x.dtype

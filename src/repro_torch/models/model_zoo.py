@@ -50,6 +50,32 @@ def build_model(cfg: ModelConfig, run: RunConfig = RunConfig(), device=None):
     return LM(cfg, run, device)
 
 
+def init_on_mesh(model, seed: int, mesh, rules, device):
+    """``model.init(seed)`` for a model built on the meta device, each rank
+    keeping only its shards: leaf by leaf in ``init``'s order, from
+    ``init``'s generator on ``device``, each leaf made whole there, drawn,
+    its shard kept as a DTensor placed by ``sharding.param_specs``, and
+    the leaf freed.  Each shard equals bit for bit the shard of the whole
+    ``init(seed)`` on ``device``; the peak this adds is one whole leaf.
+    Returns the model."""
+    from repro_torch.models import layers
+    from repro_torch.models import sharding as shd
+
+    pl = shd.param_placements(model, mesh, rules)
+
+    def make(module, name, fill):
+        p = module._parameters[name]
+        whole = torch.empty(p.shape, dtype=p.dtype, device=device)
+        with torch.no_grad():
+            fill(whole)
+        module._parameters[name] = nn.Parameter(
+            shd.own_shard(whole, pl[id(p)], mesh),
+            requires_grad=p.requires_grad)
+    with layers.leaf_by_leaf(make, device):
+        model.init(seed)
+    return model
+
+
 def _leaves(tree):
     if isinstance(tree, torch.nn.Module):
         yield from (p for _, p in tree.named_parameters())

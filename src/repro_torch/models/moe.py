@@ -20,9 +20,11 @@ atomics, so two equal train steps give equal bits.
 Over a device mesh the token grid and the expert FFN shard the experts
 over the model axis and the capacity over the data axes (``cns``, as the
 reference), each rank running its own experts on its own slots
-(``sharding.linear``).  The routing — top-k, the stable sort, ``searchsorted`` and
+(``sharding.linear``).  The router's product runs on each rank's own
+tokens, split over every mesh axis, and only its ``[T, E]`` logits are
+gathered.  The routing — top-k, the stable sort, ``searchsorted`` and
 the two ``F.embedding`` gathers — has no DTensor sharding rule, so it runs
-on the whole ``[T, E]`` logits and ``[T, D]`` tokens on every rank
+on those whole logits and the whole ``[T, D]`` tokens on every rank
 (``sharding.full``; gradients flow back to the shards), the same
 routing as without a mesh.
 """
@@ -33,7 +35,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import cns, full, like, linear, matmul
+from repro_torch.models.sharding import (cns, full, is_dtensor, like,
+                                         linear, moved)
 
 
 def moe_capacity(num_tokens: int, cfg) -> int:
@@ -56,11 +59,28 @@ class MoE(nn.Module):
         self.wo = L.new_param(e, f, d, device=device)
 
     def init(self, gen: torch.Generator) -> None:
-        for w in (self.router, self.wi, self.wg, self.wo):
-            L.dense_init_(w, gen)
+        for name in ("router", "wi", "wg", "wo"):
+            L.init_(self, name, lambda t: L.dense_init_(t, gen))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return moe_apply(self, x, self.cfg)
+
+
+def _each_rank_rows(x):
+    """A DTensor ``x [T, D]`` split along T over every mesh dim where it
+    is whole too (a local slice), when T divides evenly: each rank then
+    holds rows no other rank holds.  ``x`` itself otherwise."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Shard
+
+    mesh, n = x.device_mesh, 1
+    for d in range(mesh.ndim):
+        n *= mesh.size(d)
+    if x.shape[0] % n or any(p.is_shard() and p.dim != 0
+                             for p in x.placements):
+        return x
+    return moved(x, [Shard(0)] * mesh.ndim)
 
 
 def moe_dispatch(eids: torch.Tensor, cfg, capacity: int):
@@ -96,8 +116,10 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg) -> torch.Tensor:
     cdt = x.dtype
     xt = x.reshape(T, D)
 
-    # routing has no DTensor sharding rule: whole tensors on every rank
-    logits = full(matmul(xt, p.router.to(cdt)).float())     # [T, E]
+    # the router's product on each rank's tokens, its [T, E] logits
+    # gathered: routing has no DTensor sharding rule, so it runs on whole
+    # tensors on every rank
+    logits = full(linear(_each_rank_rows(xt), p.router.to(cdt)).float())
     gates, eids = torch.topk(logits, cfg.experts_per_token, dim=-1,
                              sorted=True)
     gates = torch.softmax(gates, dim=-1)

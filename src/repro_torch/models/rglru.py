@@ -54,12 +54,14 @@ class RGLRU(nn.Module):
         """The reference's distributions: dense weights normal /
         sqrt(fan_in), conv normal · 0.02, a_param softplus⁻¹(-log(u) / c)
         for u uniform in [0.9, 0.999)."""
-        for w in (self.wx, self.wy, self.gate_a, self.gate_x, self.wo):
-            L.dense_init_(w, gen)
-        with torch.no_grad():
-            self.conv.normal_(generator=gen).mul_(0.02)
-            u = self.a_param.uniform_(0.9, 0.999, generator=gen)
-            self.a_param.copy_(torch.log(torch.expm1(-torch.log(u) / _C)))
+        for name in ("wx", "wy", "gate_a", "gate_x", "wo"):
+            L.init_(self, name, lambda t: L.dense_init_(t, gen))
+        L.init_(self, "conv", lambda t: t.normal_(generator=gen).mul_(0.02))
+
+        def a_param(t):
+            u = t.uniform_(0.9, 0.999, generator=gen)
+            t.copy_(torch.log(torch.expm1(-torch.log(u) / _C)))
+        L.init_(self, "a_param", a_param)
 
     def forward(self, x, cache=None):
         return rnn_block_apply(self, x, self.cfg, cache)

@@ -20,9 +20,10 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models.sharding import (assign_, batch_heads, cns,
-                                         is_dtensor, linear, matmul,
-                                         merge_heads, moved, shard_box,
-                                         split_heads)
+                                         head_chunk, is_dtensor, linear,
+                                         matmul, merge_heads, moved,
+                                         shard_box, split_heads, spread,
+                                         whole_heads_dim)
 
 LORA_RANK = 32
 
@@ -56,14 +57,16 @@ class TimeMix(nn.Module):
     def init(self, gen: torch.Generator) -> None:
         """The reference's distributions: mix uniform in [0, 1), w_decay
         -2 + normal · 0.1, decay_lora_b dense · 0.1, u normal · 0.5."""
-        for w in (self.wr, self.wk, self.wv, self.wg, self.decay_lora_a,
-                  self.decay_lora_b, self.wo):
-            L.dense_init_(w, gen)
-        with torch.no_grad():
-            self.mix.uniform_(0.0, 1.0, generator=gen)
-            self.w_decay.normal_(generator=gen).mul_(0.1).add_(-2.0)
-            self.decay_lora_b.mul_(0.1)
-            self.u.normal_(generator=gen).mul_(0.5)
+        for name in ("wr", "wk", "wv", "wg", "decay_lora_a"):
+            L.init_(self, name, lambda t: L.dense_init_(t, gen))
+        # its scale draws nothing: taken at once, the draws keep their order
+        L.init_(self, "decay_lora_b",
+                lambda t: L.dense_init_(t, gen).mul_(0.1))
+        L.init_(self, "wo", lambda t: L.dense_init_(t, gen))
+        L.init_(self, "mix", lambda t: t.uniform_(0.0, 1.0, generator=gen))
+        L.init_(self, "w_decay",
+                lambda t: t.normal_(generator=gen).mul_(0.1).add_(-2.0))
+        L.init_(self, "u", lambda t: t.normal_(generator=gen).mul_(0.5))
         self.ln_out.init(gen)
 
 
@@ -80,10 +83,9 @@ class ChannelMix(nn.Module):
         self.wr = L.new_param(d, d, device=device)
 
     def init(self, gen: torch.Generator) -> None:
-        for w in (self.wk, self.wv, self.wr):
-            L.dense_init_(w, gen)
-        with torch.no_grad():
-            self.mix.uniform_(0.0, 1.0, generator=gen)
+        for name in ("wk", "wv", "wr"):
+            L.init_(self, name, lambda t: L.dense_init_(t, gen))
+        L.init_(self, "mix", lambda t: t.uniform_(0.0, 1.0, generator=gen))
 
 
 class RWKV(nn.Module):
@@ -113,6 +115,22 @@ def _cols_as(w, ref):
                      for p in ref.placements])
 
 
+def _contraction_as(x, ref):
+    """``x [..., d]``, whole on the mesh dims that split ``ref``'s columns
+    (``wk``), split there along its last dim (a local slice, nothing
+    moves): a product with a replicated weight (``decay_lora_a``) then
+    runs on each rank's slice of the contraction and gives a partial sum,
+    where every rank of the axis would compute the whole product.  ``x``
+    itself off a mesh."""
+    if not is_dtensor(x) or not is_dtensor(ref):
+        return x
+    from torch.distributed.tensor import Shard
+
+    last = x.dim() - 1
+    return moved(x, [Shard(last) if q.is_shard(1) and p.is_replicate()
+                     else p for p, q in zip(x.placements, ref.placements)])
+
+
 def _token_shift(x, last):
     """previous token's activation; last: [B, 1, D] carried state."""
     return torch.cat([last.to(x.dtype), x[:, :-1]], dim=1)
@@ -140,7 +158,8 @@ def time_mix(p: TimeMix, x, cfg, cache=None):
     k = split_heads(linear(xk, p.wk.to(cdt)), H, dh)
     v = split_heads(linear(xv, p.wv.to(cdt)), H, dh)
     g = F.silu(linear(xg, p.wg.to(cdt)))
-    lora = linear(torch.tanh(linear(xw, p.decay_lora_a.to(cdt))),
+    lora = linear(torch.tanh(linear(_contraction_as(xw, p.wk),
+                                    p.decay_lora_a.to(cdt))),
                   _cols_as(p.decay_lora_b, p.wk).to(cdt))
     w = torch.exp(-torch.exp(
         (p.w_decay.reshape(1, 1, H, dh) + split_heads(lora, H, dh))
@@ -159,13 +178,14 @@ def time_mix(p: TimeMix, x, cfg, cache=None):
 
 
 def _wkv_loop(r, k, v, w, u, state):
-    """The recurrence on plain tensors: r, k, v, w ``[B, S, H, dh]``, u
-    ``[H, dh]``, state ``[B, H, dh, dh]`` or None (zeros).  Returns
+    """The recurrence on plain tensors: r, k, w ``[B, S, H, dh]``, v
+    ``[B, S, H, dv]`` (dv = dh, or a slice of the value columns), u
+    ``[H, dh]``, state ``[B, H, dh, dv]`` or None (zeros).  Returns
     (out ``[B, S, H, dh]``, the last state), float32."""
     B, S, H, dh = r.shape
     rf, kf, vf, w = r.float(), k.float(), v.float(), w.float()
     u = u[None, :, :, None]
-    state = (rf.new_zeros((B, H, dh, dh)) if state is None
+    state = (rf.new_zeros((B, H, dh, vf.shape[-1])) if state is None
              else state.float())
     outs = []
     for t in range(S):
@@ -180,7 +200,13 @@ def wkv(r, k, v, w, u, state=None):
     """:func:`_wkv_loop`; over a mesh each rank loops over its own batch
     rows and heads (``sharding.batch_heads``), its slice of the replicated
     ``u`` taken locally (its gradient a partial sum over the ranks), and
-    the results are DTensors placed as that split."""
+    the results are DTensors placed as that split.  Where the heads do
+    not divide the model axis (they stay whole there: ``sharding.
+    split_heads``), each rank takes its share there: when the axis's
+    ranks are a multiple of the heads, one head's slice of the value
+    columns (a state column depends on its value column only, so no rank
+    repeats another's work); else ``sharding.head_chunk``'s heads.  The
+    results are then partial sums there, each rank's block in its place."""
     if not is_dtensor(r):
         return _wkv_loop(r, k, v, w, u, state)
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -189,15 +215,36 @@ def wkv(r, k, v, w, u, state=None):
     pl = batch_heads(r)
     spl = [Shard(1) if p.is_shard(2) else p for p in pl]   # [B, H, ...]
     r, k, v, w = (moved(t, pl, mesh) for t in (r, k, v, w))
-    h0, hl = shard_box(r)[0][2], r.to_local().shape[2]
-    ul = u.to_local(grad_placements=[Partial() if p.is_shard() else
-                                     Replicate() for p in pl])[h0:h0 + hl]
+    pad = whole_heads_dim(r)
+    H, dh = r.shape[2], r.shape[3]
+    g = [Partial() if d == pad else p for d, p in enumerate(pl)]
+    rl, kl, vl, wl = (t.to_local(grad_placements=g) for t in (r, k, v, w))
+    h0, hl = shard_box(r)[0][2], rl.shape[2]
+    d0, dl = 0, dh
     if state is not None:
         state = moved(state, spl, mesh).to_local()
-    out, state = _wkv_loop(r.to_local(), k.to_local(), v.to_local(),
-                           w.to_local(), ul, state)
-    return (DTensor.from_local(out, mesh, pl, run_check=False),
-            DTensor.from_local(state, mesh, spl, run_check=False))
+    if pad is not None:
+        ranks = mesh.size(pad)
+        per = ranks // H
+        if ranks % H == 0 and dh % per == 0:
+            i = mesh.get_coordinate()[pad]
+            h0, hl, dl = i // per, 1, dh // per
+            d0 = (i % per) * dl
+        else:
+            h0, hl = head_chunk(H, mesh, pad)
+        rl, kl, wl = (t[:, :, h0:h0 + hl] for t in (rl, kl, wl))
+        vl = vl[:, :, h0:h0 + hl, d0:d0 + dl]
+        if state is not None:
+            state = state[:, h0:h0 + hl, :, d0:d0 + dl]
+    ul = u.to_local(grad_placements=[
+        Partial() if p.is_shard() or d == pad else Replicate()
+        for d, p in enumerate(pl)])[h0:h0 + hl]
+    out, state = _wkv_loop(rl, kl, vl, wl, ul, state)
+    if pad is None:
+        return (DTensor.from_local(out, mesh, pl, run_check=False),
+                DTensor.from_local(state, mesh, spl, run_check=False))
+    return (spread(out, {2: (h0, H), 3: (d0, dh)}, mesh, pl, pad),
+            spread(state, {1: (h0, H), 3: (d0, dh)}, mesh, spl, pad))
 
 
 def channel_mix(p: ChannelMix, x, cfg, cache=None):

@@ -253,6 +253,37 @@ def distribute_as(x: torch.Tensor, pl, mesh):
     return distribute_tensor(x, mesh, pl, src_data_rank=None)
 
 
+def own_shard(x: torch.Tensor, pl, mesh):
+    """:func:`distribute_as`, the local shard a tensor of its own: a split
+    shard that is a view of ``x`` is copied, so that freeing ``x`` frees
+    its memory."""
+    from torch.distributed.tensor import DTensor
+
+    d = distribute_as(x, pl, mesh)
+    local = d.to_local()
+    if local.numel() == x.numel():
+        return d
+    return DTensor.from_local(local.clone(), mesh, d.placements,
+                              run_check=False, shape=d.shape,
+                              stride=d.stride())
+
+
+def zeros(shape, pl, mesh, device) -> torch.Tensor:
+    """A float32 DTensor of zeros of ``shape`` placed ``pl`` on ``mesh``:
+    each rank makes its own shard on ``device`` and nothing else (the
+    splits must be even, as :func:`sanitize_spec` makes them)."""
+    from torch.distributed.tensor import DTensor
+
+    local = list(shape)
+    for d, p in enumerate(pl):
+        if p.is_shard():
+            local[p.dim] //= mesh.size(d)
+    return DTensor.from_local(
+        torch.zeros(local, dtype=torch.float32, device=device), mesh, pl,
+        run_check=False, shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+
+
 def gathered(x):
     """A DTensor replicated on every mesh dim (differentiable: the gradient
     goes back to the shards, reduced where it is partial); a plain tensor
@@ -389,15 +420,18 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return torch.mm(a.reshape(-1, a.shape[-1]), b).reshape(
             *a.shape[:-1], b.shape[-1])
     batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
-    a3 = a.expand(*batch, *a.shape[-2:]).reshape(-1, *a.shape[-2:])
-    b3 = b.expand(*batch, *b.shape[-2:]).reshape(-1, *b.shape[-2:])
+    n = batch.numel()                     # 0 too (a rank without heads)
+    a3 = a.expand(*batch, *a.shape[-2:]).reshape(n, *a.shape[-2:])
+    b3 = b.expand(*batch, *b.shape[-2:]).reshape(n, *b.shape[-2:])
     return torch.bmm(a3, b3).reshape(*batch, a.shape[-2], b.shape[-1])
 
 
 def split_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
     """``x [..., n·d]`` as ``[..., n, d]``.  DTensor cannot unflatten a
-    dim sharded over more ranks than ``n`` divides into (GSPMD pads
-    there), so such a DTensor is replicated on that dim first."""
+    dim sharded over more ranks than ``n`` divides into, so such a
+    DTensor is replicated on that dim first: attention and the RWKV loop
+    then split the heads there themselves (:func:`whole_heads_dim`,
+    :func:`head_chunk`), as GSPMD pads them."""
     if is_dtensor(x):
         from torch.distributed.tensor import Replicate
 
@@ -409,6 +443,53 @@ def split_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
             x = x.redistribute(mesh, [Replicate() if pl.is_shard(last)
                                       else pl for pl in x.placements])
     return x.reshape(*x.shape[:-1], n, d)
+
+
+def whole_heads_dim(x) -> Optional[int]:
+    """The mesh dim of the context's model axis (``Rules.tp_axis``) when
+    it has more than one rank and the DTensor ``x`` is whole there, else
+    None: the heads of such an ``x`` did not divide the axis
+    (:func:`split_heads`), and its consumer splits them there by
+    :func:`head_chunk`."""
+    ctx = _CTX.get()
+    if ctx is None or not is_dtensor(x):
+        return None
+    names = x.device_mesh.mesh_dim_names
+    if ctx[1].tp_axis not in names:
+        return None
+    d = names.index(ctx[1].tp_axis)
+    if x.device_mesh.size(d) == 1 or not x.placements[d].is_replicate():
+        return None
+    return d
+
+
+def head_chunk(n: int, mesh, dim: int) -> tuple[int, int]:
+    """This rank's share ``(first, count)`` of ``n`` heads over mesh dim
+    ``dim``, as ``torch.chunk`` splits them: ``ceil(n / ranks)`` a rank,
+    the last ranks fewer or none.  GSPMD pads the heads to that count;
+    here a rank computes only the real heads of its chunk."""
+    ranks = mesh.size(dim)
+    c = -(-n // ranks)
+    first = min(mesh.get_coordinate()[dim] * c, n)
+    return first, min(c, n - first)
+
+
+def spread(local: torch.Tensor, box: dict, mesh, pl, dim: int):
+    """The DTensor of which ``local`` is one rank's block: ``box`` maps a
+    tensor dim to ``(offset, size)`` of the block in a tensor of that
+    size there; the block is zero-padded to it and taken as a partial sum
+    over mesh dim ``dim`` (each rank's block in its place, zeros
+    elsewhere), placed ``pl`` on the other mesh dims."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor, Partial
+
+    pad = []
+    for i in reversed(range(local.dim())):
+        off, size = box.get(i, (0, local.shape[i]))
+        pad += [off, size - off - local.shape[i]]
+    pl = list(pl)
+    pl[dim] = Partial()
+    return DTensor.from_local(F.pad(local, pad), mesh, pl, run_check=False)
 
 
 def merge_heads(x: torch.Tensor) -> torch.Tensor:
@@ -660,24 +741,29 @@ def opt_state_spec_from_param(spec, rules: Rules, shape=None,
     return P(*spec)
 
 
+def param_placements(model, mesh, rules: Rules) -> dict:
+    """``{id(parameter): placements}`` of every parameter of ``model`` by
+    :func:`param_specs` (sanitized against its shape)."""
+    from repro_torch.models import model_zoo
+
+    return {id(p): placements(sanitize_spec(
+        member_spec("/".join(path), p.dim(), idx is not None, rules),
+        p.shape, mesh), mesh) for path, p, idx in model_zoo._layout(model)}
+
+
 def distribute_model_(model, mesh, rules: Rules):
     """Replace every parameter of ``model`` in place by a DTensor placed by
     :func:`param_specs` on ``mesh`` (each rank keeps its shard of the
     values it holds, which must be equal on every rank).  Returns the
     model."""
-    from repro_torch.models import model_zoo
-
-    owner = {id(p): (mod, name) for mod in model.modules()
-             for name, p in mod._parameters.items() if p is not None}
-    for path, p, idx in model_zoo._layout(model):
-        if is_dtensor(p):
-            continue
-        sp = sanitize_spec(member_spec("/".join(path), p.dim(),
-                                       idx is not None, rules), p.shape, mesh)
-        mod, name = owner[id(p)]
-        mod._parameters[name] = torch.nn.Parameter(
-            distribute_as(p.detach(), placements(sp, mesh), mesh),
-            requires_grad=p.requires_grad)
+    pl = param_placements(model, mesh, rules)
+    for mod in model.modules():
+        for name, p in list(mod._parameters.items()):
+            if p is None or is_dtensor(p):
+                continue
+            mod._parameters[name] = torch.nn.Parameter(
+                distribute_as(p.detach(), pl[id(p)], mesh),
+                requires_grad=p.requires_grad)
     return model
 
 

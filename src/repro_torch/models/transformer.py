@@ -286,14 +286,16 @@ class LM(nn.Module):
         1; another generator, so other values than ``LM.init`` of the
         JAX package — carry those across with ``model_zoo.load_params``).
         Returns the model."""
-        gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        with torch.no_grad():
-            self.embed_tok.normal_(generator=gen).mul_(0.02)
-            self.final_norm.init(gen)
-            for blk in self.blocks:
-                blk.init(gen)
-            if self.lm_head is not None:
-                self.lm_head.normal_(generator=gen).mul_(0.02)
+        gen = torch.Generator(device=L.init_device(self.device)).manual_seed(
+            int(seed))
+        L.init_(self, "embed_tok",
+                lambda t: t.normal_(generator=gen).mul_(0.02))
+        self.final_norm.init(gen)
+        for blk in self.blocks:
+            blk.init(gen)
+        if self.lm_head is not None:
+            L.init_(self, "lm_head",
+                    lambda t: t.normal_(generator=gen).mul_(0.02))
         return self
 
     # -- caches ----------------------------------------------------------

@@ -66,13 +66,33 @@ def _microbatch(batch: dict, n: int, i: int) -> dict:
     return {k: slc(v) for k, v in batch.items()}
 
 
-def _fresh_state(model, use_ef: bool) -> dict:
+def _fresh_state(model, use_ef: bool, device, mesh=None,
+                 rules=None) -> dict:
+    """The train state of an initialised ``model``: zero moments (and
+    top-k residual), step 0.  Over a mesh the zeros are DTensors in their
+    ZeRO-1 placements (:func:`state_specs`), each rank making only its
+    shards."""
     model.requires_grad_(True)
     params = model_zoo.param_tree(model)
-    state = {"params": model, "opt": opt.adamw_init(params),
-             "step": torch.zeros((), dtype=torch.int32, device=model.device)}
+    step = torch.zeros((), dtype=torch.int32, device=device)
+    if mesh is None:
+        state = {"params": model, "opt": opt.adamw_init(params),
+                 "step": step}
+        if use_ef:
+            state["ef"] = opt.ef_init(params)
+        return state
+    specs = state_specs({"params": model, **({"ef": {}} if use_ef else {})},
+                        rules, mesh)
+
+    def zeros(tree):
+        return opt.member_map(lambda p, sp: shd.zeros(
+            p.shape, shd.placements(sp, mesh), mesh, device), params, tree)
+    state = {"params": model,
+             "opt": {"m": zeros(specs["opt"]["m"]),
+                     "v": zeros(specs["opt"]["v"]), "step": step.clone()},
+             "step": step}
     if use_ef:
-        state["ef"] = opt.ef_init(params)
+        state["ef"] = {"residual": zeros(specs["ef"]["residual"])}
     return state
 
 
@@ -176,8 +196,9 @@ def build_train_step(
     ``init_state(seed)`` builds the model's ``init(seed)`` and zeroed
     optimizer state on ``device``, which is the card unless the caller
     asks for another: without one it raises, as ``ServeEngine`` does.
-    Over a mesh every rank builds the same values from the seed's
-    generator and keeps its shards.  With ``donate=False`` the step leaves
+    Over a mesh each rank makes only its shards
+    (``model_zoo.init_on_mesh``: one whole leaf at a time, drawn as the
+    whole ``init(seed)`` draws it; m, v and the residual as zero shards).  With ``donate=False`` the step leaves
     its input state as it was."""
     device = bind_device(device)
     loss_fn = model_loss_fn(None, cfg)
@@ -186,11 +207,13 @@ def build_train_step(
     rules = where.rules
 
     def init_state(seed: int = 0) -> dict:
-        model = model_zoo.build_model(cfg, run, device).init(seed)
-        state = _fresh_state(model, use_ef)
-        if mesh is not None:
-            state = _distribute_state(state, mesh, rules)
-        return state
+        if mesh is None:
+            return _fresh_state(model_zoo.build_model(cfg, run, device)
+                                .init(seed), use_ef, device)
+        model = model_zoo.init_on_mesh(
+            model_zoo.build_model(cfg, run, "meta"), seed, mesh, rules,
+            device)
+        return _fresh_state(model, use_ef, device, mesh, rules)
 
     def shard_batch(mb: dict) -> dict:
         if mesh is None:

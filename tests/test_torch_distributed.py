@@ -327,6 +327,56 @@ def test_backend_follows_the_device(monkeypatch):
         init_process_group(0, 1, "file:///x", device="meta")
 
 
+def _fake_cards(monkeypatch, n, calls):
+    """``n`` CUDA devices as far as device resolution asks; set_device,
+    the process group and the device mesh recorded in ``calls``."""
+    from torch.distributed import device_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: n)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda d: calls.append(("set_device", str(d))))
+    monkeypatch.setattr(dist, "init_process_group", lambda backend, **kw:
+                        calls.append(("group", backend, kw["timeout"])))
+    monkeypatch.setattr(device_mesh, "init_device_mesh", lambda kind, shape,
+                        **kw: calls.append(("mesh", kind, shape)))
+
+
+def test_each_rank_takes_its_own_card(monkeypatch):
+    """A bare "cuda" at rank r is card ``r % device_count``, made current
+    before the NCCL group and before the mesh's groups; an indexed card
+    stays as given; the group's timeout is bounded."""
+    import datetime
+
+    from repro_torch.core.distributed import GROUP_TIMEOUT_S, rank_device
+    from repro_torch.launch import mesh as tmesh
+
+    calls = []
+    _fake_cards(monkeypatch, 4, calls)
+    assert [rank_device("cuda", r) for r in range(6)] == [
+        "cuda:0", "cuda:1", "cuda:2", "cuda:3", "cuda:0", "cuda:1"]
+    assert rank_device("cuda:3", 1) == "cuda:3"
+    assert rank_device("cpu", 5) == "cpu"
+    assert init_process_group(6, 8, "file:///x", device="cuda") == "nccl"
+    limit = datetime.timedelta(seconds=GROUP_TIMEOUT_S)
+    assert calls == [("set_device", "cuda:2"), ("group", "nccl", limit)]
+    assert GROUP_TIMEOUT_S <= 600
+    calls.clear()
+    init_process_group(1, 4, "file:///x", device="cuda:3", timeout_s=30)
+    assert calls == [("set_device", "cuda:3"),
+                     ("group", "nccl", datetime.timedelta(seconds=30))]
+    calls.clear()
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 4)
+    monkeypatch.setattr(dist, "get_rank", lambda group=None: 3)
+    tmesh.make_mesh((2, 2), ("data", "model"), device="cuda")
+    assert calls == [("set_device", "cuda:3"), ("mesh", "cuda", (2, 2))]
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rank_device("cuda", 0)
+
+
 def test_mesh_engine_on_cuda_without_a_card_raises(monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")

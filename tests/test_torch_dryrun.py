@@ -389,48 +389,72 @@ def test_reanalyze_gives_the_same_terms(tmp_path, monkeypatch):
 # product runs on each rank's share (ROADMAP C.4; before, 1.20x on (2, 2)
 # and 1.60x on (1, 4) for train)
 MESH_DOT_RTOL = 0.02
+FAMILY_DOT_RTOL = 0.005
+# train_4k's families, and qwen3 with 6 query heads on 4 model ranks
+SHARE_FAMILIES = ("gemma2-2b", "granite-moe-1b-a400m", "rwkv6-1.6b",
+                  "recurrentgemma-9b", "whisper-base")
+SHARE_HEADS = ("qwen3-1.7b", 6)
 
 
 def test_every_product_runs_on_its_rank_share():
-    """Reduced qwen3-1.7b train_4k and prefill_32k (batch 4, seq 32) on
-    fake meshes (1, 1), (2, 2) and (1, 4), in one subprocess: the dot
+    """Reduced configs (batch 4, seq 32) on fake meshes (1, 1), (2, 2)
+    and (1, 4) (``dryrun.rank_shares``), in five subprocesses: the dot
     FLOPs a device times the ranks within MESH_DOT_RTOL of the (1, 1)
-    count, and no ``bmm`` (the attention products: batch rows times
-    query heads) with a batch over (1, 1)'s divided by the ranks, so no
-    rank computes more than H / (model ranks) query heads."""
+    count for qwen3-1.7b train_4k and prefill_32k, within FAMILY_DOT_RTOL
+    for train_4k of gemma2-2b, granite-moe (the router on each rank's
+    tokens), rwkv6-1.6b (the decay LoRA on each rank's columns; 2 heads
+    on 4 ranks: each one head's half of the value columns),
+    recurrentgemma-9b and whisper-base (ROADMAP C.5).  Attention's
+    ``bmm`` batch (batch rows times query heads) is over (1, 1)'s divided
+    by the ranks, and with 6 query heads on 4 model ranks no rank runs
+    more than ceil(6 / 4)."""
     code = textwrap.dedent("""
-        import json, tempfile
+        import json, sys
         from repro_torch.launch import dryrun
-        from repro_torch.roofline import hlo_cost
-        dryrun.RESULTS_DIR = tempfile.mkdtemp()
         out = {}
-        for cell in ("train_4k", "prefill_32k"):
-            for shape in ((1, 1), (2, 2), (1, 4)):
-                res = dryrun.run_cell("qwen3-1.7b", cell, "single",
-                                      device="cpu", reduced=True,
-                                      mesh_shape=shape, batch=4, seq=32,
-                                      save=True)
-                rec = dryrun.load_record("qwen3-1.7b", cell, "single")
-                bmm = [r[1][0][1][0] for r in rec
-                       if r[0].startswith("aten.bmm.")]
-                out[f"{cell} {shape[0]}x{shape[1]}"] = dict(
-                    status=res["status"], dot=hlo_cost.dot_flops(rec),
-                    bmm_batch=max(bmm), n_bmm=len(bmm))
+        for job in sys.argv[1:]:
+            arch, cell, heads = job.split(":")
+            got = dryrun.rank_shares(arch, cell, heads=int(heads) or None)
+            for mesh, r in got.items():
+                out[f"{arch}:{heads} {cell} {mesh}"] = r
         print(json.dumps(out))
     """)
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
-    got = json.loads(proc.stdout.strip().splitlines()[-1])
-    for cell in ("train_4k", "prefill_32k"):
-        one = got[f"{cell} 1x1"]
-        assert one["status"] == "ok" and one["dot"] > 0 and one["n_bmm"] > 0
+    # five processes, each its own fake group, a share of the cells each
+    arch, heads = SHARE_HEADS
+    gemma, granite, rwkv, rgemma, whisper = SHARE_FAMILIES
+    groups = ([f"{arch}:train_4k:0", f"{arch}:prefill_32k:0"],
+              [f"{arch}:train_4k:{heads}", f"{gemma}:train_4k:0"],
+              [f"{granite}:train_4k:0", f"{whisper}:train_4k:0"],
+              [f"{rwkv}:train_4k:0"], [f"{rgemma}:train_4k:0"])
+    procs = [subprocess.Popen([sys.executable, "-c", code, *jobs], cwd=ROOT,
+                              env=dict(os.environ,
+                                       PYTHONPATH=str(ROOT / "src"),
+                                       OMP_NUM_THREADS="1"),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for jobs in groups]
+    got = {}
+    for proc in procs:
+        out, err = proc.communicate(timeout=600)
+        assert proc.returncode == 0, out[-3000:] + err[-3000:]
+        got.update(json.loads(out.strip().splitlines()[-1]))
+    cases = [("qwen3-1.7b", c, MESH_DOT_RTOL)
+             for c in ("train_4k", "prefill_32k")]
+    cases += [(a, "train_4k", FAMILY_DOT_RTOL) for a in SHARE_FAMILIES]
+    for a, cell, rtol in cases:
+        one = got[f"{a}:0 {cell} 1x1"]
+        assert one["dot"] > 0 and one["n_bmm"] > 0
         for shape, ranks in (("2x2", 4), ("1x4", 4)):
-            r = got[f"{cell} {shape}"]
-            assert r["status"] == "ok"
-            assert r["dot"] * ranks == pytest.approx(one["dot"],
-                                                     rel=MESH_DOT_RTOL), \
-                (cell, shape, r["dot"] * ranks / one["dot"])
-            assert r["n_bmm"] == one["n_bmm"], (cell, shape)
-            assert r["bmm_batch"] * ranks <= one["bmm_batch"], (cell, shape)
+            r = got[f"{a}:0 {cell} {shape}"]
+            assert r["dot"] * ranks == pytest.approx(one["dot"], rel=rtol), \
+                (a, cell, shape, r["dot"] * ranks / one["dot"])
+            assert r["n_bmm"] == one["n_bmm"], (a, cell, shape)
+            if a != "rwkv6-1.6b":     # its loop's bmm: rows x heads
+                assert r["bmm_batch"] * ranks <= one["bmm_batch"], \
+                    (a, cell, shape)
+    one = got[f"{arch}:{heads} train_4k 1x1"]
+    rows = one["bmm_batch"] // heads            # batch rows a microbatch
+    for shape, (data, model) in (("2x2", (2, 2)), ("1x4", (1, 4))):
+        r = got[f"{arch}:{heads} train_4k {shape}"]
+        assert r["n_bmm"] == one["n_bmm"]
+        assert r["bmm_batch"] <= rows // data * -(-heads // model), \
+            (shape, r["bmm_batch"])

@@ -91,7 +91,8 @@ def test_config_modules_mirror_the_reference():
                          + [ROOT / "chip_smoke.py", ROOT / "chip_probe_c1.py",
                             ROOT / "chip_probe_mesh.py",
                             ROOT / "chip_probe_dryrun.py",
-                            ROOT / "chip_probe_examples.py"]
+                            ROOT / "chip_probe_examples.py",
+                            ROOT / "chip_probe_four.py"]
                          + sorted((ROOT / "examples").glob("*_torch.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_has_no_jax_or_reference_import(path):

@@ -26,10 +26,20 @@ JAX package's jitted single-device step.
 * World 1: ``build_train_step`` and ``build_serve_fns`` take a (1, 1)
   mesh; ``make_cluster_mesh(1)`` works and a wider one raises, as does a
   mesh whose size is not the world's.
+* Per-shard init (every mesh of worlds 1, 2 and 4): ``init_state`` of
+  reduced deepseek-7b, qwen3-1.7b and gemma2-2b under fsdp and tp, ZeRO-1
+  on and off, equals bit for bit, shard for shard and placement for
+  placement, the whole ``init(seed)`` distributed; no tensor it makes is
+  larger than the model's largest leaf.
+* What ran whole on every rank of the model axis (ROADMAP C.5), on (1,
+  4): reduced rwkv6-1.6b (2 heads: each rank one head's half of the
+  value columns) and reduced qwen3-1.7b with 6 query heads (2, 2, 2 and
+  0 a rank) train three steps within ``TOL`` of the mesh-free step.
 
 The JAX package is imported inside the tests only: the spawned ranks
 import this module and need only torch.
 """
+import dataclasses
 import multiprocessing as mp
 import os
 import queue
@@ -70,6 +80,10 @@ TRAIN = {"qwen-fsdp": ("qwen3-1.7b", "fsdp"),
 MESHES = {1: {"1x1": (1, 1)},
           2: {"2x1": (2, 1), "1x2": (1, 2)},
           4: {"2x2": (2, 2), "4x1": (4, 1), "1x4": (1, 4)}}
+# (1, 4) only: (arch, sharding mode, config overrides)
+TRAIN_1X4 = {"rwkv": ("rwkv6-1.6b", "tp", {}),
+             "heads6": ("qwen3-1.7b", "fsdp", {"num_heads": 6})}
+INIT_ARCHS = ("deepseek-7b", "qwen3-1.7b", "gemma2-2b")
 SERVE = ("qwen3-1.7b", "gemma2-2b", "recurrentgemma-9b", "rwkv6-1.6b",
          "whisper-base")
 SERVE_B, PROMPT, DECODES, MAX_LEN = 2, 12, 2, 32
@@ -151,9 +165,18 @@ def _state_misplaced(state, specs, mesh):
     return bad
 
 
+def _train_config(name):
+    """(config, sharding mode) of a train case of TRAIN or TRAIN_1X4."""
+    if name in TRAIN:
+        arch, mode = TRAIN[name]
+        return treg.get_config(arch, reduced=True), mode
+    arch, mode, kw = TRAIN_1X4[name]
+    return dataclasses.replace(treg.get_config(arch, reduced=True),
+                               **kw), mode
+
+
 def _train_case(name, mesh):
-    arch, mode = TRAIN[name]
-    cfg = treg.get_config(arch, reduced=True)
+    cfg, mode = _train_config(name)
     step, init, sh = tts.build_train_step(
         cfg, _train_run(mode), topt.OptConfig(**OPT_KW), mesh=mesh,
         device="cpu")
@@ -377,6 +400,76 @@ def _remat_thread_case(mesh):
                for a, b in zip(out["grads"], here))
 
 
+class _LargestTensor:
+    """A dispatch-mode spy: the bytes of the largest tensor an op makes
+    while it is on (a DTensor's local shard; meta tensors aside)."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        spy = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                for t in torch.utils._pytree.tree_leaves(out):
+                    if isinstance(t, torch.Tensor):
+                        t = t.to_local() if shd.is_dtensor(t) else t
+                        if t.device.type != "meta":
+                            spy.largest = max(spy.largest, t.numel()
+                                              * t.element_size())
+                return out
+        self.largest, self.mode = 0, Mode()
+
+
+def _same_shards(a, b):
+    """Two DTensors with equal placements and bit-equal local shards."""
+    return (list(a.placements) == list(b.placements)
+            and a.to_local().dtype == b.to_local().dtype
+            and torch.equal(a.to_local().view(torch.int32),
+                            b.to_local().view(torch.int32)))
+
+
+def _init_case(meshes):
+    """``init_state`` over each mesh against the whole ``init(seed)``
+    distributed (the path it replaced), by (mesh, arch, mode, zero1):
+    the leaves (parameters, m, v) whose shards differ, their count, the
+    largest tensor the per-shard init made and the model's largest
+    leaf, in bytes."""
+    out = {}
+    wholes = {}
+    for mname, mesh in meshes.items():
+        for arch in INIT_ARCHS:
+            cfg = treg.get_config(arch, reduced=True)
+            if arch not in wholes:
+                model = tzoo.build_model(cfg, _train_run("fsdp"),
+                                         "cpu").init(SEED)
+                wholes[arch] = tzoo.export_state(
+                    tts._fresh_state(model, False, "cpu"), host=False)
+            for mode in ("fsdp", "tp"):
+                for zero1 in (True, False):
+                    run = dataclasses.replace(_train_run(mode), zero1=zero1)
+                    _, init, sh = tts.build_train_step(
+                        cfg, run, topt.OptConfig(**OPT_KW), mesh=mesh,
+                        device="cpu")
+                    spy = _LargestTensor()
+                    with spy.mode:
+                        state = init(SEED)
+                    want = sh["state"].place(wholes[arch])
+                    largest = max(p.numel() * p.element_size()
+                                  for p in want["params"].parameters())
+                    got_l = _flat(tzoo.param_tree(state["params"])) + \
+                        _flat(state["opt"]["m"]) + _flat(state["opt"]["v"])
+                    want_l = _flat(tzoo.param_tree(want["params"])) + \
+                        _flat(want["opt"]["m"]) + _flat(want["opt"]["v"])
+                    out[(mname, arch, mode, zero1)] = dict(
+                        unequal=[i for i, (a, b) in enumerate(zip(
+                            got_l, want_l)) if not _same_shards(a, b)],
+                        leaves=(len(got_l), len(want_l)),
+                        largest_made=spy.largest, largest_leaf=largest)
+    return out
+
+
 def _elastic_case(ckpt_dir, rank):
     cfg = treg.get_config("qwen3-1.7b", reduced=True)
     run = RunConfig(remat="none", q_chunk=16, kv_chunk=16, loss_chunk=16,
@@ -435,6 +528,7 @@ def _worker(rank, world, init_file, ckpt_root, results):
                   for k, v in MESHES[world].items()}
         out["linear"] = _linear_case(meshes)
         out["lse"] = _lse_case(meshes)
+        out["init"] = _init_case(meshes)
         for mname, mesh in meshes.items():
             for name in TRAIN:
                 r = _train_case(name, mesh)
@@ -451,6 +545,10 @@ def _worker(rank, world, init_file, ckpt_root, results):
                 + [("qwen3-1.7b", True)]}
             out["elastic"] = _elastic_case(os.path.join(ckpt_root, "e"), rank)
             out["remat_thread"] = _remat_thread_case(mesh)
+            for name in TRAIN_1X4:
+                r = _train_case(name, meshes["1x4"])
+                out["train"][("1x4", name)] = r if rank == 0 else \
+                    {"misplaced": r["misplaced"]}
             out["write"] = _write_case({k: meshes[k] for k in ("2x2", "1x4")})
             out["flash"] = {2: _flash_case(mesh, "model"),
                             4: _flash_case(meshes["1x4"], "model")}
@@ -558,6 +656,21 @@ def _free_train(name):
     return _FREE[name]
 
 
+def _free_port_train(name):
+    """The port's mesh-free steps of a TRAIN_1X4 case: (losses, state)."""
+    if name not in _FREE:
+        cfg, mode = _train_config(name)
+        step, init, _ = tts.build_train_step(
+            cfg, _train_run(mode), topt.OptConfig(**OPT_KW), device="cpu")
+        state = init(SEED)
+        losses = []
+        for b in _batches(cfg):
+            state, stats = step(state, b)
+            losses.append(float(stats["loss"]))
+        _FREE[name] = (losses, tzoo.export_state(state))
+    return _FREE[name]
+
+
 def _leaves(tree, path=""):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -660,6 +773,49 @@ def test_train_steps_match_mesh_free_and_reference(world, mname, name):
     _assert_trees(r["state"], jstate, **TOL)
     for rank in got:
         assert got[rank]["train"][(mname, name)]["misplaced"] == []
+
+
+@pytest.mark.parametrize("name", list(TRAIN_1X4))
+def test_whole_heads_train_on_their_shares(name):
+    """(1, 4): reduced rwkv6-1.6b, whose 2 heads do not divide the model
+    axis (each rank one head's half of the value columns), and reduced
+    qwen3-1.7b with 6 query heads (2, 2, 2 and 0 a rank): three steps'
+    losses and state within TOL of the mesh-free step; every parameter
+    and moment placed by its spec on every rank."""
+    got, _ = _launch(4)
+    losses, state = _free_port_train(name)
+    r = got[0]["train"][("1x4", name)]
+    np.testing.assert_allclose(r["losses"], losses, **TOL)
+    _assert_trees(r["state"], state, **TOL)
+    for rank in got:
+        assert got[rank]["train"][("1x4", name)]["misplaced"] == []
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_per_shard_init_equals_the_whole_init(world):
+    """``init_state`` over every mesh of the world makes each rank's
+    shards leaf by leaf: the parameters, m and v of reduced deepseek-7b,
+    qwen3-1.7b and gemma2-2b (stacked cycles) under fsdp and tp, ZeRO-1
+    on and off, equal bit for bit and placement for placement the whole
+    ``init(seed)`` distributed, on every rank."""
+    got, _ = _launch(world)
+    for rank in got:
+        cases = got[rank]["init"]
+        assert len(cases) == len(MESHES[world]) * len(INIT_ARCHS) * 4
+        for key, c in cases.items():
+            assert c["leaves"][0] == c["leaves"][1] > 0, key
+            assert c["unequal"] == [], key
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_per_shard_init_makes_no_tensor_larger_than_a_leaf(world):
+    """A dispatch-mode spy over ``init_state``: the largest tensor it
+    makes on a rank is at most the model's largest leaf (the whole leaf
+    it draws before keeping its shard), never a whole model's state."""
+    got, _ = _launch(world)
+    for rank in got:
+        for key, c in got[rank]["init"].items():
+            assert 0 < c["largest_made"] <= c["largest_leaf"], (key, c)
 
 
 def test_train_state_is_sharded_by_the_specs():
