@@ -4127,7 +4127,10 @@ class DryRuns:
         self.t0, self.wall0 = time.perf_counter(), time.time()
         env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
                "REPRO_TORCH_DRYRUN_DIR": out_dir, "OMP_NUM_THREADS": "1"}
-        self.shares = os.path.join(out_dir, "rank_shares.json")
+        # beside the cells' results, not among them: report.py reads
+        # every *.json of out_dir as a cell
+        os.makedirs(os.path.join(out_dir, "shares"))
+        self.shares = os.path.join(out_dir, "shares", "rank_shares.json")
         code = ("import json, sys\n"
                 "from repro_torch.launch import dryrun\n"
                 "out = {f'{a}:{h}': dryrun.rank_shares(a, 'train_4k', "
