@@ -62,8 +62,7 @@ CUT_BATCH = (8, 256)                # (c): batch x seq, every mesh
 CUT_MESHES = ((4, 1), (2, 2))
 FULL_BATCH = (8, 512)               # (d)
 STEPS = 3
-LM_TOL = dict(rtol=2e-4, atol=2e-5)  # the mesh tests' (tests/test_torch_mesh.py)
-GROUP_TIMEOUT_S = 300               # a collective waiting longer fails
+LM_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_torch_mesh.py TOL
 WATCHDOG_S = 900                    # stacks to stderr if still running
 RANKS_TIMEOUT_S = 600               # a hung rank fails the run
 OUT = os.path.join(ROOT, "chiprun_out", "chip_probe_four.json")
@@ -332,8 +331,7 @@ def rank_main(rank, port, job, results):
         torch.set_float32_matmul_precision("highest")
         backend = init_process_group(rank, job["world"],
                                      f"tcp://localhost:{port}",
-                                     device=job["device"],
-                                     timeout_s=GROUP_TIMEOUT_S)
+                                     device=job["device"])
         job = dict(job, device=rank_device(job["device"], rank))
         out = dict(backend=backend, device=job["device"],
                    card=torch.cuda.get_device_name(job["device"])

@@ -79,15 +79,15 @@ def rank_device(device: str, rank: int) -> str:
 
 def init_process_group(rank: int, world_size: int, init_method: str,
                        device: str = "cuda",
-                       backend: Optional[str] = None,
-                       timeout_s: float = GROUP_TIMEOUT_S) -> str:
+                       backend: Optional[str] = None) -> str:
     """Join the default process group as ``rank`` of ``world_size`` at
     ``init_method`` (e.g. ``tcp://localhost:29500``).  The backend is
     ``backend`` when given, else NCCL for a CUDA ``device`` and gloo for
     the CPU.  On the card this rank's card (:func:`rank_device`) is made
     the current device first, so that NCCL and every bare ``"cuda"``
     tensor of the rank land there, not all on card 0.  A collective that
-    waits longer than ``timeout_s`` fails instead of holding the cards.
+    waits longer than ``GROUP_TIMEOUT_S`` fails instead of holding the
+    cards.
     Returns the backend."""
     import datetime
 
@@ -100,7 +100,8 @@ def init_process_group(rank: int, world_size: int, init_method: str,
         torch.cuda.set_device(torch.device(rank_device(device, rank)))
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world_size,
-                            timeout=datetime.timedelta(seconds=timeout_s))
+                            timeout=datetime.timedelta(
+                                seconds=GROUP_TIMEOUT_S))
     return backend
 
 

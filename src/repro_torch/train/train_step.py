@@ -198,8 +198,9 @@ def build_train_step(
     asks for another: without one it raises, as ``ServeEngine`` does.
     Over a mesh each rank makes only its shards
     (``model_zoo.init_on_mesh``: one whole leaf at a time, drawn as the
-    whole ``init(seed)`` draws it; m, v and the residual as zero shards).  With ``donate=False`` the step leaves
-    its input state as it was."""
+    whole ``init(seed)`` draws it; m, v and the residual as zero
+    shards).  With ``donate=False`` the step leaves its input state as it
+    was."""
     device = bind_device(device)
     loss_fn = model_loss_fn(None, cfg)
     use_ef = run.grad_compression == "topk"

@@ -363,9 +363,8 @@ def test_each_rank_takes_its_own_card(monkeypatch):
     assert calls == [("set_device", "cuda:2"), ("group", "nccl", limit)]
     assert GROUP_TIMEOUT_S <= 600
     calls.clear()
-    init_process_group(1, 4, "file:///x", device="cuda:3", timeout_s=30)
-    assert calls == [("set_device", "cuda:3"),
-                     ("group", "nccl", datetime.timedelta(seconds=30))]
+    init_process_group(1, 4, "file:///x", device="cuda:3")
+    assert calls == [("set_device", "cuda:3"), ("group", "nccl", limit)]
     calls.clear()
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: 4)
