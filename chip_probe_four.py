@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The port on four H100s of one host over NCCL, one rank a card.
 
-    chiprun --chips 4 --timeout 1200 -- python3 chip_probe_four.py
+    python3 chip_probe_four.py        # on a host with four H100s
 
 Refuses, exiting 1 and naming the count, on fewer than four cards.  Builds
 the three CUDA kernels once in this process (the ranks load the built

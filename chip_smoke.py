@@ -453,7 +453,7 @@ LM_SHARE_ARCHS = ("gemma2-2b", "granite-moe-1b-a400m", "rwkv6-1.6b",
                   "recurrentgemma-9b", "whisper-base")   # phase 23: C.5
 LM_SHARE_HEADS = ("qwen3-1.7b", 6)    # query heads not dividing 4 ranks
 LM_SHARE_RTOL = 0.005             # dot FLOPs x ranks vs (1, 1)
-LM_SHARE_BEFORE_C5 = {            # (2, 2), (1, 4) before C.5 (CPU, PR 27)
+LM_SHARE_BEFORE_C5 = {            # (2, 2), (1, 4) before C.5, on the CPU
     "granite-moe-1b-a400m:0": (1.0043, 1.0129),
     "rwkv6-1.6b:0": (1.02, 1.18), "qwen3-1.7b:6": (1.0, 1.3214)}
 LM_DRYRUN_TIMEOUT_S = 1000        # each cell, from the start of them all
