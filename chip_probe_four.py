@@ -22,15 +22,23 @@ one-process reference runs on card 0, then checks four paths:
     PageRank and MultiSourceBFS at Q = 8 with ``chip_smoke.py`` phase 14's
     admission, every rank bit for bit equal to one process.
 (c) deepseek-7b at full width and ``CUT_LAYERS`` layers, on (data, model)
-    = (4, 1) and (2, 2), the reference's FSDP rules and ZeRO-1: the shards
-    of ``init_state`` (made leaf by leaf) equal bit for bit those of the
+    = (4, 1) and (2, 2), and reduced qwen3-1.7b with 6 query heads on
+    (1, 4) (``HEADS``: heads that do not divide the model axis, 2, 2, 2
+    and 0 a rank), the reference's FSDP rules and ZeRO-1: the shards of
+    ``init_state`` (made leaf by leaf) equal bit for bit those of the
     whole ``init(seed)`` on the same card, distributed, and its peak over
     what it keeps at most the largest leaf (here and in (d)); the losses of
-    ``STEPS`` steps within ``LM_TOL`` of the mesh-free run of the same cut
-    on card 0 of this process.
+    ``STEPS`` steps within ``LM_TOL`` of the mesh-free run of the same
+    config on card 0 of this process.
 (d) deepseek-7b at full depth on (4, 1), ``FULL_BATCH``, ``STEPS`` steps
     under remat "block": finite losses, torch's peak a card below the
     card's memory, ms a step.  The state (110.6 GB) is not checkpointed.
+    Its losses rise over the warm-up, the mesh-free cut's too; a second
+    witness, mesh-free on card 0 at (c)'s deepseek cut on one batch: the
+    loss's derivative along its gradient by central differences within
+    ``GRAD_RTOL`` of the gradient's norm, and the loss falling after the
+    train step's first update at a hundredth of (c)'s learning rate (the
+    change at each lr beside its first-order prediction).
 
 Prints the cards' names and power limits (nvidia-smi), writes
 ``chiprun_out/chip_probe_four.json`` and exits 1 when any check fails.
@@ -60,9 +68,13 @@ LM_ARCH = "deepseek-7b"
 CUT_LAYERS = 2
 CUT_BATCH = (8, 256)                # (c): batch x seq, every mesh
 CUT_MESHES = ((4, 1), (2, 2))
+HEADS = ("qwen3-1.7b", 6, (1, 4))   # (c): reduced, 6 query heads
 FULL_BATCH = (8, 512)               # (d)
 STEPS = 3
 LM_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_torch_mesh.py TOL
+WITNESS_PEAKS = (3e-4, 3e-5, 3e-6)  # lm_opt's peak lr, a tenth, a 100th
+GRAD_DL = 0.01                      # the loss's first-order change a side
+GRAD_RTOL = 0.01
 WATCHDOG_S = 900                    # stacks to stderr if still running
 RANKS_TIMEOUT_S = 600               # a hung rank fails the run
 OUT = os.path.join(ROOT, "chiprun_out", "chip_probe_four.json")
@@ -113,10 +125,10 @@ def lm_run(seq):
                      zero1=True)
 
 
-def lm_opt():
+def lm_opt(lr=3e-4):
     from repro_torch.train.optimizer import OptConfig
 
-    return OptConfig(lr=3e-4, warmup_steps=10, decay_steps=100)
+    return OptConfig(lr=lr, warmup_steps=10, decay_steps=100)
 
 
 def lm_steps(card, step, state, cfg, batch, seq):
@@ -226,9 +238,9 @@ def same_shard(torch, a, b):
             and torch.equal(la.view(torch.int32), lb.view(torch.int32)))
 
 
-def lm_cut(torch, job, cfg):
-    """(c) on this rank: per mesh, init_state against the whole init's
-    shards, then ``STEPS`` steps."""
+def lm_cut(torch, job):
+    """(c) on this rank: per case (name, config, mesh), init_state against
+    the whole init's shards, then ``STEPS`` steps."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import model_zoo
     from repro_torch.train import train_step as ts
@@ -238,7 +250,7 @@ def lm_cut(torch, job, cfg):
     batch, seq = job["cut_batch"]
     run = lm_run(seq)
     out = []
-    for shape in job["cut_meshes"]:
+    for name, cfg, shape in job["cut_cases"]:
         mesh = make_mesh(shape, ("data", "model"), device=dev)
         step, init, sh = ts.build_train_step(cfg, run, lm_opt(), mesh=mesh,
                                              device=dev)
@@ -263,7 +275,7 @@ def lm_cut(torch, job, cfg):
         del whole, want, want_l, got_l
         card.free()
         state, losses, secs = lm_steps(card, step, state, cfg, batch, seq)
-        out.append(dict(mesh=list(shape), leaves=n_leaves,
+        out.append(dict(case=name, mesh=list(shape), leaves=n_leaves,
                         unequal_leaves=int(unequal), init_s=init_s,
                         init_peak_bytes=int(init_peak),
                         init_held_bytes=int(held),
@@ -318,6 +330,20 @@ def lm_config(layers=None):
                                                           num_layers=layers)
 
 
+def cut_cases():
+    """(c)'s cases, (name, config, mesh shape), in order."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+
+    cut = f"{LM_ARCH} {CUT_LAYERS} layers"
+    arch, heads, shape = HEADS
+    return ([(cut, lm_config(CUT_LAYERS), m) for m in CUT_MESHES]
+            + [(f"{arch} reduced, {heads} heads", dataclasses.replace(
+                registry.get_config(arch, reduced=True), num_heads=heads),
+                shape)])
+
+
 def rank_main(rank, port, job, results):
     """One rank of (a), (c) and (d): its card by its rank, NCCL."""
     import torch
@@ -340,7 +366,7 @@ def rank_main(rank, port, job, results):
         out["graph"] = graph_mesh(torch, job)
         out["graph_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        out["lm_cut"] = lm_cut(torch, job, job["cut_cfg"])
+        out["lm_cut"] = lm_cut(torch, job)
         out["lm_cut_s"] = time.perf_counter() - t0
         if job.get("full_cfg") is not None:
             t0 = time.perf_counter()
@@ -459,8 +485,9 @@ def cluster_four(torch, store, pr, single, sources, s9):
                 ranks=ranks)
 
 
-def lm_free(torch, cfg, device="cuda", cut_batch=CUT_BATCH):
-    """(c)'s reference: the same cut, mesh-free, on card 0."""
+def lm_free(torch, name, cfg, device="cuda", cut_batch=CUT_BATCH):
+    """(c)'s reference for case ``name``: the same config, mesh-free, on
+    card 0."""
     from repro_torch.train import train_step as ts
 
     card = Card(torch, device)
@@ -471,9 +498,75 @@ def lm_free(torch, cfg, device="cuda", cut_batch=CUT_BATCH):
     state, losses, secs = lm_steps(card, step, state, cfg, batch, seq)
     del state, step, init
     card.free()
-    log(f"lm {LM_ARCH} {CUT_LAYERS} layers mesh-free on card 0: losses "
-        f"{losses}, {np.mean(secs[1:]) * 1e3:.1f} ms a step")
+    log(f"lm {name} mesh-free on card 0: losses {losses}, "
+        f"{np.mean(secs[1:]) * 1e3:.1f} ms a step")
     return dict(losses=losses, step_ms=[1e3 * t for t in secs])
+
+
+def witness(torch, cfg):
+    """(d)'s second witness on (c)'s deepseek cut, mesh-free on card 0, on
+    ``SyntheticLM``'s batch 0 throughout: (1) the loss's derivative along
+    its gradient g by central differences, ``(L(p + e g/|g|) - L(p - e
+    g/|g|)) / 2e`` with ``e = GRAD_DL / |g|``, against ``|g|``; (2) for
+    each peak lr of ``WITNESS_PEAKS``, the train step's first update (at
+    a tenth of the peak: the warm-up) and the loss again on the same
+    batch: its change against the first-order change that update
+    predicts, ``-lr * sum(g * d)``, d AdamW's first direction (``g s /
+    (|g| s + eps)``, s the clip's scale, plus the decay of matrices)."""
+    from repro_torch.models import model_zoo
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.optimizer import lr_schedule
+
+    card = Card(torch, "cuda")
+    batch, seq = CUT_BATCH
+    run = lm_run(seq)
+    b = SyntheticLM(cfg, batch, seq, seed=0).batch_at(0)
+    model = model_zoo.build_model(cfg, run, "cuda").init(0)
+    params = [p.requires_grad_(True) for p in model.parameters()]
+    tokens, labels = (torch.as_tensor(b[k], device="cuda")
+                      for k in ("tokens", "labels"))
+    model.loss(tokens, labels).backward()
+    grads = [p.grad for p in params]
+    norm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads)))
+    e = GRAD_DL / norm
+    opt = lm_opt()
+    sc = min(1.0, opt.grad_clip / norm)
+    with torch.no_grad():
+        slope = float(sum(
+            (g.double() * (g * sc / (g.abs() * sc + opt.eps) + (
+                opt.weight_decay * p if p.dim() >= 2 else 0))).sum()
+            for p, g in zip(params, grads)))
+        loss = float(model.loss(tokens, labels))
+        for by in (e, -2 * e):
+            for p, g in zip(params, grads):
+                p.add_(g, alpha=by / norm)
+            if by > 0:
+                up = float(model.loss(tokens, labels))
+        down = float(model.loss(tokens, labels))
+    deriv = (up - down) / (2 * e)
+    del model, params, grads
+    card.free()
+    log(f"witness {LM_ARCH} {CUT_LAYERS} layers: loss {loss:.6f}, |g| "
+        f"{norm:.6f}, central difference {deriv:.6f} (step {e:.3e})")
+    first = []
+    for peak in WITNESS_PEAKS:
+        step, init, _ = ts.build_train_step(cfg, run, lm_opt(peak),
+                                            device="cuda")
+        state, st0 = step(init(0), b)
+        state, st1 = step(state, b)
+        lr = float(lr_schedule(lm_opt(peak), 1))
+        first.append(dict(peak_lr=peak, lr=lr, before=float(st0["loss"]),
+                          after=float(st1["loss"]),
+                          change=float(st1["loss"] - st0["loss"]),
+                          first_order=-lr * slope))
+        del state, step, init
+        card.free()
+        log(f"witness: first update at lr {lr:.1e}: loss "
+            f"{first[-1]['before']:.6f} -> {first[-1]['after']:.6f}, "
+            f"first order {first[-1]['first_order']:+.6f}")
+    return dict(loss=loss, grad_norm=norm, step=e, derivative=deriv,
+                rel_err=abs(deriv / norm - 1), first_update=first)
 
 
 def checks(out):
@@ -502,10 +595,10 @@ def checks(out):
             if c["unequal_leaves"]:
                 bad.append(f"(c) rank {r} {c['mesh']}: {c['unequal_leaves']}"
                            " shards differ from the whole init's")
-            if not np.allclose(c["losses"], out["lm_free"]["losses"],
-                               **LM_TOL):
-                bad.append(f"(c) rank {r} {c['mesh']}: losses {c['losses']}"
-                           f" vs {out['lm_free']['losses']}")
+            want = out["lm_free"][c["case"]]["losses"]
+            if not np.allclose(c["losses"], want, **LM_TOL):
+                bad.append(f"(c) rank {r} {c['case']} {c['mesh']}: losses "
+                           f"{c['losses']} vs {want}")
         full = rep.get("lm_full")
         if full is None:
             bad.append(f"(d) rank {r}: not run")
@@ -515,6 +608,13 @@ def checks(out):
                        f"{full['torch_peak_bytes']} of {full['card_bytes']}")
     if len(ranks) != WORLD:
         bad.append(f"{len(ranks)} of {WORLD} ranks reported")
+    w = out["witness"]
+    if not w["rel_err"] <= GRAD_RTOL:
+        bad.append(f"(d) witness: central difference {w['derivative']} vs "
+                   f"|g| {w['grad_norm']}")
+    if not w["first_update"][-1]["change"] < 0:
+        bad.append(f"(d) witness: the loss does not fall after the first "
+                   f"update at the smallest lr: {w['first_update'][-1]}")
     if out["cluster"]["unequal"]:
         bad.append(f"(b) (rank, app) differing from one process: "
                    f"{out['cluster']['unequal']}")
@@ -536,8 +636,9 @@ def summary(out):
                 f"{run['branches']}, NCCL bytes {run['nccl_bytes']}, "
                 f"launches {run['launches']}, equal {run['equal']}")
         for c in rep["lm_cut"]:
-            log(f"(c) rank {r} {c['mesh']}: {c['leaves']} shards, "
-                f"{c['unequal_leaves']} unequal; init {c['init_s']:.1f} s, "
+            log(f"(c) rank {r} {c['case']} {c['mesh']}: {c['leaves']} "
+                f"shards, {c['unequal_leaves']} unequal; init "
+                f"{c['init_s']:.1f} s, "
                 f"peak +{c['init_peak_bytes']} B (largest leaf "
                 f"{c['largest_leaf_bytes']} B, held {c['init_held_bytes']} "
                 f"B); losses {c['losses']}; ms a step {c['step_ms']}")
@@ -592,8 +693,13 @@ def main():
                                              work)
         out["references_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        out["lm_free"] = lm_free(torch, lm_config(CUT_LAYERS))
+        cases = cut_cases()
+        out["lm_free"] = {name: lm_free(torch, name, cfg) for name, cfg
+                          in {n: c for n, c, _ in cases}.items()}
         out["lm_free_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["witness"] = witness(torch, lm_config(CUT_LAYERS))
+        out["witness_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         out["cluster"] = cluster_four(torch, store, pr, single, sources, s9)
         out["cluster_s"] = time.perf_counter() - t0
@@ -601,8 +707,7 @@ def main():
         job = dict(world=WORLD, device="cuda", store=store.root,
                    sources=sources, refs=refs,
                    ss=dict(pagerank=pr.supersteps, msbfs=msbfs.supersteps),
-                   seed=0, cut_cfg=lm_config(CUT_LAYERS),
-                   cut_batch=CUT_BATCH, cut_meshes=CUT_MESHES,
+                   seed=0, cut_cases=cases, cut_batch=CUT_BATCH,
                    full_cfg=lm_config(), full_batch=FULL_BATCH,
                    watchdog_s=max(60.0, WATCHDOG_S
                                   - (time.perf_counter() - t_all)))

@@ -237,29 +237,29 @@ def count(arch: str, cell_name: str, mesh_kind: str, device: str, *,
 SHARE_MESHES = ((1, 1), (2, 2), (1, 4))
 
 
-def rank_shares(arch: str, cell_name: str, *, heads=None, batch: int = 4,
-                seq: int = 32, shapes=SHARE_MESHES,
-                device: str = "cpu") -> dict:
-    """What one rank computes of the reduced ``arch``'s cell (its query
-    heads ``heads`` when given) on each fake ("data", "model") mesh of
-    ``shapes``: ``{"DxM": {"dot": its dot FLOPs (hlo_cost.dot_flops),
-    "bmm_batch": the largest bmm's batch, "n_bmm": its bmm count}}``.  A
-    mesh's dot FLOPs times its ranks against (1, 1)'s say whether some
-    product runs whole on every rank of an axis (ROADMAP C.4, C.5); the
-    bmm batch is attention's batch rows times query heads."""
-    from repro_torch.roofline import hlo_cost
+def rank_shares(arch: str, cell_name: str, *, heads=None) -> dict:
+    """What one rank computes of the reduced ``arch``'s cell at batch 4 x
+    seq 32 (its query heads ``heads`` when given) on each fake ("data",
+    "model") mesh of ``SHARE_MESHES``, on the CPU: ``{"DxM": {"dot": its
+    dot FLOPs (hlo_cost.dot_flops), "bmm_batch": the largest bmm's batch,
+    "n_bmm": its bmm count, "coll": the operand bytes it hands to
+    collectives}}``.  A mesh's dot FLOPs times its ranks against (1, 1)'s
+    say whether some product runs whole on every rank of an axis (ROADMAP
+    C.4, C.5); the bmm batch is attention's batch rows times query
+    heads."""
+    from repro_torch.roofline import analysis, hlo_cost
 
     out = {}
-    for shape in shapes:
-        cc, _, _ = count(arch, cell_name, "single", device, reduced=True,
-                         mesh_shape=shape, batch=batch, seq=seq,
+    for shape in SHARE_MESHES:
+        cc, _, _ = count(arch, cell_name, "single", "cpu", reduced=True,
+                         mesh_shape=shape, batch=4, seq=32,
                          model_overrides=(None if heads is None
                                           else {"num_heads": heads}))
         rec = [r.as_list() for r in cc.counted.records]
         bmm = [r[1][0][1][0] for r in rec if r[0].startswith("aten.bmm.")]
         out[f"{shape[0]}x{shape[1]}"] = dict(
             dot=hlo_cost.dot_flops(rec), bmm_batch=max(bmm, default=0),
-            n_bmm=len(bmm))
+            n_bmm=len(bmm), coll=analysis.collective_bytes(rec)["total"])
     return out
 
 

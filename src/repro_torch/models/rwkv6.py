@@ -20,9 +20,9 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models.sharding import (assign_, batch_heads, cns,
-                                         head_chunk, is_dtensor, linear,
-                                         matmul, merge_heads, moved,
-                                         shard_box, split_heads, spread,
+                                         is_dtensor, linear, matmul,
+                                         merge_heads, moved, shard_box,
+                                         split_heads, spread,
                                          whole_heads_dim)
 
 LORA_RANK = 32
@@ -202,11 +202,12 @@ def wkv(r, k, v, w, u, state=None):
     ``u`` taken locally (its gradient a partial sum over the ranks), and
     the results are DTensors placed as that split.  Where the heads do
     not divide the model axis (they stay whole there: ``sharding.
-    split_heads``), each rank takes its share there: when the axis's
-    ranks are a multiple of the heads, one head's slice of the value
-    columns (a state column depends on its value column only, so no rank
-    repeats another's work); else ``sharding.head_chunk``'s heads.  The
-    results are then partial sums there, each rank's block in its place."""
+    split_heads``) and the axis's ranks are a multiple of the heads, each
+    rank takes one head's slice of the value columns there (a state
+    column depends on its value column only, so no rank repeats
+    another's work), and the results are partial sums there, each rank's
+    block in its place; otherwise every rank of the axis loops over the
+    whole heads (ROADMAP C.7)."""
     if not is_dtensor(r):
         return _wkv_loop(r, k, v, w, u, state)
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -217,6 +218,9 @@ def wkv(r, k, v, w, u, state=None):
     r, k, v, w = (moved(t, pl, mesh) for t in (r, k, v, w))
     pad = whole_heads_dim(r)
     H, dh = r.shape[2], r.shape[3]
+    per = 0 if pad is None else mesh.size(pad) // H
+    if pad is not None and (mesh.size(pad) % H or dh % per):
+        pad = None
     g = [Partial() if d == pad else p for d, p in enumerate(pl)]
     rl, kl, vl, wl = (t.to_local(grad_placements=g) for t in (r, k, v, w))
     h0, hl = shard_box(r)[0][2], rl.shape[2]
@@ -224,18 +228,13 @@ def wkv(r, k, v, w, u, state=None):
     if state is not None:
         state = moved(state, spl, mesh).to_local()
     if pad is not None:
-        ranks = mesh.size(pad)
-        per = ranks // H
-        if ranks % H == 0 and dh % per == 0:
-            i = mesh.get_coordinate()[pad]
-            h0, hl, dl = i // per, 1, dh // per
-            d0 = (i % per) * dl
-        else:
-            h0, hl = head_chunk(H, mesh, pad)
-        rl, kl, wl = (t[:, :, h0:h0 + hl] for t in (rl, kl, wl))
-        vl = vl[:, :, h0:h0 + hl, d0:d0 + dl]
+        i = mesh.get_coordinate()[pad]
+        h0, hl, dl = i // per, 1, dh // per
+        d0 = (i % per) * dl
+        rl, kl, wl = (t[:, :, h0:h0 + 1] for t in (rl, kl, wl))
+        vl = vl[:, :, h0:h0 + 1, d0:d0 + dl]
         if state is not None:
-            state = state[:, h0:h0 + hl, :, d0:d0 + dl]
+            state = state[:, h0:h0 + 1, :, d0:d0 + dl]
     ul = u.to_local(grad_placements=[
         Partial() if p.is_shard() or d == pad else Replicate()
         for d, p in enumerate(pl)])[h0:h0 + hl]

@@ -71,6 +71,13 @@ FLASH_ATOL = 1e-6
 ELASTIC_ATOL = 1e-5
 LINEAR_ATOL = 1e-5      # float32 products of 8 terms, partial sums reduced
 LSE_ATOL = 4e-6         # float32 at values up to ~16: two ulps
+# rwkv6's state against the reference's (not against the port's mesh-free
+# step, held to TOL): the port's mesh-free step itself ends 6.75e-5 from
+# the reference's on one entry of tmix/wo, whose m and v agree within 2e-4
+# of their size (the RWKV loop sums in another order than the reference's
+# scan; tests/test_torch_families_lm.py's RWKV_STATE_ATOL is the same
+# effect at another batch)
+RWKV_REF_ATOL = 1e-4
 OPT_KW = dict(lr=1e-3, warmup_steps=2, decay_steps=100, weight_decay=0.0)
 SEED = 3
 B, S, STEPS = 4, 16, 3
@@ -165,13 +172,12 @@ def _state_misplaced(state, specs, mesh):
     return bad
 
 
-def _train_config(name):
-    """(config, sharding mode) of a train case of TRAIN or TRAIN_1X4."""
-    if name in TRAIN:
-        arch, mode = TRAIN[name]
-        return treg.get_config(arch, reduced=True), mode
-    arch, mode, kw = TRAIN_1X4[name]
-    return dataclasses.replace(treg.get_config(arch, reduced=True),
+def _train_config(name, registry=treg):
+    """(reduced config by ``registry``, the port's or the reference's,
+    sharding mode) of a train case of TRAIN or TRAIN_1X4."""
+    arch, mode, kw = TRAIN[name] + ({},) if name in TRAIN else \
+        TRAIN_1X4[name]
+    return dataclasses.replace(registry.get_config(arch, reduced=True),
                                **kw), mode
 
 
@@ -621,8 +627,8 @@ _FREE = {}
 
 def _free_train(name):
     """The port's mesh-free steps and the reference's jitted ones from the
-    same initial state: (port losses, port state, reference losses,
-    reference state)."""
+    same initial state, for a case of TRAIN or TRAIN_1X4: (port losses,
+    port state, reference losses, reference state)."""
     if name in _FREE:
         return _FREE[name]
     import jax
@@ -632,15 +638,14 @@ def _free_train(name):
     from repro.train import train_step as jts
     from repro.train.optimizer import OptConfig as JOpt
 
-    arch, mode = TRAIN[name]
-    cfg = treg.get_config(arch, reduced=True)
+    cfg, mode = _train_config(name)
     run = _train_run(mode)
     step, init, _ = tts.build_train_step(cfg, run, topt.OptConfig(**OPT_KW),
                                          device="cpu")
     state = init(SEED)
     jstate = jax.tree.map(jnp.asarray, tzoo.export_state(state))
     jstep, _, _ = jts.build_train_step(
-        jreg.get_config(arch, reduced=True),
+        _train_config(name, jreg)[0],
         JRun(**{k: getattr(run, k) for k in (
             "sharding_mode", "remat", "q_chunk", "kv_chunk", "loss_chunk",
             "compute_dtype")}), JOpt(**OPT_KW))
@@ -653,21 +658,6 @@ def _free_train(name):
         jlosses.append(float(jstats["loss"]))
     jtree = jax.tree.map(np.asarray, jstate)
     _FREE[name] = (losses, tzoo.export_state(state), jlosses, jtree)
-    return _FREE[name]
-
-
-def _free_port_train(name):
-    """The port's mesh-free steps of a TRAIN_1X4 case: (losses, state)."""
-    if name not in _FREE:
-        cfg, mode = _train_config(name)
-        step, init, _ = tts.build_train_step(
-            cfg, _train_run(mode), topt.OptConfig(**OPT_KW), device="cpu")
-        state = init(SEED)
-        losses = []
-        for b in _batches(cfg):
-            state, stats = step(state, b)
-            losses.append(float(stats["loss"]))
-        _FREE[name] = (losses, tzoo.export_state(state))
     return _FREE[name]
 
 
@@ -780,13 +770,18 @@ def test_whole_heads_train_on_their_shares(name):
     """(1, 4): reduced rwkv6-1.6b, whose 2 heads do not divide the model
     axis (each rank one head's half of the value columns), and reduced
     qwen3-1.7b with 6 query heads (2, 2, 2 and 0 a rank): three steps'
-    losses and state within TOL of the mesh-free step; every parameter
-    and moment placed by its spec on every rank."""
+    losses and state within TOL of the port's mesh-free step and of the
+    reference's jitted one (rwkv6's state within RWKV_REF_ATOL of the
+    reference's); every parameter and moment placed by its spec on every
+    rank."""
     got, _ = _launch(4)
-    losses, state = _free_port_train(name)
+    losses, state, jlosses, jstate = _free_train(name)
     r = got[0]["train"][("1x4", name)]
     np.testing.assert_allclose(r["losses"], losses, **TOL)
+    np.testing.assert_allclose(r["losses"], jlosses, **TOL)
     _assert_trees(r["state"], state, **TOL)
+    _assert_trees(r["state"], jstate, **(TOL if name != "rwkv" else dict(
+        TOL, atol=RWKV_REF_ATOL)))
     for rank in got:
         assert got[rank]["train"][("1x4", name)]["misplaced"] == []
 
