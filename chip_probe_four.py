@@ -23,13 +23,18 @@ one-process reference runs on card 0, then checks four paths:
     admission, every rank bit for bit equal to one process.
 (c) deepseek-7b at full width and ``CUT_LAYERS`` layers, on (data, model)
     = (4, 1) and (2, 2), and reduced qwen3-1.7b with 6 query heads on
-    (1, 4) (``HEADS``: heads that do not divide the model axis, 2, 2, 2
-    and 0 a rank), the reference's FSDP rules and ZeRO-1: the shards of
-    ``init_state`` (made leaf by leaf) equal bit for bit those of the
-    whole ``init(seed)`` on the same card, distributed, and its peak over
-    what it keeps at most the largest leaf (here and in (d)); the losses of
-    ``STEPS`` steps within ``LM_TOL`` of the mesh-free run of the same
-    config on card 0 of this process.
+    (1, 4) (``HEADS``: heads that do not divide the model axis, whose
+    projections are split by whole heads, 2, 2, 2 and 0 a rank) and its
+    twin with 8 (``HEADS_TWIN``: 2 a rank), the reference's FSDP rules
+    and ZeRO-1: the shards of ``init_state`` (made leaf by leaf) equal bit
+    for bit those of the whole ``init(seed)`` on the same card,
+    distributed, and its peak over what it keeps at most the largest leaf
+    (here and in (d)); the losses of ``STEPS`` steps within ``LM_TOL`` of
+    the mesh-free run of the same config on card 0 of this process.  The
+    two reduced cases' next step runs under the dry run's counting mode
+    (``roofline/hlo_cost.py``, as ``chip_smoke.py`` phase 23 (b) runs it
+    on the card): the operand bytes and ops each rank hands to NCCL must
+    be equal in the two (ROADMAP C.6).
 (d) deepseek-7b at full depth on (4, 1), ``FULL_BATCH``, ``STEPS`` steps
     under remat "block": finite losses, torch's peak a card below the
     card's memory, ms a step.  The state (110.6 GB) is not checkpointed.
@@ -69,6 +74,7 @@ CUT_LAYERS = 2
 CUT_BATCH = (8, 256)                # (c): batch x seq, every mesh
 CUT_MESHES = ((4, 1), (2, 2))
 HEADS = ("qwen3-1.7b", 6, (1, 4))   # (c): reduced, 6 query heads
+HEADS_TWIN = 8                      # (c): the twin whose heads divide
 FULL_BATCH = (8, 512)               # (d)
 STEPS = 3
 LM_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_torch_mesh.py TOL
@@ -275,15 +281,32 @@ def lm_cut(torch, job):
         del whole, want, want_l, got_l
         card.free()
         state, losses, secs = lm_steps(card, step, state, cfg, batch, seq)
+        coll = counted_step(step, state, cfg, batch, seq) \
+            if heads_case(name) else None
         out.append(dict(case=name, mesh=list(shape), leaves=n_leaves,
                         unequal_leaves=int(unequal), init_s=init_s,
                         init_peak_bytes=int(init_peak),
                         init_held_bytes=int(held),
                         largest_leaf_bytes=int(largest), losses=losses,
-                        step_ms=[1e3 * t for t in secs]))
+                        step_ms=[1e3 * t for t in secs], collectives=coll))
         del state, step, init
         card.free()
     return out
+
+
+def counted_step(step, state, cfg, batch, seq):
+    """One more step under the dry run's counting mode: the collective
+    operand bytes (by kind and in all) and ops this rank hands to NCCL."""
+    from repro_torch.roofline import analysis, hlo_cost
+    from repro_torch.train.data import SyntheticLM
+
+    b = SyntheticLM(cfg, batch, seq, seed=0).batch_at(STEPS)
+    rec = [r.as_list() for r in hlo_cost.run(step, state, b).records]
+    coll = analysis.collective_bytes(rec)
+    return dict(bytes=int(coll["total"]),
+                ops=int(sum(coll["op_counts"].values())),
+                by_kind={k: int(v) for k, v in coll.items()
+                         if k not in ("total", "op_counts")})
 
 
 def lm_full(torch, job, cfg):
@@ -330,6 +353,11 @@ def lm_config(layers=None):
                                                           num_layers=layers)
 
 
+def heads_case(name) -> bool:
+    """Whether (c)'s case ``name`` is one of the reduced head cases."""
+    return name.startswith(f"{HEADS[0]} reduced")
+
+
 def cut_cases():
     """(c)'s cases, (name, config, mesh shape), in order."""
     import dataclasses
@@ -339,9 +367,9 @@ def cut_cases():
     cut = f"{LM_ARCH} {CUT_LAYERS} layers"
     arch, heads, shape = HEADS
     return ([(cut, lm_config(CUT_LAYERS), m) for m in CUT_MESHES]
-            + [(f"{arch} reduced, {heads} heads", dataclasses.replace(
-                registry.get_config(arch, reduced=True), num_heads=heads),
-                shape)])
+            + [(f"{arch} reduced, {h} heads", dataclasses.replace(
+                registry.get_config(arch, reduced=True), num_heads=h),
+                shape) for h in (heads, HEADS_TWIN)])
 
 
 def rank_main(rank, port, job, results):
@@ -599,6 +627,14 @@ def checks(out):
             if not np.allclose(c["losses"], want, **LM_TOL):
                 bad.append(f"(c) rank {r} {c['case']} {c['mesh']}: losses "
                            f"{c['losses']} vs {want}")
+        coll = {c["case"]: c["collectives"] for c in rep["lm_cut"]
+                if heads_case(c["case"])}
+        pair = [coll.get(f"{HEADS[0]} reduced, {h} heads")
+                for h in (HEADS[1], HEADS_TWIN)]
+        if None in pair or (pair[0]["bytes"], pair[0]["ops"]) != \
+                (pair[1]["bytes"], pair[1]["ops"]):
+            bad.append(f"(c) rank {r}: collectives with {HEADS[1]} heads "
+                       f"{pair[0]} vs {HEADS_TWIN} heads {pair[1]} (C.6)")
         full = rep.get("lm_full")
         if full is None:
             bad.append(f"(d) rank {r}: not run")
@@ -641,7 +677,9 @@ def summary(out):
                 f"{c['init_s']:.1f} s, "
                 f"peak +{c['init_peak_bytes']} B (largest leaf "
                 f"{c['largest_leaf_bytes']} B, held {c['init_held_bytes']} "
-                f"B); losses {c['losses']}; ms a step {c['step_ms']}")
+                f"B); losses {c['losses']}; ms a step {c['step_ms']}"
+                + (f"; collectives a step {c['collectives']}"
+                   if c.get("collectives") else ""))
         full = rep.get("lm_full")
         if full:
             log(f"(d) rank {r}: init {full['init_s']:.1f} s (peak "

@@ -329,7 +329,9 @@
     dot FLOPs a device times its ranks within LM_SHARE_RTOL of (1, 1)'s,
     logged beside the ratios before C.5 (LM_SHARE_BEFORE_C5); reduced
     qwen3-1.7b with 6 query heads on them, no rank's attention bmm over
-    ceil(6 / model ranks) heads.  (b) hlo_cost.run around phase 20 (a)'s qwen3-1.7b train
+    ceil(6 / model ranks) heads, and its 8-head twin (LM_SHARE_TWIN): on
+    (1, 4) the two hand collectives the same bytes and ops a rank, the 6
+    heads' projections split by whole heads (ROADMAP C.6).  (b) hlo_cost.run around phase 20 (a)'s qwen3-1.7b train
     step (8 x 128 tokens, no mesh) and around one phase 19 (a) decode
     step (4 slots of 256, cache length 16) on the card, and the same
     functions on fake tensors of the same shapes: FLOPs, bytes and fused
@@ -452,6 +454,7 @@ LM_DRYRUN_MIN_USEFUL = {          # heads, vocab and some products
 LM_SHARE_ARCHS = ("gemma2-2b", "granite-moe-1b-a400m", "rwkv6-1.6b",
                   "recurrentgemma-9b", "whisper-base")   # phase 23: C.5
 LM_SHARE_HEADS = ("qwen3-1.7b", 6)    # query heads not dividing 4 ranks
+LM_SHARE_TWIN = ("qwen3-1.7b", 8)     # its twin whose heads divide: C.6
 LM_SHARE_RTOL = 0.005             # dot FLOPs x ranks vs (1, 1)
 LM_SHARE_BEFORE_C5 = {            # (2, 2), (1, 4) before C.5, on the CPU
     "granite-moe-1b-a400m:0": (1.0043, 1.0129),
@@ -4136,7 +4139,8 @@ class DryRuns:
                 "out = {f'{a}:{h}': dryrun.rank_shares(a, 'train_4k', "
                 "heads=h or None) for a, h in json.loads(sys.argv[1])}\n"
                 "json.dump(out, open(sys.argv[2], 'w'))\n")
-        jobs_c5 = [(a, 0) for a in LM_SHARE_ARCHS] + [LM_SHARE_HEADS]
+        jobs_c5 = [(a, 0) for a in LM_SHARE_ARCHS] + [LM_SHARE_HEADS,
+                                                      LM_SHARE_TWIN]
         logf = open(os.path.join(out_dir, "rank_shares.log"), "w")
         self.procs.append((("rank_shares", "train_4k", "c5"), subprocess.Popen(
             [sys.executable, "-c", code, json.dumps(jobs_c5), self.shares],
@@ -4251,9 +4255,11 @@ def lm_dryrun_cells(torch, dry):
 
 
 def lm_rank_shares(dry, end):
-    """Phase 23's C.5 check on the side process's dryrun.rank_shares:
-    each mesh's dot FLOPs a device times its ranks over (1, 1)'s, and the
-    largest attention bmm with 6 heads on 4 model ranks."""
+    """Phase 23's C.5 and C.6 checks on the side process's
+    dryrun.rank_shares: each mesh's dot FLOPs a device times its ranks
+    over (1, 1)'s, the largest attention bmm with 6 heads on 4 model
+    ranks, and its collective bytes and ops a rank on (1, 4) equal to
+    the 8-head twin's."""
     rc = end[0]
     with open(os.path.join(dry.out_dir, "rank_shares.log")) as f:
         tail = f.read()[-3000:]
@@ -4288,8 +4294,16 @@ def lm_rank_shares(dry, end):
                     raise AssertionError(f"lm rank shares {key} {m}: bmm "
                                          f"batch {meshes[m]['bmm_batch']} > "
                                          f"{cap}")
+    heads, twin = (got[f"{a}:{h}"]["1x4"]
+                   for a, h in (LM_SHARE_HEADS, LM_SHARE_TWIN))
+    c6 = {k: (heads[k], twin[k]) for k in ("coll", "n_coll")}
+    log(f"lm rank shares C.6 (1, 4): collective bytes, ops a rank with "
+        f"{LM_SHARE_HEADS[1]} heads / {LM_SHARE_TWIN[1]}: {c6}")
+    if any(a != b for a, b in c6.values()):
+        raise AssertionError(f"lm rank shares C.6: {c6} (heads that do not "
+                             "divide the model axis lost their shards)")
     log(f"lm rank shares: {end_s:.1f} s after the start")
-    return dict(seconds=end_s, cells=out)
+    return dict(seconds=end_s, cells=out, c6=c6)
 
 
 def count_diff(real, fake):

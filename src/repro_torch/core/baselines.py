@@ -65,10 +65,6 @@ class BaselineResult:
         return float(np.mean([h.seconds for h in hs])) if hs else 0.0
 
 
-def _identity(combine: str) -> float:
-    return {"sum": 0.0, "min": float("inf"), "max": float("-inf")}[combine]
-
-
 def _combine(combine: str):
     """``(vals [n], idx [n], rows) -> [rows]`` float64: the monoid over
     the values of each index (sum or min, as the reference)."""
@@ -170,7 +166,7 @@ class _Base:
         raise NotImplementedError
 
     def _accum(self, prog) -> Tensor:
-        return torch.full((self.nv,), _identity(prog.combine),
+        return torch.full((self.nv,), prog.identity,
                           dtype=torch.float64, device=self.device)
 
 

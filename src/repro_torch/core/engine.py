@@ -247,6 +247,17 @@ class SuperstepStats:
     vstate_spill_bytes: int = 0     # compressed bytes written to disk
     vstate_dirty_intervals: int = 0 # intervals written back (and broadcast)
 
+    @property
+    def stall_fraction(self) -> float:
+        """Fraction of this superstep's wall time blocked on tile I/O."""
+        return self.stall_seconds / self.seconds if self.seconds > 0 else 0.0
+
+    @property
+    def io_hidden_seconds(self) -> float:
+        """I/O busy time overlapped behind compute instead of stalling it
+        (about 0 in the serial loop, where every load stalls)."""
+        return max(self.io_busy_seconds - self.stall_seconds, 0.0)
+
 
 @dataclasses.dataclass
 class RunResult:

@@ -48,6 +48,8 @@ Tensor = torch.Tensor
 
 SEG_IMPLS = ("fused", "segment")
 
+COMBINE_IDENTITY = {"sum": 0.0, "min": float("inf"), "max": float("-inf")}
+
 
 def state_from_numpy(state: dict[str, np.ndarray],
                      device) -> dict[str, Tensor]:
@@ -106,6 +108,11 @@ class VertexProgram:
         raise NotImplementedError
 
     # -- derived ----------------------------------------------------------
+    @property
+    def identity(self) -> float:
+        """Identity element of the combine monoid (0 / +inf / -inf)."""
+        return COMBINE_IDENTITY[self.combine]
+
     def updated_mask(self, old: Tensor, new: Tensor) -> Tensor:
         """Elementwise "value changed" mask over old/new ``[V(, Q)]`` — exact
         (!=) or |new - old| > update_tol for tolerance-based programs."""

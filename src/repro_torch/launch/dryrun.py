@@ -237,29 +237,56 @@ def count(arch: str, cell_name: str, mesh_kind: str, device: str, *,
 SHARE_MESHES = ((1, 1), (2, 2), (1, 4))
 
 
+def heads_overrides(cfg, heads: int) -> dict:
+    """The config fields that give ``cfg`` ``heads`` query heads:
+    ``num_heads``; for RWKV, whose heads are the 64-wide slices of its
+    width, also ``num_kv_heads`` and the width ``d_model = heads · 64``
+    that holds them."""
+    if "K" in cfg.layer_pattern:
+        from repro_torch.models.rwkv6 import rwkv_head_dim
+
+        return {"num_heads": heads, "num_kv_heads": heads,
+                "d_model": heads * rwkv_head_dim(cfg)}
+    return {"num_heads": heads}
+
+
 def rank_shares(arch: str, cell_name: str, *, heads=None) -> dict:
     """What one rank computes of the reduced ``arch``'s cell at batch 4 x
-    seq 32 (its query heads ``heads`` when given) on each fake ("data",
-    "model") mesh of ``SHARE_MESHES``, on the CPU: ``{"DxM": {"dot": its
-    dot FLOPs (hlo_cost.dot_flops), "bmm_batch": the largest bmm's batch,
-    "n_bmm": its bmm count, "coll": the operand bytes it hands to
-    collectives}}``.  A mesh's dot FLOPs times its ranks against (1, 1)'s
-    say whether some product runs whole on every rank of an axis (ROADMAP
-    C.4, C.5); the bmm batch is attention's batch rows times query
-    heads."""
+    seq 32 (its query heads ``heads`` when given: :func:`heads_overrides`)
+    on each fake ("data", "model") mesh of ``SHARE_MESHES``, on the CPU:
+    ``{"DxM": {"dot": its dot FLOPs (hlo_cost.dot_flops), "bmm_batch":
+    the largest bmm's batch, "n_bmm": its bmm count, "coll": the operand
+    bytes it hands to collectives, "n_coll": its collective ops,
+    "coll_ops": {"<kind> <operand shape>": count}}}``.  A
+    mesh's dot FLOPs times its ranks against (1, 1)'s say whether some
+    product runs whole on every rank of an axis (ROADMAP C.4, C.5); the
+    bmm batch is attention's batch rows times query heads; a head count
+    that does not divide the model axis against one that does, at the
+    same width, says whether its tensors keep their shards (C.6)."""
     from repro_torch.roofline import analysis, hlo_cost
 
+    over = None
+    if heads is not None:
+        over = heads_overrides(registry.get_config(arch, reduced=True),
+                               heads)
     out = {}
     for shape in SHARE_MESHES:
         cc, _, _ = count(arch, cell_name, "single", "cpu", reduced=True,
                          mesh_shape=shape, batch=4, seq=32,
-                         model_overrides=(None if heads is None
-                                          else {"num_heads": heads}))
+                         model_overrides=over)
         rec = [r.as_list() for r in cc.counted.records]
         bmm = [r[1][0][1][0] for r in rec if r[0].startswith("aten.bmm.")]
+        coll = analysis.collective_bytes(rec)
+        ops: dict = {}
+        for r in rec:
+            kind = hlo_cost.op_kind(r[0])
+            if kind.startswith("coll:"):
+                key = f"{kind[5:]} {list(r[1][0][1]) if r[1] else []}"
+                ops[key] = ops.get(key, 0) + 1
         out[f"{shape[0]}x{shape[1]}"] = dict(
             dot=hlo_cost.dot_flops(rec), bmm_batch=max(bmm, default=0),
-            n_bmm=len(bmm), coll=analysis.collective_bytes(rec)["total"])
+            n_bmm=len(bmm), coll=coll["total"],
+            n_coll=sum(coll["op_counts"].values()), coll_ops=ops)
     return out
 
 

@@ -25,8 +25,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import (cns, gathered, linear, merge_heads,
-                                         remat, split_heads)
+from repro_torch.models.sharding import (cns, gathered, heads_in,
+                                         heads_out, linear, remat)
 from repro_torch.models.transformer import (_mask_pad_logits,
                                             _write_decode_cache,
                                             _write_prefill_cache,
@@ -44,11 +44,13 @@ def sinusoidal(positions: torch.Tensor, d_model: int, dtype) -> torch.Tensor:
 
 
 class CrossAttention(nn.Module):
-    """``xattn_init``: wq, wk, wv ``[d, H·Dh]``, wo ``[H·Dh, d]``."""
+    """``xattn_init``: wq, wk, wv ``[d, H·Dh]``, wo ``[H·Dh, d]``; split by
+    whole heads over a model axis that the heads do not divide."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
         d, h, dh = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim()
+        self.num_heads = h
         self.wq = L.new_param(d, h * dh, device=device)
         self.wk = L.new_param(d, h * dh, device=device)
         self.wv = L.new_param(d, h * dh, device=device)
@@ -57,6 +59,12 @@ class CrossAttention(nn.Module):
     def init(self, gen: torch.Generator) -> None:
         for name in ("wq", "wk", "wv", "wo"):
             L.init_(self, name, lambda t: L.dense_init_(t, gen))
+
+    def head_leaves(self) -> dict:
+        """``{weight: (its flat heads dim, heads)}`` (``sharding.
+        leaf_heads``): every head has its own k and v."""
+        h = self.num_heads
+        return {"wq": (1, h), "wk": (1, h), "wv": (1, h), "wo": (0, h)}
 
 
 class EncBlock(nn.Module):
@@ -169,8 +177,8 @@ class EncDecLM(nn.Module):
         cfg = self.cfg
         h, dh = cfg.num_heads, cfg.resolved_head_dim()
         dt = enc_out.dtype
-        return [{"k": split_heads(linear(enc_out, blk.cross.wk.to(dt)), h, dh),
-                 "v": split_heads(linear(enc_out, blk.cross.wv.to(dt)), h, dh)}
+        return [{"k": heads_in(enc_out, blk.cross.wk, h, dh),
+                 "v": heads_in(enc_out, blk.cross.wv, h, dh)}
                 for blk in self.decoder]
 
     # -- decoder -----------------------------------------------------------
@@ -193,11 +201,11 @@ class EncDecLM(nn.Module):
         x = x + blk.attn.out(o, run.attn_shard)
         h = blk.ln_x(x, cfg.norm, cfg.norm_eps)
         hq, dh = cfg.num_heads, cfg.resolved_head_dim()
-        cq = split_heads(linear(h, blk.cross.wq.to(h.dtype)), hq, dh)
+        cq = heads_in(h, blk.cross.wq, hq, dh)
         cq = cns(cq, None, None, "model", None)
         o = L.blockwise_attention(cq, xk, xv, causal=False, softcap=None,
                                   q_chunk=run.q_chunk, kv_chunk=run.kv_chunk)
-        x = x + linear(merge_heads(o), blk.cross.wo.to(h.dtype))
+        x = x + heads_out(o, blk.cross.wo)
         h = blk.ln2(x, cfg.norm, cfg.norm_eps)
         return x + blk.mlp(h), c
 

@@ -17,10 +17,12 @@ einsum's afresh at every call.
 The reference's sharding constraints stand where it has them
 (``sharding.cns``): over a device mesh the activations are DTensors and
 ``cns`` redistributes them; without one it returns its input.  Over a
-mesh the projections are ``sharding.linear`` on each rank's share, and
-attention, train, prefill and decode alike, runs on each rank's batch
-rows and query heads, a rank slicing out the kv heads its query heads
-use where the model axis has more ranks than kv heads.
+mesh the projections are ``sharding.linear`` on each rank's share (by
+whole heads where the heads do not divide the model axis:
+``sharding.heads_in``, ``heads_out``), and attention, train, prefill and
+decode alike, runs on each rank's batch rows and query heads, a rank
+slicing out the kv heads its query heads use where the kv heads are not
+split as the query heads are.
 :func:`seq_sharded_decode_attention` is the reference's flash-decoding over
 a KV cache sharded along the sequence, merged with collectives over the
 sequence axis's process group; the reference defines it and calls it
@@ -37,7 +39,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.sharding import (batch_heads, cns, head_chunk,
+from repro_torch.models.sharding import (batch_heads, cns,
+                                         contiguous_stride, head_chunk,
+                                         heads_in, heads_of, heads_out,
                                          is_dtensor, like, linear, matmul,
                                          merge_heads, moved, shard_box,
                                          split_heads, spread,
@@ -195,7 +199,7 @@ def blockwise_attention(
             scores_dtype=scores_dtype)
     B, Sq0, H, Dh = q.shape
     Hkv = k.shape[2]
-    G = H // Hkv
+    G = H // Hkv if Hkv else 0        # a rank without heads
     scale = Dh ** -0.5
 
     q, Sq = _pad_seq(q, q_chunk, 1)
@@ -280,14 +284,17 @@ def _local_heads(q, k, v, qpl, kpl):
     """The local tensors of q, k and v for attention on each rank's own
     batch rows and query heads, and the function that places a local
     output: q placed by ``qpl``, k and v by ``kpl`` (the same batch
-    split; a head split only where q's is the same).  Where q is whole
-    on the model axis (its heads do not divide the axis), each rank
-    takes its chunk of them there (``sharding.head_chunk``: at most
-    ``ceil(H / ranks)``, as GSPMD pads), q's gradient and the output a
-    partial sum there.  Where k and v are whole on a mesh dim that splits
-    q's heads (fewer kv heads than ranks), each rank slices out the kv
-    heads of its query heads (a GQA group is contiguous), and their
-    gradient is a partial sum over the ranks that share them."""
+    split; a head split only where q's is the same).  A split of heads
+    that do not divide the axis is DTensor's (``ceil(H / ranks)`` a
+    rank, the last fewer or none), and the output is placed as q, split
+    so.  Where q is whole on the model axis (a projection the rules
+    replicate there: ``sharding.split_heads``), each rank takes its chunk
+    of the heads there (``sharding.head_chunk``, the same split), q's
+    gradient and the output a partial sum there.  Where k and v are
+    whole on a mesh dim that splits q's heads (grouped kv heads that the
+    ranks do not divide), each rank slices out the kv heads of its query
+    heads (a GQA group is contiguous), and their gradient is a partial
+    sum over the ranks that share them."""
     from torch.distributed.tensor import DTensor, Partial
 
     mesh = q.device_mesh
@@ -316,7 +323,9 @@ def _local_heads(q, k, v, qpl, kpl):
 
     def place(o):
         if pad is None:
-            return DTensor.from_local(o, mesh, qpl, run_check=False)
+            return DTensor.from_local(o, mesh, qpl, run_check=False,
+                                      shape=q.shape,
+                                      stride=contiguous_stride(q.shape))
         return spread(o, {2: (h0, H)}, mesh, qpl, pad)
     return ql, kl[:, :, idx], vl[:, :, idx], place
 
@@ -356,7 +365,7 @@ def decode_attention(
                                            window=window, softcap=softcap)
     B, _, H, Dh = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
-    G = H // Hkv
+    G = H // Hkv if Hkv else 0        # a rank without heads
     scale = Dh ** -0.5
     qg = q.reshape(B, Hkv, G, Dh) * scale
     s = matmul(qg.float(), k_cache.float().permute(0, 2, 3, 1))
@@ -448,7 +457,10 @@ def seq_sharded_decode_attention(q, k_cache, v_cache, cache_len, mesh,
 
 class Attention(nn.Module):
     """GQA projections (``attn_init``): wq ``[d, H·Dh]``, wk and wv ``[d,
-    Hkv·Dh]``, wo ``[H·Dh, d]``, and with ``qk_norm`` q_ln / k_ln over Dh."""
+    Hkv·Dh]``, wo ``[H·Dh, d]``, and with ``qk_norm`` q_ln / k_ln over Dh.
+    Over a model axis that the heads do not divide, wq's columns and wo's
+    rows are split by whole heads (:meth:`head_leaves`), and so are wk's
+    and wv's where each query head has its own kv head."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
@@ -470,6 +482,17 @@ class Attention(nn.Module):
             self.q_ln.init(gen)
             self.k_ln.init(gen)
 
+    def head_leaves(self) -> dict:
+        """``{weight: (its flat heads dim, heads)}`` for
+        ``sharding.leaf_heads``: wq and wo, and wk and wv when the kv
+        heads are the query heads (grouped kv heads are shared by query
+        heads on several ranks, and stay split as the rules split them)."""
+        h, hkv = self.cfg.num_heads, self.cfg.num_kv_heads
+        out = {"wq": (1, h), "wo": (0, h)}
+        if hkv == h:
+            out.update(wk=(1, h), wv=(1, h))
+        return out
+
     def qkv(self, x: torch.Tensor, positions: torch.Tensor,
             attn_shard: str = "heads"):
         """Project + rope.  x: [B, S, D] -> q [B,S,H,Dh], k/v [B,S,Hkv,Dh].
@@ -477,19 +500,16 @@ class Attention(nn.Module):
         flattened H·Dh outputs over the model axis, ``"heads"`` q's heads
         (the reference's ``attn_qkv``)."""
         cfg = self.cfg
-        B, S, _ = x.shape
         h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
-        cdt = x.dtype
-        qf = linear(x, self.wq.to(cdt))
-        kf = linear(x, self.wk.to(cdt))
-        vf = linear(x, self.wv.to(cdt))
-        if attn_shard == "flat":
-            qf = cns(qf, ("pod", "data"), None, "model")
-            kf = cns(kf, ("pod", "data"), None, "model")
-            vf = cns(vf, ("pod", "data"), None, "model")
-        q = split_heads(qf, h, dh)
-        k = split_heads(kf, hkv, dh)
-        v = split_heads(vf, hkv, dh)
+
+        def proj(w, n):
+            if heads_of(w) is not None:   # split by whole heads already
+                return heads_in(x, w, n, dh)
+            f = linear(x, w.to(x.dtype))
+            if attn_shard == "flat":
+                f = cns(f, ("pod", "data"), None, "model")
+            return split_heads(f, n, dh)
+        q, k, v = proj(self.wq, h), proj(self.wk, hkv), proj(self.wv, hkv)
         if attn_shard == "heads":
             q = cns(q, ("pod", "data"), None, "model", None)
         if cfg.qk_norm:
@@ -500,10 +520,13 @@ class Attention(nn.Module):
         return q, k, v
 
     def out(self, o: torch.Tensor, attn_shard: str = "heads") -> torch.Tensor:
-        of = merge_heads(o)
-        if attn_shard == "flat":
-            of = cns(of, ("pod", "data"), None, "model")  # row-parallel
-        y = linear(of, self.wo.to(o.dtype))
+        if heads_of(self.wo) is not None:   # o split on wo's heads
+            y = heads_out(o, self.wo)
+        else:
+            of = merge_heads(o)
+            if attn_shard == "flat":
+                of = cns(of, ("pod", "data"), None, "model")  # row-parallel
+            y = linear(of, self.wo.to(o.dtype))
         return cns(y, ("pod", "data"), None, None)
 
 

@@ -37,7 +37,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models.encdec import EncDecLM
-from repro_torch.models.sharding import full
+from repro_torch.models.sharding import full, heads_of
 from repro_torch.models.transformer import LM
 
 
@@ -54,8 +54,9 @@ def init_on_mesh(model, seed: int, mesh, rules, device):
     """``model.init(seed)`` for a model built on the meta device, each rank
     keeping only its shards: leaf by leaf in ``init``'s order, from
     ``init``'s generator on ``device``, each leaf made whole there, drawn,
-    its shard kept as a DTensor placed by ``sharding.param_specs``, and
-    the leaf freed.  Each shard equals bit for bit the shard of the whole
+    its shard kept as a DTensor placed by ``sharding.param_specs`` (by
+    whole heads where ``sharding.leaf_heads`` says so), and the leaf
+    freed.  Each shard equals bit for bit the shard of the whole
     ``init(seed)`` on ``device``; the peak this adds is one whole leaf.
     Returns the model."""
     from repro_torch.models import layers
@@ -68,9 +69,10 @@ def init_on_mesh(model, seed: int, mesh, rules, device):
         whole = torch.empty(p.shape, dtype=p.dtype, device=device)
         with torch.no_grad():
             fill(whole)
-        module._parameters[name] = nn.Parameter(
-            shd.own_shard(whole, pl[id(p)], mesh),
-            requires_grad=p.requires_grad)
+        heads = shd.leaf_heads(module, name, pl[id(p)], mesh, rules)
+        module._parameters[name] = shd._tagged(nn.Parameter(
+            shd.own_shard(whole, pl[id(p)], mesh, heads),
+            requires_grad=p.requires_grad), heads)
     with layers.leaf_by_leaf(make, device):
         model.init(seed)
     return model
@@ -273,7 +275,7 @@ def _numpy(tree, host: bool = True):
     if isinstance(tree, list):
         parts = [_numpy(t, host) for t in tree]
         return np.stack(parts) if host else torch.stack(parts)
-    t = full(tree.detach())
+    t = full(tree.detach(), heads_of(tree))
     # a copy: a CPU tensor's numpy() would alias the live state
     return t.to("cpu", copy=True).numpy() if host else t
 

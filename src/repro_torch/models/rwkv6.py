@@ -20,6 +20,7 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models.sharding import (assign_, batch_heads, cns,
+                                         contiguous_stride, head_chunk,
                                          is_dtensor, linear, matmul,
                                          merge_heads, moved, shard_box,
                                          split_heads, spread,
@@ -166,7 +167,7 @@ def time_mix(p: TimeMix, x, cfg, cache=None):
         .float()))                                               # [B,S,H,dh]
     state = None if cache is None else cache["state"]
     out, state = wkv(r, k, v, w, p.u.float(), state)
-    out = merge_heads(out).to(cdt)
+    out = out.to(cdt)
 
     out = p.ln_out(out, "rmsnorm", cfg.norm_eps) * g
     out = cns(linear(out, p.wo.to(cdt)), ("pod", "data"), None, None)
@@ -197,19 +198,25 @@ def _wkv_loop(r, k, v, w, u, state):
 
 
 def wkv(r, k, v, w, u, state=None):
-    """:func:`_wkv_loop`; over a mesh each rank loops over its own batch
-    rows and heads (``sharding.batch_heads``), its slice of the replicated
-    ``u`` taken locally (its gradient a partial sum over the ranks), and
-    the results are DTensors placed as that split.  Where the heads do
-    not divide the model axis (they stay whole there: ``sharding.
-    split_heads``) and the axis's ranks are a multiple of the heads, each
-    rank takes one head's slice of the value columns there (a state
-    column depends on its value column only, so no rank repeats
-    another's work), and the results are partial sums there, each rank's
-    block in its place; otherwise every rank of the axis loops over the
-    whole heads (ROADMAP C.7)."""
+    """:func:`_wkv_loop`, its output merged to ``[B, S, H·dv]``; over a
+    mesh each rank loops over its own batch rows and heads
+    (``sharding.batch_heads``), its slice of the replicated ``u`` taken
+    locally (its gradient a partial sum over the ranks), and the results
+    are DTensors placed as that split.  Where the heads do not divide the
+    model axis (they stay whole there: ``sharding.split_heads``) and the
+    axis's ranks are a multiple of the heads, each rank takes one head's
+    slice of the value columns there (a state column depends on its value
+    column only, so no rank repeats another's work): its block of the
+    merged output is the rank's block of an even split of the flat dim,
+    and the output is that split, as the heads' output is where they
+    divide the axis.  Otherwise each rank loops over ``head_chunk``'s
+    heads (``ceil(H / ranks)``, as GSPMD pads them), and the output is a
+    partial sum there, each rank's block in its place (``sharding.
+    spread``).  The state is such a partial sum in both cases: a rank's
+    block of it is no DTensor split."""
     if not is_dtensor(r):
-        return _wkv_loop(r, k, v, w, u, state)
+        out, state = _wkv_loop(r, k, v, w, u, state)
+        return merge_heads(out), state
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     mesh = r.device_mesh
@@ -217,33 +224,46 @@ def wkv(r, k, v, w, u, state=None):
     spl = [Shard(1) if p.is_shard(2) else p for p in pl]   # [B, H, ...]
     r, k, v, w = (moved(t, pl, mesh) for t in (r, k, v, w))
     pad = whole_heads_dim(r)
-    H, dh = r.shape[2], r.shape[3]
-    per = 0 if pad is None else mesh.size(pad) // H
-    if pad is not None and (mesh.size(pad) % H or dh % per):
-        pad = None
+    B, S, H, dh = r.shape
+    per = 0
+    if pad is not None and mesh.size(pad) % H == 0 \
+            and dh % (mesh.size(pad) // H) == 0:
+        per = mesh.size(pad) // H
     g = [Partial() if d == pad else p for d, p in enumerate(pl)]
     rl, kl, vl, wl = (t.to_local(grad_placements=g) for t in (r, k, v, w))
     h0, hl = shard_box(r)[0][2], rl.shape[2]
     d0, dl = 0, dh
     if state is not None:
         state = moved(state, spl, mesh).to_local()
-    if pad is not None:
+    if per:                             # one head's value columns
         i = mesh.get_coordinate()[pad]
         h0, hl, dl = i // per, 1, dh // per
         d0 = (i % per) * dl
-        rl, kl, wl = (t[:, :, h0:h0 + 1] for t in (rl, kl, wl))
         vl = vl[:, :, h0:h0 + 1, d0:d0 + dl]
+    elif pad is not None:               # head_chunk's heads
+        h0, hl = head_chunk(H, mesh, pad)
+        vl = vl[:, :, h0:h0 + hl]
+    if pad is not None:
+        rl, kl, wl = (t[:, :, h0:h0 + hl] for t in (rl, kl, wl))
         if state is not None:
-            state = state[:, h0:h0 + 1, :, d0:d0 + dl]
+            state = state[:, h0:h0 + hl, :, d0:d0 + dl]
     ul = u.to_local(grad_placements=[
         Partial() if p.is_shard() or d == pad else Replicate()
         for d, p in enumerate(pl)])[h0:h0 + hl]
     out, state = _wkv_loop(rl, kl, vl, wl, ul, state)
     if pad is None:
-        return (DTensor.from_local(out, mesh, pl, run_check=False),
+        return (merge_heads(DTensor.from_local(out, mesh, pl,
+                                               run_check=False)),
                 DTensor.from_local(state, mesh, spl, run_check=False))
-    return (spread(out, {2: (h0, H), 3: (d0, dh)}, mesh, pl, pad),
-            spread(state, {1: (h0, H), 3: (d0, dh)}, mesh, spl, pad))
+    state = spread(state, {1: (h0, H), 3: (d0, dh)}, mesh, spl, pad)
+    if not per:
+        return merge_heads(spread(out, {2: (h0, H)}, mesh, pl, pad)), state
+    fpl = list(pl)
+    fpl[pad] = Shard(2)
+    shape = (B, S, H * dh)
+    return (DTensor.from_local(out.reshape(*out.shape[:2], dl), mesh, fpl,
+                               run_check=False, shape=torch.Size(shape),
+                               stride=contiguous_stride(shape)), state)
 
 
 def channel_mix(p: ChannelMix, x, cfg, cache=None):

@@ -20,6 +20,19 @@ parallel, the gradients placed by hand), attention and the RWKV loop
 contextvar carries ``(mesh, rules)`` so layer code can call :func:`cns`
 plainly; without a mesh, or on a plain tensor, it returns its input.
 
+Heads that do not divide the model axis keep their shards, as GSPMD's
+padding keeps the reference's: an attention weight whose spec splits its
+heads' dim (``wq``/``wk``/``wv``'s columns, ``wo``'s rows) over the model
+axis, which ``n`` heads do not divide, holds on each rank the whole heads
+of ``head_chunk`` — ``ceil(n / ranks)``, the last ranks fewer or none —
+where DTensor's own split of the flat ``n·d`` dim would cut a head
+(:func:`head_split`).  Such a tensor (the parameter, its moments, its
+gradient) keeps its placements, with a local shard of whole heads; it is
+tagged (:func:`heads_of`), made (:func:`distribute_as`, :func:`own_shard`,
+:func:`zeros`) and gathered (:func:`full`) by that split, and its products
+(:func:`heads_in`, :func:`heads_out`) give and take activations split on
+their heads dim, which DTensor splits the same way.
+
 Rules:
   dp axes  = ("pod", "data") when present — batch parallel
   tp axis  = "model"          — heads / ffn / vocab / experts
@@ -228,60 +241,146 @@ def is_dtensor(x) -> bool:
 
 def cns(x, *spec):
     """Constrain an activation's sharding: redistribute a DTensor to the
-    spec's placements, divisibility-sanitized against the current mesh; a
-    no-op without a mesh context or on a plain tensor."""
+    spec's placements, divisibility-sanitized against the current mesh,
+    except that a split the spec asks for and ``x`` already has stays
+    where the sanitizer would replicate it (heads that do not divide the
+    axis: GSPMD pads them); a no-op without a mesh context or on a plain
+    tensor."""
     ctx = _CTX.get()
     if ctx is None or not is_dtensor(x):
         return x
     mesh, _ = ctx
-    return moved(x, _placements_of(P(*spec), tuple(x.shape), mesh), mesh)
+    spec = P(*spec)
+    pl = list(_placements_of(spec, tuple(x.shape), mesh))
+    names = mesh.mesh_dim_names
+    for d, (want, have) in enumerate(zip(pl, x.placements)):
+        if (want.is_replicate() and have.is_shard() and have.dim < len(spec)
+                and names[d] in _names(spec[have.dim])):
+            pl[d] = have
+    return moved(x, pl, mesh)
 
 
-def distribute(x: torch.Tensor, spec, mesh=None):
+def distribute(x: torch.Tensor, spec, mesh=None, heads=None):
     """A plain tensor, the same on every rank, as a DTensor on ``mesh``
     (the context's when None) placed by ``spec`` (sanitized): each rank
-    keeps its own shard, no data moves."""
+    keeps its own shard, no data moves; split by whole heads where
+    ``heads`` says so (:func:`distribute_as`)."""
     mesh = mesh if mesh is not None else _CTX.get()[0]
     sp = sanitize_spec(spec, x.shape, mesh)
-    return distribute_as(x, placements(sp, mesh), mesh)
+    return distribute_as(x, placements(sp, mesh), mesh, heads)
 
 
-def distribute_as(x: torch.Tensor, pl, mesh):
-    """:func:`distribute` by a placement list."""
-    from torch.distributed.tensor import distribute_tensor
-
-    return distribute_tensor(x, mesh, pl, src_data_rank=None)
+def contiguous_stride(shape) -> tuple:
+    return torch.empty(shape, device="meta").stride()
 
 
-def own_shard(x: torch.Tensor, pl, mesh):
+def heads_of(x) -> Optional[tuple[int, int]]:
+    """``(tensor dim, heads)`` of a DTensor whose shard on the model axis
+    holds whole heads (module docstring; :func:`head_split`), else
+    None."""
+    return getattr(x, "_heads_split", None)
+
+
+def _tagged(x, heads):
+    if heads is not None:
+        x._heads_split = heads
+    return x
+
+
+def head_split(pl, mesh, rules: "Rules", dim: int,
+               n: int) -> Optional[tuple[int, int]]:
+    """``(dim, n)`` when the placements ``pl`` split tensor dim ``dim``,
+    the flat dim of ``n`` heads, over the model axis alone and ``n`` is
+    not a multiple of its ranks: such a tensor is split by whole heads
+    (module docstring).  None otherwise: an even split already falls on
+    whole heads."""
+    names = list(mesh.mesh_dim_names)
+    if rules.tp_axis not in names:
+        return None
+    md = names.index(rules.tp_axis)
+    m = mesh.size(md)
+    if (m == 1 or not pl[md].is_shard(dim) or n % m == 0
+            or any(p.is_shard(dim) for i, p in enumerate(pl) if i != md)):
+        return None
+    return dim, n
+
+
+def _head_dim(pl, heads) -> int:
+    """The mesh dim that splits a head-split tensor's heads."""
+    return next(i for i, p in enumerate(pl) if p.is_shard(heads[0]))
+
+
+def _head_span(heads, size: int, mesh, md: int) -> tuple[int, int]:
+    """This rank's ``(offset, size)`` along a dim of ``size`` holding
+    ``heads[1]`` heads, split by whole heads over mesh dim ``md``."""
+    n = heads[1]
+    unit = size // n
+    first, count = head_chunk(n, mesh, md)
+    return first * unit, count * unit
+
+
+def _chunk_span(size: int, ranks: int, i: int) -> tuple[int, int]:
+    """Rank ``i``'s ``(offset, size)`` of ``size`` split ``ranks`` ways as
+    DTensor splits it (``torch.chunk``: ``ceil(size / ranks)`` a rank,
+    the last ranks fewer or none)."""
+    c = -(-size // ranks)
+    off = min(i * c, size)
+    return off, min(c, size - off)
+
+
+def distribute_as(x: torch.Tensor, pl, mesh, heads=None):
+    """:func:`distribute` by a placement list; with ``heads`` (``(dim,
+    n)``, :func:`head_split`) the model axis's split of ``dim`` gives each
+    rank its whole heads."""
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+
+    if heads is None:
+        return distribute_tensor(x, mesh, pl, src_data_rank=None)
+    md = _head_dim(pl, heads)
+    pl0 = list(pl)
+    pl0[md] = Replicate()
+    local = distribute_tensor(x, mesh, pl0, src_data_rank=None).to_local()
+    off, size = _head_span(heads, x.shape[heads[0]], mesh, md)
+    local = local.narrow(heads[0], off, size).contiguous()
+    return _tagged(DTensor.from_local(local, mesh, pl, run_check=False,
+                                      shape=x.shape,
+                                      stride=contiguous_stride(x.shape)),
+                   heads)
+
+
+def own_shard(x: torch.Tensor, pl, mesh, heads=None):
     """:func:`distribute_as`, the local shard a tensor of its own: a split
     shard that is a view of ``x`` is copied, so that freeing ``x`` frees
     its memory."""
     from torch.distributed.tensor import DTensor
 
-    d = distribute_as(x, pl, mesh)
+    d = distribute_as(x, pl, mesh, heads)
     local = d.to_local()
     if local.numel() == x.numel():
         return d
-    return DTensor.from_local(local.clone(), mesh, d.placements,
-                              run_check=False, shape=d.shape,
-                              stride=d.stride())
+    return _tagged(DTensor.from_local(local.clone(), mesh, d.placements,
+                                      run_check=False, shape=d.shape,
+                                      stride=d.stride()), heads)
 
 
-def zeros(shape, pl, mesh, device) -> torch.Tensor:
+def zeros(shape, pl, mesh, device, heads=None) -> torch.Tensor:
     """A float32 DTensor of zeros of ``shape`` placed ``pl`` on ``mesh``:
     each rank makes its own shard on ``device`` and nothing else (the
-    splits must be even, as :func:`sanitize_spec` makes them)."""
+    splits must be even, as :func:`sanitize_spec` makes them, or by whole
+    heads where ``heads`` says so)."""
     from torch.distributed.tensor import DTensor
 
     local = list(shape)
     for d, p in enumerate(pl):
-        if p.is_shard():
+        if heads is not None and p.is_shard(heads[0]):
+            local[p.dim] = _head_span(heads, shape[p.dim], mesh, d)[1]
+        elif p.is_shard():
             local[p.dim] //= mesh.size(d)
-    return DTensor.from_local(
+    return _tagged(DTensor.from_local(
         torch.zeros(local, dtype=torch.float32, device=device), mesh, pl,
         run_check=False, shape=torch.Size(shape),
-        stride=torch.empty(shape, device="meta").stride())
+        stride=contiguous_stride(shape)),
+        heads)
 
 
 def gathered(x):
@@ -305,7 +404,7 @@ def batch_heads(x) -> list:
             for p in x.placements]
 
 
-def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def linear(x: torch.Tensor, w: torch.Tensor, heads=None) -> torch.Tensor:
     """``x [..., K] @ w [K, N]``, or for stacked experts ``x [E, ..., K] @
     w [E, K, N]``, over a mesh on each rank's own share.  On each mesh
     dim: where ``w``'s or ``x``'s expert dim E is split, both are split
@@ -318,8 +417,9 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     the local tensors (:func:`matmul`) with the gradients' placements
     given by hand (``to_local(grad_placements=...)``), so that neither
     the forward nor the backward runs a product on a gathered operand, as
-    DTensor's own propagation did (ROADMAP C.4).  Plain tensors:
-    :func:`matmul`."""
+    DTensor's own propagation did (ROADMAP C.4).  With ``heads`` ``(n,
+    d)`` the output's last dim is unflattened to ``[n, d]`` shard by shard
+    (:func:`heads_in`).  Plain tensors: :func:`matmul`."""
     if not is_dtensor(x) and not is_dtensor(w):
         return matmul(x, w)
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -374,7 +474,51 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         wl = wl.narrow(wk, shard_box(x)[0][last], xl.shape[-1])
     elif sw and not sx:                   # x's columns to w's rows
         xl = xl.narrow(last, shard_box(w)[0][wk], wl.shape[wk])
-    return DTensor.from_local(matmul(xl, wl), mesh, out, run_check=False)
+    if heads is None:
+        return DTensor.from_local(matmul(xl, wl), mesh, out, run_check=False)
+    y = matmul(xl, wl)
+    y = y.reshape(*y.shape[:-1], y.shape[-1] // heads[1], heads[1])
+    shape = (*x.shape[:-1], heads[0], heads[1])
+    return DTensor.from_local(y, mesh, out, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
+def heads_in(x: torch.Tensor, w: torch.Tensor, n: int,
+             d: int) -> torch.Tensor:
+    """``x [..., K] @ w [K, n·d]`` as ``[..., n, d]``, in ``x``'s dtype
+    (``w`` a parameter: a float32 master).  Where ``w`` is split by whole
+    heads over the model axis (:func:`heads_of`) the product is column
+    parallel on each rank's heads and its result a DTensor split on the
+    heads dim, as DTensor splits ``n`` heads; else
+    :func:`split_heads` of :func:`linear`."""
+    if heads_of(w) is None or not is_dtensor(w):
+        return split_heads(linear(x, w.to(x.dtype)), n, d)
+    return linear(x, w.to(x.dtype), heads=(n, d))
+
+
+def heads_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``o [..., n, d]`` merged ``@ w [n·d, N]``, in ``o``'s dtype.  Where
+    ``w``'s rows are split by whole heads and ``o`` is split on its heads
+    as they are, the product is row parallel on each rank's heads (a
+    partial sum, reduced where the next op needs it whole); else
+    :func:`linear` of :func:`merge_heads`."""
+    wc = w.to(o.dtype)
+    if heads_of(w) is None or not is_dtensor(o):
+        return linear(merge_heads(o), wc)
+    from torch.distributed.tensor import DTensor
+
+    hd = o.dim() - 2
+    md = _head_dim(w.placements, heads_of(w))
+    if not o.placements[md].is_shard(hd):
+        return linear(merge_heads(o), wc)
+    local = o.to_local()
+    shape = (*o.shape[:-2], o.shape[-2] * o.shape[-1])
+    of = DTensor.from_local(local.reshape(*local.shape[:-2], -1),
+                            o.device_mesh, o.placements, run_check=False,
+                            shape=torch.Size(shape),
+                            stride=contiguous_stride(shape))
+    return linear(of, wc)
 
 
 def logsumexp(x: torch.Tensor) -> torch.Tensor:
@@ -416,9 +560,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ``aten.matmul``'s sharding afresh at every call, an ``mm``'s or
     ``bmm``'s once.  Without a mesh too, so that a mesh of one rank runs
     the same GEMMs as none."""
-    if b.dim() == 2:
-        return torch.mm(a.reshape(-1, a.shape[-1]), b).reshape(
-            *a.shape[:-1], b.shape[-1])
+    if b.dim() == 2:                      # a's rows counted: K may be 0
+        return torch.mm(a.reshape(a.shape[:-1].numel(), a.shape[-1]),
+                        b).reshape(*a.shape[:-1], b.shape[-1])
     batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
     n = batch.numel()                     # 0 too (a rank without heads)
     a3 = a.expand(*batch, *a.shape[-2:]).reshape(n, *a.shape[-2:])
@@ -429,9 +573,17 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def split_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
     """``x [..., n·d]`` as ``[..., n, d]``.  DTensor cannot unflatten a
     dim sharded over more ranks than ``n`` divides into, so such a
-    DTensor is replicated on that dim first: attention and the RWKV loop
-    then split the heads there themselves (:func:`whole_heads_dim`,
-    :func:`head_chunk`), as GSPMD pads them."""
+    DTensor is replicated on that dim first.  The projections of heads
+    that do not divide the model axis keep their shards instead
+    (:func:`heads_in`); this replication is left where a head split does
+    not apply: the kv heads of grouped attention (their query heads'
+    ranks share them: attention slices its own, ``layers._local_heads``),
+    RWKV's r, k, v and decay (its loop splits them itself: a head's value
+    columns, or ``head_chunk``'s heads, ``rwkv6.wkv``), and a projection
+    that the rules replicate on that axis (its flat width not divisible):
+    attention and the RWKV loop then split the heads there themselves
+    (:func:`whole_heads_dim`, :func:`head_chunk`), as GSPMD pads them,
+    and return a partial sum of zero-padded blocks (:func:`spread`)."""
     if is_dtensor(x):
         from torch.distributed.tensor import Replicate
 
@@ -521,11 +673,34 @@ def like(x: torch.Tensor, ref):
                               run_check=False)
 
 
-def full(x: torch.Tensor) -> torch.Tensor:
+def full(x: torch.Tensor, heads=None) -> torch.Tensor:
     """A DTensor's whole value as a plain tensor on every rank (gathered;
     differentiable: the gradient goes back to the shards); a plain tensor
-    as it is."""
-    return x.full_tensor() if is_dtensor(x) else x
+    as it is.  A tensor split by whole heads (``heads``, else its tag:
+    :func:`heads_of`) is gathered as the split DTensor makes of its
+    shards padded to ``ceil(n / ranks)`` heads each, then cut to its
+    size."""
+    if not is_dtensor(x):
+        return x
+    heads = heads if heads is not None else heads_of(x)
+    if heads is None:
+        return x.full_tensor()
+    from torch.distributed.tensor import DTensor
+
+    dim, n = heads
+    mesh = x.device_mesh
+    ranks = mesh.size(_head_dim(x.placements, heads))
+    unit = x.shape[dim] // n
+    local = x.to_local()
+    pad = list(local.shape)
+    pad[dim] = -(-n // ranks) * unit - local.shape[dim]
+    local = torch.cat([local, local.new_zeros(pad)], dim=dim)
+    shape = list(x.shape)
+    shape[dim] = -(-n // ranks) * unit * ranks
+    whole = DTensor.from_local(local, mesh, x.placements, run_check=False,
+                               shape=torch.Size(shape),
+                               stride=contiguous_stride(shape)).full_tensor()
+    return whole.narrow(dim, 0, x.shape[dim])
 
 
 def placed_as(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -565,15 +740,23 @@ def gather_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def shard_box(x) -> tuple[list, list]:
     """This rank's shard of the DTensor ``x``: its offset and its size
-    along each tensor dim.  The shards must be even, as
-    :func:`sanitize_spec` makes them; a tensor dim sharded over several
-    mesh dims is split in the mesh's order, major first."""
+    along each tensor dim, split as DTensor splits it (``torch.chunk``:
+    an uneven split gives the last ranks less or nothing), or by whole
+    heads where ``x`` is so split (:func:`heads_of`); a tensor dim
+    sharded over several mesh dims is split in the mesh's order, major
+    first."""
     mesh, coord = x.device_mesh, x.device_mesh.get_coordinate()
+    heads = heads_of(x)
     off, size = [0] * x.dim(), list(x.shape)
     for md, pl in enumerate(x.placements):
-        if pl.is_shard():
-            size[pl.dim] //= mesh.size(md)
-            off[pl.dim] += coord[md] * size[pl.dim]
+        if not pl.is_shard():
+            continue
+        if heads is not None and pl.dim == heads[0]:
+            o, n = _head_span(heads, x.shape[pl.dim], mesh, md)
+        else:
+            o, n = _chunk_span(size[pl.dim], mesh.size(md), coord[md])
+        off[pl.dim] += o
+        size[pl.dim] = n
     return off, size
 
 
@@ -751,19 +934,29 @@ def param_placements(model, mesh, rules: Rules) -> dict:
         p.shape, mesh), mesh) for path, p, idx in model_zoo._layout(model)}
 
 
+def leaf_heads(module, name: str, pl, mesh, rules: Rules):
+    """:func:`head_split` of ``module``'s parameter ``name`` placed ``pl``:
+    a module whose weights hold heads names them in ``head_leaves()``
+    (``{name: (flat dim, heads)}``)."""
+    at = getattr(module, "head_leaves", None)
+    at = at() if at is not None else {}
+    return head_split(pl, mesh, rules, *at[name]) if name in at else None
+
+
 def distribute_model_(model, mesh, rules: Rules):
     """Replace every parameter of ``model`` in place by a DTensor placed by
     :func:`param_specs` on ``mesh`` (each rank keeps its shard of the
-    values it holds, which must be equal on every rank).  Returns the
-    model."""
+    values it holds, which must be equal on every rank; by whole heads
+    where :func:`leaf_heads` says so).  Returns the model."""
     pl = param_placements(model, mesh, rules)
     for mod in model.modules():
         for name, p in list(mod._parameters.items()):
             if p is None or is_dtensor(p):
                 continue
-            mod._parameters[name] = torch.nn.Parameter(
-                distribute_as(p.detach(), pl[id(p)], mesh),
-                requires_grad=p.requires_grad)
+            heads = leaf_heads(mod, name, pl[id(p)], mesh, rules)
+            mod._parameters[name] = _tagged(torch.nn.Parameter(
+                distribute_as(p.detach(), pl[id(p)], mesh, heads),
+                requires_grad=p.requires_grad), heads)
     return model
 
 
@@ -774,5 +967,6 @@ def undistribute_model_(model):
         for name, p in list(mod._parameters.items()):
             if p is not None and is_dtensor(p):
                 mod._parameters[name] = torch.nn.Parameter(
-                    p.detach().full_tensor(), requires_grad=p.requires_grad)
+                    full(p.detach(), heads_of(p)),
+                    requires_grad=p.requires_grad)
     return model

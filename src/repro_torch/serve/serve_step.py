@@ -117,14 +117,36 @@ def cache_specs(model, cache, rules: shd.Rules, mesh=None,
                 seq_shard: bool = False):
     """The spec of every tensor of ``cache`` (``model.init_cache``, or a
     prefilled one), in the cache's own structure; with a mesh,
-    divisibility-sanitized."""
+    divisibility-sanitized, except that a KV cache keeps its kv heads
+    split over the model axis where its projections split them by whole
+    heads (:func:`_heads_follow`)."""
     out = _copy(cache)
     for path, stacked, node, key in _cache_paths(model, out):
         t = node[key]
         sp = cache_leaf_spec(path, t.dim(), stacked, rules, seq_shard)
-        node[key] = sp if mesh is None else shd.sanitize_spec(sp, t.shape,
-                                                              mesh)
+        if mesh is not None:
+            safe = shd.sanitize_spec(sp, t.shape, mesh)
+            if _heads_follow(model, sp, safe, t, rules, mesh):
+                safe = shd.P(*safe[:2], sp[2], *safe[3:])
+            sp = safe
+        node[key] = sp
     return out
+
+
+def _heads_follow(model, spec, safe, t, rules, mesh) -> bool:
+    """Whether a KV cache tensor ``t [B, S, Hkv, Dh]`` keeps its kv heads
+    split over the model axis although they do not divide it: its spec
+    names the axis there, and the kv projections hold whole heads a rank
+    there (every query head has its own kv head, and the rules split
+    their flat width: ``layers.Attention.head_leaves``), so the cache
+    holds the heads its rank computes, as DTensor splits them."""
+    cfg = model.cfg
+    if (t.dim() != 4 or spec[2] != rules.tp_axis or safe[2] is not None
+            or rules.tp_axis not in shd.mesh_shape(mesh)):
+        return False
+    ranks = shd.axis_size(mesh, rules.tp_axis)
+    return (t.shape[2] == cfg.num_kv_heads == cfg.num_heads
+            and (t.shape[2] * t.shape[3]) % ranks == 0)
 
 
 def _cache_shardings(model, cache, mesh, rules: shd.Rules,

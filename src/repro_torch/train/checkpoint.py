@@ -68,12 +68,10 @@ def _unflatten(flat: dict):
 def _to_numpy(leaf) -> np.ndarray:
     """A leaf as a host numpy array (a torch tensor is copied off its
     device; a DTensor gathered whole first)."""
-    from torch.distributed.tensor import DTensor
+    from repro_torch.models.sharding import full
 
     if isinstance(leaf, torch.Tensor):
-        if isinstance(leaf, DTensor):
-            leaf = leaf.full_tensor()
-        return leaf.detach().cpu().numpy()
+        return full(leaf).detach().cpu().numpy()
     return np.asarray(leaf)
 
 

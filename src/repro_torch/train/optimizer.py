@@ -31,7 +31,7 @@ import math
 
 import torch
 
-from repro_torch.models.sharding import full, placed_as
+from repro_torch.models.sharding import full, heads_of, placed_as
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,7 +191,8 @@ def topk_compress(grads, ef_state, density: float = 0.01):
         accs = [placed_as(g.float(), r) + r for g, r in zip(gs, rs)]
         # the leaf's global top k, as GSPMD computes it: over a mesh each
         # member is gathered whole for the threshold
-        flat = torch.cat([full(a).abs().reshape(-1) for a in accs])
+        flat = torch.cat([full(a, heads_of(r)).abs().reshape(-1)
+                          for a, r in zip(accs, rs)])
         size = flat.shape[0]
         k = max(1, int(density * size))
         thresh = torch.topk(flat, k).values[-1]

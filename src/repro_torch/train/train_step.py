@@ -86,7 +86,8 @@ def _fresh_state(model, use_ef: bool, device, mesh=None,
 
     def zeros(tree):
         return opt.member_map(lambda p, sp: shd.zeros(
-            p.shape, shd.placements(sp, mesh), mesh, device), params, tree)
+            p.shape, shd.placements(sp, mesh), mesh, device,
+            shd.heads_of(p)), params, tree)
     state = {"params": model,
              "opt": {"m": zeros(specs["opt"]["m"]),
                      "v": zeros(specs["opt"]["v"]), "step": step.clone()},
@@ -165,18 +166,19 @@ def _distribute_state(state: dict, mesh, rules: shd.Rules) -> dict:
     :func:`state_specs` (each rank keeps its shards)."""
     specs = state_specs(state, rules, mesh)
     shd.distribute_model_(state["params"], mesh, rules)
+    params = model_zoo.param_tree(state["params"])
 
-    def put(x, sp):
-        return shd.distribute(x, sp, mesh)
+    def put(x, sp, p):
+        return shd.distribute(x, sp, mesh, shd.heads_of(p))
 
     state["opt"] = {"m": opt.member_map(put, state["opt"]["m"],
-                                        specs["opt"]["m"]),
+                                        specs["opt"]["m"], params),
                     "v": opt.member_map(put, state["opt"]["v"],
-                                        specs["opt"]["v"]),
+                                        specs["opt"]["v"], params),
                     "step": state["opt"]["step"]}
     if "ef" in state:
         state["ef"] = {"residual": opt.member_map(
-            put, state["ef"]["residual"], specs["ef"]["residual"])}
+            put, state["ef"]["residual"], specs["ef"]["residual"], params)}
     return state
 
 

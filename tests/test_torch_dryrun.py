@@ -458,3 +458,66 @@ def test_every_product_runs_on_its_rank_share():
         assert r["n_bmm"] == one["n_bmm"]
         assert r["bmm_batch"] <= rows // data * -(-heads // model), \
             (shape, r["bmm_batch"])
+
+
+# a head count that does not divide the model axis against its twin that
+# does, at the same width (ROADMAP C.6): (arch, heads, twin's heads)
+SHARE_TWINS = (("qwen3-1.7b", 6, 8), ("rwkv6-1.6b", 2, 4))
+
+
+def _activation_reduces(ops, lead):
+    """All-reduce counts by operand rank, of the operands whose leading
+    dims are ``lead`` (activations ``[B, S, ...]``)."""
+    out = {}
+    for key, n in ops.items():
+        kind, shape = key.split(" ", 1)
+        shape = json.loads(shape)
+        if kind == "all-reduce" and shape[:2] == lead:
+            out[len(shape)] = out.get(len(shape), 0) + n
+    return out
+
+
+def test_heads_that_do_not_divide_the_axis_keep_their_shards():
+    """``dryrun.rank_shares`` on (1, 4), two subprocesses: reduced qwen3
+    train_4k with 6 query heads hands its collectives the bytes, and runs
+    the collective ops, of its 8-head twin, to the byte (the projections
+    split by whole heads: 2, 2, 2 and 0 a rank, no gather of q, the
+    output row parallel into wo — 766,020 bytes and 111 ops before, the
+    twin's 544,836 and 87), and its dot FLOPs are the twin's (GSPMD pads
+    6 heads to 8).  Reduced rwkv6 with 2 heads (each rank one head's half
+    of the value columns) against its 4-head twin (``heads_overrides``:
+    twice as wide): its output leaves the loop as the flat dim's shard, so
+    it all-reduces the twin's activations, by count and rank, and no
+    zero-padded ``[B, S, H, dh]`` block; the gathers of r, k and the
+    decay to whole heads, which the value-column split needs on each rank,
+    remain (ROADMAP C.6)."""
+    code = textwrap.dedent("""
+        import json, sys
+        from repro_torch.launch import dryrun
+        arch, heads, twin = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+        print(json.dumps({h: dryrun.rank_shares(arch, "train_4k", heads=h)
+                          for h in (heads, twin)}))
+    """)
+    procs = [subprocess.Popen([sys.executable, "-c", code, arch, str(h),
+                               str(t)], cwd=ROOT,
+                              env=dict(os.environ,
+                                       PYTHONPATH=str(ROOT / "src"),
+                                       OMP_NUM_THREADS="1"),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for arch, h, t in SHARE_TWINS]
+    got = {}
+    for (arch, h, t), proc in zip(SHARE_TWINS, procs):
+        out, err = proc.communicate(timeout=600)
+        assert proc.returncode == 0, out[-3000:] + err[-3000:]
+        got[arch] = json.loads(out.strip().splitlines()[-1])
+    q6, q8 = (got["qwen3-1.7b"][h]["1x4"] for h in ("6", "8"))
+    counts = {k: (q6[k], q8[k]) for k in ("coll", "n_coll", "dot")}
+    assert q6["coll"] == q8["coll"] and q6["n_coll"] == q8["n_coll"], counts
+    assert q6["coll_ops"] == q8["coll_ops"], counts
+    assert q6["dot"] == q8["dot"], counts
+    r2, r4 = (got["rwkv6-1.6b"][h]["1x4"] for h in ("2", "4"))
+    lead = [2, 32]                     # a microbatch's rows, the sequence
+    assert _activation_reduces(r2["coll_ops"], lead) == \
+        _activation_reduces(r4["coll_ops"], lead), (r2["coll_ops"],
+                                                    r4["coll_ops"])
+    assert 4 not in _activation_reduces(r2["coll_ops"], lead)

@@ -153,6 +153,43 @@ def test_superstep_stats_match_reference(cache_mode, comm_mode, skip_filter,
             [getattr(w, f) for f in _STAT_FIELDS]
 
 
+@pytest.mark.parametrize("pipeline", [False, True])
+def test_stall_members_match_reference(pipeline, small_store):
+    """``SuperstepStats.stall_fraction`` and ``io_hidden_seconds`` of one
+    port run (serial or pipelined, an edge cache under half the store, so
+    tiles are reread from disk) equal, superstep by superstep, the
+    reference's properties on the same measured fields (the reference's
+    ``SuperstepStats`` built from them): the fraction within [0, 1], the
+    hidden time at least 0."""
+    import dataclasses
+
+    from repro.core.engine import SuperstepStats as JStats
+
+    store, _, _ = small_store
+    cfg = EngineConfig(device="cpu", num_servers=2, cache_mode=1,
+                       cache_capacity_bytes=6_000, pipeline=pipeline)
+    res = OutOfCoreEngine(TileStore(store.root), cfg).run(tapps.BFS())
+    names = {f.name for f in dataclasses.fields(JStats)}
+    assert res.history
+    for h in res.history:
+        ref = JStats(**{f.name: getattr(h, f.name)
+                        for f in dataclasses.fields(h) if f.name in names})
+        assert h.stall_fraction == ref.stall_fraction
+        assert h.io_hidden_seconds == ref.io_hidden_seconds
+        assert 0.0 <= h.stall_fraction <= 1.0 and h.io_hidden_seconds >= 0
+    zero = dataclasses.replace(res.history[0], seconds=0.0,
+                               stall_seconds=1.0, io_busy_seconds=0.5)
+    assert zero.stall_fraction == 0.0 and zero.io_hidden_seconds == 0.0
+
+
+@pytest.mark.parametrize("app", APPS)
+def test_vertex_program_identity_matches_reference(app):
+    """``VertexProgram.identity``: the combine monoid's identity, as the
+    reference's (0, +inf or -inf)."""
+    got, want = _prog(tapps, app).identity, _prog(japps, app).identity
+    assert got == want and isinstance(got, float)
+
+
 @pytest.mark.parametrize("app", ["pagerank", "sssp", "bfs"])
 @pytest.mark.parametrize("seg_impl", ["fused", "segment"])
 def test_tile_step_matches_reference(app, seg_impl, weighted_store):

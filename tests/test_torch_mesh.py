@@ -31,10 +31,18 @@ JAX package's jitted single-device step.
   on and off, equals bit for bit, shard for shard and placement for
   placement, the whole ``init(seed)`` distributed; no tensor it makes is
   larger than the model's largest leaf.
-* What ran whole on every rank of the model axis (ROADMAP C.5), on (1,
-  4): reduced rwkv6-1.6b (2 heads: each rank one head's half of the
-  value columns) and reduced qwen3-1.7b with 6 query heads (2, 2, 2 and
-  0 a rank) train three steps within ``TOL`` of the mesh-free step.
+* What ran whole on every rank of the model axis (ROADMAP C.5, C.6,
+  C.7), on (1, 4): reduced rwkv6-1.6b (2 heads: each rank one head's
+  half of the value columns, the output that split of the flat dim),
+  reduced rwkv6 with 6 heads (``head_chunk``'s 2, 2, 2 and 0 a rank in
+  its loop), reduced qwen3-1.7b with 6 query heads (their projections
+  split by whole heads, 2, 2, 2 and 0 a rank) and reduced whisper-base
+  with 6 (MHA: k, v and the cross-attention split so too) train three
+  steps within ``TOL`` of the mesh-free step; a leaf split by whole heads
+  holds its rank's heads (``_expected_heads``), and its per-shard init
+  equals the whole init's shards bit for bit.  Decode with 6 heads on (1,
+  4), qwen3 and whisper (its KV cache split on its heads), within
+  ``SERVE_ATOL`` of the mesh-free port.
 
 The JAX package is imported inside the tests only: the spawned ranks
 import this module and need only torch.
@@ -87,9 +95,20 @@ TRAIN = {"qwen-fsdp": ("qwen3-1.7b", "fsdp"),
 MESHES = {1: {"1x1": (1, 1)},
           2: {"2x1": (2, 1), "1x2": (1, 2)},
           4: {"2x2": (2, 2), "4x1": (4, 1), "1x4": (1, 4)}}
-# (1, 4) only: (arch, sharding mode, config overrides)
+# (1, 4) only: (arch, sharding mode, config overrides); rwkv6's heads are
+# its width's 64-wide slices
 TRAIN_1X4 = {"rwkv": ("rwkv6-1.6b", "tp", {}),
-             "heads6": ("qwen3-1.7b", "fsdp", {"num_heads": 6})}
+             "heads6": ("qwen3-1.7b", "fsdp", {"num_heads": 6}),
+             "rwkv-heads6": ("rwkv6-1.6b", "tp", {"num_heads": 6,
+                                                   "num_kv_heads": 6,
+                                                   "d_model": 384}),
+             "whisper-heads6": ("whisper-base", "tp", {"num_heads": 6,
+                                                       "num_kv_heads": 6})}
+HEADS6 = {"num_heads": 6}
+# decode with 6 query heads on (1, 4): (arch, overrides); whisper-base's
+# are MHA, so its kv projections and its decode cache split by heads too
+SERVE_HEADS6 = {"qwen3-1.7b": HEADS6,
+                "whisper-base": {"num_heads": 6, "num_kv_heads": 6}}
 INIT_ARCHS = ("deepseek-7b", "qwen3-1.7b", "gemma2-2b")
 SERVE = ("qwen3-1.7b", "gemma2-2b", "recurrentgemma-9b", "rwkv6-1.6b",
          "whisper-base")
@@ -140,20 +159,64 @@ def _serve(fns, model, cfg):
 # the ranks
 # ---------------------------------------------------------------------------
 
-def _local_shape(shape, spec, mesh):
-    return tuple(n // shd.axis_size(mesh, s) if s is not None else n
-                 for n, s in zip(shape, tuple(spec) + (None,) * len(shape)))
+def _local_shape(shape, spec, mesh, heads=None):
+    """The local shard's shape: the spec's split as DTensor makes it (an
+    uneven one ``ceil(n / ranks)`` a rank, the last fewer or none), and
+    along a dim of ``heads`` ``(dim, n)`` this rank's ``ceil(n /
+    ranks)`` whole heads of the model axis."""
+    names = list(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    out = list(shape)
+    for i, s in enumerate(tuple(spec)[:len(shape)]):
+        for a in ((s,) if isinstance(s, str) else s or ()):
+            ranks = mesh.size(names.index(a))
+            c = -(-out[i] // ranks)
+            out[i] = max(0, min(c, out[i] - coord[names.index(a)] * c))
+    if heads is not None:
+        dim, n = heads
+        ranks = shd.axis_size(mesh, "model")
+        c = -(-n // ranks)
+        r = mesh.get_coordinate()[list(mesh.mesh_dim_names).index("model")]
+        out[dim] = max(0, min(c, n - r * c)) * (shape[dim] // n)
+    return tuple(out)
 
 
-def _misplaced(tensors, specs, mesh):
+def _expected_heads(model, specs, mesh):
+    """For each parameter of ``model`` in ``_flat(param_tree)``'s order,
+    ``(dim, heads)`` where the model axis must split it by whole heads —
+    an attention weight's flat heads dim (wq's and a cross-attention's
+    columns, wo's rows; wk's and wv's where every query head has its own
+    kv head) that the spec splits over the model axis, which the heads do
+    not divide — else None."""
+    cfg = model.cfg
+    ranks = shd.axis_size(mesh, "model")
+    paths = _flat(tzoo._tree_of(model, lambda path, p, idx: path))
+    out = []
+    for path, sp in zip(paths, specs):
+        parent, last = path[-2], path[-1]
+        dim = 0 if last == "wo" else 1
+        grouped = (parent == "attn" and last in ("wk", "wv")
+                   and cfg.num_kv_heads != cfg.num_heads)
+        n = cfg.num_heads
+        split = (parent in ("attn", "cross")
+                 and last in ("wq", "wk", "wv", "wo") and not grouped
+                 and len(sp) > dim and sp[dim] == "model" and n % ranks)
+        out.append((dim, n) if split else None)
+    return out
+
+
+def _misplaced(tensors, specs, mesh, heads=None):
     """Every (tensor, spec) pair whose tensor is not a DTensor on ``mesh``
-    with the spec's placements and local shape."""
+    with the spec's placements and local shape (``heads``: each tensor's
+    split by whole heads, :func:`_expected_heads`)."""
     bad = []
-    for t, sp in zip(tensors, specs):
+    heads = heads or [None] * len(tensors)
+    for t, sp, h in zip(tensors, specs, heads):
         if (not shd.is_dtensor(t) or t.device_mesh != mesh
                 or list(t.placements) != shd.placements(sp, mesh)
                 or tuple(t.to_local().shape)
-                != _local_shape(t.shape, sp, mesh)):
+                != _local_shape(t.shape, sp, mesh, h)
+                or shd.heads_of(t) != h):
             bad.append((tuple(t.shape), sp))
     return bad
 
@@ -164,11 +227,12 @@ def _flat(tree):
 
 def _state_misplaced(state, specs, mesh):
     model = state["params"]
+    heads = _expected_heads(model, _flat(specs["params"]), mesh)
     bad = _misplaced(_flat(tzoo.param_tree(model)), _flat(specs["params"]),
-                     mesh)
+                     mesh, heads)
     for k in ("m", "v"):
         bad += _misplaced(_flat(state["opt"][k]), _flat(specs["opt"][k]),
-                          mesh)
+                          mesh, heads)
     return bad
 
 
@@ -181,20 +245,45 @@ def _train_config(name, registry=treg):
                                **kw), mode
 
 
-def _train_case(name, mesh):
+def _train_case(name, mesh, check_init=False):
+    """Three steps of a train case: misplaced leaves, losses, the state,
+    the most heads one call of the RWKV loop ran on this rank, and (with
+    ``check_init``) the leaves whose per-shard init differs from the
+    whole init's shards."""
+    from repro_torch.models import rwkv6 as trwkv
+
     cfg, mode = _train_config(name)
     step, init, sh = tts.build_train_step(
         cfg, _train_run(mode), topt.OptConfig(**OPT_KW), mesh=mesh,
         device="cpu")
     state = init(SEED)
+    unequal = None
+    if check_init:
+        model = tzoo.build_model(cfg, _train_run(mode), "cpu").init(SEED)
+        want = sh["state"].place(tzoo.export_state(
+            tts._fresh_state(model, False, "cpu"), host=False))
+        unequal = [i for i, (a, b) in enumerate(zip(
+            _flat(tzoo.param_tree(state["params"])),
+            _flat(tzoo.param_tree(want["params"]))))
+            if not _same_shards(a, b)]
     bad = _state_misplaced(state, sh["specs"], mesh)
-    losses = []
-    for b in _batches(cfg):
-        state, stats = step(state, b)
-        losses.append(float(stats["loss"]))
+    losses, looped = [], []
+    loop = trwkv._wkv_loop
+
+    def spy(r, *args):
+        looped.append(r.shape[2])
+        return loop(r, *args)
+    trwkv._wkv_loop = spy
+    try:
+        for b in _batches(cfg):
+            state, stats = step(state, b)
+            losses.append(float(stats["loss"]))
+    finally:
+        trwkv._wkv_loop = loop
     bad += _state_misplaced(state, sh["specs"], mesh)
     return {"misplaced": bad, "losses": losses,
-            "state": tzoo.export_state(state)}
+            "state": tzoo.export_state(state),
+            "looped_heads": max(looped, default=0), "init_unequal": unequal}
 
 
 def _resume_case(mesh, ckpt_dir, rank):
@@ -220,8 +309,9 @@ def _resume_case(mesh, ckpt_dir, rank):
     return {"state": tzoo.export_state(state), "misplaced": misplaced}
 
 
-def _serve_case(arch, mesh, seq_shard=False):
-    cfg = treg.get_config(arch, reduced=True)
+def _serve_case(arch, mesh, seq_shard=False, overrides=None):
+    cfg = dataclasses.replace(treg.get_config(arch, reduced=True),
+                              **(overrides or {}))
     run = _serve_run(seq_shard)
     fns = tserve.build_serve_fns(cfg, run, mesh=mesh, max_len=MAX_LEN,
                                  batch=SERVE_B, cache_dtype=torch.float32,
@@ -235,9 +325,9 @@ def _serve_case(arch, mesh, seq_shard=False):
     for _, _, node, key in tserve._cache_paths(model, specs):
         want.append(node[key])
     bad = _misplaced(tensors, want, mesh)
-    bad += _misplaced(_flat(tzoo.param_tree(model)),
-                      _flat(shd.param_specs(model, fns["rules"], mesh)),
-                      mesh)
+    pspecs = _flat(shd.param_specs(model, fns["rules"], mesh))
+    bad += _misplaced(_flat(tzoo.param_tree(model)), pspecs, mesh,
+                      _expected_heads(model, pspecs, mesh))
     return {"logits": logits, "misplaced": bad}
 
 
@@ -552,9 +642,13 @@ def _worker(rank, world, init_file, ckpt_root, results):
             out["elastic"] = _elastic_case(os.path.join(ckpt_root, "e"), rank)
             out["remat_thread"] = _remat_thread_case(mesh)
             for name in TRAIN_1X4:
-                r = _train_case(name, meshes["1x4"])
+                r = _train_case(name, meshes["1x4"], check_init=True)
                 out["train"][("1x4", name)] = r if rank == 0 else \
-                    {"misplaced": r["misplaced"]}
+                    {k: r[k] for k in ("misplaced", "looped_heads",
+                                       "init_unequal")}
+            out["serve_heads6"] = {
+                arch: _serve_case(arch, meshes["1x4"], overrides=kw)
+                for arch, kw in SERVE_HEADS6.items()}
             out["write"] = _write_case({k: meshes[k] for k in ("2x2", "1x4")})
             out["flash"] = {2: _flash_case(mesh, "model"),
                             4: _flash_case(meshes["1x4"], "model")}
@@ -687,8 +781,9 @@ def _assert_bits(got, want):
             g.view(np.uint8), w.view(np.uint8)), k
 
 
-def _free_serve(arch, seq_shard=False):
-    cfg = treg.get_config(arch, reduced=True)
+def _free_serve(arch, seq_shard=False, overrides=None):
+    cfg = dataclasses.replace(treg.get_config(arch, reduced=True),
+                              **(overrides or {}))
     run = _serve_run(seq_shard)
     fns = tserve.build_serve_fns(cfg, run, max_len=MAX_LEN, batch=SERVE_B,
                                  cache_dtype=torch.float32, device="cpu")
@@ -768,22 +863,60 @@ def test_train_steps_match_mesh_free_and_reference(world, mname, name):
 @pytest.mark.parametrize("name", list(TRAIN_1X4))
 def test_whole_heads_train_on_their_shares(name):
     """(1, 4): reduced rwkv6-1.6b, whose 2 heads do not divide the model
-    axis (each rank one head's half of the value columns), and reduced
-    qwen3-1.7b with 6 query heads (2, 2, 2 and 0 a rank): three steps'
-    losses and state within TOL of the port's mesh-free step and of the
-    reference's jitted one (rwkv6's state within RWKV_REF_ATOL of the
-    reference's); every parameter and moment placed by its spec on every
-    rank."""
+    axis (each rank one head's half of the value columns), rwkv6 with 6
+    heads (the loop on ``head_chunk``'s 2, 2, 2 and 0 a rank), reduced
+    qwen3-1.7b with 6 query heads (their projections split by whole
+    heads, 2, 2, 2 and 0 a rank) and reduced whisper-base with 6 (MHA:
+    its kv projections and cross-attention so split too, rank 3 without
+    heads or kv heads): three steps' losses and state within
+    TOL of the port's mesh-free step and of the reference's jitted one
+    (rwkv6's state within RWKV_REF_ATOL of the reference's, the 6-head
+    rwkv6's of the mesh-free step's too); every
+    parameter and moment placed by its spec, and by whole heads where it
+    must be, on every rank; no call of the RWKV loop on more than
+    ``ceil(H / 4)`` heads; the per-shard init's shards those of the whole
+    init bit for bit."""
     got, _ = _launch(4)
     losses, state, jlosses, jstate = _free_train(name)
     r = got[0]["train"][("1x4", name)]
     np.testing.assert_allclose(r["losses"], losses, **TOL)
     np.testing.assert_allclose(r["losses"], jlosses, **TOL)
-    _assert_trees(r["state"], state, **TOL)
-    _assert_trees(r["state"], jstate, **(TOL if name != "rwkv" else dict(
-        TOL, atol=RWKV_REF_ATOL)))
+    rwkv_tol = TOL if not name.startswith("rwkv") else dict(
+        TOL, atol=RWKV_REF_ATOL)
+    # the 6-head rwkv6 (d 384) against the mesh-free step too: its split
+    # loop sums in another order, and Adam moves an entry whose gradient
+    # is rounding noise (one of tmix/wg's 294,912 by 3.4e-5: the effect
+    # RWKV_REF_ATOL's comment names)
+    _assert_trees(r["state"], state,
+                  **(rwkv_tol if name == "rwkv-heads6" else TOL))
+    _assert_trees(r["state"], jstate, **rwkv_tol)
+    heads = _train_config(name)[0].d_model // 64 if \
+        name.startswith("rwkv") else None
     for rank in got:
-        assert got[rank]["train"][("1x4", name)]["misplaced"] == []
+        case = got[rank]["train"][("1x4", name)]
+        assert case["misplaced"] == []
+        assert case["init_unequal"] == []
+        if heads is not None:
+            assert case["looped_heads"] <= -(-heads // 4), case
+            assert rank > 0 or case["looped_heads"] > 0, case
+
+
+@pytest.mark.parametrize("arch", list(SERVE_HEADS6))
+def test_decode_with_heads_that_do_not_divide_the_axis(arch):
+    """(1, 4), reduced qwen3-1.7b with 6 query heads (2, 2, 2 and 0 a
+    rank, wq and wo split by whole heads) and reduced whisper-base with 6
+    (MHA: every attention weight so split, its cross-attention's too, and
+    the decoder's KV cache split on its heads as DTensor splits 6):
+    prefill and two decode steps' logits within SERVE_ATOL of the
+    mesh-free port; every parameter and cache tensor placed by its spec,
+    by whole heads where it must be."""
+    got, _ = _launch(4)
+    want = _free_serve(arch, overrides=SERVE_HEADS6[arch])
+    for rank in got:
+        r = got[rank]["serve_heads6"][arch]
+        assert r["misplaced"] == []
+        for g, w in zip(r["logits"], want):
+            np.testing.assert_allclose(g, w, rtol=0, atol=SERVE_ATOL)
 
 
 @pytest.mark.parametrize("world", [1, 2, 4])

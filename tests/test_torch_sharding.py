@@ -216,6 +216,20 @@ def _ref_cache_specs(cache, mesh, jr, seq, monkeypatch):
     return jserve._cache_shardings(cache, mesh, jr, seq)
 
 
+def _heads_kept(model, path, t, mesh, seq):
+    """Whether the port keeps a KV cache's kv heads split over the model
+    axis where the reference replicates them: an MHA decoder's cache
+    (every query head its own kv head) whose heads do not divide the axis
+    while their flat width does, so that its kv projections hold whole
+    heads a rank and the cache follows them (ROADMAP C.6)."""
+    cfg = model.cfg
+    ranks = shd.mesh_shape(mesh).get("model", 1)
+    return (not seq and t.dim() == 4 and path.split("/")[-1] in ("k", "v")
+            and cfg.num_kv_heads == cfg.num_heads == t.shape[2]
+            and t.shape[2] % ranks != 0
+            and t.shape[2] * t.shape[3] % ranks == 0)
+
+
 def _check_caches(arch, reduced, mesh_name, seq, monkeypatch, batch=BATCH):
     _, _, model = _models(arch, reduced)
     mesh = _mesh(mesh_name)
@@ -239,6 +253,10 @@ def _check_caches(arch, reduced, mesh_name, seq, monkeypatch, batch=BATCH):
                 if _t(got_sp) != _t(ref_sp)[int(stacked):]:
                     exc.append((path, _t(ref_sp), _t(got_sp)))
                 continue
+            if _heads_kept(model, path, node[key], mesh, seq):
+                # by design: the reference replicates these kv heads
+                assert _t(got_sp)[2] == "model", (path, got_sp)
+                got_sp = shd.P(*_t(got_sp)[:2], None, *_t(got_sp)[3:])
             strict = []
             _check_member(path.split("/"), stacked, got_sp, ref_sp, strict)
             assert not strict, strict
