@@ -408,14 +408,16 @@ def rank_main(rank, port, job, results):
             dist.destroy_process_group()
 
 
-def run_ranks(job, timeout_s):
-    """Spawn ``job["world"]`` ranks of :func:`rank_main`, wait for each
+def run_ranks(job, timeout_s, target=None):
+    """Spawn ``job["world"]`` ranks of ``target`` (:func:`rank_main` when
+    None; called as ``target(rank, port, job, results)``), wait for each
     one's report: {rank: (status, payload)}."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     port = S.free_port()
-    procs = [ctx.Process(target=rank_main, args=(r, port, job, results),
-                         daemon=True) for r in range(job["world"])]
+    procs = [ctx.Process(target=target or rank_main,
+                         args=(r, port, job, results), daemon=True)
+             for r in range(job["world"])]
     for p in procs:
         p.start()
     got = {}

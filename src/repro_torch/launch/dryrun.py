@@ -294,13 +294,18 @@ def run_cell(arch: str, cell_name: str, mesh_kind: str,
              device: str = "cuda", *, reduced: bool = False,
              mesh_shape=None, batch=None, seq=None, layers=None,
              save: bool = False) -> dict:
-    """One cell's result dict (the reference's keys, and ``layers``, the
-    depth that ran).  ``mesh_kind`` is ``single`` (16 x 16), ``multi`` (2 x
+    """One cell's result dict: the reference's keys, and ``layers`` (the
+    depth that ran), ``ops`` (the record's op count), ``dot_flops`` (its
+    products' FLOPs a device, ``hlo_cost.dot_flops``), ``collective_bytes``
+    and ``collective_op_total`` (the operand bytes a device hands to
+    collectives and their op count).  ``mesh_kind`` is ``single`` (16 x 16), ``multi`` (2 x
     16 x 16) or ``one`` (no mesh, one device); ``mesh_shape`` replaces the
     production shape; ``reduced``, ``batch`` and ``seq`` cut the cell to
     a test's size, ``layers`` its depth (the CLI's ``--layers``: every
     position and width as at full depth).  With ``save`` the op record
     goes beside the results."""
+    from repro_torch.roofline import hlo_cost
+
     ok, reason = registry.cell_runnable(arch, cell_name)
     if not ok:
         return {"arch": arch, "cell": cell_name, "mesh": mesh_kind,
@@ -330,6 +335,9 @@ def run_cell(arch: str, cell_name: str, mesh_kind: str,
         "run_config": {"sharding_mode": run.sharding_mode,
                        "microbatch": run.microbatch, "remat": run.remat},
         "device": device, "layers": cc.layers, "ops": len(records),
+        "dot_flops": hlo_cost.dot_flops(records),
+        "collective_bytes": int(coll["total"]),
+        "collective_op_total": int(sum(coll.get("op_counts", {}).values())),
     }
 
 
@@ -457,7 +465,9 @@ def main(argv=None):
     with open(_result_path(args.arch, args.cell, args.mesh), "w") as f:
         json.dump(res, f, indent=1)
     print(json.dumps({k: v for k, v in res.items()
-                      if k in ("arch", "cell", "mesh", "status", "compile_s")}))
+                      if k in ("arch", "cell", "mesh", "status", "compile_s",
+                               "layers", "collective_bytes",
+                               "collective_op_total", "dot_flops")}))
     if res["status"] == "error":
         print(res["error"][-2000:], file=sys.stderr)
         return 1

@@ -455,6 +455,14 @@ def seq_sharded_decode_attention(q, k_cache, v_cache, cache_len, mesh,
 # attention block
 # ---------------------------------------------------------------------------
 
+def kv_split_by_heads(cfg) -> bool:
+    """Whether an attention's wk and wv are split by whole heads where
+    wq is (``Attention.head_leaves``): every query head has its own kv
+    head.  Grouped kv heads are shared by query heads on several ranks,
+    and stay split as the rules split them."""
+    return cfg.num_kv_heads == cfg.num_heads
+
+
 class Attention(nn.Module):
     """GQA projections (``attn_init``): wq ``[d, H·Dh]``, wk and wv ``[d,
     Hkv·Dh]``, wo ``[H·Dh, d]``, and with ``qk_norm`` q_ln / k_ln over Dh.
@@ -484,12 +492,11 @@ class Attention(nn.Module):
 
     def head_leaves(self) -> dict:
         """``{weight: (its flat heads dim, heads)}`` for
-        ``sharding.leaf_heads``: wq and wo, and wk and wv when the kv
-        heads are the query heads (grouped kv heads are shared by query
-        heads on several ranks, and stay split as the rules split them)."""
-        h, hkv = self.cfg.num_heads, self.cfg.num_kv_heads
+        ``sharding.leaf_heads``: wq and wo, and wk and wv where
+        :func:`kv_split_by_heads`."""
+        h = self.cfg.num_heads
         out = {"wq": (1, h), "wo": (0, h)}
-        if hkv == h:
+        if kv_split_by_heads(self.cfg):
             out.update(wk=(1, h), wv=(1, h))
         return out
 

@@ -70,9 +70,8 @@ def init_on_mesh(model, seed: int, mesh, rules, device):
         with torch.no_grad():
             fill(whole)
         heads = shd.leaf_heads(module, name, pl[id(p)], mesh, rules)
-        module._parameters[name] = shd._tagged(nn.Parameter(
-            shd.own_shard(whole, pl[id(p)], mesh, heads),
-            requires_grad=p.requires_grad), heads)
+        module._parameters[name] = shd.parameter(
+            shd.own_shard(whole, pl[id(p)], mesh, heads), p.requires_grad)
     with layers.leaf_by_leaf(make, device):
         model.init(seed)
     return model

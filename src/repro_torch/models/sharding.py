@@ -29,9 +29,14 @@ where DTensor's own split of the flat ``n·d`` dim would cut a head
 (:func:`head_split`).  Such a tensor (the parameter, its moments, its
 gradient) keeps its placements, with a local shard of whole heads; it is
 tagged (:func:`heads_of`), made (:func:`distribute_as`, :func:`own_shard`,
-:func:`zeros`) and gathered (:func:`full`) by that split, and its products
-(:func:`heads_in`, :func:`heads_out`) give and take activations split on
-their heads dim, which DTensor splits the same way.
+:func:`zeros`, :func:`parameter`) and gathered (:func:`full`) by that
+split, and its products (:func:`heads_in`, :func:`heads_out`) give and
+take activations split on their heads dim, which DTensor splits the same
+way.  A new tensor computed from a tagged one carries no tag: where it
+is kept (a top-k residual) :func:`keep_heads` tags it again, and
+:func:`shard_box` and :func:`full` raise on a DTensor whose local shard
+is not the one its placements (and tag) say, rather than gather or cut
+it by the wrong split.
 
 Rules:
   dp axes  = ("pod", "data") when present — batch parallel
@@ -242,21 +247,24 @@ def is_dtensor(x) -> bool:
 def cns(x, *spec):
     """Constrain an activation's sharding: redistribute a DTensor to the
     spec's placements, divisibility-sanitized against the current mesh,
-    except that a split the spec asks for and ``x`` already has stays
-    where the sanitizer would replicate it (heads that do not divide the
-    axis: GSPMD pads them); a no-op without a mesh context or on a plain
-    tensor."""
+    except on the heads dim of a ``[B, S, H, dh]`` activation (dim 2 of a
+    4-d tensor): a split of the heads that the spec asks for and ``x``
+    already has stays where the sanitizer would replicate it (heads that
+    do not divide the axis, split as DTensor splits them: GSPMD pads
+    them).  On every other dim an uneven split is replicated, as before.
+    A no-op without a mesh context or on a plain tensor."""
     ctx = _CTX.get()
     if ctx is None or not is_dtensor(x):
         return x
     mesh, _ = ctx
     spec = P(*spec)
     pl = list(_placements_of(spec, tuple(x.shape), mesh))
-    names = mesh.mesh_dim_names
-    for d, (want, have) in enumerate(zip(pl, x.placements)):
-        if (want.is_replicate() and have.is_shard() and have.dim < len(spec)
-                and names[d] in _names(spec[have.dim])):
-            pl[d] = have
+    if x.dim() == 4 and len(spec) > 2:
+        names = mesh.mesh_dim_names
+        for d, (want, have) in enumerate(zip(pl, x.placements)):
+            if (want.is_replicate() and have.is_shard(2)
+                    and names[d] in _names(spec[2])):
+                pl[d] = have
     return moved(x, pl, mesh)
 
 
@@ -285,6 +293,19 @@ def _tagged(x, heads):
     if heads is not None:
         x._heads_split = heads
     return x
+
+
+def keep_heads(x, ref):
+    """``x``, a tensor computed from ``ref`` and laid out as it is, tagged
+    with ``ref``'s split by whole heads (:func:`heads_of`) if it has one:
+    a new tensor carries no tag, and one that is kept and later gathered
+    must (a top-k residual, a cast weight)."""
+    return _tagged(x, heads_of(ref))
+
+
+def parameter(x, requires_grad: bool = True):
+    """``nn.Parameter(x)`` that keeps ``x``'s split by whole heads."""
+    return keep_heads(torch.nn.Parameter(x, requires_grad=requires_grad), x)
 
 
 def head_split(pl, mesh, rules: "Rules", dim: int,
@@ -404,7 +425,8 @@ def batch_heads(x) -> list:
             for p in x.placements]
 
 
-def linear(x: torch.Tensor, w: torch.Tensor, heads=None) -> torch.Tensor:
+def linear(x: torch.Tensor, w: torch.Tensor,
+           unflatten=None) -> torch.Tensor:
     """``x [..., K] @ w [K, N]``, or for stacked experts ``x [E, ..., K] @
     w [E, K, N]``, over a mesh on each rank's own share.  On each mesh
     dim: where ``w``'s or ``x``'s expert dim E is split, both are split
@@ -417,7 +439,7 @@ def linear(x: torch.Tensor, w: torch.Tensor, heads=None) -> torch.Tensor:
     the local tensors (:func:`matmul`) with the gradients' placements
     given by hand (``to_local(grad_placements=...)``), so that neither
     the forward nor the backward runs a product on a gathered operand, as
-    DTensor's own propagation did (ROADMAP C.4).  With ``heads`` ``(n,
+    DTensor's own propagation did (ROADMAP C.4).  With ``unflatten`` ``(n,
     d)`` the output's last dim is unflattened to ``[n, d]`` shard by shard
     (:func:`heads_in`).  Plain tensors: :func:`matmul`."""
     if not is_dtensor(x) and not is_dtensor(w):
@@ -474,11 +496,12 @@ def linear(x: torch.Tensor, w: torch.Tensor, heads=None) -> torch.Tensor:
         wl = wl.narrow(wk, shard_box(x)[0][last], xl.shape[-1])
     elif sw and not sx:                   # x's columns to w's rows
         xl = xl.narrow(last, shard_box(w)[0][wk], wl.shape[wk])
-    if heads is None:
+    if unflatten is None:
         return DTensor.from_local(matmul(xl, wl), mesh, out, run_check=False)
+    n, d = unflatten
     y = matmul(xl, wl)
-    y = y.reshape(*y.shape[:-1], y.shape[-1] // heads[1], heads[1])
-    shape = (*x.shape[:-1], heads[0], heads[1])
+    y = y.reshape(*y.shape[:-1], y.shape[-1] // d, d)
+    shape = (*x.shape[:-1], n, d)
     return DTensor.from_local(y, mesh, out, run_check=False,
                               shape=torch.Size(shape),
                               stride=contiguous_stride(shape))
@@ -492,33 +515,35 @@ def heads_in(x: torch.Tensor, w: torch.Tensor, n: int,
     parallel on each rank's heads and its result a DTensor split on the
     heads dim, as DTensor splits ``n`` heads; else
     :func:`split_heads` of :func:`linear`."""
+    wc = keep_heads(w.to(x.dtype), w)
     if heads_of(w) is None or not is_dtensor(w):
-        return split_heads(linear(x, w.to(x.dtype)), n, d)
-    return linear(x, w.to(x.dtype), heads=(n, d))
+        return split_heads(linear(x, wc), n, d)
+    return linear(x, wc, unflatten=(n, d))
 
 
 def heads_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``o [..., n, d]`` merged ``@ w [n·d, N]``, in ``o``'s dtype.  Where
-    ``w``'s rows are split by whole heads and ``o`` is split on its heads
-    as they are, the product is row parallel on each rank's heads (a
-    partial sum, reduced where the next op needs it whole); else
-    :func:`linear` of :func:`merge_heads`."""
-    wc = w.to(o.dtype)
-    if heads_of(w) is None or not is_dtensor(o):
+    ``w``'s rows are split by whole heads, ``o`` is split on its heads as
+    they are (a free narrow where ``o`` is whole there) and the product is
+    row parallel on each rank's heads: a partial sum, reduced where the
+    next op needs it whole.  Else :func:`linear` of :func:`merge_heads`."""
+    wc = keep_heads(w.to(o.dtype), w)
+    heads = heads_of(w)
+    if heads is None:
         return linear(merge_heads(o), wc)
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, Shard
 
+    o = o if is_dtensor(o) else like(o, w)
     hd = o.dim() - 2
-    md = _head_dim(w.placements, heads_of(w))
-    if not o.placements[md].is_shard(hd):
-        return linear(merge_heads(o), wc)
-    local = o.to_local()
+    pl = list(o.placements)
+    pl[_head_dim(w.placements, heads)] = Shard(hd)
+    local = moved(o, pl).to_local()
     shape = (*o.shape[:-2], o.shape[-2] * o.shape[-1])
     of = DTensor.from_local(local.reshape(*local.shape[:-2], -1),
-                            o.device_mesh, o.placements, run_check=False,
+                            o.device_mesh, pl, run_check=False,
                             shape=torch.Size(shape),
                             stride=contiguous_stride(shape))
-    return linear(of, wc)
+    return linear(_tagged(of, (len(shape) - 1, heads[1])), wc)
 
 
 def logsumexp(x: torch.Tensor) -> torch.Tensor:
@@ -684,6 +709,7 @@ def full(x: torch.Tensor, heads=None) -> torch.Tensor:
         return x
     heads = heads if heads is not None else heads_of(x)
     if heads is None:
+        shard_box(x)                      # raises on a lost tag
         return x.full_tensor()
     from torch.distributed.tensor import DTensor
 
@@ -744,7 +770,8 @@ def shard_box(x) -> tuple[list, list]:
     an uneven split gives the last ranks less or nothing), or by whole
     heads where ``x`` is so split (:func:`heads_of`); a tensor dim
     sharded over several mesh dims is split in the mesh's order, major
-    first."""
+    first.  Raises ValueError where ``x``'s local shard has another
+    shape: a tensor split by whole heads that lost its tag."""
     mesh, coord = x.device_mesh, x.device_mesh.get_coordinate()
     heads = heads_of(x)
     off, size = [0] * x.dim(), list(x.shape)
@@ -757,6 +784,11 @@ def shard_box(x) -> tuple[list, list]:
             o, n = _chunk_span(size[pl.dim], mesh.size(md), coord[md])
         off[pl.dim] += o
         size[pl.dim] = n
+    if list(x._local_tensor.shape) != size:
+        raise ValueError(
+            f"a local shard of {list(x._local_tensor.shape)} where "
+            f"{list(x.placements)} (heads {heads}) of {list(x.shape)} give "
+            f"{size}: a tensor split by whole heads lost its tag")
     return off, size
 
 
@@ -954,9 +986,9 @@ def distribute_model_(model, mesh, rules: Rules):
             if p is None or is_dtensor(p):
                 continue
             heads = leaf_heads(mod, name, pl[id(p)], mesh, rules)
-            mod._parameters[name] = _tagged(torch.nn.Parameter(
+            mod._parameters[name] = parameter(
                 distribute_as(p.detach(), pl[id(p)], mesh, heads),
-                requires_grad=p.requires_grad), heads)
+                p.requires_grad)
     return model
 
 

@@ -21,7 +21,7 @@ import weakref
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
-from repro_torch.models import model_zoo
+from repro_torch.models import layers, model_zoo
 from repro_torch.models import sharding as shd
 from repro_torch.models.encdec import EncDecLM
 
@@ -134,18 +134,17 @@ def cache_specs(model, cache, rules: shd.Rules, mesh=None,
 
 
 def _heads_follow(model, spec, safe, t, rules, mesh) -> bool:
-    """Whether a KV cache tensor ``t [B, S, Hkv, Dh]`` keeps its kv heads
-    split over the model axis although they do not divide it: its spec
-    names the axis there, and the kv projections hold whole heads a rank
-    there (every query head has its own kv head, and the rules split
-    their flat width: ``layers.Attention.head_leaves``), so the cache
-    holds the heads its rank computes, as DTensor splits them."""
-    cfg = model.cfg
+    """Whether a KV cache tensor ``t [B, S, Hkv, Dh]`` keeps
+    its kv heads split over the model axis although they do not divide
+    it: its spec names the axis there, and the kv projections hold whole
+    heads a rank there (``layers.kv_split_by_heads``, and the rules split
+    their flat width), so the cache holds the heads its rank computes, as
+    DTensor splits them."""
     if (t.dim() != 4 or spec[2] != rules.tp_axis or safe[2] is not None
             or rules.tp_axis not in shd.mesh_shape(mesh)):
         return False
     ranks = shd.axis_size(mesh, rules.tp_axis)
-    return (t.shape[2] == cfg.num_kv_heads == cfg.num_heads
+    return (layers.kv_split_by_heads(model.cfg)
             and (t.shape[2] * t.shape[3]) % ranks == 0)
 
 

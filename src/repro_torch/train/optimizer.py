@@ -31,7 +31,7 @@ import math
 
 import torch
 
-from repro_torch.models.sharding import full, heads_of, placed_as
+from repro_torch.models.sharding import full, keep_heads, placed_as
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,11 +188,12 @@ def topk_compress(grads, ef_state, density: float = 0.01):
     """
     def one(g_leaf, r_leaf):
         gs, rs = members(g_leaf), members(r_leaf)
-        accs = [placed_as(g.float(), r) + r for g, r in zip(gs, rs)]
+        # laid out as the residual (by whole heads where it is so split)
+        accs = [keep_heads(placed_as(g.float(), r) + r, r)
+                for g, r in zip(gs, rs)]
         # the leaf's global top k, as GSPMD computes it: over a mesh each
         # member is gathered whole for the threshold
-        flat = torch.cat([full(a, heads_of(r)).abs().reshape(-1)
-                          for a, r in zip(accs, rs)])
+        flat = torch.cat([full(a).abs().reshape(-1) for a in accs])
         size = flat.shape[0]
         k = max(1, int(density * size))
         thresh = torch.topk(flat, k).values[-1]
@@ -202,7 +203,7 @@ def topk_compress(grads, ef_state, density: float = 0.01):
             mask = torch.abs(a) >= thresh
             s = torch.where(mask, a, 0.0)
             sent.append(s.to(g.dtype))
-            resid.append(a - s)
+            resid.append(keep_heads(a - s, a))
             kept = kept + full(mask.sum())
         dens = kept.to(torch.float32) / size
         if not isinstance(g_leaf, list):

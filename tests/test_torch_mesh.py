@@ -103,7 +103,11 @@ TRAIN_1X4 = {"rwkv": ("rwkv6-1.6b", "tp", {}),
                                                    "num_kv_heads": 6,
                                                    "d_model": 384}),
              "whisper-heads6": ("whisper-base", "tp", {"num_heads": 6,
-                                                       "num_kv_heads": 6})}
+                                                       "num_kv_heads": 6}),
+             "heads6-topk": ("qwen3-1.7b", "fsdp", {"num_heads": 6})}
+# a case's gradient compression where it is not "none": top-k keeps an
+# error-feedback residual a parameter, laid out as the parameter
+TRAIN_COMPRESSION = {"heads6-topk": "topk"}
 HEADS6 = {"num_heads": 6}
 # decode with 6 query heads on (1, 4): (arch, overrides); whisper-base's
 # are MHA, so its kv projections and its decode cache split by heads too
@@ -116,9 +120,16 @@ SERVE_B, PROMPT, DECODES, MAX_LEN = 2, 12, 2, 32
 AXES = ("data", "model")
 
 
-def _train_run(mode):
+def _train_run(mode, compression="none"):
     return RunConfig(sharding_mode=mode, remat="block", q_chunk=16,
-                     kv_chunk=16, loss_chunk=16, compute_dtype="float32")
+                     kv_chunk=16, loss_chunk=16, compute_dtype="float32",
+                     grad_compression=compression)
+
+
+def _case_run(name):
+    """The RunConfig of a train case of TRAIN or TRAIN_1X4."""
+    return _train_run(_train_config(name)[1],
+                      TRAIN_COMPRESSION.get(name, "none"))
 
 
 def _serve_run(seq_shard=False):
@@ -233,6 +244,9 @@ def _state_misplaced(state, specs, mesh):
     for k in ("m", "v"):
         bad += _misplaced(_flat(state["opt"][k]), _flat(specs["opt"][k]),
                           mesh, heads)
+    if "ef" in state:
+        bad += _misplaced(_flat(state["ef"]["residual"]),
+                          _flat(specs["ef"]["residual"]), mesh, heads)
     return bad
 
 
@@ -252,14 +266,14 @@ def _train_case(name, mesh, check_init=False):
     whole init's shards."""
     from repro_torch.models import rwkv6 as trwkv
 
-    cfg, mode = _train_config(name)
+    cfg, _ = _train_config(name)
     step, init, sh = tts.build_train_step(
-        cfg, _train_run(mode), topt.OptConfig(**OPT_KW), mesh=mesh,
+        cfg, _case_run(name), topt.OptConfig(**OPT_KW), mesh=mesh,
         device="cpu")
     state = init(SEED)
     unequal = None
     if check_init:
-        model = tzoo.build_model(cfg, _train_run(mode), "cpu").init(SEED)
+        model = tzoo.build_model(cfg, _case_run(name), "cpu").init(SEED)
         want = sh["state"].place(tzoo.export_state(
             tts._fresh_state(model, False, "cpu"), host=False))
         unequal = [i for i, (a, b) in enumerate(zip(
@@ -415,6 +429,39 @@ def _linear_case(meshes):
             dx, dw = torch.autograd.grad(loss, (xd, wd))
             out[(mname, repr(xs), repr(ws))] = (
                 _max_err(y, want), _max_err(dx, gx), _max_err(dw, gw))
+    return out
+
+
+def _head_split_case(mesh):
+    """A wo-like ``[96, 8]`` weight of 6 heads of 16 split by whole heads
+    over the model axis of (1, 4): its local rows, its gather, an
+    untagged copy's gather and box (each must raise), the copy's gather
+    once ``keep_heads`` tags it, and ``heads_out`` of an output whole on
+    the axis (narrowed to each rank's heads) and of one split on its
+    heads, against the plain product."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    g = torch.Generator().manual_seed(5)
+    w0 = torch.randn(96, 8, generator=g)
+    o0 = torch.randn(2, 3, 6, 16, generator=g)
+    want = o0.reshape(2, 3, 96) @ w0
+    w = shd.distribute_as(w0, [Replicate(), Shard(0)], mesh, (0, 6))
+    lost = w * 1.0
+
+    def err(a, b):
+        return float((shd.full(a) - b).abs().max())
+    out = {"local_rows": w.to_local().shape[0], "full": err(w, w0)}
+    for name, fn in (("full", shd.full), ("box", shd.shard_box)):
+        try:
+            fn(lost)
+            out[f"lost_{name}"] = None
+        except ValueError as e:
+            out[f"lost_{name}"] = str(e)
+    out["kept"] = err(shd.keep_heads(lost, w), w0)      # tags lost itself
+    for name, pl in (("whole", [Replicate(), Replicate()]),
+                     ("split", [Replicate(), Shard(2)])):
+        o = shd.distribute_as(o0, pl, mesh)
+        out[f"out_{name}"] = err(shd.heads_out(o, w), want)
     return out
 
 
@@ -650,6 +697,7 @@ def _worker(rank, world, init_file, ckpt_root, results):
                 arch: _serve_case(arch, meshes["1x4"], overrides=kw)
                 for arch, kw in SERVE_HEADS6.items()}
             out["write"] = _write_case({k: meshes[k] for k in ("2x2", "1x4")})
+            out["head_split"] = _head_split_case(meshes["1x4"])
             out["flash"] = {2: _flash_case(mesh, "model"),
                             4: _flash_case(meshes["1x4"], "model")}
         if world == 2:
@@ -732,8 +780,8 @@ def _free_train(name):
     from repro.train import train_step as jts
     from repro.train.optimizer import OptConfig as JOpt
 
-    cfg, mode = _train_config(name)
-    run = _train_run(mode)
+    cfg, _ = _train_config(name)
+    run = _case_run(name)
     step, init, _ = tts.build_train_step(cfg, run, topt.OptConfig(**OPT_KW),
                                          device="cpu")
     state = init(SEED)
@@ -742,7 +790,7 @@ def _free_train(name):
         _train_config(name, jreg)[0],
         JRun(**{k: getattr(run, k) for k in (
             "sharding_mode", "remat", "q_chunk", "kv_chunk", "loss_chunk",
-            "compute_dtype")}), JOpt(**OPT_KW))
+            "compute_dtype", "grad_compression")}), JOpt(**OPT_KW))
     losses, jlosses = [], []
     for b in _batches(cfg):
         state, stats = step(state, b)
@@ -866,14 +914,15 @@ def test_whole_heads_train_on_their_shares(name):
     axis (each rank one head's half of the value columns), rwkv6 with 6
     heads (the loop on ``head_chunk``'s 2, 2, 2 and 0 a rank), reduced
     qwen3-1.7b with 6 query heads (their projections split by whole
-    heads, 2, 2, 2 and 0 a rank) and reduced whisper-base with 6 (MHA:
-    its kv projections and cross-attention so split too, rank 3 without
-    heads or kv heads): three steps' losses and state within
-    TOL of the port's mesh-free step and of the reference's jitted one
-    (rwkv6's state within RWKV_REF_ATOL of the reference's, the 6-head
-    rwkv6's of the mesh-free step's too); every
-    parameter and moment placed by its spec, and by whole heads where it
-    must be, on every rank; no call of the RWKV loop on more than
+    heads, 2, 2, 2 and 0 a rank), also under top-k compression (its
+    error-feedback residual gathered for the threshold at every step),
+    and reduced whisper-base with 6 (MHA: its kv projections and
+    cross-attention so split too, rank 3 without heads or kv heads):
+    three steps' losses and state within TOL of the port's mesh-free step
+    and of the reference's jitted one (rwkv6's state within RWKV_REF_ATOL
+    of the reference's, the 6-head rwkv6's of the mesh-free step's too);
+    every parameter, moment and residual placed by its spec, and by whole
+    heads where it must be, on every rank; no call of the RWKV loop on more than
     ``ceil(H / 4)`` heads; the per-shard init's shards those of the whole
     init bit for bit."""
     got, _ = _launch(4)
@@ -1014,6 +1063,24 @@ def test_linear_on_shards_matches_matmul(world):
         assert len(cases) == len(MESHES[world]) * len(LINEAR_SPECS)
         for key, errs in cases.items():
             assert max(errs) <= LINEAR_ATOL, (key, errs)
+
+
+def test_a_head_split_keeps_its_layout_or_is_refused():
+    """(1, 4): a weight of 6 heads split by whole heads (2, 2, 2 and 0 a
+    rank) gathers to its value; a copy computed from it carries no tag,
+    and ``full`` and ``shard_box`` refuse it on every rank (a gather by
+    DTensor's own split would pair the wrong columns, or hang) until
+    ``keep_heads`` tags it again; ``heads_out`` equals the plain product
+    within LINEAR_ATOL whether the heads' output is whole on the axis or
+    split on its heads."""
+    got, _ = _launch(4)
+    for rank in got:
+        r = got[rank]["head_split"]
+        assert r["local_rows"] == (32, 32, 32, 0)[rank], r
+        assert r["full"] == 0 and r["kept"] == 0, r
+        for name in ("lost_full", "lost_box"):
+            assert r[name] is not None and "lost its tag" in r[name], r
+        assert max(r["out_whole"], r["out_split"]) <= LINEAR_ATOL, r
 
 
 @pytest.mark.parametrize("world", [1, 2, 4])
