@@ -137,7 +137,10 @@
     Device bytes outside torch's allocator (the CUDA context and the
     kernels' code; the hub launch's scratch is taken from torch's
     allocator by the wrappers) are logged around each superstep and each
-    phase 4 fused case, and must not grow at phase 4's first Q = 9 call.
+    phase 4 fused case, and must not grow at phase 4's first Q = 9 call:
+    this process's bytes as NVML counts them (libnvidia-ml.so.1 through
+    ctypes; other processes on the card do not move them) less torch's
+    reserved bytes, the whole card's figure logged beside them.
 13. Device mesh ("mesh"): DistributedGABEngine over a process group of
     world size 1 on NCCL, all 64 tiles resident on the card: PageRank
     for 5 supersteps in dense, sparse and hybrid comm (in sparse, the
@@ -1017,17 +1020,23 @@ def check_fused_kernel(torch, tile, plan, flush):
         for q in qs:
             case = fused_inputs(torch, prog, dst, tile.meta.num_rows,
                                 plan.row_cap, q, gen)
-            m0 = non_torch_device_bytes(torch)
+            m0, c0 = non_torch_device_bytes(torch), card_non_torch_bytes(torch)
             row = check_fused_case(torch, case, flush,
                                    f"fused {name} Q={q}")
             # the hub launch's scratch grows inside torch's allocator: the
             # first Q = 9 call (more column passes, more scratch, the Q = 8
-            # kernels) adds nothing outside it
+            # kernels) adds nothing outside it, in this process (NVML);
+            # the whole card's figure, which other processes move, beside it
             row["non_torch_growth"] = non_torch_device_bytes(torch) - m0
-            if q == NUM_QUERIES + 1 and row["non_torch_growth"]:
-                raise AssertionError(
-                    f"fused {name} Q={q}: {row['non_torch_growth']:+d} "
-                    "bytes outside torch's allocator")
+            row["card_non_torch_growth"] = card_non_torch_bytes(torch) - c0
+            if q == NUM_QUERIES + 1:
+                log(f"fused {name} Q={q}: {row['non_torch_growth']:+d} bytes "
+                    "outside torch's allocator in this process (NVML), "
+                    f"{row['card_non_torch_growth']:+d} on the whole card")
+                if row["non_torch_growth"]:
+                    raise AssertionError(
+                        f"fused {name} Q={q}: {row['non_torch_growth']:+d} "
+                        "bytes outside torch's allocator in this process")
             rows.append(dict(spec=name, **row))
             err = max(err, row["max_abs_err"])
     log(f"fused kernel: all cases agree, max |err| {err:.3g}")
@@ -1585,10 +1594,96 @@ def same_bits(a, b):
             and np.array_equal(a.view(np.uint8), b.view(np.uint8)))
 
 
+_NVML = {}
+NVML_NOT_AVAILABLE = (1 << 64) - 1      # NVML_VALUE_NOT_AVAILABLE
+
+
+class NvmlUnattributed(RuntimeError):
+    """NVML lists several processes on the card, none under this PID."""
+
+
+def process_device_bytes(torch):
+    """The card's bytes NVML counts for this process (its CUDA context,
+    the kernels' code and every allocation, torch's pool among them),
+    read through ctypes on libnvidia-ml.so.1, which ships with the
+    driver: nvmlDeviceGetComputeRunningProcesses, this PID's entry.
+    Other processes on the card do not move it.  Where NVML lists the
+    card's processes under the PIDs of another namespace (the chip
+    machine's sandbox lists every process as PID 1) and lists one, that
+    one is this process: it holds a context on the card, so it is listed.
+    Raises where NVML is missing, or where it lists several processes
+    and none under this PID (NvmlUnattributed)."""
+    import ctypes
+
+    class ProcessInfo(ctypes.Structure):    # nvmlProcessInfo_v2_t
+        _fields_ = [("pid", ctypes.c_uint),
+                    ("usedGpuMemory", ctypes.c_ulonglong),
+                    ("gpuInstanceId", ctypes.c_uint),
+                    ("computeInstanceId", ctypes.c_uint)]
+
+    torch.cuda.synchronize()                # this process holds a context
+    if not _NVML:
+        lib = ctypes.CDLL("libnvidia-ml.so.1")
+        if lib.nvmlInit_v2():
+            raise RuntimeError("nvmlInit_v2 failed")
+        uuid = str(torch.cuda.get_device_properties(0).uuid)
+        uuid = uuid if uuid.startswith("GPU-") else f"GPU-{uuid}"
+        handle = ctypes.c_void_p()
+        rc = lib.nvmlDeviceGetHandleByUUID(uuid.encode(), ctypes.byref(handle))
+        if rc:
+            raise RuntimeError(f"nvmlDeviceGetHandleByUUID({uuid}): NVML "
+                               f"error {rc}")
+        name = next(n for n in ("nvmlDeviceGetComputeRunningProcesses_v3",
+                                "nvmlDeviceGetComputeRunningProcesses_v2")
+                    if hasattr(lib, n))
+        _NVML.update(fn=getattr(lib, name), handle=handle)
+    fn, handle = _NVML["fn"], _NVML["handle"]
+    count = ctypes.c_uint(0)
+    fn(handle, ctypes.byref(count), None)     # the count, then the list
+    count = ctypes.c_uint(count.value + 8)
+    infos = (ProcessInfo * count.value)()
+    rc = fn(handle, ctypes.byref(count), infos)
+    if rc:
+        raise RuntimeError(f"nvmlDeviceGetComputeRunningProcesses: NVML "
+                           f"error {rc}")
+    listed = [(p.pid, p.usedGpuMemory) for p in infos[:count.value]]
+    mine = [used for pid, used in listed if pid == os.getpid()]
+    if not mine and len(listed) == 1:
+        mine = [listed[0][1]]
+    if not mine:
+        raise NvmlUnattributed(f"NVML lists {listed} on the card, none "
+                               f"under this process's PID {os.getpid()}")
+    if len(mine) != 1 or mine[0] == NVML_NOT_AVAILABLE:
+        raise RuntimeError(f"NVML: process {os.getpid()} counted as "
+                           f"{mine} on the card ({listed})")
+    return int(mine[0])
+
+
 def non_torch_device_bytes(torch):
-    """Device bytes in use outside torch's caching allocator (the CUDA
-    context and the kernels' code; the hub launch's scratch comes from
-    torch's allocator)."""
+    """This process's device bytes outside torch's caching allocator (the
+    CUDA context and the kernels' code; the hub launch's scratch comes from
+    torch's allocator): NVML's count for this process less torch's
+    reserved bytes."""
+    return process_device_bytes(torch) - torch.cuda.memory_reserved()
+
+
+def logged_non_torch_bytes(torch):
+    """non_torch_device_bytes for a reading that is logged, not asserted:
+    None where NVML cannot tell this process from the others on the card
+    (phase 23's dry-run processes hold contexts from phase 7 on)."""
+    try:
+        return non_torch_device_bytes(torch)
+    except NvmlUnattributed:
+        return None
+
+
+def growth(after, before):
+    return None if after is None or before is None else after - before
+
+
+def card_non_torch_bytes(torch):
+    """The whole card's bytes in use less this process's torch pool:
+    moved by any process on the card (logged beside the process's own)."""
     free, total = torch.cuda.mem_get_info()
     return total - free - torch.cuda.memory_reserved()
 
@@ -1762,12 +1857,12 @@ def admission_script(torch, eng, sources, s10, max_supersteps=None):
             ss = sess.superstep
             if ss == DRAIN_AT:
                 sess.drain([DRAIN_QID])
-            l0, m0 = gab_fused.LAUNCHES, non_torch_device_bytes(torch)
+            l0, m0 = gab_fused.LAUNCHES, logged_non_torch_bytes(torch)
             st = sess.step()
             steps.append(dict(
                 superstep=ss, active_queries=st.active_queries,
                 fused_launches=gab_fused.LAUNCHES - l0,
-                non_torch_growth=non_torch_device_bytes(torch) - m0,
+                non_torch_growth=growth(logged_non_torch_bytes(torch), m0),
                 ms=1e3 * st.seconds, admitted=list(st.admitted_queries),
                 drained=list(st.drained_queries),
                 retired=list(st.retired_queries),
@@ -1817,7 +1912,7 @@ def admission_phase(torch, store, sources, s9, s10, msbfs, levels,
             f"{row['fused_launches']} fused launches, {row['ms']:.1f} ms, "
             f"admitted {row['admitted']}, drained {row['drained']}, retired "
             f"{row['retired']}, non-torch device bytes "
-            f"{row['non_torch_growth']:+d}")
+            f"{row['non_torch_growth']}")
     q = len(sources)
     nine = [r for r in steps if r["active_queries"] == q + 1]
     if not res.converged or not nine or g10 is None or partial is None:
@@ -2650,7 +2745,7 @@ def serve_phase(torch, store, src, dst, sources, msbfs, levels, s9, s10):
                 app=app, supersteps=sess.superstep,
                 allocated=torch.cuda.memory_allocated(),
                 reserved=torch.cuda.memory_reserved(),
-                non_torch=non_torch_device_bytes(torch)))
+                non_torch=logged_non_torch_bytes(torch)))
 
     specs = {MultiSourceBFS().fused_spec(): "msbfs",
              LandmarkDistances().fused_spec(): "landmarks"}
@@ -2676,7 +2771,7 @@ def serve_phase(torch, store, src, dst, sources, msbfs, levels, s9, s10):
     torch.cuda.synchronize()
     mem0 = dict(allocated=torch.cuda.memory_allocated(),
                 reserved=torch.cuda.memory_reserved(),
-                non_torch=non_torch_device_bytes(torch))
+                non_torch=logged_non_torch_bytes(torch))
     log(f"serve: {svc.cfg.device}, frontend {base}; before: {mem0}")
     gab_fused.gab_fused = recording
     try:
