@@ -381,8 +381,8 @@ def rank_main(rank, port, job, results):
 
     faulthandler.dump_traceback_later(job["watchdog_s"], exit=False)
     try:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.set_float32_matmul_precision("highest")
+        from repro_torch.models.layers import exact_matmuls
+        exact_matmuls()
         backend = init_process_group(rank, job["world"],
                                      f"tcp://localhost:{port}",
                                      device=job["device"])
@@ -702,8 +702,8 @@ def main():
         return 1
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=False)
     t_all = time.perf_counter()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    from repro_torch.models.layers import exact_matmuls
+    exact_matmuls()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip()

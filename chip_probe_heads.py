@@ -121,8 +121,8 @@ def heads_rank(rank, port, job, results):
         from repro_torch.train import train_step as ts
         from repro_torch.train.data import SyntheticLM
 
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.set_float32_matmul_precision("highest")
+        from repro_torch.models.layers import exact_matmuls
+        exact_matmuls()
         if job["device"] == "cpu":
             torch.set_num_threads(1)
         init_process_group(rank, job["world"], f"tcp://localhost:{port}",

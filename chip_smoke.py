@@ -489,6 +489,14 @@ def log(msg):
     print(msg, flush=True)
 
 
+def exact_matmuls():
+    """The card's products as the reference's dots: no TF32, bfloat16
+    partial sums in float32 (models/layers.py:exact_matmuls)."""
+    from repro_torch.models.layers import exact_matmuls as port_numerics
+
+    port_numerics()
+
+
 def card_info(torch):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
@@ -3254,7 +3262,7 @@ def lm_serve_phase(torch):
     from repro_torch.models.model_zoo import build_model, param_count
     from repro_torch.serve.engine import Request, ServeEngine
 
-    torch.set_float32_matmul_precision("highest")
+    exact_matmuls()
     out = {}
     dev = torch.device(DEV)
 
@@ -3567,8 +3575,7 @@ def lm_train_phase(torch):
     docstring)."""
     from repro_torch.roofline import hw
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    exact_matmuls()
     torch.cuda.empty_cache()
     losses, steps_s, printed, mem = lm_train_cli(torch)
     m = re.match(r"init in [\d.]+s; params = ([\d,]+)", printed[0])
@@ -3857,8 +3864,7 @@ def lm_families_phase(torch):
     (module docstring)."""
     from repro_torch.configs import registry
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    exact_matmuls()
     torch.cuda.empty_cache()
     out = {"decode": [lm_family_decode(torch, arch, ov)
                       for arch, ov in LM_FAMILY_FULL]}
@@ -4194,8 +4200,7 @@ def lm_mesh_phase(torch, lm_train):
     from repro_torch.core.distributed import init_process_group
     from repro_torch.launch.mesh import make_mesh
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    exact_matmuls()
     torch.cuda.empty_cache()
     backend = init_process_group(0, 1, f"tcp://localhost:{free_port()}",
                                  device=DEV)
@@ -4491,8 +4496,7 @@ def lm_dryrun_card(torch, smi):
     from repro_torch.train.data import SyntheticLM
     from repro_torch.train.optimizer import OptConfig
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    exact_matmuls()
     argv = dict(zip(LM_TRAIN_ARGV[::2], LM_TRAIN_ARGV[1::2]))
     steps, batch, seq = (int(argv[k]) for k in ("--steps", "--batch",
                                                 "--seq"))
@@ -4601,8 +4605,7 @@ def main():
     # a run still going near the time limit prints every thread's stack
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=False)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    exact_matmuls()
     smi = card_info(torch)
 
     t0 = time.perf_counter()

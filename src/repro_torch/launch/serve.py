@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.configs import registry
 from repro_torch.configs.base import RunConfig
+from repro_torch.models import layers
 from repro_torch.models.model_zoo import build_model, load_params
 from repro_torch.serve.engine import Request, ServeEngine, check_servable
 from repro_torch.serve.graph_service import bind_device
@@ -55,9 +56,9 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     device = bind_device(args.device)
-    # float32 means float32: no TF32 in the matmuls
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    # float32 means float32 and bfloat16 sums in float32 (no TF32, no
+    # reduced-precision reduction): the reference's dots
+    layers.exact_matmuls()
     cfg = registry.get_config(args.arch, reduced=args.reduced)
     check_servable(cfg)
     overrides = {}

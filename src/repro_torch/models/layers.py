@@ -50,6 +50,18 @@ from repro_torch.models.sharding import (batch_heads, cns,
 NEG_INF = -1e30
 
 
+def exact_matmuls() -> None:
+    """Make the card's products compute as the reference's dots do: a
+    float32 product in float32 (no TF32, in cuBLAS or cuDNN), and a
+    bfloat16 product summing its partial products in float32 (cuBLAS may
+    otherwise split K and add the partial sums in bfloat16).  The CLIs
+    and the smoke set the numerics here, and only here."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.set_float32_matmul_precision("highest")
+
+
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------
