@@ -120,8 +120,12 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg) -> torch.Tensor:
     # gathered: routing has no DTensor sharding rule, so it runs on whole
     # tensors on every rank
     logits = full(linear(_each_rank_rows(xt), p.router.to(cdt)).float())
-    gates, eids = torch.topk(logits, cfg.experts_per_token, dim=-1,
-                             sorted=True)
+    # the k largest, ties to the lower expert id as lax.top_k breaks them:
+    # torch.topk leaves the order of ties open (the CPU's prefers the
+    # higher id), and bfloat16 router logits tie often
+    gates, eids = torch.sort(logits, dim=-1, descending=True, stable=True)
+    gates = gates[:, :cfg.experts_per_token]
+    eids = eids[:, :cfg.experts_per_token]
     gates = torch.softmax(gates, dim=-1)
     slot, grid_tok = moe_dispatch(eids, cfg, C)
 
