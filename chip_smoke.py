@@ -342,6 +342,54 @@
     card (CUDA events, the mean of LM_DRYRUN_REPS calls after a warm one)
     beside analysis.roofline's step_s_bound of its count, which it must
     not beat.  Its counts are read and logged as zero.
+24. The language models at the reference's compute dtype ("lm bf16"):
+    compute_dtype "bfloat16" and otherwise the RunConfig that
+    registry.default_run_config gives each cell on one device, the
+    card's products as the reference's dots (models/layers.py:
+    exact_matmuls: no TF32, bfloat16 partial sums in float32).  (a) The
+    reduced qwen3-1.7b and granite-moe-1b-a400m at LM_BF16_PARITY (4 x
+    64, the train_4k RunConfig with its chunks cut to the sequence:
+    microbatch 2, remat "block"), the same parameters and batch on the
+    card and on the CPU: train_step.model_loss_fn's loss within
+    LM_BF16_LOSS_ATOL and every gradient leaf within LM_BF16_GRAD_REL of
+    its largest magnitude (tests/test_torch_train_grads.py's bounds
+    against the reference), the full forward's logits within LM_BF16_ATOL
+    (tests/test_torch_models.py's); then one bfloat16 GEMM at the MLP's
+    wo shape of a train_4k microbatch with cuBLAS's reduced-precision
+    reduction on and off, its largest error against float64 and its ms.
+    (b) qwen3-1.7b served in bfloat16 (a bfloat16 KV cache) at phase 19
+    (a)'s shapes and requests through a ServeEngine that keeps the logits
+    it samples from: a batched slot's logits against the same request
+    alone in a 1-slot engine, at every step up to the first token that
+    differs, and decode_step's logits against the full forward's, each
+    logit within the larger of LM_BF16_ATOL and LM_BF16_ULPS bfloat16 ulps
+    of its row's largest magnitude (bf16_logits_err; the tests' bound is
+    about four ulps at the reduced models' 0.7, and at full width a logit
+    near 0 carries the rounding of a row whose largest pass 8, where one
+    ulp is 0.0625), both forwards logged against the float32 forward of
+    the same parameters (bfloat16's own error); tokens are
+    recorded, not asserted (random-init logits are near-tied and bfloat16
+    can flip a greedy choice); prefill ms, ms a decode step, tokens/s and
+    torch's peak logged beside phase 19 (a)'s float32 figures, and one
+    batched decode step under torch.profiler (device busy, the casts'
+    and the products' device ms).  (c) qwen3-1.7b's train_4k at its own
+    RunConfig (microbatch 2, remat "block", chunks of 512), 2 x 4,096
+    tokens, 6 steps: every loss finite; the first step counted on the
+    card (hlo_cost.run) and held to dryrun.count of the same cell on fake
+    tensors (in DryRuns' side process: lm_bf16_fake_counts): ops, FLOPs,
+    bytes and fused bytes equal, ms a step (steps 2+) not below
+    analysis.roofline's bound of the count; logged: ms a step, tokens/s,
+    6 · params · tokens as a share of the bfloat16 peak, torch's peak
+    beside the dry run's.  (d) qwen3-1.7b's decode_32k through
+    serve_step.build_serve_fns at batch 4 against a 32,768-token bfloat16
+    cache (15.0 GB) filled with seeded values, at cache length 32,767:
+    logits finite, counts equal card vs fake, the median of
+    LM_DRYRUN_REPS steps (CUDA events) not below the bound, beside the dry
+    run's bound of the cell.  (e) granite-moe-1b-a400m's train_4k at 2 x
+    4,096, 3 steps as (c); then the reduced granite-moe in bfloat16 at
+    LM_FAMILY_RESUME_BATCH (the train_4k RunConfig, chunks of 256) failed
+    at step 5 and resumed against 10 straight steps, bit for bit in every
+    leaf.  Its counts are read and logged as zero.
 
 Phase 11, the out-of-core part of 12 ("admission ooc", admission_ooc)
 and part c of 15 (checkpoint_ooc) run in three spawned side processes
@@ -351,7 +399,7 @@ work that leaves the card idle, so they run on other cores beside phases
 side's kernels count in its process and report; its lines are logged
 when it is joined.
 
-Phases 5, 6, 8, 9, 11, 13, 14, 16, 17c, 19, 20, 21, 22 and 23, the
+Phases 5, 6, 8, 9, 11, 13, 14, 16, 17c, 19, 20, 21, 22, 23 and 24, the
 in-memory session of 12 and its out-of-core session ("admission ooc")
 and each part of 15
 ("checkpoint" sums a and b, then "checkpoint ooc", "cluster restart") set
@@ -464,6 +512,23 @@ LM_SHARE_BEFORE_C5 = {            # (2, 2), (1, 4) before C.5, on the CPU
     "rwkv6-1.6b:0": (1.02, 1.18), "qwen3-1.7b:6": (1.0, 1.3214)}
 LM_DRYRUN_TIMEOUT_S = 1000        # each cell, from the start of them all
 LM_DRYRUN_REPS = 5                # phase 23 (b): timed calls after a warm one
+LM_BF16_ARCH = "qwen3-1.7b"       # phase 24 (a)-(d): bfloat16
+LM_BF16_MOE_ARCH = "granite-moe-1b-a400m"  # phase 24 (a), (e)
+LM_BF16_ATOL = 3e-2               # logits (tests/test_torch_models.py's
+LM_BF16_ULPS = 4                  # bound, "about four bfloat16 ulps at
+                                  # 0.7"): within the larger of the two
+LM_BF16_LOSS_ATOL = 1e-3          # loss and gradient leaves against the
+LM_BF16_GRAD_REL = 5e-2           # CPU (tests/test_torch_train_grads.py)
+LM_BF16_PARITY = (4, 64)          # (a): reduced, batch x seq
+LM_BF16_TRAIN_BATCH = 2           # (c), (e): 2 x 4096, a sequence a microbatch
+LM_BF16_TRAIN_STEPS = 6           # (c)
+LM_BF16_MOE_STEPS = 3             # (e)
+LM_BF16_DECODE_BATCH = 4          # (d): against a 32,768-token cache
+LM_BF16_COUNTS = (                # (c)-(e) on fake tensors, beside the card
+    (LM_BF16_ARCH, "train_4k", LM_BF16_TRAIN_BATCH),
+    (LM_BF16_ARCH, "decode_32k", LM_BF16_DECODE_BATCH),
+    (LM_BF16_MOE_ARCH, "train_4k", LM_BF16_TRAIN_BATCH))
+LM_BF16_GEMM = (4096, 6144, 2048)  # (a): M, K, N of the MLP's wo at train_4k
 ADMIT_OOC_SUPERSTEPS = 2     # admission session compared out of core (cut
                              # from 3: its Q = 9 superstep took 78-103 s)
 CKPT_CRASH_SS = 3            # checkpoint: crash at the start of superstep 3
@@ -4010,11 +4075,12 @@ def lm_mesh_init_check(torch, cfg, run, init):
     return out
 
 
-def profiled_call(torch, fn):
+def profiled_call(torch, fn, by_op=()):
     """``fn()`` once under torch.profiler: its wall ms (the profiler's
     overhead included), the device's busy ms (kernels and copies, as in
-    profiled_step) and the ops the host dispatched (CPU events: aten ops,
-    DTensor's among them)."""
+    profiled_step), the ops the host dispatched (CPU events: aten ops,
+    DTensor's among them) and, for each op named in ``by_op``, the
+    device ms of its kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -4030,9 +4096,13 @@ def profiled_call(torch, fn):
                if e.device_type == cuda
                and not e.key.startswith("Activity Buffer")) / 1e3
     host_ops = sum(e.count for e in events if e.device_type != cuda)
-    return dict(wall_ms=1e3 * wall, device_busy_ms=busy,
-                device_busy_share=busy / (1e3 * wall) if wall else 0.0,
-                host_ops=host_ops)
+    out = dict(wall_ms=1e3 * wall, device_busy_ms=busy,
+               device_busy_share=busy / (1e3 * wall) if wall else 0.0,
+               host_ops=host_ops)
+    if by_op:
+        out["by_op"] = {k: sum(e.device_time_total for e in events
+                               if e.key == k) / 1e3 for k in by_op}
+    return out
 
 
 def profile_line(p):
@@ -4217,11 +4287,16 @@ def lm_mesh_phase(torch, lm_train):
     return out
 
 
+BF16_COUNTS_KEY = ("bf16_counts", "one", "bf16")
+
+
 class DryRuns:
     """Phase 23 (a): each dry-run cell (``python -m
     repro_torch.launch.dryrun --arch A --cell C --mesh M``) in a process of
     its own, started together beside the main sequence (host work: fake
-    tensors allocate nothing on the card); ``join`` waits for them."""
+    tensors allocate nothing on the card), with phase 23's rank shares and
+    phase 24's counts (lm_bf16_fake_counts) in two more; ``join`` waits
+    for them."""
 
     def __init__(self, jobs, out_dir):
         shutil.rmtree(out_dir, ignore_errors=True)
@@ -4245,6 +4320,14 @@ class DryRuns:
         self.procs.append((("rank_shares", "train_4k", "c5"), subprocess.Popen(
             [sys.executable, "-c", code, json.dumps(jobs_c5), self.shares],
             stdout=logf, stderr=subprocess.STDOUT, env=env, cwd=ROOT), logf))
+        # phase 24's counts on fake tensors, beside the card's work
+        self.bf16 = os.path.join(out_dir, "bf16")
+        os.makedirs(self.bf16)
+        logf = open(os.path.join(self.bf16, "bf16_counts.log"), "w")
+        self.procs.append((BF16_COUNTS_KEY, subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.lm_bf16_fake_counts(sys.argv[1])", self.bf16],
+            stdout=logf, stderr=subprocess.STDOUT, env=env, cwd=ROOT), logf))
         for arch, cell, mesh, layers in jobs:
             logf = open(os.path.join(out_dir, f"{arch}__{cell}__{mesh}.log"),
                         "w")
@@ -4255,23 +4338,24 @@ class DryRuns:
                 stdout=logf, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
             self.procs.append(((arch, cell, mesh), proc, logf))
 
-    def join(self, timeout):
+    def join(self, timeout, skip=()):
         """{(arch, cell, mesh): (exit code, seconds from the start to its
-        log's last write)}."""
+        log's last write)} of every process whose key is not in ``skip``."""
+        procs = [p for p in self.procs if p[0] not in skip]
         out = {}
-        while len(out) < len(self.procs):
-            for key, proc, logf in self.procs:
+        while len(out) < len(procs):
+            for key, proc, logf in procs:
                 if key not in out and proc.poll() is not None:
                     logf.close()
                     out[key] = (proc.returncode, os.path.getmtime(logf.name)
                                 - self.wall0)
             if time.perf_counter() - self.t0 > timeout:
                 self.kill()
-                left = [k for k, _, _ in self.procs if k not in out]
+                left = [k for k, _, _ in procs if k not in out]
                 raise AssertionError(f"lm dryrun: {left} still running "
                                      f"{timeout} s after their start")
             time.sleep(0.5)
-        return {key: out[key] for key, _, _ in self.procs}
+        return {key: out[key] for key, _, _ in procs}
 
     def kill(self):
         for _, proc, logf in self.procs:
@@ -4291,7 +4375,7 @@ def lm_dryrun_cells(torch, dry):
     from repro_torch.launch import report
     from repro_torch.roofline import hlo_cost, hw
 
-    ends = dry.join(LM_DRYRUN_TIMEOUT_S)
+    ends = dry.join(LM_DRYRUN_TIMEOUT_S, skip=(BF16_COUNTS_KEY,))
     shares = lm_rank_shares(dry, ends.pop(("rank_shares", "train_4k", "c5")))
     rows = []
     for (arch, cell, mesh), (rc, end_s) in ends.items():
@@ -4573,6 +4657,587 @@ def lm_dryrun_phase(torch, dry, smi):
     return out
 
 
+def lm_bf16_run(arch, cell_name, seq=None):
+    """The RunConfig registry.default_run_config gives ``arch``'s cell on
+    one device (``seq`` cuts its sequence and so its chunks), at the
+    reference's compute dtype, bfloat16."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import SHAPE_CELLS
+
+    cell = SHAPE_CELLS[cell_name]
+    if seq is not None:
+        cell = dataclasses.replace(cell, seq_len=seq)
+    return dataclasses.replace(registry.default_run_config(arch, cell, 1),
+                               compute_dtype="bfloat16")
+
+
+def lm_bf16_fake_counts(out_dir):
+    """Phase 24's cells counted on fake tensors (DryRuns' side process):
+    dryrun.count(arch, cell, "one", ...) of each LM_BF16_COUNTS entry, its
+    costs and memory to ``out_dir``/bf16_counts.json and its op record
+    beside them."""
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for arch, cell, batch in LM_BF16_COUNTS:
+        cc, n, run = dryrun.count(arch, cell, "one", DEV, batch=batch)
+        c = cc.counted
+        dryrun.save_record(os.path.join(out_dir, f"{arch}__{cell}.ops.zst"),
+                           c.records)
+        out[f"{arch}:{cell}"] = dict(
+            ops=len(c.records), flops=c.cost.flops, bytes=c.cost.bytes,
+            bytes_fused=c.cost.bytes_fused, memory=c.memory.as_dict(),
+            roofline=dryrun._terms(c.cost, n, cc.model_flops).as_dict(),
+            model_flops=cc.model_flops, batch=batch, count_s=cc.count_s,
+            compute_dtype=run.compute_dtype, microbatch=run.microbatch,
+            remat=run.remat)
+        print(f"{arch} {cell}: {len(c.records)} ops in {cc.count_s:.1f} s",
+              flush=True)
+    with open(os.path.join(out_dir, "bf16_counts.json"), "w") as f:
+        json.dump(out, f)
+
+
+def lm_bf16_fake(dry):
+    """The side process's counts (lm_bf16_fake_counts), joined."""
+    rc, end_s = dry.join(LM_DRYRUN_TIMEOUT_S, skip=[
+        k for k, _, _ in dry.procs if k != BF16_COUNTS_KEY])[BF16_COUNTS_KEY]
+    path = os.path.join(dry.bf16, "bf16_counts.json")
+    if rc != 0 or not os.path.exists(path):
+        with open(os.path.join(dry.bf16, "bf16_counts.log")) as f:
+            tail = f.read()[-3000:]
+        raise AssertionError(f"lm bf16 fake counts: exit code {rc}\n{tail}")
+    with open(path) as f:
+        counts = json.load(f)
+    log(f"lm bf16 fake counts: {end_s:.1f} s after the start")
+    return counts, end_s
+
+
+def dtype_split(records):
+    """What a counted call's op record spends where (phase 24): its
+    products' FLOPs by operand dtype, and the bytes its float32 ->
+    bfloat16 casts move (a weight's bfloat16 copy made at every call
+    among them), each beside the least time it takes on the card
+    (roofline/hw.py: bfloat16 products at the tensor cores' peak,
+    float32 ones at the FP32 rate, casts at the HBM rate).  Under
+    inference_mode (a serve call) the counter sees ``aten.to`` whole and
+    counts it free, as a view: a decode step's casts are not in its
+    record."""
+    from repro_torch.roofline import hlo_cost, hw
+
+    flops, cast = {}, 0
+    for r in records:
+        if hlo_cost.op_kind(r.name) == "dot":
+            dt = r.args[0][2]
+            flops[dt] = flops.get(dt, 0.0) + hlo_cost._dot_flops(r)
+        elif r.name == "aten._to_copy.default" and r.args[0][2] == \
+                "float32" and r.outs[0][1] == "bfloat16":
+            cast += 6 * int(np.prod(r.args[0][1]))
+    rate = {"bfloat16": hw.PEAK_FLOPS_BF16, "float32": hw.F32_FLOPS}
+    return dict(dot_flops=flops, cast_bytes=cast,
+                dot_ms={k: 1e3 * v / rate[k] for k, v in flops.items()
+                        if k in rate},
+                cast_ms=1e3 * cast / hw.HBM_BW)
+
+
+def held_to_fake(torch, what, real, fake, record, ms, smi):
+    """Phase 24: a call counted on the card (``real``, hlo_cost.run)
+    against the same call's count on fake tensors (``fake``, its op record
+    at ``record``): ops, FLOPs, bytes and fused bytes equal, and ``ms``
+    measured on the card not below analysis.roofline's bound of the
+    count."""
+    from repro_torch.compat import zstd_decompress
+    from repro_torch.roofline import analysis, hlo_cost
+
+    rc = real.cost
+    got = dict(ops=len(real.records), flops=rc.flops, bytes=rc.bytes,
+               bytes_fused=rc.bytes_fused)
+    want = {k: fake[k] for k in got}
+    if got != want:
+        with open(record, "rb") as f:
+            frec = [hlo_cost.OpRecord.from_list(r) for r in
+                    json.loads(zstd_decompress(f.read()))]
+        diff = count_diff(real.records, frec)
+        raise AssertionError(f"lm bf16 {what}: the card counts {got}, fake "
+                             f"tensors {want}; ops that differ: "
+                             f"{list(diff.items())[:20]}")
+    terms = analysis.roofline(rc.flops, rc.bytes, rc.coll_bytes, 1, 0.0,
+                              hbm_bytes_fused=rc.bytes_fused)
+    bound_ms = 1e3 * terms.step_s_bound
+    if not ms >= bound_ms:
+        raise AssertionError(f"lm bf16 {what}: {ms:.4g} ms on the card, "
+                             f"below its bound {bound_ms:.4g} ms")
+    split = dtype_split(real.records)
+    log(f"lm bf16 {what}: {got['ops']} ops, {rc.flops:.6g} FLOPs, "
+        f"{rc.bytes:.6g} bytes ({rc.bytes_fused:.6g} fused) on the card and "
+        f"on fake tensors alike; {ms:.3f} ms on the card ({smi}) against a "
+        f"bound of {bound_ms:.4g} ms ({terms.bottleneck}), measured / bound "
+        f"{ms / bound_ms:.2f}; products by operand dtype "
+        + ", ".join(f"{k} {v:.4g} FLOPs ({split['dot_ms'].get(k, 0):.4g} ms "
+                    "at its peak)" for k, v in split["dot_flops"].items())
+        + f"; float32 -> bfloat16 casts {split['cast_bytes']:.4g} bytes "
+        f"({split['cast_ms']:.4g} ms at the HBM rate)")
+    return dict(**got, bound_ms=bound_ms, bottleneck=terms.bottleneck,
+                measured_over_bound=ms / bound_ms, dtype_split=split,
+                memory_card=real.memory.as_dict(),
+                memory_fake=fake["memory"])
+
+
+def lm_bf16_gemm(torch):
+    """Phase 24 (a), the first trouble point: one bfloat16 GEMM at the
+    MLP's wo shape of a train_4k microbatch (LM_BF16_GEMM) with cuBLAS's
+    reduced-precision reduction on and off (the port's setting), each
+    result's largest error against float64 on the same operands and its
+    ms (CUDA events, median of 10)."""
+    from repro_torch.models.layers import exact_matmuls
+
+    m, k, n = LM_BF16_GEMM
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 24)
+    a = torch.randn(m, k, device=DEV, generator=gen).bfloat16()
+    b = (torch.randn(k, n, device=DEV, generator=gen) * k ** -0.5).bfloat16()
+    want = a.double() @ b.double()
+    out = {}
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
+    try:
+        for on in (True, False):
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction\
+                = on
+            got = a @ b
+            out["on" if on else "off"] = dict(
+                max_abs_err=float((got.double() - want).abs().max()),
+                ms=time_ms(torch, lambda: a @ b, flush))
+    finally:
+        exact_matmuls()
+    log(f"lm bf16 GEMM {m} x {k} x {n}: reduced-precision reduction on "
+        f"max |err| {out['on']['max_abs_err']:.4g} ({out['on']['ms']:.4f} "
+        f"ms), off {out['off']['max_abs_err']:.4g} ({out['off']['ms']:.4f} "
+        "ms), against float64")
+    return dict(shape=list(LM_BF16_GEMM), **out)
+
+
+def lm_grads(torch, model, cfg, batch):
+    """(loss, every gradient member as a float64 host array in the
+    reference's leaf order) of train_step.model_loss_fn."""
+    from repro_torch.models.model_zoo import param_tree
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import model_loss_fn
+
+    flat = [p for leaf in opt.leaves(param_tree(model))
+            for p in opt.members(leaf)]
+    model.requires_grad_(True)
+    b = {k: torch.as_tensor(v, device=model.device) for k, v in batch.items()}
+    loss = model_loss_fn(model, cfg)(model, b)
+    grads = torch.autograd.grad(loss, flat)
+    model.requires_grad_(False)
+    return float(loss.detach()), [g.double().cpu().numpy() for g in grads]
+
+
+def lm_bf16_parity(torch):
+    """Phase 24 (a): reduced qwen3-1.7b and granite-moe in bfloat16, one
+    train step's loss and gradients and the full forward's logits on the
+    card against the port's plain step on the CPU, the same parameters
+    and batch; then lm_bf16_gemm."""
+    import copy
+
+    from repro_torch.configs import registry
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.data import SyntheticLM
+
+    out = {}
+    batch, seq = LM_BF16_PARITY
+    for arch in (LM_BF16_ARCH, LM_BF16_MOE_ARCH):
+        cfg = registry.get_config(arch, reduced=True)
+        run = lm_bf16_run(arch, "train_4k", seq)
+        cpu = build_model(cfg, run, "cpu").init(SEED)
+        card = copy.deepcopy(cpu).to(DEV)
+        data = SyntheticLM(cfg, batch, seq, seed=SEED).batch_at(0)
+        res = {}
+        for name, model in (("cpu", cpu), ("card", card)):
+            loss, grads = lm_grads(torch, model, cfg, data)
+            with torch.inference_mode():
+                tok = torch.as_tensor(data["tokens"], device=model.device)
+                h, _ = model.hidden(tok, mode="train")
+                logits = model.logits(h).float().cpu()
+            res[name] = (loss, grads, logits)
+        (l0, g0, z0), (l1, g1, z1) = res["cpu"], res["card"]
+        loss_err = abs(l1 - l0)
+        grad_rel = max(float(np.max(np.abs(a - b)))
+                       / max(float(np.max(np.abs(a))), 1e-30)
+                       for a, b in zip(g0, g1))
+        logit_err = float((z1 - z0).abs().max())
+        row = dict(arch=arch, batch=[batch, seq], loss_cpu=l0, loss_card=l1,
+                   loss_abs_err=loss_err, grad_max_rel_err=grad_rel,
+                   logits_max_abs_err=logit_err, leaves=len(g0))
+        log(f"lm bf16 parity {cfg.name} ({batch} x {seq}, microbatch "
+            f"{run.microbatch}, remat {run.remat}): loss card {l1:.6f} vs "
+            f"cpu {l0:.6f} (|err| {loss_err:.3g}), {len(g0)} gradient "
+            f"leaves within {grad_rel:.3g} of their scale, logits max |err| "
+            f"{logit_err:.3g}")
+        if not (loss_err <= LM_BF16_LOSS_ATOL and grad_rel <= LM_BF16_GRAD_REL
+                and logit_err <= LM_BF16_ATOL):
+            raise AssertionError(f"lm bf16 parity {cfg.name}: {row}")
+        out[arch] = row
+        del cpu, card
+    out["gemm"] = lm_bf16_gemm(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_logits_err(torch, got, want, vocab):
+    """Two bfloat16 logit tensors ``[..., V]`` compared over the first
+    ``vocab`` entries (phase 24 (b)): (the largest |got - want|, the
+    largest in bfloat16 ulps of its row's largest |want|, the largest
+    over the bound).  Each logit is held within the larger of
+    LM_BF16_ATOL and LM_BF16_ULPS ulps of its row's largest magnitude: a
+    logit sums products whose rounding scales with the row's values, not
+    its own (one near 0 carries its neighbours' error), and the tests'
+    absolute bound is about four ulps at the reduced models' 0.7."""
+    got, want = got[..., :vocab].float(), want[..., :vocab].float()
+    err = (got - want).abs()
+    top = want.abs().amax(dim=-1, keepdim=True).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    tol = torch.clamp(LM_BF16_ULPS * ulp, min=LM_BF16_ATOL)
+    return (float(err.max()), float((err / ulp).max()),
+            float((err / tol).max()))
+
+
+def lm_bf16_serve(torch, lm_serve):
+    """Phase 24 (b): qwen3-1.7b served in bfloat16 at phase 19 (a)'s
+    shapes, its figures beside phase 19's float32 ones (``lm_serve``)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    class Recording(ServeEngine):
+        """The engine, keeping the logits each request's tokens were
+        sampled from, by (rid, step)."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.logits = {}
+
+        def _sample(self, logits, req, step):
+            self.logits[(req.rid, step)] = logits.float().cpu()
+            return super()._sample(logits, req, step)
+
+    dev = torch.device(DEV)
+    args = serve_cli.parse_args(["--arch", LM_BF16_ARCH])
+    cfg = registry.get_config(LM_BF16_ARCH)
+    run = lm_bf16_run(LM_BF16_ARCH, "decode_32k")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, run, DEV).init(args.seed)
+    rng = np.random.default_rng(args.seed)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab_size, args.prompt_len).astype(np.int32),
+        max_new_tokens=args.max_new) for i in range(args.requests)]
+
+    def engine(slots):
+        return Recording(cfg, run, model, slots=slots, max_len=args.max_len,
+                         cache_dtype=torch.bfloat16, device=DEV)
+
+    eng = engine(args.slots)
+    t0 = time.perf_counter()
+    outs = eng.run_requests(reqs)
+    wall = time.perf_counter() - t0
+    steps = eng.stats["decode_steps"]
+    n_tok = sum(len(o.tokens) for o in outs)
+    if len(outs) != args.requests or any(len(o.tokens) != args.max_new
+                                         for o in outs):
+        raise AssertionError(f"lm bf16 serve: {len(outs)} completions, "
+                             f"lengths {[len(o.tokens) for o in outs]}")
+    by_rid = {o.rid: o.tokens for o in outs}
+    prefill_ms = 1e3 * float(np.mean([o.prefill_s for o in outs]))
+    decode_ms = 1e3 * sum(o.decode_s for o in outs) / steps
+    mem = lm_memory(torch)
+    # a batched slot against the same request alone: the logits of every
+    # step up to the first token that differs (bfloat16 may flip a
+    # near-tied greedy choice: tokens are recorded, not asserted)
+    alone, err_alone = {}, (0.0, 0.0, 0.0)
+    for rid in LM_SINGLE_RIDS:
+        one = engine(1)
+        toks = one.run_requests([reqs[rid]])[0].tokens
+        same = next((i for i, (a, b) in enumerate(zip(toks, by_rid[rid]))
+                     if a != b), len(toks) - 1)
+        err = bf16_logits_err(
+            torch, torch.stack([one.logits[(rid, i)] for i in range(same + 1)]),
+            torch.stack([eng.logits[(rid, i)] for i in range(same + 1)]),
+            cfg.vocab_size)
+        alone[rid] = dict(tokens=toks, batched=by_rid[rid],
+                          steps_compared=same + 1, max_abs_err=err[0],
+                          max_ulps=err[1])
+        err_alone = tuple(max(a, b) for a, b in zip(err_alone, err))
+        del one
+    # one batched decode step under torch.profiler: host-bound or not, and
+    # the device time of the casts (a bfloat16 copy of every weight)
+    prof = profiled_call(torch, lambda: model.decode_step(
+        torch.zeros((args.slots, 1), dtype=torch.int32, device=dev),
+        eng.cache, torch.full((args.slots,), args.prompt_len,
+                              dtype=torch.int32, device=dev)),
+        by_op=("aten::_to_copy", "aten::mm"))
+    # decode_step's logits against the full forward (phase 19 (a)'s check)
+    seq = torch.from_numpy(np.random.default_rng(SEED + 19).integers(
+        0, cfg.vocab_size, (1, 24)).astype(np.int32)).to(dev)
+    with torch.inference_mode():
+        cache = model.init_cache(1, 24, torch.bfloat16)
+        cache, _ = model.prefill(seq[:, :23], cache)
+        _, dec = model.decode_step(seq[:, 23:], cache, 23)
+    full = lm_last_logits(torch, model, seq, 1)
+    err_full = bf16_logits_err(torch, dec[0, 0], full[0], cfg.vocab_size)
+    # the scale of bfloat16's own rounding here: both against the float32
+    # forward of the same parameters
+    m32 = build_model(cfg, dataclasses.replace(run, compute_dtype="float32"),
+                      DEV)
+    m32.load_state_dict(model.state_dict())
+    full32 = lm_last_logits(torch, m32, seq, 1)[0, :cfg.vocab_size]
+    vs_f32 = dict(
+        full=float((full[0, :cfg.vocab_size].float() - full32).abs().max()),
+        decode=float((dec[0, 0, :cfg.vocab_size].float() - full32)
+                     .abs().max()),
+        largest=float(full32.abs().max()))
+    del m32, full32
+    f32 = lm_serve["a"]
+    out = dict(arch=LM_BF16_ARCH, slots=args.slots, max_len=args.max_len,
+               prompt=args.prompt_len, requests=args.requests, tokens=n_tok,
+               decode_steps=steps, wall_s=wall, tokens_per_s=n_tok / wall,
+               prefill_ms=prefill_ms, decode_step_ms=decode_ms,
+               decode_vs_full_max_abs=err_full[0],
+               decode_vs_full_max_ulps=err_full[1], alone=alone,
+               alone_max_abs=err_alone[0], alone_max_ulps=err_alone[1],
+               bf16_vs_f32=vs_f32, decode_profile=prof, **mem,
+               float32=dict(prefill_ms=f32["prefill_ms"],
+                            decode_step_ms=f32["decode_step_ms"],
+                            tokens_per_s=f32["tokens_per_s"],
+                            torch_peak_bytes=f32["torch_peak_bytes"]))
+    log(f"lm bf16 serve {LM_BF16_ARCH}: {args.requests} requests, "
+        f"{args.slots} slots of {args.max_len}, {steps} decode steps; "
+        f"prefill {prefill_ms:.1f} ms a request (float32 "
+        f"{f32['prefill_ms']:.1f}), {decode_ms:.2f} ms a decode step "
+        f"({f32['decode_step_ms']:.2f}), {out['tokens_per_s']:.1f} tokens/s "
+        f"({f32['tokens_per_s']:.1f}), torch peak {mem['torch_peak_bytes']} "
+        f"({f32['torch_peak_bytes']}); requests {list(LM_SINGLE_RIDS)} alone: "
+        f"logits within {err_alone[0]:.3g} ({err_alone[1]:.2f} ulps, "
+        f"{err_alone[2]:.2f} of the bound) over "
+        f"{[a['steps_compared'] for a in alone.values()]} steps, tokens "
+        f"{'equal' if all(a['tokens'] == a['batched'] for a in alone.values()) else 'differ'}"
+        f"; decode vs full forward max |err| {err_full[0]:.3g} "
+        f"({err_full[1]:.2f} ulps, {err_full[2]:.2f} of the bound); "
+        f"against the float32 forward (largest |logit| "
+        f"{vs_f32['largest']:.3g}): the bfloat16 full forward "
+        f"{vs_f32['full']:.3g}, decode {vs_f32['decode']:.3g}; a decode "
+        f"step profiled: "
+        f"{profile_line(prof)}, casts {prof['by_op']['aten::_to_copy']:.2f} "
+        f"ms and products {prof['by_op']['aten::mm']:.2f} ms of the device")
+    if not (err_full[2] <= 1 and err_alone[2] <= 1):
+        raise AssertionError(
+            f"lm bf16 serve: decode vs full forward {err_full[:2]}, batched "
+            f"vs alone {err_alone[:2]} (max |err|, ulps): above the larger "
+            f"of {LM_BF16_ATOL} and {LM_BF16_ULPS} ulps")
+    del model, eng, cache, dec, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_bf16_train_cell(torch, arch, steps, fake, record, smi):
+    """Phase 24 (c) and (e): ``arch``'s train_4k at its own RunConfig in
+    bfloat16, LM_BF16_TRAIN_BATCH x 4096 tokens, ``steps`` steps: the
+    first counted on the card and held to the fake tensors' count
+    (held_to_fake), the others timed (host clock, synchronised)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import SHAPE_CELLS
+    from repro_torch.models.model_zoo import active_param_count, param_count
+    from repro_torch.roofline import hlo_cost, hw
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.data import SyntheticLM
+
+    cfg = registry.get_config(arch)
+    seq = SHAPE_CELLS["train_4k"].seq_len
+    run = lm_bf16_run(arch, "train_4k")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, init, _ = ts.build_train_step(cfg, run, device=DEV)
+    state = init(SEED)
+    n_params = param_count(state["params"])
+    n_active = active_param_count(cfg, state["params"])
+    src = SyntheticLM(cfg, LM_BF16_TRAIN_BATCH, seq, seed=SEED)
+
+    def batch_at(i):     # on the card, as the fake count's inputs are
+        return {k: torch.from_numpy(v).to(DEV)
+                for k, v in src.batch_at(i).items()}
+
+    losses, steps_s = [], []
+    for i in range(steps):
+        b = batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:          # the first step, untimed, is the one counted
+            real = hlo_cost.run(step, state, b)
+            (state, stats), real.result = real.result, None
+        else:
+            state, stats = step(state, b)
+        losses.append(float(stats["loss"]))
+        steps_s.append(time.perf_counter() - t0)
+    count_s = steps_s[0]
+    peak = int(torch.cuda.max_memory_allocated())
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"lm bf16 train {arch}: losses {losses}")
+    step_ms = 1e3 * float(np.mean(steps_s[1:]))
+    tokens = LM_BF16_TRAIN_BATCH * seq
+    flops = 6 * n_active * tokens
+    what = f"train {arch} train_4k {LM_BF16_TRAIN_BATCH} x {seq}"
+    out = dict(arch=arch, batch=[LM_BF16_TRAIN_BATCH, seq],
+               microbatch=run.microbatch, remat=run.remat,
+               loss_chunk=run.loss_chunk, params=n_params,
+               active_params=n_active, losses=losses,
+               step_ms=[1e3 * t for t in steps_s], mean_step_ms=step_ms,
+               tokens_per_s=tokens / (step_ms / 1e3), model_flops=flops,
+               bf16_peak_share=flops / (step_ms / 1e3) / hw.PEAK_FLOPS_BF16,
+               torch_peak_bytes=peak,
+               dryrun_peak_bytes=fake["memory"]["peak_bytes_estimate"],
+               count_card_s=count_s, count_fake_s=fake["count_s"],
+               counts=held_to_fake(torch, what, real, fake, record, step_ms,
+                                   smi))
+    log(f"lm bf16 train {arch}: {n_params} params ({n_active} active), "
+        f"{steps} steps of {tokens} tokens (microbatch {run.microbatch}, "
+        f"remat {run.remat}), losses {[round(x, 4) for x in losses]}; "
+        f"{step_ms:.1f} ms a step over steps 2+ (the first, counted, "
+        f"{1e3 * steps_s[0]:.1f}), {out['tokens_per_s']:.0f} tokens/s, "
+        f"{flops:.4g} model FLOPs a step = "
+        f"{100 * out['bf16_peak_share']:.2f} % of the bfloat16 peak; torch "
+        f"peak {peak} bytes, the dry run's {out['dryrun_peak_bytes']}")
+    del state, real, step, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_bf16_decode(torch, fake, record, smi):
+    """Phase 24 (d): qwen3-1.7b's decode_32k at LM_BF16_DECODE_BATCH slots
+    through serve_step.build_serve_fns, its bfloat16 cache filled with
+    seeded values and the step at cache length 32,767, timed (CUDA events,
+    median of LM_DRYRUN_REPS after a warm one) and held to the fake
+    tensors' count."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import SHAPE_CELLS
+    from repro_torch.roofline import hlo_cost
+    from repro_torch.serve.serve_step import build_serve_fns
+
+    cfg = registry.get_config(LM_BF16_ARCH)
+    S = SHAPE_CELLS["decode_32k"].seq_len
+    B = LM_BF16_DECODE_BATCH
+    run = lm_bf16_run(LM_BF16_ARCH, "decode_32k")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fns = build_serve_fns(cfg, run, max_len=S, batch=B, device=DEV)
+    model = fns["model"].init(SEED)
+    cache = fns["init_cache"]()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 24)
+    cache_bytes = 0
+    for c in cache:
+        for t in c.values():
+            t.normal_(generator=gen)
+            cache_bytes += t.numel() * t.element_size()
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=DEV)
+    cache, logits = fns["decode"](model, cache, tok, S - 1)     # warm
+    times = []
+    for _ in range(LM_DRYRUN_REPS):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        cache, logits = fns["decode"](model, cache, tok, S - 1)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = float(np.median(times))
+    if not bool(torch.isfinite(logits).all()) or tuple(logits.shape[:2]) \
+            != (B, 1):
+        raise AssertionError(f"lm bf16 decode_32k: logits {logits.shape}, "
+                             "not all finite")
+    peak = int(torch.cuda.max_memory_allocated())
+    t0 = time.perf_counter()
+    real = hlo_cost.run(fns["decode"], model, cache, tok, S - 1)
+    count_s = time.perf_counter() - t0
+    real.result = None
+    out = dict(arch=LM_BF16_ARCH, batch=B, cache_len=S - 1,
+               cache_bytes=cache_bytes, ms=times, median_ms=ms,
+               dryrun_bound_ms=1e3 * fake["roofline"]["step_s_bound"],
+               torch_peak_bytes=peak,
+               dryrun_peak_bytes=fake["memory"]["peak_bytes_estimate"],
+               count_card_s=count_s, count_fake_s=fake["count_s"],
+               counts=held_to_fake(
+                   torch, f"decode {LM_BF16_ARCH} decode_32k {B} x {S}",
+                   real, fake, record, ms, smi))
+    log(f"lm bf16 decode_32k {LM_BF16_ARCH}: batch {B} against a "
+        f"{cache_bytes}-byte bfloat16 cache at length {S - 1}: {ms:.3f} ms "
+        f"a step (median of {LM_DRYRUN_REPS}), the dry run's bound "
+        f"{out['dryrun_bound_ms']:.4g} ms; torch peak {peak} bytes, the dry "
+        f"run's {out['dryrun_peak_bytes']}")
+    del model, cache, logits, real, fns
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_bf16_moe_resume(torch):
+    """Phase 24 (e): the reduced granite-moe in bfloat16 at the train_4k
+    RunConfig (seq LM_FAMILY_RESUME_BATCH's), failed at step 5 and resumed
+    against 10 straight steps, bit for bit (lm_resume_check)."""
+    from repro_torch.configs import registry
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.optimizer import OptConfig
+
+    small = registry.get_config(LM_BF16_MOE_ARCH, reduced=True)
+    b, s = LM_FAMILY_RESUME_BATCH
+    run = lm_bf16_run(LM_BF16_MOE_ARCH, "train_4k", s)
+    src = SyntheticLM(small, b, s, seed=SEED)
+    out = lm_resume_check(small, run, OptConfig(lr=1e-3, warmup_steps=2,
+                                                decay_steps=100),
+                          [src.batch_at(i) for i in range(10)])
+    return dict(out, batch=[b, s], compute_dtype=run.compute_dtype,
+                microbatch=run.microbatch, remat=run.remat)
+
+
+def lm_bf16_phase(torch, dry, lm_serve, smi):
+    """Phase 24: the language models at the reference's compute dtype,
+    bfloat16, on the card (module docstring)."""
+    exact_matmuls()
+    t0 = time.perf_counter()
+    out = dict(parity=lm_bf16_parity(torch))
+    out["serve"] = lm_bf16_serve(torch, lm_serve)
+    counts, out["fake_counts_s"] = lm_bf16_fake(dry)
+    out["fake_counts"] = counts
+
+    def fake(arch, cell):
+        return (counts[f"{arch}:{cell}"],
+                os.path.join(dry.bf16, f"{arch}__{cell}.ops.zst"))
+
+    out["train"] = lm_bf16_train_cell(
+        torch, LM_BF16_ARCH, LM_BF16_TRAIN_STEPS,
+        *fake(LM_BF16_ARCH, "train_4k"), smi)
+    out["decode"] = lm_bf16_decode(torch, *fake(LM_BF16_ARCH, "decode_32k"),
+                                   smi)
+    out["moe_train"] = lm_bf16_train_cell(
+        torch, LM_BF16_MOE_ARCH, LM_BF16_MOE_STEPS,
+        *fake(LM_BF16_MOE_ARCH, "train_4k"), smi)
+    out["moe_resume"] = lm_bf16_moe_resume(torch)
+    out["seconds"] = time.perf_counter() - t0
+    out["atol"] = dict(logits=LM_BF16_ATOL, ulps=LM_BF16_ULPS,
+                       loss=LM_BF16_LOSS_ATOL,
+                       grad_rel=LM_BF16_GRAD_REL)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, by_path, err, row, case):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=row["kernel_ms"],
@@ -4772,6 +5437,14 @@ def main():
         log(f"lm dryrun launches: {lm_dryrun_launches} (the dry run and the "
             "counter run no kernel of the graph engine)")
         mark("lm dryrun", t0)
+        gc.collect()
+        t0 = time.perf_counter()
+        reset_launches()
+        lm_bf16 = lm_bf16_phase(torch, dry, lm_serve, smi)
+        lm_bf16_launches = read_launches()
+        log(f"lm bf16 launches: {lm_bf16_launches} (the LM path runs no "
+            "kernel of the graph engine)")
+        mark("lm bf16", t0)
     finally:
         if dry is not None:
             dry.kill()
@@ -4785,7 +5458,8 @@ def main():
              "tune": tune_launches, "lm serve": lm_launches,
              "lm train": lm_train_launches,
              "lm families": lm_families_launches,
-             "lm mesh": lm_mesh_launches, "lm dryrun": lm_dryrun_launches}
+             "lm mesh": lm_mesh_launches, "lm dryrun": lm_dryrun_launches,
+             "lm bf16": lm_bf16_launches}
     total = {k: sum(p[k] for p in paths.values()) for k in main_launches}
     log(f"launches by path: {paths}; total {total}")
 
@@ -4867,6 +5541,7 @@ def main():
                        baselines=baselines, lm_serve=lm_serve,
                        lm_train=lm_train, lm_families=lm_families,
                        lm_mesh=lm_mesh, lm_dryrun=lm_dryrun,
+                       lm_bf16=lm_bf16,
                        launches_by_path=paths, kernels=kernels,
                        phase_seconds=phase_s, seconds=seconds), f, indent=1)
     faulthandler.cancel_dump_traceback_later()
