@@ -1100,12 +1100,14 @@ def check_fused_kernel(torch, tile, plan, flush):
             # first Q = 9 call (more column passes, more scratch, the Q = 8
             # kernels) adds nothing outside it, in this process (NVML);
             # the whole card's figure, which other processes move, beside it
-            row["non_torch_growth"] = non_torch_device_bytes(torch) - m0
-            row["card_non_torch_growth"] = card_non_torch_bytes(torch) - c0
+            m1, c1 = non_torch_device_bytes(torch), card_non_torch_bytes(torch)
+            row["non_torch_growth"] = m1 - m0
+            row["card_non_torch_growth"] = c1 - c0
             if q == NUM_QUERIES + 1:
                 log(f"fused {name} Q={q}: {row['non_torch_growth']:+d} bytes "
-                    "outside torch's allocator in this process (NVML), "
-                    f"{row['card_non_torch_growth']:+d} on the whole card")
+                    "outside torch's allocator in this process (NVML; "
+                    f"{m1} after), {row['card_non_torch_growth']:+d} on the "
+                    f"whole card ({c1} after)")
                 if row["non_torch_growth"]:
                     raise AssertionError(
                         f"fused {name} Q={q}: {row['non_torch_growth']:+d} "
@@ -4507,10 +4509,11 @@ def card_and_fake_counts(torch, what, build, inputs, call, reps, smi):
     ``inputs(state, device)`` its arguments, ``call(state, *args)`` runs
     it.  Counted on the card (hlo_cost.run) and on fake tensors of the same
     shapes, which must agree; timed on the card (CUDA events, mean of
-    ``reps`` calls after a warm one) beside analysis.roofline's bound."""
+    ``reps`` calls after a warm one) beside analysis.roofline's bound
+    (held_to_fake)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    from repro_torch.roofline import analysis, hlo_cost
+    from repro_torch.roofline import hlo_cost
 
     state = build(DEV)
     args = inputs(state, DEV)
@@ -4536,35 +4539,13 @@ def card_and_fake_counts(torch, what, build, inputs, call, reps, smi):
         fstate = build(DEV)
         fake = hlo_cost.run(call, fstate, *inputs(fstate, DEV))
     fake_s = time.perf_counter() - t0
-    rc, fc = real.cost, fake.cost
-    if (rc.flops, rc.bytes, rc.bytes_fused) != (fc.flops, fc.bytes,
-                                                fc.bytes_fused):
-        diff = count_diff(real.records, fake.records)
-        raise AssertionError(
-            f"lm dryrun {what}: the card counts {rc.flops} FLOPs, "
-            f"{rc.bytes} bytes, fake tensors {fc.flops}, {fc.bytes}; ops "
-            f"that differ: {list(diff.items())[:20]}")
-    terms = analysis.roofline(rc.flops, rc.bytes, rc.coll_bytes, 1, 0.0,
-                              hbm_bytes_fused=rc.bytes_fused)
-    bound_ms = 1e3 * terms.step_s_bound
-    ratio = ms / bound_ms
-    if not ms >= bound_ms:
-        raise AssertionError(f"lm dryrun {what}: {ms:.4g} ms on the card, "
-                             f"below its bound {bound_ms:.4g} ms")
-    out = dict(what=what, card=smi, ms=ms, bound_ms=bound_ms,
-               measured_over_bound=ratio,
-               bottleneck=terms.bottleneck, flops=rc.flops, bytes=rc.bytes,
-               bytes_fused=rc.bytes_fused, ops=len(real.records),
-               count_card_s=real_s, count_fake_s=fake_s,
-               memory_card=real.memory.as_dict(),
-               memory_fake=fake.memory.as_dict())
-    log(f"lm dryrun {what}: {len(real.records)} ops, {rc.flops:.6g} FLOPs, "
-        f"{rc.bytes:.6g} bytes ({rc.bytes_fused:.6g} fused) on the card and "
-        f"on fake tensors alike (counted in {real_s:.1f} s and "
-        f"{fake_s:.1f} s); {ms:.3f} ms on the card ({smi}) against a bound "
-        f"of {bound_ms:.4g} ms ({terms.bottleneck}), measured / bound "
-        f"{ratio:.2f}")
-    return out
+    fc = fake.cost
+    counts = dict(ops=len(fake.records), flops=fc.flops, bytes=fc.bytes,
+                  bytes_fused=fc.bytes_fused, memory=fake.memory.as_dict())
+    return dict(what=what, card=smi, ms=ms, count_card_s=real_s,
+                count_fake_s=fake_s, **held_to_fake(
+                    torch, f"lm dryrun {what}", real, counts,
+                    lambda: fake.records, ms, smi))
 
 
 def lm_dryrun_card(torch, smi):
@@ -4741,35 +4722,42 @@ def dtype_split(records):
                 cast_ms=1e3 * cast / hw.HBM_BW)
 
 
-def held_to_fake(torch, what, real, fake, record, ms, smi):
-    """Phase 24: a call counted on the card (``real``, hlo_cost.run)
-    against the same call's count on fake tensors (``fake``, its op record
-    at ``record``): ops, FLOPs, bytes and fused bytes equal, and ``ms``
-    measured on the card not below analysis.roofline's bound of the
-    count."""
+def saved_record(path):
+    """An op record saved by dryrun.save_record, as OpRecords."""
     from repro_torch.compat import zstd_decompress
-    from repro_torch.roofline import analysis, hlo_cost
+    from repro_torch.roofline import hlo_cost
+
+    with open(path, "rb") as f:
+        return [hlo_cost.OpRecord.from_list(r)
+                for r in json.loads(zstd_decompress(f.read()))]
+
+
+def held_to_fake(torch, what, real, fake, fake_records, ms, smi):
+    """Phases 23 (b) and 24: a call counted on the card (``real``,
+    hlo_cost.run) against the same call's count on fake tensors (``fake``:
+    its ops, FLOPs, bytes, fused bytes and memory; ``fake_records()`` its
+    op record, read to name the ops that differ): all four equal, and
+    ``ms`` measured on the card not below analysis.roofline's bound of
+    the count."""
+    from repro_torch.roofline import analysis
 
     rc = real.cost
     got = dict(ops=len(real.records), flops=rc.flops, bytes=rc.bytes,
                bytes_fused=rc.bytes_fused)
     want = {k: fake[k] for k in got}
     if got != want:
-        with open(record, "rb") as f:
-            frec = [hlo_cost.OpRecord.from_list(r) for r in
-                    json.loads(zstd_decompress(f.read()))]
-        diff = count_diff(real.records, frec)
-        raise AssertionError(f"lm bf16 {what}: the card counts {got}, fake "
+        diff = count_diff(real.records, fake_records())
+        raise AssertionError(f"{what}: the card counts {got}, fake "
                              f"tensors {want}; ops that differ: "
                              f"{list(diff.items())[:20]}")
     terms = analysis.roofline(rc.flops, rc.bytes, rc.coll_bytes, 1, 0.0,
                               hbm_bytes_fused=rc.bytes_fused)
     bound_ms = 1e3 * terms.step_s_bound
     if not ms >= bound_ms:
-        raise AssertionError(f"lm bf16 {what}: {ms:.4g} ms on the card, "
+        raise AssertionError(f"{what}: {ms:.4g} ms on the card, "
                              f"below its bound {bound_ms:.4g} ms")
     split = dtype_split(real.records)
-    log(f"lm bf16 {what}: {got['ops']} ops, {rc.flops:.6g} FLOPs, "
+    log(f"{what}: {got['ops']} ops, {rc.flops:.6g} FLOPs, "
         f"{rc.bytes:.6g} bytes ({rc.bytes_fused:.6g} fused) on the card and "
         f"on fake tensors alike; {ms:.3f} ms on the card ({smi}) against a "
         f"bound of {bound_ms:.4g} ms ({terms.bottleneck}), measured / bound "
@@ -5103,7 +5091,8 @@ def lm_bf16_train_cell(torch, arch, steps, fake, record, smi):
                torch_peak_bytes=peak,
                dryrun_peak_bytes=fake["memory"]["peak_bytes_estimate"],
                count_card_s=count_s, count_fake_s=fake["count_s"],
-               counts=held_to_fake(torch, what, real, fake, record, step_ms,
+               counts=held_to_fake(torch, f"lm bf16 {what}", real, fake,
+                                   lambda: saved_record(record), step_ms,
                                    smi))
     log(f"lm bf16 train {arch}: {n_params} params ({n_active} active), "
         f"{steps} steps of {tokens} tokens (microbatch {run.microbatch}, "
@@ -5174,8 +5163,9 @@ def lm_bf16_decode(torch, fake, record, smi):
                dryrun_peak_bytes=fake["memory"]["peak_bytes_estimate"],
                count_card_s=count_s, count_fake_s=fake["count_s"],
                counts=held_to_fake(
-                   torch, f"decode {LM_BF16_ARCH} decode_32k {B} x {S}",
-                   real, fake, record, ms, smi))
+                   torch, f"lm bf16 decode {LM_BF16_ARCH} decode_32k {B} x "
+                   f"{S}", real, fake, lambda: saved_record(record), ms,
+                   smi))
     log(f"lm bf16 decode_32k {LM_BF16_ARCH}: batch {B} against a "
         f"{cache_bytes}-byte bfloat16 cache at length {S - 1}: {ms:.3f} ms "
         f"a step (median of {LM_DRYRUN_REPS}), the dry run's bound "
