@@ -185,6 +185,9 @@ def _pad_seq(x, chunk, axis):
     return torch.cat([x, x.new_zeros(shape)], dim=axis), s
 
 
+SCORE_BLOCK = 1 << 21   # rows x columns of a head's scores at once
+
+
 def blockwise_attention(
     q: torch.Tensor,           # [B, Sq, H, Dh]
     k: torch.Tensor,           # [B, Skv, Hkv, Dh]
@@ -198,12 +201,16 @@ def blockwise_attention(
     q_offset: int = 0,         # global position of q[0] (prefill continuation)
     scores_dtype=torch.float32,
 ) -> torch.Tensor:
-    """The reference's chunked online softmax, chunk for chunk: q chunks
-    in turn, each over its kv chunks in the reference's scan order
-    (ascending, or for a causal window the fixed range from the diagonal
-    chunk down, clamped duplicates skipped), chunks wholly masked skipped,
-    masked scores at NEG_INF, the output divided by max(l, 1e-30).  Memory
-    stays one score block ``[B, Hkv, G, q_chunk, kv_chunk]`` at a time."""
+    """The reference's chunked online softmax: each q chunk over its kv
+    chunks in the reference's scan order (ascending, or for a causal
+    window the fixed range from the diagonal chunk down, clamped
+    duplicates skipped), chunks wholly masked skipped, masked scores at
+    NEG_INF, the output divided by max(l, 1e-30).  Without a window the
+    q chunks that read a kv chunk read it together (:func:`_by_kv_chunk`),
+    each in its own order still, so that a layer issues its ops once a kv
+    chunk and not once a pair of chunks; a score block then holds at most
+    SCORE_BLOCK rows x columns a head.  With a window one score block
+    ``[B, Hkv, G, q_chunk, kv_chunk]`` at a time (:func:`_by_pair`)."""
     if is_dtensor(q):
         return _blockwise_attention_on_shards(
             q, k, v, causal=causal, window=window, softcap=softcap,
@@ -223,73 +230,141 @@ def blockwise_attention(
     qb = (q.reshape(B, nq, q_chunk, Hkv, G, Dh) * scale).to(q.dtype)
     kb = k.reshape(B, nk, kv_chunk, Hkv, Dh)
     vb = v.reshape(B, nk, kv_chunk, Hkv, Dh)
-    dev = q.device
-    q_pos0 = torch.arange(q_chunk, device=dev)
-    k_pos0 = torch.arange(kv_chunk, device=dev)
+    kw = dict(causal=causal, softcap=softcap, q_offset=q_offset, Skv=Skv,
+              scores_dtype=scores_dtype)
+    if window is None:
+        out = _by_kv_chunk(qb, kb, vb, **kw)
+    else:
+        out = _by_pair(qb, kb, vb, window=window, **kw)
+    return out.reshape(B, nq * q_chunk, H, Dh).to(q.dtype)[:, :Sq0]
+
+
+def _online_step(s, vblk, m, l, o):
+    """One kv chunk into the softmax state of the rows of ``s`` (masked
+    scores ``[B, Hkv, G, rows, kv_chunk]``): the reference's update."""
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    # [B, Hkv, G, rows, kc] @ [B, Hkv, 1, kc, Dh]
+    pv = matmul(p.to(vblk.dtype).float(),
+                vblk.float().permute(0, 2, 1, 3)[:, :, None])
+    return m_new, l, o * corr[..., None] + pv
+
+
+def _scores(qrows, kblk, k_pos, q_pos, *, causal, softcap, Skv,
+            scores_dtype, window=None):
+    """Masked scores of query rows ``[B, Hkv, G, rows, Dh]`` (at
+    positions ``q_pos``) against one kv chunk (at ``k_pos``)."""
+    # [B, Hkv, G, rows, Dh] @ [B, Hkv, 1, Dh, kc]
+    s = matmul(qrows.to(scores_dtype),
+               kblk.to(scores_dtype).permute(0, 2, 3, 1)[:, :, None]).float()
+    s = _softcap(s, softcap)
+    mask = k_pos[None, :] < Skv
+    if causal:
+        mask = mask & (k_pos[None, :] <= q_pos[:, None])
+    if window is not None:
+        mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+    return torch.where(mask[None, None, None], s, torch.full_like(s, NEG_INF))
+
+
+def _by_kv_chunk(qb, kb, vb, *, causal, softcap, q_offset, Skv,
+                 scores_dtype):
+    """Attention without a window, q chunks in groups of SCORE_BLOCK's
+    rows: each kv chunk in ascending order goes once through the rows of
+    the group's chunks that still read it, a chunk that reads no later kv
+    chunk leaving the state after it (causally the chunks that read a kv
+    chunk are the group's unfinished tail).  Returns ``[B, Sq, Hkv, G,
+    Dh]`` in float32."""
+    B, nq, qc, Hkv, G, Dh = qb.shape
+    nk, kc = kb.shape[1], kb.shape[2]
+    dev = qb.device
+    per = max(1, SCORE_BLOCK // (qc * kc))
+    k_pos0 = torch.arange(kc, device=dev)
+    outs = []
+    for g0 in range(0, nq, per):
+        g1 = min(nq, g0 + per)
+        rows = (g1 - g0) * qc
+        # the last kv chunk each q chunk reads: the reference skips a kv
+        # chunk that starts past the chunk's last query
+        last = [min(nk - 1, (q_offset + j * qc + qc - 1) // kc) if causal
+                else nk - 1 for j in range(g0, g1)]
+        qg = qb[:, g0:g1].reshape(B, rows, Hkv, G, Dh).permute(0, 2, 3, 1, 4)
+        q_pos = q_offset + g0 * qc + torch.arange(rows, device=dev)
+        m = torch.full((B, Hkv, G, rows), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, Hkv, G, rows), dtype=torch.float32, device=dev)
+        o = torch.zeros((B, Hkv, G, rows, Dh), dtype=torch.float32,
+                        device=dev)
+        done, lo = [], 0          # finished (o, l); first open chunk
+        for ki in range(last[-1] + 1):
+            r0 = lo * qc
+            s = _scores(qg[:, :, :, r0:], kb[:, ki], ki * kc + k_pos0,
+                        q_pos[r0:], causal=causal, softcap=softcap, Skv=Skv,
+                        scores_dtype=scores_dtype)
+            m, l, o = _online_step(s, vb[:, ki], m, l, o)
+            n = sum(1 for j in last[lo:] if j == ki)
+            if n:                                 # chunks that end here
+                done.append((o[..., :n * qc, :], l[..., :n * qc]))
+                o, l, m = o[..., n * qc:, :], l[..., n * qc:], m[..., n * qc:]
+                lo += n
+        if lo < g1 - g0:                          # no kv chunk at all
+            done.append((o, l))
+        o = torch.cat([d[0] for d in done], dim=3)
+        l = torch.cat([d[1] for d in done], dim=3)
+        out = o / torch.clamp(l[..., None], min=1e-30)
+        outs.append(out.permute(0, 3, 1, 2, 4))
+    return torch.cat(outs, dim=1)
+
+
+def _by_pair(qb, kb, vb, *, causal, window, softcap, q_offset, Skv,
+             scores_dtype):
+    """Windowed attention, a pair of chunks at a time: each q chunk over
+    the fixed range of kv chunks from its diagonal chunk down.  Returns
+    ``[B, Sq, Hkv, G, Dh]`` in float32."""
+    B, nq, qc, Hkv, G, Dh = qb.shape
+    nk, kc = kb.shape[1], kb.shape[2]
+    dev = qb.device
+    q_pos0 = torch.arange(qc, device=dev)
+    k_pos0 = torch.arange(kc, device=dev)
 
     # windowed attention only needs kv chunks within [q - window, q]
     nk_eff = nk
-    if window is not None and causal:
-        nk_eff = min(nk, (window + q_chunk) // kv_chunk + 2)
+    if causal:
+        nk_eff = min(nk, (window + qc) // kc + 2)
 
     outs = []
     for qi in range(nq):
-        qblk = qb[:, qi]                           # [B, qc, Hkv, G, Dh]
-        q_pos = q_offset + qi * q_chunk + q_pos0
-        last_q = q_offset + qi * q_chunk + (q_chunk - 1)
-        first_q = q_offset + qi * q_chunk
-        m = torch.full((B, Hkv, G, q_chunk), NEG_INF, dtype=torch.float32,
+        qblk = qb[:, qi].permute(0, 2, 3, 1, 4)   # [B, Hkv, G, qc, Dh]
+        q_pos = q_offset + qi * qc + q_pos0
+        last_q = q_offset + qi * qc + (qc - 1)
+        first_q = q_offset + qi * qc
+        m = torch.full((B, Hkv, G, qc), NEG_INF, dtype=torch.float32,
                        device=dev)
-        l = torch.zeros((B, Hkv, G, q_chunk), dtype=torch.float32, device=dev)
-        o = torch.zeros((B, Hkv, G, q_chunk, Dh), dtype=torch.float32,
+        l = torch.zeros((B, Hkv, G, qc), dtype=torch.float32, device=dev)
+        o = torch.zeros((B, Hkv, G, qc, Dh), dtype=torch.float32,
                         device=dev)
         for rel in range(nk_eff):
             if nk_eff != nk:
-                raw = qi + (q_offset // kv_chunk) - rel
+                raw = qi + (q_offset // kc) - rel
                 ki = max(raw, 0)
                 needed = raw >= 0                 # clamped duplicates skip
             else:
                 ki = rel
                 needed = True
             if causal:
-                needed = needed and ki * kv_chunk <= last_q
-            if window is not None:
-                needed = needed and (ki * kv_chunk + kv_chunk - 1
-                                     >= first_q - window)
+                needed = needed and ki * kc <= last_q
+            needed = needed and ki * kc + kc - 1 >= first_q - window
             if not needed:
                 continue
-            k_pos = ki * kv_chunk + k_pos0
-            kblk, vblk = kb[:, ki], vb[:, ki]
-            # [B, Hkv, G, qc, Dh] @ [B, Hkv, 1, Dh, kc]
-            s = matmul(
-                qblk.to(scores_dtype).permute(0, 2, 3, 1, 4),
-                kblk.to(scores_dtype).permute(0, 2, 3, 1)[:, :, None]).float()
-            s = _softcap(s, softcap)
-            if causal:
-                mask = k_pos[None, :] <= q_pos[:, None]
-            else:
-                mask = torch.ones((q_chunk, kv_chunk), dtype=torch.bool,
-                                  device=dev)
-            if window is not None:
-                mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
-            mask = mask & (k_pos[None, :] < Skv)
-            s = torch.where(mask[None, None, None], s,
-                            torch.full_like(s, NEG_INF))
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            # [B, Hkv, G, qc, kc] @ [B, Hkv, 1, kc, Dh]
-            pv = matmul(p.to(vb.dtype).float(),
-                        vblk.float().permute(0, 2, 1, 3)[:, :, None])
-            o = o * corr[..., None] + pv
-            m = m_new
+            k_pos = ki * kc + k_pos0
+            s = _scores(qblk, kb[:, ki], k_pos, q_pos, causal=causal,
+                        softcap=softcap, Skv=Skv, scores_dtype=scores_dtype,
+                        window=window)
+            m, l, o = _online_step(s, vb[:, ki], m, l, o)
         out = o / torch.clamp(l[..., None], min=1e-30)
-        # [B, Hkv, G, qc, Dh] -> [B, qc, Hkv*G, Dh]
-        outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, q_chunk, H, Dh)
-                    .to(q.dtype))
-    out = torch.cat(outs, dim=1)
-    return out[:, :Sq0]
+        outs.append(out.permute(0, 3, 1, 2, 4))
+    return torch.cat(outs, dim=1)
 
 
 def _local_heads(q, k, v, qpl, kpl):

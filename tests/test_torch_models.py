@@ -178,6 +178,41 @@ def test_blockwise_attention_matches_naive(window):
     np.testing.assert_allclose(out, np.asarray(ref), rtol=0, atol=F32_ATOL)
 
 
+@pytest.mark.parametrize("causal,q_chunk,kv_chunk,q_offset,block", [
+    (True, 8, 8, 0, 64), (True, 8, 8, 16, 128), (True, 8, 16, 5, 128),
+    (True, 16, 8, 24, 256), (False, 8, 8, 0, 64), (False, 16, 8, 0, 256)])
+def test_blockwise_attention_groups_match_reference(
+        monkeypatch, causal, q_chunk, kv_chunk, q_offset, block):
+    """Attention without a window reads each kv chunk once for the q
+    chunks that need it, in groups of SCORE_BLOCK rows x columns: with
+    the groups cut to one or two q chunks, the output equals the one
+    group's bit for bit and the reference's blockwise_attention within
+    F32_ATOL, at a prefill continuation's offset and unequal chunks."""
+    from repro.models.layers import blockwise_attention as jblock
+
+    rng = np.random.default_rng(1)
+    B, Sq, H, Hkv, Dh = 2, 37, 4, 2, 16
+    Skv = Sq + q_offset
+    q = rng.normal(size=(B, Sq, H, Dh)).astype(np.float32)
+    k = rng.normal(size=(B, Skv, Hkv, Dh)).astype(np.float32)
+    v = rng.normal(size=(B, Skv, Hkv, Dh)).astype(np.float32)
+    kw = dict(causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
+              q_offset=q_offset)
+
+    def port():
+        return tlayers.blockwise_attention(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            **kw).numpy()
+
+    whole = port()
+    monkeypatch.setattr(tlayers, "SCORE_BLOCK", block)
+    grouped = port()
+    np.testing.assert_array_equal(grouped, whole)
+    ref = jblock(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), **kw)
+    np.testing.assert_allclose(grouped, np.asarray(ref), rtol=0,
+                               atol=F32_ATOL)
+
+
 def test_rope_norms_and_gelu_match_reference():
     """rope (halves, theta 1e6), rmsnorm and layernorm (population
     variance), and gelu (the tanh form jax.nn.gelu defaults to)."""
