@@ -5,7 +5,7 @@
 
 1. Card: name and power limit (nvidia-smi), torch and CUDA versions.
 2. Build: the three CUDA kernels from src/repro_torch/kernels/csrc, one
-   nvcc each, started together.
+   nvcc each, started together, while phase 3 draws and tiles the store.
 3. Main-path store: SPE of an R-MAT graph (Graph500 a, b, c = 0.57, 0.19,
    0.19) at SCALE 22, edge factor 16 — 4,194,304 vertices, 67,108,864
    edges — in tiles of 2^20 edges, unweighted, disk mode 1.  The edges
@@ -288,14 +288,15 @@
     the graph engine: its counts are read and logged as zero.
 22. The language models over a device mesh ("lm mesh"), float32, TF32
     off: a process group of one rank (NCCL) and a (1, 1) ("data",
-    "model") mesh, every parameter a DTensor.  (a) Phase 20 (a)'s job
-    through train_step.build_train_step(mesh=...), fsdp and ZeRO-1: its
-    state made leaf by leaf (model_zoo.init_on_mesh; m and v as zero
-    shards), every parameter's shard equal bit for bit to phase 20 (a)'s
-    whole init(0) on the card and m and v zero, the largest tensor the
-    init made at most the largest leaf (torch's peak over the init); its
-    losses against phase 20 (a)'s within LM_TRAIN_MB_TOL, ms a step beside
-    phase 20 (a)'s, torch's peak; (b) qwen3-1.7b through
+    "model") mesh, every parameter a DTensor.  (a) Phase 20 (a)'s job,
+    its first LM_MESH_STEPS steps on its schedule, through
+    train_step.build_train_step(mesh=...), fsdp and ZeRO-1: its state
+    made leaf by leaf (model_zoo.init_on_mesh; m and v as zero shards),
+    every parameter's shard equal bit for bit to phase 20 (a)'s whole
+    init(0) on the card and m and v zero, the largest tensor the init
+    made at most the largest leaf (torch's peak over the init); its
+    losses against phase 20 (a)'s first within LM_TRAIN_MB_TOL, ms a step
+    beside phase 20 (a)'s, torch's peak; (b) qwen3-1.7b through
     serve_step.build_serve_fns(mesh=...), batch 4, 23 prefilled and 1
     decoded, KV heads and then the sequence over "model": the logits
     against the full forward within LM_LOGITS_ATOL and the mesh-free
@@ -315,7 +316,7 @@
     joined in phase 23 (on the H100 machine, started beside phases 19-22
     instead, they made the smoke 825.5 s against 695.8 s: phase 23
     waited 108.2 s for them): qwen3-1.7b train_4k, prefill_32k (its
-    depth cut to 2 of 28 layers: 2,080 chunk pairs a layer) and
+    depth cut to 2 of 28 layers: 64 q chunks a layer) and
     decode_32k on the single mesh (16 x 16, a fake process group of 256
     ranks) and decode_32k on the multi mesh (2 x 16 x 16, 512), and
     granite-moe-1b-a400m train_4k on the single mesh (the MoE dispatch); each on fake CUDA tensors (nothing allocated), status
@@ -430,6 +431,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -484,13 +486,17 @@ LM_FAMILY_SERVE_ARCH = "rwkv6-1.6b"   # phase 21 (a): through the serve CLI
 LM_FAMILY_TRAIN_ARCH = "granite-moe-1b-a400m"  # phase 21 (c)
 LM_FAMILY_RESUME_BATCH = (8, 256)  # reduced granite-moe: 4,096 assignments
 LM_MESH_SHAPE = (1, 1)            # phase 22: ("data", "model"), NCCL
+LM_MESH_STEPS = 10                # (a): phase 20 (a)'s first steps (cut
+                                  # from its 20 to keep the run in time)
 LM_MESH_SERVE = dict(batch=4, max_len=256)  # phase 22 (b)
 LM_MESH_SERVE_ATOL = 1e-5         # mesh vs mesh-free build_serve_fns logits
 LM_MESH_FLASH_ATOL = 1e-6         # seq_sharded vs decode_attention
 LM_DRYRUN_JOBS = (                # phase 23 (a): (arch, cell, mesh, layers)
     ("qwen3-1.7b", "train_4k", "single", None),
-    # 2,080 causal chunk pairs a layer: at 28 layers the count ran past
-    # 900 s on one core of the H100 machine's host, so the depth is cut
+    # at 28 layers the count ran past 900 s on one core of the H100
+    # machine's host while attention looped over its 2,080 causal chunk
+    # pairs a layer (it reads a kv chunk once for them all now), so the
+    # depth is cut
     ("qwen3-1.7b", "prefill_32k", "single", 2),
     ("qwen3-1.7b", "decode_32k", "single", None),
     ("qwen3-1.7b", "decode_32k", "multi", None),
@@ -2714,8 +2720,6 @@ def http_call(url, body=None, timeout=60):
 def serve_clients(base, queries):
     """One client thread a query: POST it, then poll its rid until the
     ticket is terminal.  Returns the terminal tickets, in order."""
-    import threading
-
     out, errors = [None] * len(queries), []
 
     def client(i, body):
@@ -3955,7 +3959,8 @@ def tune_case(r):
 
 def lm_mesh_train(torch, mesh, lm_train):
     """Phase 22 (a): phase 20 (a)'s job through build_train_step over the
-    mesh, each step timed (host clock, synchronised on both sides)."""
+    mesh, its first LM_MESH_STEPS steps, each timed (host clock,
+    synchronised on both sides)."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.configs import registry
@@ -3989,7 +3994,7 @@ def lm_mesh_train(torch, mesh, lm_train):
                              "parameters are DTensors on the mesh")
     src = SyntheticLM(cfg, batch, seq, seed=0)
     losses, steps_s = [], []
-    for i in range(steps):
+    for i in range(LM_MESH_STEPS):
         b = src.batch_at(i)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4006,7 +4011,7 @@ def lm_mesh_train(torch, mesh, lm_train):
     if not all(np.isfinite(losses)) or not last <= first - LM_TRAIN_DROP:
         raise AssertionError(f"lm mesh train {LM_TRAIN_ARCH}: losses "
                              f"{losses}")
-    ref = np.asarray(lm_train["losses"])
+    ref = np.asarray(lm_train["losses"][:LM_MESH_STEPS])
     np.testing.assert_allclose(losses, ref, err_msg="lm mesh train vs "
                                "phase 20 (a)", **LM_TRAIN_MB_TOL)
     diff = float(np.max(np.abs(np.asarray(losses) - ref)))
@@ -4024,7 +4029,8 @@ def lm_mesh_train(torch, mesh, lm_train):
                    list(state_leaves(sh["specs"]["params"]))),
                per_shard_init=init_check)
     log(f"lm mesh train {LM_TRAIN_ARCH} on a {LM_MESH_SHAPE} mesh (fsdp, "
-        f"ZeRO-1; {on_mesh} DTensor parameters): {steps} steps, loss "
+        f"ZeRO-1; {on_mesh} DTensor parameters): {LM_MESH_STEPS} steps of "
+        f"phase 20 (a)'s {steps}, loss "
         f"{first:.4f} -> {last:.4f}; vs phase 20 (a) max |diff| {diff:.3g}"
         f" ({'equal' if diff == 0 else 'within ' + str(LM_TRAIN_MB_TOL)});"
         f" {step_ms:.1f} ms a step over steps 2+ (phase 20 (a) "
@@ -5263,28 +5269,43 @@ def main():
     exact_matmuls()
     smi = card_info(torch)
 
-    t0 = time.perf_counter()
-    builds = _build.build()
-    log(f"build: {time.perf_counter() - t0:.1f} s for "
-        f"{', '.join(builds)} (nvcc {' '.join(_build.NVCC_FLAGS)})")
-    for name, b in builds.items():
-        regs = [int(w) for w in re.findall(r"Used (\d+) registers", b["ptxas"])]
-        spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill",
-                                                b["ptxas"]))
-        log(f"  {name}: {len(regs)} kernels, at most {max(regs, default=0)} "
-            f"registers a thread, {spills} bytes of spills")
-    mark("build", t0)
+    # the nvcc processes run while the store's edges are drawn and tiled
+    built = {}
 
+    def build_kernels():
+        try:
+            built["builds"] = _build.build()
+        except Exception as e:            # raised again on the main thread
+            built["error"] = e
+        built["seconds"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    builder = threading.Thread(target=build_kernels)
+    builder.start()
     store_root = os.path.join(ROOT, "build", "chip_smoke_store")
     ckpt_root = os.path.join(ROOT, "build", "chip_smoke_ckpt")
     shutil.rmtree(store_root, ignore_errors=True)
     shutil.rmtree(ckpt_root, ignore_errors=True)
     dry = None
     try:
-        t0 = time.perf_counter()
         store, plan, src, dst, store_info = build_store(store_root)
         nv = plan.num_vertices
         mark("store", t0)
+        builder.join()
+        if "error" in built:
+            raise built["error"]
+        builds = built["builds"]
+        log(f"build: {built['seconds']:.1f} s for {', '.join(builds)}, "
+            f"beside the store (nvcc {' '.join(_build.NVCC_FLAGS)})")
+        for name, b in builds.items():
+            regs = [int(w) for w in re.findall(r"Used (\d+) registers",
+                                                b["ptxas"])]
+            spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill",
+                                                    b["ptxas"]))
+            log(f"  {name}: {len(regs)} kernels, at most "
+                f"{max(regs, default=0)} registers a thread, {spills} bytes "
+                "of spills")
+        mark("build", t0)
 
         t0 = time.perf_counter()
         big = int(np.argmax(plan.edges_per_tile))
