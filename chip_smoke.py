@@ -1686,8 +1686,8 @@ class NvmlUnattributed(RuntimeError):
 def process_device_bytes(torch):
     """The card's bytes NVML counts for this process (its CUDA context,
     the kernels' code and every allocation, torch's pool among them),
-    read through ctypes on libnvidia-ml.so.1, which ships with the
-    driver: nvmlDeviceGetComputeRunningProcesses, this PID's entry.
+    read through ctypes on libnvidia-ml.so.1 (NVML, installed beside
+    libcuda): nvmlDeviceGetComputeRunningProcesses, this PID's entry.
     Other processes on the card do not move it.  Where NVML lists the
     card's processes under the PIDs of another namespace (the chip
     machine's sandbox lists every process as PID 1) and lists one, that
@@ -5280,8 +5280,8 @@ def main():
         built["seconds"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    builder = threading.Thread(target=build_kernels)
-    builder.start()
+    build_thread = threading.Thread(target=build_kernels)
+    build_thread.start()
     store_root = os.path.join(ROOT, "build", "chip_smoke_store")
     ckpt_root = os.path.join(ROOT, "build", "chip_smoke_ckpt")
     shutil.rmtree(store_root, ignore_errors=True)
@@ -5291,7 +5291,7 @@ def main():
         store, plan, src, dst, store_info = build_store(store_root)
         nv = plan.num_vertices
         mark("store", t0)
-        builder.join()
+        build_thread.join()
         if "error" in built:
             raise built["error"]
         builds = built["builds"]

@@ -207,9 +207,9 @@ def blockwise_attention(
     duplicates skipped), chunks wholly masked skipped, masked scores at
     NEG_INF, the output divided by max(l, 1e-30).  Without a window the
     q chunks that read a kv chunk read it together (:func:`_by_kv_chunk`),
-    each in its own order still, so that a layer issues its ops once a kv
-    chunk and not once a pair of chunks; a score block then holds at most
-    SCORE_BLOCK rows x columns a head.  With a window one score block
+    each in its own order still, so that a layer dispatches its ops once
+    a kv chunk and not once a pair of chunks; a score block then holds at
+    most SCORE_BLOCK rows x columns a head.  With a window one score block
     ``[B, Hkv, G, q_chunk, kv_chunk]`` at a time (:func:`_by_pair`)."""
     if is_dtensor(q):
         return _blockwise_attention_on_shards(

@@ -117,7 +117,8 @@ def test_bf16_steps_match_reference(arch):
             continue
         err = float(np.max(np.abs(g.astype(np.float64) - w)))
         scale = max(float(np.max(np.abs(w))), 1e-30)
-        kind = path.split("/")[2] if path.startswith("/opt") else "params"
+        parts = path.split("/")
+        kind = parts[2] if parts[1] == "opt" else "params"
         assert err <= STATE_REL[kind] * scale, (path, err / scale)
         if path.startswith("/params"):
             assert err <= PARAM_ATOL, (path, err)
