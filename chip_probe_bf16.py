@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's language models in bfloat16 (phase 24) on one card,
-without the graph phases.
+"""chip_smoke.py's language models in bfloat16 (phases 24 and 25) on one
+card, without the graph phases.
 
     python3 chip_probe_bf16.py
 
 Runs phase 19 (the dense decoders served in float32, whose figures
-phase 24 logs beside its own) and then phase 24, with phase 24's counts
-on fake tensors in DryRuns' side process started at the beginning (the
-rank-shares process beside it is stopped): the phase waits for them,
-~290 s of one core on the H100 machine's host, where the smoke starts
-them after phase 7.  Its checks are the smoke's; its details go to
-chiprun_out/chip_probe_bf16.json.  About 8 minutes in all.
+phases 24 and 25 log beside their own) and phase 21 (the families in
+float32, beside phase 25's), then phases 24 and 25, with their counts on
+fake tensors in DryRuns' side processes and phase 25's CPU half in a
+Side process, all started at the beginning (the rank-shares process
+beside them is stopped): the phases wait for them, ~290 s of one core on
+the H100 machine's host, where the smoke starts them after phase 7.
+Its checks are the smoke's; its details go to
+chiprun_out/chip_probe_bf16.json.  About 10 minutes in all.
 """
 import json
 import os
@@ -36,20 +38,28 @@ def main():
     for key, proc, _ in dry.procs:
         if key[0] == "rank_shares":
             proc.kill()
+    cpu_side = smoke.Side("lm_bf16_family_cpu")
+    out = {}
     try:
-        lm_serve = smoke.lm_serve_phase(torch)
-        smoke.log(f"[phase 19: {time.perf_counter() - t0:.1f} s]")
-        t1 = time.perf_counter()
-        out = smoke.lm_bf16_phase(torch, dry, lm_serve, smi)
-        smoke.log(f"[phase 24: {time.perf_counter() - t1:.1f} s; "
-                  f"{time.perf_counter() - t0:.1f} s in all]")
+        for name, run in (
+                ("19", lambda: smoke.lm_serve_phase(torch)),
+                ("21", lambda: smoke.lm_families_phase(torch)),
+                ("24", lambda: smoke.lm_bf16_phase(torch, dry, out["19"],
+                                                   smi)),
+                ("25", lambda: smoke.lm_bf16_family_phase(
+                    torch, dry, cpu_side, out["19"], out["21"], smi))):
+            t1 = time.perf_counter()
+            smoke.reset_launches()
+            out[name] = run()
+            smoke.log(f"[phase {name}: {time.perf_counter() - t1:.1f} s, "
+                      f"{time.perf_counter() - t0:.1f} s in all; launches "
+                      f"{smoke.read_launches()}]")
     finally:
         dry.kill()
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "chip_probe_bf16.json"),
-              "w") as f:
-        json.dump(dict(card=smi, lm_serve=lm_serve, lm_bf16=out), f,
-                  indent=1, default=str)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "chip_probe_bf16.json"),
+                  "w") as f:
+            json.dump(dict(card=smi, phases=out), f, indent=1, default=str)
     return 0
 
 

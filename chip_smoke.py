@@ -354,8 +354,9 @@
     card and on the CPU: train_step.model_loss_fn's loss within
     LM_BF16_LOSS_ATOL and every gradient leaf within LM_BF16_GRAD_REL of
     its largest magnitude (tests/test_torch_train_grads.py's bounds
-    against the reference), the full forward's logits within LM_BF16_ATOL
-    (tests/test_torch_models.py's); then one bfloat16 GEMM at the MLP's
+    against the reference), the full forward's logits within
+    numerics.LOGITS_ATOL (tests/test_torch_models.py's); then one
+    bfloat16 GEMM at the MLP's
     wo shape of a train_4k microbatch with cuBLAS's reduced-precision
     reduction on and off, its largest error against float64 and its ms.
     (b) qwen3-1.7b served in bfloat16 (a bfloat16 KV cache) at phase 19
@@ -363,8 +364,9 @@
     it samples from: a batched slot's logits against the same request
     alone in a 1-slot engine, at every step up to the first token that
     differs, and decode_step's logits against the full forward's, each
-    logit within the larger of LM_BF16_ATOL and LM_BF16_ULPS bfloat16 ulps
-    of its row's largest magnitude (bf16_logits_err; the tests' bound is
+    logit within the larger of numerics.LOGITS_ATOL and LOGITS_ULPS
+    bfloat16 ulps of its row's largest magnitude (models/numerics.py:
+    bf16_logits_err, shared with the CPU tests; the tests' bound is
     about four ulps at the reduced models' 0.7, and at full width a logit
     near 0 carries the rounding of a row whose largest pass 8, where one
     ulp is 0.0625), both forwards logged against the float32 forward of
@@ -391,6 +393,37 @@
     LM_FAMILY_RESUME_BATCH (the train_4k RunConfig, chunks of 256) failed
     at step 5 and resumed against 10 straight steps, bit for bit in every
     leaf.  Its counts are read and logged as zero.
+25. The other eight language models at the reference's compute dtype
+    ("lm bf16 families"), each at the RunConfig of phase 24 with the
+    bounds of models/numerics.py (the CPU tests' rules): (a) the reduced
+    gemma2-2b, deepseek-7b, qwen3-14b, recurrentgemma-9b, rwkv6-1.6b,
+    whisper-base (its encoder frames), internvl2-76b (its patch
+    embeddings) and dbrx-132b at LM_BF16_PARITY, the same parameters and
+    batch on the card and on the CPU (the CPU's half in a side process,
+    lm_bf16_family_cpu, started after phase 7): the loss within
+    LM_BF16_LOSS_ATOL, each gradient leaf within LM_BF16_GRAD_REL of its
+    largest magnitude or else within its own bfloat16 error on the CPU
+    (against the float32 gradient of the same parameters; logged), the
+    full forward's logits within the per-row bound, for dbrx but where a
+    near-tie router flip moved a token (numerics.FlipTracker: at most 1
+    in 32 tokens, each flip within 2 ulps of its row's largest router
+    logit; logged).  (b) Served at full width in bfloat16 with a bfloat16
+    cache (lm_family_decode): recurrentgemma-9b, rwkv6-1.6b, whisper-base,
+    granite-moe (capacity 8), dbrx-132b at 2 layers, internvl2-76b at 4,
+    deepseek-7b and qwen3-14b at full depth (a model whose float32 masters
+    would pass LM_BF16_PEAK_CAP is cut in depth, listed in "reduced"),
+    decode against the full forward within the per-row bound, torch's
+    peak under LM_BF16_PEAK_CAP; gemma2-2b past its window as phase 19
+    (b) (lm_window_decode); rwkv6-1.6b at the serve CLI's defaults, two
+    requests alone against their batched slots (lm_bf16_engine); prefill
+    ms, ms a decode step, tokens/s and torch's peak beside the float32
+    figures of phases 19 (b) and 21 of the same run.  (c) whisper-base's
+    train_4k at its own RunConfig, 2 x 4,096 decoder tokens (2,048
+    encoder frames), 3 steps as phase 24 (c): losses finite, the first
+    step counted on the card equal to dryrun.count on fake tensors (a
+    third DryRuns side process, lm_bf16_fake_counts of
+    "bf16_family_counts"), measured not below the bound.  Its counts are
+    read and logged as zero.
 
 Phase 11, the out-of-core part of 12 ("admission ooc", admission_ooc)
 and part c of 15 (checkpoint_ooc) run in three spawned side processes
@@ -400,7 +433,7 @@ work that leaves the card idle, so they run on other cores beside phases
 side's kernels count in its process and report; its lines are logged
 when it is joined.
 
-Phases 5, 6, 8, 9, 11, 13, 14, 16, 17c, 19, 20, 21, 22, 23 and 24, the
+Phases 5, 6, 8, 9, 11, 13, 14, 16, 17c, 19, 20, 21, 22, 23, 24 and 25, the
 in-memory session of 12 and its out-of-core session ("admission ooc")
 and each part of 15
 ("checkpoint" sums a and b, then "checkpoint ooc", "cluster restart") set
@@ -520,9 +553,6 @@ LM_DRYRUN_TIMEOUT_S = 1000        # each cell, from the start of them all
 LM_DRYRUN_REPS = 5                # phase 23 (b): timed calls after a warm one
 LM_BF16_ARCH = "qwen3-1.7b"       # phase 24 (a)-(d): bfloat16
 LM_BF16_MOE_ARCH = "granite-moe-1b-a400m"  # phase 24 (a), (e)
-LM_BF16_ATOL = 3e-2               # logits (tests/test_torch_models.py's
-LM_BF16_ULPS = 4                  # bound, "about four bfloat16 ulps at
-                                  # 0.7"): within the larger of the two
 LM_BF16_LOSS_ATOL = 1e-3          # loss and gradient leaves against the
 LM_BF16_GRAD_REL = 5e-2           # CPU (tests/test_torch_train_grads.py)
 LM_BF16_PARITY = (4, 64)          # (a): reduced, batch x seq
@@ -535,6 +565,22 @@ LM_BF16_COUNTS = (                # (c)-(e) on fake tensors, beside the card
     (LM_BF16_ARCH, "decode_32k", LM_BF16_DECODE_BATCH),
     (LM_BF16_MOE_ARCH, "train_4k", LM_BF16_TRAIN_BATCH))
 LM_BF16_GEMM = (4096, 6144, 2048)  # (a): M, K, N of the MLP's wo at train_4k
+LM_BF16_FAMILIES = (              # phase 25 (a): bfloat16, card vs CPU
+    "gemma2-2b", "deepseek-7b", "qwen3-14b", "recurrentgemma-9b",
+    "rwkv6-1.6b", "whisper-base", "internvl2-76b", "dbrx-132b")
+LM_BF16_SERVE = (                 # (b): full width, bfloat16 cache
+    ("recurrentgemma-9b", {}), ("rwkv6-1.6b", {}), ("whisper-base", {}),
+    ("granite-moe-1b-a400m", {"moe_capacity_factor": 8.0}),
+    ("dbrx-132b", {"num_layers": 2, "moe_capacity_factor": 8.0}),
+    ("internvl2-76b", {"num_layers": 4}),
+    ("deepseek-7b", {}), ("qwen3-14b", {}))
+LM_BF16_PEAK_CAP = 75e9           # (b): torch's peak a model may need,
+                                  # else its depth is cut
+LM_BF16_ALONE_ARCH = "rwkv6-1.6b"  # (b): batched vs alone (recurrent state)
+LM_BF16_TRAIN_ARCH = "whisper-base"  # (c): train_4k at full width
+LM_BF16_FAMILY_STEPS = 3          # (c)
+LM_BF16_FAMILY_COUNTS = (         # (c) on fake tensors, beside the card
+    (LM_BF16_TRAIN_ARCH, "train_4k", LM_BF16_TRAIN_BATCH),)
 ADMIT_OOC_SUPERSTEPS = 2     # admission session compared out of core (cut
                              # from 3: its Q = 9 superstep took 78-103 s)
 CKPT_CRASH_SS = 3            # checkpoint: crash at the start of superstep 3
@@ -3410,10 +3456,29 @@ def lm_serve_phase(torch):
 
     # (b) gemma2-2b: one prompt past the window, decode against the full
     # forward, so the rolling cache is checked at full width
+    out["b"] = lm_window_decode(torch, "float32")
+    out["logits_atol"] = LM_LOGITS_ATOL
+    return out
+
+
+def lm_window_decode(torch, dtype):
+    """Phases 19 (b) and 25 (b): LM_WINDOW_ARCH at full width in the
+    compute dtype ``dtype`` (a cache of it), one LM_WINDOW_PROMPT-token
+    prompt past the window prefilled at chunks of LM_WINDOW_CHUNK and
+    LM_WINDOW_DECODE greedy steps, every logit against the full forward
+    over the prompt and the decoded tokens (float32 within
+    LM_LOGITS_ATOL, bfloat16 within numerics' per-row bound)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import numerics
+    from repro_torch.models.model_zoo import build_model, param_count
+
+    dev = torch.device(DEV)
+    cdt = getattr(torch, dtype)
     torch.cuda.reset_peak_memory_stats()
     cfg = registry.get_config(LM_WINDOW_ARCH)
     run = RunConfig(remat="none", q_chunk=LM_WINDOW_CHUNK,
-                    kv_chunk=LM_WINDOW_CHUNK, compute_dtype="float32")
+                    kv_chunk=LM_WINDOW_CHUNK, compute_dtype=dtype)
     model = build_model(cfg, run, DEV).init(SEED)
     n_params = param_count(model)
     n, k = LM_WINDOW_PROMPT, LM_WINDOW_DECODE
@@ -3422,12 +3487,12 @@ def lm_serve_phase(torch):
     prompt = torch.from_numpy(np.random.default_rng(SEED + 20).integers(
         0, cfg.vocab_size, (1, n)).astype(np.int32)).to(dev)
     with torch.inference_mode():
-        cache = model.init_cache(1, n + k, torch.float32)
+        cache = model.init_cache(1, n + k, cdt)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         cache, lg = model.prefill(prompt, cache)
         torch.cuda.synchronize()
-        prefill_ms_b = 1e3 * (time.perf_counter() - t0)
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
         toks = [int(torch.argmax(lg[0, -1]))]
         logits = [lg[0, -1]]
         step_ms = []
@@ -3444,28 +3509,37 @@ def lm_serve_phase(torch):
                                           dtype=prompt.dtype)], dim=1)
     full = lm_last_logits(torch, model, seq, k + 1)
     got = torch.stack(logits[:k + 1])
-    err_b = float((got - full).abs().max())
-    if not err_b <= LM_LOGITS_ATOL:
-        raise AssertionError(f"lm serve {LM_WINDOW_ARCH}: decode past the "
-                             f"window vs full forward max |err| {err_b:.3g} "
-                             f"> {LM_LOGITS_ATOL}")
-    mem_b = lm_memory(torch)
-    out["b"] = dict(arch=LM_WINDOW_ARCH, params=n_params, prompt=n,
-                    decoded=k, chunk=LM_WINDOW_CHUNK,
-                    cache_lengths=sorted(windows), prefill_ms=prefill_ms_b,
-                    decode_step_ms=step_ms,
-                    tokens_per_s=k / (sum(step_ms) / 1e3),
-                    decode_vs_full_max_abs=err_b, **mem_b)
-    log(f"lm serve {LM_WINDOW_ARCH}: {n_params} params; a {n}-token prompt "
-        f"(cache lengths {sorted(windows)}) prefilled in {prefill_ms_b:.1f} "
-        f"ms at chunks of {LM_WINDOW_CHUNK}, {k} decode steps "
-        f"{np.mean(step_ms):.2f} ms each ({out['b']['tokens_per_s']:.1f} "
-        f"tokens/s); prefill and decode vs full forward max |err| "
-        f"{err_b:.3g}; card {mem_b['card_used_bytes']} bytes in use, torch "
-        f"peak {mem_b['torch_peak_bytes']}")
+    if dtype == "float32":
+        err, ulps = float((got - full).abs().max()), None
+        ok = err <= LM_LOGITS_ATOL
+    else:
+        err, ulps, over = numerics.bf16_logits_err(got.cpu(), full.cpu(),
+                                                   cfg.vocab_size)
+        ok = over <= 1
+    if not ok:
+        raise AssertionError(f"lm serve {LM_WINDOW_ARCH} {dtype}: decode "
+                             f"past the window vs full forward max |err| "
+                             f"{err:.3g} ({ulps} ulps) beyond its bound")
+    mem = lm_memory(torch)
+    out = dict(arch=LM_WINDOW_ARCH, dtype=dtype, params=n_params, prompt=n,
+               decoded=k, chunk=LM_WINDOW_CHUNK,
+               cache_lengths=sorted(windows), prefill_ms=prefill_ms,
+               decode_step_ms=step_ms,
+               mean_decode_step_ms=float(np.mean(step_ms)),
+               tokens_per_s=k / (sum(step_ms) / 1e3),
+               decode_vs_full_max_abs=err, decode_vs_full_max_ulps=ulps,
+               **mem)
+    log(f"lm serve {LM_WINDOW_ARCH} ({dtype}): {n_params} params; a "
+        f"{n}-token prompt (cache lengths {sorted(windows)}) prefilled in "
+        f"{prefill_ms:.1f} ms at chunks of {LM_WINDOW_CHUNK}, {k} decode "
+        f"steps {np.mean(step_ms):.2f} ms each ({out['tokens_per_s']:.1f} "
+        f"tokens/s); prefill and decode vs full forward max |err| {err:.3g}"
+        f"{'' if ulps is None else f' ({ulps:.2f} ulps)'}; card "
+        f"{mem['card_used_bytes']} bytes in use, torch peak "
+        f"{mem['torch_peak_bytes']}")
     del model, cache, full, got, logits
+    gc.collect()
     torch.cuda.empty_cache()
-    out["logits_atol"] = LM_LOGITS_ATOL
     return out
 
 
@@ -3678,15 +3752,19 @@ def lm_train_phase(torch):
     return out
 
 
-def lm_family_decode(torch, arch, overrides):
-    """Phase 21 (a)/(b): one arch at full width on the card (``overrides``
-    on the reference's config): a LM_FAMILY_SEQ-token sequence prefilled
-    but for its last token, that token decoded, the logits against the
-    full forward's last; then LM_FAMILY_TIMED greedy decode steps timed."""
+def lm_family_decode(torch, arch, overrides, dtype="float32"):
+    """Phases 21 (a)/(b) and 25 (b): one arch at full width on the card
+    (``overrides`` on the reference's config) in the compute dtype
+    ``dtype`` with a cache of that dtype: a LM_FAMILY_SEQ-token sequence
+    prefilled but for its last token, that token decoded, the logits
+    against the full forward's last (float32 within LM_LOGITS_ATOL,
+    bfloat16 within numerics' per-row bound); then LM_FAMILY_TIMED greedy
+    decode steps timed."""
     import dataclasses
 
     from repro_torch.configs import registry
     from repro_torch.configs.base import RunConfig
+    from repro_torch.models import numerics
     from repro_torch.models.model_zoo import (active_param_count,
                                               build_model, param_count)
     from repro_torch.serve.serve_step import build_serve_fns
@@ -3696,7 +3774,8 @@ def lm_family_decode(torch, arch, overrides):
     resident = int(torch.cuda.memory_allocated())
     cfg = dataclasses.replace(registry.get_config(arch), **overrides)
     run = RunConfig(remat="none", q_chunk=64, kv_chunk=64,
-                    compute_dtype="float32")
+                    compute_dtype=dtype)
+    cdt = getattr(torch, dtype)
     S, k = LM_FAMILY_SEQ, LM_FAMILY_TIMED
     rng = np.random.default_rng(SEED + 21)
     seq = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, S)).astype(
@@ -3705,7 +3784,7 @@ def lm_family_decode(torch, arch, overrides):
     if cfg.encoder_layers > 0:
         # whisper: served through build_serve_fns, which builds the model
         fns = build_serve_fns(cfg, run, max_len=S + k, batch=1,
-                              cache_dtype=torch.float32, device=DEV)
+                              cache_dtype=cdt, device=DEV)
         model = fns["model"].init(SEED)
         extra["enc_frames"] = torch.from_numpy(rng.normal(
             size=(1, S // 2, cfg.d_model)).astype(np.float32)).to(dev)
@@ -3739,18 +3818,24 @@ def lm_family_decode(torch, arch, overrides):
         else:
             h, _ = model.hidden(seq, extra.get("patch_embeds"), mode="train")
             full = model.logits(h[:, -1:])[0, 0]
-        cache = model.init_cache(1, fr + S + k, torch.float32)
+        cache = model.init_cache(1, fr + S + k, cdt)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cache, _ = prefill(seq[:, :S - 1], cache)
     torch.cuda.synchronize()
     prefill_ms = 1e3 * (time.perf_counter() - t0)
     cache, dec = decode(seq[:, S - 1:], cache, fr + S - 1)
-    err = float((dec[0, 0] - full).abs().max())
-    if not (bool(torch.isfinite(dec[0, 0, :cfg.vocab_size]).all())
-            and err <= LM_LOGITS_ATOL):
-        raise AssertionError(f"lm families {arch}: decode vs full forward "
-                             f"max |err| {err:.3g} > {LM_LOGITS_ATOL}")
+    if dtype == "float32":
+        err = float((dec[0, 0] - full).abs().max())
+        ulps, ok = None, err <= LM_LOGITS_ATOL
+    else:
+        err, ulps, over = numerics.bf16_logits_err(dec[0, 0].cpu(),
+                                                   full.cpu(), cfg.vocab_size)
+        ok = over <= 1
+    if not (bool(torch.isfinite(dec[0, 0, :cfg.vocab_size]).all()) and ok):
+        raise AssertionError(f"lm families {arch} {dtype}: decode vs full "
+                             f"forward max |err| {err:.3g} ({ulps} ulps) "
+                             "beyond its bound")
     step_ms, tok = [], int(torch.argmax(dec[0, 0]))
     for i in range(k):
         torch.cuda.synchronize()
@@ -3760,15 +3845,16 @@ def lm_family_decode(torch, arch, overrides):
         tok = int(torch.argmax(lg[0, 0]))
         step_ms.append(1e3 * (time.perf_counter() - t0))
     mem = lm_memory(torch)
-    row = dict(arch=arch, overrides=overrides, params=n_params,
+    row = dict(arch=arch, overrides=overrides, dtype=dtype, params=n_params,
                active_params=n_active, layers=cfg.num_layers,
                frontend_tokens=fr, prefill_tokens=fr + S - 1,
                prefill_ms=prefill_ms, decode_step_ms=step_ms,
                mean_decode_step_ms=float(np.mean(step_ms)),
                tokens_per_s=1e3 / float(np.mean(step_ms)),
-               decode_vs_full_max_abs=err, resident_at_start_bytes=resident,
-               **mem)
-    log(f"lm families {arch}{' ' + str(overrides) if overrides else ''}: "
+               decode_vs_full_max_abs=err, decode_vs_full_max_ulps=ulps,
+               resident_at_start_bytes=resident, **mem)
+    log(f"lm families {arch}{' ' + str(overrides) if overrides else ''} "
+        f"({dtype}): "
         f"{n_params} params ({n_active} active), prefill of {fr + S - 1} "
         f"positions {prefill_ms:.1f} ms, decode {np.mean(step_ms):.2f} ms a "
         f"step ({row['tokens_per_s']:.1f} tokens/s); decode vs full forward "
@@ -4295,7 +4381,9 @@ def lm_mesh_phase(torch, lm_train):
     return out
 
 
-BF16_COUNTS_KEY = ("bf16_counts", "one", "bf16")
+BF16_COUNT_KEYS = {                     # DryRuns' processes of bf16 counts
+    "bf16_counts": ("bf16_counts", "one", "bf16"),                # phase 24
+    "bf16_family_counts": ("bf16_counts", "one", "bf16 families")}   # 25
 
 
 class DryRuns:
@@ -4328,14 +4416,17 @@ class DryRuns:
         self.procs.append((("rank_shares", "train_4k", "c5"), subprocess.Popen(
             [sys.executable, "-c", code, json.dumps(jobs_c5), self.shares],
             stdout=logf, stderr=subprocess.STDOUT, env=env, cwd=ROOT), logf))
-        # phase 24's counts on fake tensors, beside the card's work
+        # phases 24's and 25's counts on fake tensors, beside the card's
+        # work
         self.bf16 = os.path.join(out_dir, "bf16")
         os.makedirs(self.bf16)
-        logf = open(os.path.join(self.bf16, "bf16_counts.log"), "w")
-        self.procs.append((BF16_COUNTS_KEY, subprocess.Popen(
-            [sys.executable, "-c", "import sys, chip_smoke; "
-             "chip_smoke.lm_bf16_fake_counts(sys.argv[1])", self.bf16],
-            stdout=logf, stderr=subprocess.STDOUT, env=env, cwd=ROOT), logf))
+        for name, key in BF16_COUNT_KEYS.items():
+            logf = open(os.path.join(self.bf16, f"{name}.log"), "w")
+            self.procs.append((key, subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; "
+                 "chip_smoke.lm_bf16_fake_counts(*sys.argv[1:])", self.bf16,
+                 name], stdout=logf, stderr=subprocess.STDOUT, env=env,
+                cwd=ROOT), logf))
         for arch, cell, mesh, layers in jobs:
             logf = open(os.path.join(out_dir, f"{arch}__{cell}__{mesh}.log"),
                         "w")
@@ -4383,7 +4474,8 @@ def lm_dryrun_cells(torch, dry):
     from repro_torch.launch import report
     from repro_torch.roofline import hlo_cost, hw
 
-    ends = dry.join(LM_DRYRUN_TIMEOUT_S, skip=(BF16_COUNTS_KEY,))
+    ends = dry.join(LM_DRYRUN_TIMEOUT_S,
+                    skip=tuple(BF16_COUNT_KEYS.values()))
     shares = lm_rank_shares(dry, ends.pop(("rank_shares", "train_4k", "c5")))
     rows = []
     for (arch, cell, mesh), (rc, end_s) in ends.items():
@@ -4660,15 +4752,18 @@ def lm_bf16_run(arch, cell_name, seq=None):
                                compute_dtype="bfloat16")
 
 
-def lm_bf16_fake_counts(out_dir):
-    """Phase 24's cells counted on fake tensors (DryRuns' side process):
-    dryrun.count(arch, cell, "one", ...) of each LM_BF16_COUNTS entry, its
-    costs and memory to ``out_dir``/bf16_counts.json and its op record
-    beside them."""
+def lm_bf16_fake_counts(out_dir, name="bf16_counts"):
+    """Phase 24's (``name`` "bf16_counts": LM_BF16_COUNTS) or phase 25's
+    ("bf16_family_counts": LM_BF16_FAMILY_COUNTS) cells counted on fake
+    tensors (a DryRuns side process): dryrun.count(arch, cell, "one", ...)
+    of each entry, its costs and memory to ``out_dir``/``name``.json and
+    its op record beside them."""
     from repro_torch.launch import dryrun
 
     out = {}
-    for arch, cell, batch in LM_BF16_COUNTS:
+    jobs = {"bf16_counts": LM_BF16_COUNTS,
+            "bf16_family_counts": LM_BF16_FAMILY_COUNTS}[name]
+    for arch, cell, batch in jobs:
         cc, n, run = dryrun.count(arch, cell, "one", DEV, batch=batch)
         c = cc.counted
         dryrun.save_record(os.path.join(out_dir, f"{arch}__{cell}.ops.zst"),
@@ -4682,22 +4777,24 @@ def lm_bf16_fake_counts(out_dir):
             remat=run.remat)
         print(f"{arch} {cell}: {len(c.records)} ops in {cc.count_s:.1f} s",
               flush=True)
-    with open(os.path.join(out_dir, "bf16_counts.json"), "w") as f:
+    with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
         json.dump(out, f)
 
 
-def lm_bf16_fake(dry):
-    """The side process's counts (lm_bf16_fake_counts), joined."""
+def lm_bf16_fake(dry, name="bf16_counts"):
+    """A side process's counts (lm_bf16_fake_counts of ``name``), joined."""
+    key = BF16_COUNT_KEYS[name]
     rc, end_s = dry.join(LM_DRYRUN_TIMEOUT_S, skip=[
-        k for k, _, _ in dry.procs if k != BF16_COUNTS_KEY])[BF16_COUNTS_KEY]
-    path = os.path.join(dry.bf16, "bf16_counts.json")
+        k for k, _, _ in dry.procs if k != key])[key]
+    path = os.path.join(dry.bf16, f"{name}.json")
     if rc != 0 or not os.path.exists(path):
-        with open(os.path.join(dry.bf16, "bf16_counts.log")) as f:
+        with open(os.path.join(dry.bf16, f"{name}.log")) as f:
             tail = f.read()[-3000:]
-        raise AssertionError(f"lm bf16 fake counts: exit code {rc}\n{tail}")
+        raise AssertionError(f"lm bf16 fake counts ({name}): exit code "
+                             f"{rc}\n{tail}")
     with open(path) as f:
         counts = json.load(f)
-    log(f"lm bf16 fake counts: {end_s:.1f} s after the start")
+    log(f"lm bf16 fake counts ({name}): {end_s:.1f} s after the start")
     return counts, end_s
 
 
@@ -4835,6 +4932,7 @@ def lm_bf16_parity(torch):
     import copy
 
     from repro_torch.configs import registry
+    from repro_torch.models import numerics
     from repro_torch.models.model_zoo import build_model
     from repro_torch.train.data import SyntheticLM
 
@@ -4869,7 +4967,7 @@ def lm_bf16_parity(torch):
             f"leaves within {grad_rel:.3g} of their scale, logits max |err| "
             f"{logit_err:.3g}")
         if not (loss_err <= LM_BF16_LOSS_ATOL and grad_rel <= LM_BF16_GRAD_REL
-                and logit_err <= LM_BF16_ATOL):
+                and logit_err <= numerics.LOGITS_ATOL):
             raise AssertionError(f"lm bf16 parity {cfg.name}: {row}")
         out[arch] = row
         del cpu, card
@@ -4879,32 +4977,19 @@ def lm_bf16_parity(torch):
     return out
 
 
-def bf16_logits_err(torch, got, want, vocab):
-    """Two bfloat16 logit tensors ``[..., V]`` compared over the first
-    ``vocab`` entries (phase 24 (b)): (the largest |got - want|, the
-    largest in bfloat16 ulps of its row's largest |want|, the largest
-    over the bound).  Each logit is held within the larger of
-    LM_BF16_ATOL and LM_BF16_ULPS ulps of its row's largest magnitude: a
-    logit sums products whose rounding scales with the row's values, not
-    its own (one near 0 carries its neighbours' error), and the tests'
-    absolute bound is about four ulps at the reduced models' 0.7."""
-    got, want = got[..., :vocab].float(), want[..., :vocab].float()
-    err = (got - want).abs()
-    top = want.abs().amax(dim=-1, keepdim=True).clamp(min=2.0 ** -126)
-    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
-    tol = torch.clamp(LM_BF16_ULPS * ulp, min=LM_BF16_ATOL)
-    return (float(err.max()), float((err / ulp).max()),
-            float((err / tol).max()))
-
-
-def lm_bf16_serve(torch, lm_serve):
-    """Phase 24 (b): qwen3-1.7b served in bfloat16 at phase 19 (a)'s
-    shapes, its figures beside phase 19's float32 ones (``lm_serve``)."""
-    import dataclasses
-
-    from repro_torch.configs import registry
-    from repro_torch.launch import serve as serve_cli
-    from repro_torch.models.model_zoo import build_model
+def lm_bf16_engine(torch, cfg, run, model, args):
+    """Phases 24 (b) and 25 (b): ``args.requests`` requests of
+    ``args.prompt_len`` seeded tokens (the serve CLI's, ``args``) served in
+    bfloat16 with a bfloat16 cache by a ServeEngine of ``args.slots``
+    slots that keeps the logits it samples from, then LM_SINGLE_RIDS again
+    each alone in a 1-slot engine: the alone logits against the batched
+    slot's at every step up to the first token that differs (bfloat16 may
+    flip a near-tied greedy choice: tokens are recorded, not asserted),
+    each held to numerics' per-row bound by its caller.  Returns (the
+    batched engine, its outputs, its wall seconds, the requests, the alone
+    rows, the largest (|err|, ulps, over the bound) of them, and each
+    alone request's logits ``[steps compared, V]``)."""
+    from repro_torch.models import numerics
     from repro_torch.serve.engine import Request, ServeEngine
 
     class Recording(ServeEngine):
@@ -4919,14 +5004,6 @@ def lm_bf16_serve(torch, lm_serve):
             self.logits[(req.rid, step)] = logits.float().cpu()
             return super()._sample(logits, req, step)
 
-    dev = torch.device(DEV)
-    args = serve_cli.parse_args(["--arch", LM_BF16_ARCH])
-    cfg = registry.get_config(LM_BF16_ARCH)
-    run = lm_bf16_run(LM_BF16_ARCH, "decode_32k")
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    model = build_model(cfg, run, DEV).init(args.seed)
     rng = np.random.default_rng(args.seed)
     reqs = [Request(rid=i, prompt=rng.integers(
         0, cfg.vocab_size, args.prompt_len).astype(np.int32),
@@ -4940,34 +5017,59 @@ def lm_bf16_serve(torch, lm_serve):
     t0 = time.perf_counter()
     outs = eng.run_requests(reqs)
     wall = time.perf_counter() - t0
-    steps = eng.stats["decode_steps"]
-    n_tok = sum(len(o.tokens) for o in outs)
     if len(outs) != args.requests or any(len(o.tokens) != args.max_new
                                          for o in outs):
-        raise AssertionError(f"lm bf16 serve: {len(outs)} completions, "
-                             f"lengths {[len(o.tokens) for o in outs]}")
+        raise AssertionError(f"lm bf16 serve {cfg.name}: {len(outs)} "
+                             f"completions, lengths "
+                             f"{[len(o.tokens) for o in outs]}")
     by_rid = {o.rid: o.tokens for o in outs}
-    prefill_ms = 1e3 * float(np.mean([o.prefill_s for o in outs]))
-    decode_ms = 1e3 * sum(o.decode_s for o in outs) / steps
-    mem = lm_memory(torch)
-    # a batched slot against the same request alone: the logits of every
-    # step up to the first token that differs (bfloat16 may flip a
-    # near-tied greedy choice: tokens are recorded, not asserted)
-    alone, err_alone = {}, (0.0, 0.0, 0.0)
+    alone, worst, logits = {}, (0.0, 0.0, 0.0), {}
     for rid in LM_SINGLE_RIDS:
         one = engine(1)
         toks = one.run_requests([reqs[rid]])[0].tokens
         same = next((i for i, (a, b) in enumerate(zip(toks, by_rid[rid]))
                      if a != b), len(toks) - 1)
-        err = bf16_logits_err(
-            torch, torch.stack([one.logits[(rid, i)] for i in range(same + 1)]),
-            torch.stack([eng.logits[(rid, i)] for i in range(same + 1)]),
+        logits[rid] = torch.stack([one.logits[(rid, i)]
+                                   for i in range(same + 1)])
+        rows = numerics.logit_errors(
+            logits[rid], torch.stack([eng.logits[(rid, i)]
+                                      for i in range(same + 1)]),
             cfg.vocab_size)
+        err = tuple(float(r.max()) for r in rows)
         alone[rid] = dict(tokens=toks, batched=by_rid[rid],
                           steps_compared=same + 1, max_abs_err=err[0],
-                          max_ulps=err[1])
-        err_alone = tuple(max(a, b) for a, b in zip(err_alone, err))
+                          max_ulps=err[1], err_by_step=rows[0].tolist(),
+                          over_by_step=rows[2].tolist())
+        worst = tuple(max(a, b) for a, b in zip(worst, err))
         del one
+    return eng, outs, wall, reqs, alone, worst, logits
+
+
+def lm_bf16_serve(torch, lm_serve):
+    """Phase 24 (b): qwen3-1.7b served in bfloat16 at phase 19 (a)'s
+    shapes, its figures beside phase 19's float32 ones (``lm_serve``)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import numerics
+    from repro_torch.models.model_zoo import build_model
+
+    dev = torch.device(DEV)
+    args = serve_cli.parse_args(["--arch", LM_BF16_ARCH])
+    cfg = registry.get_config(LM_BF16_ARCH)
+    run = lm_bf16_run(LM_BF16_ARCH, "decode_32k")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, run, DEV).init(args.seed)
+    eng, outs, wall, _, alone, err_alone, _ = lm_bf16_engine(
+        torch, cfg, run, model, args)
+    steps = eng.stats["decode_steps"]
+    n_tok = sum(len(o.tokens) for o in outs)
+    prefill_ms = 1e3 * float(np.mean([o.prefill_s for o in outs]))
+    decode_ms = 1e3 * sum(o.decode_s for o in outs) / steps
+    mem = lm_memory(torch)
     # one batched decode step under torch.profiler: host-bound or not, and
     # the device time of the casts (a bfloat16 copy of every weight)
     prof = profiled_call(torch, lambda: model.decode_step(
@@ -4983,7 +5085,8 @@ def lm_bf16_serve(torch, lm_serve):
         cache, _ = model.prefill(seq[:, :23], cache)
         _, dec = model.decode_step(seq[:, 23:], cache, 23)
     full = lm_last_logits(torch, model, seq, 1)
-    err_full = bf16_logits_err(torch, dec[0, 0], full[0], cfg.vocab_size)
+    err_full = numerics.bf16_logits_err(dec[0, 0].cpu(), full[0].cpu(),
+                                        cfg.vocab_size)
     # the scale of bfloat16's own rounding here: both against the float32
     # forward of the same parameters
     m32 = build_model(cfg, dataclasses.replace(run, compute_dtype="float32"),
@@ -5032,7 +5135,7 @@ def lm_bf16_serve(torch, lm_serve):
         raise AssertionError(
             f"lm bf16 serve: decode vs full forward {err_full[:2]}, batched "
             f"vs alone {err_alone[:2]} (max |err|, ulps): above the larger "
-            f"of {LM_BF16_ATOL} and {LM_BF16_ULPS} ulps")
+            f"of {numerics.LOGITS_ATOL} and {numerics.LOGITS_ULPS} ulps")
     del model, eng, cache, dec, full
     gc.collect()
     torch.cuda.empty_cache()
@@ -5063,9 +5166,12 @@ def lm_bf16_train_cell(torch, arch, steps, fake, record, smi):
     n_active = active_param_count(cfg, state["params"])
     src = SyntheticLM(cfg, LM_BF16_TRAIN_BATCH, seq, seed=SEED)
 
-    def batch_at(i):     # on the card, as the fake count's inputs are
-        return {k: torch.from_numpy(v).to(DEV)
-                for k, v in src.batch_at(i).items()}
+    def batch_at(i):     # on the card in registry.input_specs' dtypes, as
+        out = {}         # the fake count's inputs are (frames bfloat16)
+        for k, v in src.batch_at(i).items():
+            t = torch.from_numpy(v).to(DEV)
+            out[k] = t.bfloat16() if t.is_floating_point() else t
+        return out
 
     losses, steps_s = [], []
     for i in range(steps):
@@ -5205,6 +5311,8 @@ def lm_bf16_moe_resume(torch):
 def lm_bf16_phase(torch, dry, lm_serve, smi):
     """Phase 24: the language models at the reference's compute dtype,
     bfloat16, on the card (module docstring)."""
+    from repro_torch.models import numerics
+
     exact_matmuls()
     t0 = time.perf_counter()
     out = dict(parity=lm_bf16_parity(torch))
@@ -5226,9 +5334,333 @@ def lm_bf16_phase(torch, dry, lm_serve, smi):
         *fake(LM_BF16_MOE_ARCH, "train_4k"), smi)
     out["moe_resume"] = lm_bf16_moe_resume(torch)
     out["seconds"] = time.perf_counter() - t0
-    out["atol"] = dict(logits=LM_BF16_ATOL, ulps=LM_BF16_ULPS,
+    out["atol"] = dict(logits=numerics.LOGITS_ATOL, ulps=numerics.LOGITS_ULPS,
                        loss=LM_BF16_LOSS_ATOL,
                        grad_rel=LM_BF16_GRAD_REL)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_forward(torch, model, cfg, batch):
+    """The full forward (train mode) of a SyntheticLM batch on the model's
+    device: its logits ``[B, S, V]`` as float32 on the host, and the router
+    logits of its MoE calls (moe.recording_router_logits)."""
+    from repro_torch.models.moe import recording_router_logits
+
+    b = {k: torch.as_tensor(v, device=model.device) for k, v in batch.items()}
+    with torch.inference_mode(), recording_router_logits() as router:
+        if cfg.encoder_layers:
+            h, _ = model._dec_forward(b["tokens"], model._cross_kv(
+                model.encode(b["enc_frames"])), "train", None, None)
+            logits = model._logits(h)
+        else:
+            h, _ = model.hidden(b["tokens"], b.get("patch_embeds"),
+                                mode="train")
+            logits = model.logits(h)
+    return logits.float().cpu(), router
+
+
+def lm_bf16_family_cpu(torch):
+    """Phase 25 (a)'s CPU half, in a Side process started after phase 7:
+    each LM_BF16_FAMILIES arch reduced, in bfloat16 at its train_4k
+    RunConfig (LM_BF16_PARITY's sequence), ``init(SEED)`` and SyntheticLM's
+    batch 0: one train step's loss and gradients (lm_grads), the full
+    forward's logits and router logits (lm_forward), and each gradient
+    leaf's own bfloat16 error, its largest |bfloat16 - float32| against
+    the float32 gradient of the same parameters."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.data import SyntheticLM
+
+    torch.set_num_threads(2)            # beside the main sequence
+    out = {}
+    batch, seq = LM_BF16_PARITY
+    for arch in LM_BF16_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = registry.get_config(arch, reduced=True)
+        run = lm_bf16_run(arch, "train_4k", seq)
+        model = build_model(cfg, run, "cpu").init(SEED)
+        data = SyntheticLM(cfg, batch, seq, seed=SEED).batch_at(0)
+        loss, grads = lm_grads(torch, model, cfg, data)
+        logits, router = lm_forward(torch, model, cfg, data)
+        m32 = build_model(cfg, dataclasses.replace(
+            run, compute_dtype="float32"), "cpu")
+        m32.load_state_dict(model.state_dict())
+        g32 = lm_grads(torch, m32, cfg, data)[1]
+        out[arch] = dict(
+            loss=loss, grads=grads, logits=logits.numpy(),
+            router=[r.numpy() for r in router],
+            own=[float(np.max(np.abs(a - b))) if a.size else 0.0
+                 for a, b in zip(grads, g32)])
+        log(f"lm bf16 families on the CPU {arch}: "
+            f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def lm_bf16_family_parity(torch, cpu_side):
+    """Phase 25 (a): the card's half of lm_bf16_family_cpu (the same
+    reduced models, parameters and batches) against the CPU's: the loss
+    within LM_BF16_LOSS_ATOL; each gradient leaf within LM_BF16_GRAD_REL
+    of its largest magnitude, or else within its own bfloat16 error on
+    the CPU (logged); the logits within numerics' per-row bound, for a MoE
+    arch but where a near-tie router flip moved a token (the flips
+    logged)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import numerics
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.data import SyntheticLM
+
+    cpu = cpu_side.join()
+    out = {}
+    batch, seq = LM_BF16_PARITY
+    for arch in LM_BF16_FAMILIES:
+        want = cpu[arch]
+        cfg = registry.get_config(arch, reduced=True)
+        run = lm_bf16_run(arch, "train_4k", seq)
+        card = build_model(cfg, run, "cpu").init(SEED).to(DEV)
+        data = SyntheticLM(cfg, batch, seq, seed=SEED).batch_at(0)
+        loss, grads = lm_grads(torch, card, cfg, data)
+        logits, router = lm_forward(torch, card, cfg, data)
+        loss_err = abs(loss - want["loss"])
+        grad_rel, by_own, far = 0.0, [], []
+        for i, (g, w, own) in enumerate(zip(grads, want["grads"],
+                                            want["own"])):
+            if not g.size:
+                continue
+            err = float(np.max(np.abs(g - w)))
+            rel = err / max(float(np.max(np.abs(w))), 1e-30)
+            if rel <= LM_BF16_GRAD_REL:
+                grad_rel = max(grad_rel, rel)
+            elif err <= own:
+                by_own.append(dict(leaf=i, rel=rel, err=err, own=own))
+            else:
+                far.append(dict(leaf=i, rel=rel, err=err, own=own))
+        B, P = logits.shape[:2]
+        keep, flips = None, []
+        if cfg.moe:
+            tracker = numerics.FlipTracker(cfg.experts_per_token)
+            tracker.add(want["router"], router, *zip(*[
+                (b, s) for b in range(B) for s in range(P)]))
+            tracker.check(f"lm bf16 parity {arch}")
+            keep = torch.tensor([[not tracker.moved(b, s) for s in range(P)]
+                                 for b in range(B)])
+            flips = [dict(layer=f["layer"], tokens=f["tokens"],
+                          gaps=f["gaps"], later=f["later"])
+                     for f in tracker.flips]
+        err, ulps, over = numerics.bf16_logits_err(
+            logits, torch.from_numpy(want["logits"]), cfg.vocab_size, keep)
+        row = dict(arch=arch, batch=[batch, seq], loss_cpu=want["loss"],
+                   loss_card=loss, loss_abs_err=loss_err,
+                   grad_max_rel_err=grad_rel, grads_by_own_error=by_own,
+                   grads_beyond=far, leaves=len(grads),
+                   logits_max_abs_err=err, logits_max_ulps=ulps,
+                   logits_over_bound=over, router_flips=flips)
+        log(f"lm bf16 parity {cfg.name} ({batch} x {seq}, microbatch "
+            f"{run.microbatch}, remat {run.remat}): loss card {loss:.6f} vs "
+            f"cpu {want['loss']:.6f} (|err| {loss_err:.3g}), "
+            f"{len(grads) - len(by_own)} gradient leaves within "
+            f"{grad_rel:.3g} of their scale, {len(by_own)} beyond "
+            f"{LM_BF16_GRAD_REL} within their own bfloat16 error "
+            f"{[(r['leaf'], round(r['rel'], 4)) for r in by_own]}; logits "
+            f"max |err| {err:.3g} ({ulps:.2f} ulps, {over:.2f} of the "
+            f"bound); router flips {flips}")
+        if not (loss_err <= LM_BF16_LOSS_ATOL and not far and over <= 1):
+            raise AssertionError(f"lm bf16 parity {cfg.name}: {row}")
+        out[arch] = row
+        del card
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_bf16_depth(arch, overrides):
+    """``overrides`` with the fewest layers cut that keep the model's
+    float32 masters, at 4.2 bytes a parameter (its bfloat16 copies and
+    activations beside them), under LM_BF16_PEAK_CAP; ``overrides``
+    itself where the whole depth fits."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models.model_zoo import build_model, param_count
+
+    cfg = dataclasses.replace(registry.get_config(arch), **overrides)
+    n = param_count(build_model(cfg, RunConfig(), "meta"))
+    if 4.2 * n <= LM_BF16_PEAK_CAP:
+        return overrides
+    per = n / cfg.num_layers
+    return {**overrides, "num_layers": int(LM_BF16_PEAK_CAP / 4.2 / per)}
+
+
+def lm_bf16_alone(torch, lm_families):
+    """Phase 25 (b): LM_BF16_ALONE_ARCH at full width served in bfloat16
+    at the serve CLI's defaults (lm_bf16_engine), LM_SINGLE_RIDS alone
+    against their batched slots: each step's logits within numerics'
+    per-row bound, or else within twice bfloat16's own error there, the
+    alone logits' largest distance from the float32 forward of the same
+    parameters over the same tokens (a batch of 4 and of 1 sum cuBLAS's
+    products in other orders, the recurrent state carries each rounding
+    into every later step, and two bfloat16 runs that round in other
+    places each lie about that far from the float32 result); figures
+    beside phase 21 (a)'s float32 serve CLI run."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.model_zoo import build_model
+
+    arch = LM_BF16_ALONE_ARCH
+    args = serve_cli.parse_args(["--arch", arch])
+    cfg = registry.get_config(arch)
+    run = dataclasses.replace(RunConfig(remat="none", q_chunk=64,
+                                        kv_chunk=64),
+                              compute_dtype="bfloat16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, run, DEV).init(args.seed)
+    eng, outs, wall, reqs, alone, worst, logits = lm_bf16_engine(
+        torch, cfg, run, model, args)
+    steps = eng.stats["decode_steps"]
+    n_tok = sum(len(o.tokens) for o in outs)
+    mem = lm_memory(torch)
+    m32 = build_model(cfg, dataclasses.replace(run, compute_dtype="float32"),
+                      DEV)
+    m32.load_state_dict(model.state_dict())
+    beyond = {}
+    for rid, row in alone.items():
+        n = row["steps_compared"]
+        seq = torch.from_numpy(np.concatenate([
+            reqs[rid].prompt, np.asarray(row["tokens"][:n - 1], np.int32)])
+        ).to(DEV)[None]
+        own = (logits[rid][:, :cfg.vocab_size] - lm_last_logits(
+            torch, m32, seq, n)[:, :cfg.vocab_size].float().cpu()
+        ).abs().amax(dim=-1).tolist()
+        row["own_err_by_step"] = own
+        beyond[rid] = [(i, e, 2 * max(own)) for i, (e, r) in enumerate(
+            zip(row["err_by_step"], row["over_by_step"])) if r > 1]
+    del m32
+    f32 = lm_families["serve_cli"]
+    out = dict(arch=arch, slots=args.slots, requests=args.requests,
+               tokens=n_tok, decode_steps=steps, wall_s=wall,
+               tokens_per_s=n_tok / wall,
+               prefill_ms=1e3 * float(np.mean([o.prefill_s for o in outs])),
+               decode_step_ms=1e3 * sum(o.decode_s for o in outs) / steps,
+               alone=alone, alone_max_abs=worst[0], alone_max_ulps=worst[1],
+               beyond_the_bound=beyond, **mem, float32={k: f32[k] for k in (
+                   "prefill_ms", "decode_step_ms", "tokens_per_s",
+                   "torch_peak_bytes")})
+    log(f"lm bf16 serve {arch}: {args.requests} requests, {args.slots} "
+        f"slots, {steps} decode steps; prefill {out['prefill_ms']:.1f} ms a "
+        f"request (float32 {f32['prefill_ms']:.1f}), "
+        f"{out['decode_step_ms']:.2f} ms a decode step "
+        f"({f32['decode_step_ms']:.2f}), {out['tokens_per_s']:.1f} tokens/s "
+        f"({f32['tokens_per_s']:.1f}), torch peak {mem['torch_peak_bytes']} "
+        f"({f32['torch_peak_bytes']}); requests {list(LM_SINGLE_RIDS)} "
+        f"alone: logits within {worst[0]:.3g} ({worst[1]:.2f} ulps, "
+        f"{worst[2]:.2f} of the bound) over "
+        f"{[a['steps_compared'] for a in alone.values()]} steps, tokens "
+        f"{'equal' if all(a['tokens'] == a['batched'] for a in alone.values()) else 'differ'}"
+        "; by step, |batched - alone| "
+        + "; ".join(f"{rid}: {[round(e, 4) for e in a['err_by_step']]}"
+                    for rid, a in alone.items())
+        + ", the alone logits' own bfloat16 error (vs the float32 forward) "
+        + "; ".join(f"{rid}: {[round(e, 4) for e in a['own_err_by_step']]}"
+                    for rid, a in alone.items()))
+    far = {rid: [b for b in rows if b[1] > b[2]]
+           for rid, rows in beyond.items()}
+    if any(far.values()):
+        raise AssertionError(f"lm bf16 serve {arch}: batched vs alone "
+                             f"(step, |err|, twice bfloat16's own error) "
+                             f"beyond the per-row bound and twice its own "
+                             f"error: {far}")
+    del model, eng, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_bf16_family_serve(torch, lm_serve, lm_families):
+    """Phase 25 (b): LM_BF16_SERVE at full width in bfloat16 with a
+    bfloat16 cache (lm_family_decode; a model that would pass
+    LM_BF16_PEAK_CAP cut in depth, lm_bf16_depth), LM_WINDOW_ARCH past its
+    window (lm_window_decode) and LM_BF16_ALONE_ARCH batched vs alone
+    (lm_bf16_alone), each beside the float32 figures of phases 19 (b) and
+    21 of this run where they ran the arch."""
+    from repro_torch.configs import registry
+
+    f32 = {r["arch"]: r for r in lm_families["decode"]}
+    out = dict(decode=[], reduced={})
+    for arch, overrides in LM_BF16_SERVE:
+        overrides = lm_bf16_depth(arch, overrides)
+        if "num_layers" in overrides:
+            out["reduced"][arch] = (f"num_layers {overrides['num_layers']} "
+                                    f"of {registry.get_config(arch).num_layers}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        row = lm_family_decode(torch, arch, overrides, "bfloat16")
+        if row["torch_peak_bytes"] > LM_BF16_PEAK_CAP:
+            raise AssertionError(f"lm bf16 serve {arch}: torch peak "
+                                 f"{row['torch_peak_bytes']} bytes above "
+                                 f"{LM_BF16_PEAK_CAP:.4g}")
+        row["float32"] = ({k: f32[arch][k] for k in (
+            "prefill_ms", "mean_decode_step_ms", "tokens_per_s",
+            "torch_peak_bytes", "layers")} if arch in f32 else None)
+        if row["float32"] is not None:
+            ref = row["float32"]
+            log(f"  {arch} bfloat16 vs float32 (phase 21, "
+                f"{ref['layers']} layers): prefill {row['prefill_ms']:.1f} "
+                f"vs {ref['prefill_ms']:.1f} ms, decode "
+                f"{row['mean_decode_step_ms']:.2f} vs "
+                f"{ref['mean_decode_step_ms']:.2f} ms a step, "
+                f"{row['tokens_per_s']:.1f} vs {ref['tokens_per_s']:.1f} "
+                f"tokens/s, torch peak {row['torch_peak_bytes']} vs "
+                f"{ref['torch_peak_bytes']}")
+        out["decode"].append(row)
+    out["window"] = lm_window_decode(torch, "bfloat16")
+    ref = lm_serve["b"]
+    out["window"]["float32"] = {k: ref[k] for k in (
+        "prefill_ms", "mean_decode_step_ms", "tokens_per_s",
+        "torch_peak_bytes")}
+    log(f"  {LM_WINDOW_ARCH} bfloat16 vs float32 (phase 19 (b)): prefill "
+        f"{out['window']['prefill_ms']:.1f} vs {ref['prefill_ms']:.1f} ms, "
+        f"decode {out['window']['mean_decode_step_ms']:.2f} vs "
+        f"{ref['mean_decode_step_ms']:.2f} ms a step, torch peak "
+        f"{out['window']['torch_peak_bytes']} vs {ref['torch_peak_bytes']}")
+    out["alone"] = lm_bf16_alone(torch, lm_families)
+    return out
+
+
+def lm_bf16_family_phase(torch, dry, cpu_side, lm_serve, lm_families, smi):
+    """Phase 25: the other language models at the reference's compute
+    dtype, bfloat16, on the card (module docstring)."""
+    from repro_torch.models import numerics
+
+    exact_matmuls()
+    t0 = time.perf_counter()
+    out = dict(parity=lm_bf16_family_parity(torch, cpu_side))
+    out["serve"] = lm_bf16_family_serve(torch, lm_serve, lm_families)
+    counts, out["fake_counts_s"] = lm_bf16_fake(dry, "bf16_family_counts")
+    out["fake_counts"] = counts
+    arch = LM_BF16_TRAIN_ARCH
+    out["train"] = lm_bf16_train_cell(
+        torch, arch, LM_BF16_FAMILY_STEPS, counts[f"{arch}:train_4k"],
+        os.path.join(dry.bf16, f"{arch}__train_4k.ops.zst"), smi)
+    out["reduced"] = dict(out["serve"]["reduced"], parity=(
+        f"the reduced configs at {LM_BF16_PARITY[0]} x "
+        f"{LM_BF16_PARITY[1]}"), train=(
+        f"{arch} train_4k at batch {LM_BF16_TRAIN_BATCH} (of "
+        "the cell's 256 sequences: one a microbatch)"))
+    out["seconds"] = time.perf_counter() - t0
+    out["bounds"] = dict(logits_atol=numerics.LOGITS_ATOL,
+                         logits_ulps=numerics.LOGITS_ULPS,
+                         near_tie_ulps=numerics.NEAR_TIE_ULPS,
+                         max_flip_share=numerics.MAX_FLIP_SHARE,
+                         loss=LM_BF16_LOSS_ATOL, grad_rel=LM_BF16_GRAD_REL)
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -5356,6 +5788,7 @@ def main():
         side_ooc = Side("ooc_phase", store_root, indeg)
         side_admission = Side("admission_ooc", store_root, sources, s9, s10)
         side_ckpt = Side("checkpoint_ooc", store_root, ckpt_root)
+        side_bf16 = Side("lm_bf16_family_cpu")
 
         t0 = time.perf_counter()
         (sources, batched_launches, batched, msbfs, levels,
@@ -5456,6 +5889,15 @@ def main():
         log(f"lm bf16 launches: {lm_bf16_launches} (the LM path runs no "
             "kernel of the graph engine)")
         mark("lm bf16", t0)
+        gc.collect()
+        t0 = time.perf_counter()
+        reset_launches()
+        lm_bf16_families = lm_bf16_family_phase(torch, dry, side_bf16,
+                                                lm_serve, lm_families, smi)
+        lm_bf16_families_launches = read_launches()
+        log(f"lm bf16 families launches: {lm_bf16_families_launches} (the "
+            "LM path runs no kernel of the graph engine)")
+        mark("lm bf16 families", t0)
     finally:
         if dry is not None:
             dry.kill()
@@ -5470,7 +5912,8 @@ def main():
              "lm train": lm_train_launches,
              "lm families": lm_families_launches,
              "lm mesh": lm_mesh_launches, "lm dryrun": lm_dryrun_launches,
-             "lm bf16": lm_bf16_launches}
+             "lm bf16": lm_bf16_launches,
+             "lm bf16 families": lm_bf16_families_launches}
     total = {k: sum(p[k] for p in paths.values()) for k in main_launches}
     log(f"launches by path: {paths}; total {total}")
 
@@ -5552,7 +5995,7 @@ def main():
                        baselines=baselines, lm_serve=lm_serve,
                        lm_train=lm_train, lm_families=lm_families,
                        lm_mesh=lm_mesh, lm_dryrun=lm_dryrun,
-                       lm_bf16=lm_bf16,
+                       lm_bf16=lm_bf16, lm_bf16_families=lm_bf16_families,
                        launches_by_path=paths, kernels=kernels,
                        phase_seconds=phase_s, seconds=seconds), f, indent=1)
     faulthandler.cancel_dump_traceback_later()

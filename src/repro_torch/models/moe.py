@@ -30,13 +30,33 @@ routing as without a mesh.
 """
 from __future__ import annotations
 
+import contextlib
+from contextvars import ContextVar
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models.sharding import (cns, full, is_dtensor, like,
-                                         linear, moved)
+                                         linear, linear_f32, moved)
+
+
+_ROUTER_LOG: ContextVar = ContextVar("router_log", default=None)
+
+
+@contextlib.contextmanager
+def recording_router_logits():
+    """Yields a list that collects every :func:`moe_apply` call's float32
+    router logits ``[T, E]`` (detached, on the host) in call order while
+    the context is open: the routing a bfloat16 run chose, to be held
+    against another run's (``numerics.router_flips``)."""
+    log = []
+    token = _ROUTER_LOG.set(log)
+    try:
+        yield log
+    finally:
+        _ROUTER_LOG.reset(token)
 
 
 def moe_capacity(num_tokens: int, cfg) -> int:
@@ -119,7 +139,10 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg) -> torch.Tensor:
     # the router's product on each rank's tokens, its [T, E] logits
     # gathered: routing has no DTensor sharding rule, so it runs on whole
     # tensors on every rank
-    logits = full(linear(_each_rank_rows(xt), p.router.to(cdt)).float())
+    logits = full(linear_f32(_each_rank_rows(xt), p.router.to(cdt)))
+    log = _ROUTER_LOG.get()
+    if log is not None:
+        log.append(logits.detach().cpu())
     # the k largest, ties to the lower expert id as lax.top_k breaks them:
     # torch.topk leaves the order of ties open (the CPU's prefers the
     # higher id), and bfloat16 router logits tie often

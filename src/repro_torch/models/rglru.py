@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import assign_, cns, linear
+from repro_torch.models.sharding import assign_, cns, linear, linear_f32
 
 _C = 8.0
 
@@ -86,8 +86,8 @@ def _conv1d(x, w, state=None):
 
 def _gates(p: RGLRU, xb):
     """(a, sqrt(1 - a²)·i·x), float32 [B, S, R]."""
-    rf = torch.sigmoid(linear(xb, p.gate_a.to(xb.dtype)).float())
-    i = torch.sigmoid(linear(xb, p.gate_x.to(xb.dtype)).float())
+    rf = torch.sigmoid(linear_f32(xb, p.gate_a.to(xb.dtype)))
+    i = torch.sigmoid(linear_f32(xb, p.gate_x.to(xb.dtype)))
     log_a = -_C * F.softplus(p.a_param.float()) * rf
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))

@@ -21,9 +21,9 @@ from torch import nn
 from repro_torch.models import layers as L
 from repro_torch.models.sharding import (assign_, batch_heads, cns,
                                          contiguous_stride, head_chunk,
-                                         is_dtensor, linear, matmul,
-                                         merge_heads, moved, shard_box,
-                                         split_heads, spread,
+                                         is_dtensor, linear, linear_f32,
+                                         matmul, merge_heads, moved,
+                                         shard_box, split_heads, spread,
                                          whole_heads_dim)
 
 LORA_RANK = 32
@@ -159,9 +159,9 @@ def time_mix(p: TimeMix, x, cfg, cache=None):
     k = split_heads(linear(xk, p.wk.to(cdt)), H, dh)
     v = split_heads(linear(xv, p.wv.to(cdt)), H, dh)
     g = F.silu(linear(xg, p.wg.to(cdt)))
-    lora = linear(torch.tanh(linear(_contraction_as(xw, p.wk),
-                                    p.decay_lora_a.to(cdt))),
-                  _cols_as(p.decay_lora_b, p.wk).to(cdt))
+    lora = linear_f32(torch.tanh(linear(_contraction_as(xw, p.wk),
+                                        p.decay_lora_a.to(cdt))),
+                      _cols_as(p.decay_lora_b, p.wk).to(cdt))
     w = torch.exp(-torch.exp(
         (p.w_decay.reshape(1, 1, H, dh) + split_heads(lora, H, dh))
         .float()))                                               # [B,S,H,dh]

@@ -579,6 +579,20 @@ def logsumexp(x: torch.Tensor) -> torch.Tensor:
                               run_check=False)
 
 
+def linear_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`linear` of compute-dtype operands with a float32 result, for
+    the products whose result the reference casts to float32 at once (the
+    router's logits, the RG-LRU gates, RWKV6's decay LoRA, the loss's
+    logits).  Jitted into its train step, XLA folds such a cast into the
+    product, which then sums its exact partial products in float32 and is
+    never rounded to the compute dtype (ROADMAP C.9: rounding the RG-LRU
+    gates first moved recurrentgemma's bfloat16 train state 0.15 of a
+    second moment's scale from the reference's).  Float32 copies of the
+    operands do the same here (a product of two bfloat16 values is exact
+    in float32).  In float32 this is :func:`linear` itself."""
+    return linear(x.float(), w.float())
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` as ``mm`` or ``bmm`` on the batch dims broadcast and
     flattened: over a mesh DTensor (torch 2.11) propagates

@@ -45,8 +45,8 @@ from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import rwkv6 as K
 from repro_torch.models.sharding import (cns, gather_last, gathered, linear,
-                                         logsumexp, remat, write_slots_,
-                                         write_span_)
+                                         linear_f32, logsumexp, remat,
+                                         write_slots_, write_span_)
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -217,7 +217,7 @@ def chunked_xent(h: torch.Tensor, labels, emb: torch.Tensor,
     for c in range(n):
         hc = h[:, c * chunk:(c + 1) * chunk]
         lc = labels[:, c * chunk:(c + 1) * chunk]
-        logits = linear(hc, emb.to(hc.dtype)).float()
+        logits = linear_f32(hc, emb.to(hc.dtype))
         if cap:
             logits = torch.tanh(logits / cap) * cap
         logits = _mask_pad_logits(logits, cfg)

@@ -1,10 +1,12 @@
 """Whole bfloat16 train steps of the port (``train_step.build_train_step``
 on ``device="cpu"``) held against the JAX package's jitted step on the
 CPU, at the ``train_4k`` cell's RunConfig from each package's
-``registry.default_run_config`` (microbatch 2, remat "block", compute
-dtype bfloat16) with the sequence cut to 64 (so the chunks are 64), on
-reduced qwen3-1.7b and granite-moe-1b-a400m, weight decay 0, from the
-reference's ``init_state(jax.random.key(k))`` carried across by
+``registry.default_run_config`` (microbatch 2, 4 for dbrx-132b and
+internvl2-76b, remat "block", compute dtype bfloat16) with the sequence
+cut to 64 (so the chunks are 64), on all ten reduced archs (whisper-base
+with its encoder frames, internvl2-76b with its patch embeddings, from
+``SyntheticLM``), weight decay 0, from the reference's
+``init_state(jax.random.key(k))`` carried across by
 ``model_zoo.load_state``.  Tolerances:
 
 * each step's loss within ``LOSS_ATOL = 1e-3``
@@ -24,6 +26,31 @@ reference's ``init_state(jax.random.key(k))`` carried across by
   steps; the step counters equal.  qwen3-1.7b measured within 1.5e-4,
   1.3e-2 and 1.4e-3 of these.
 
+Two rules hold what lies beyond those bounds, each shown by the test
+where it applies, and nothing else passes:
+
+* a MoE arch's loss beyond ``LOSS_ATOL`` at a step must come with a
+  router flip in that step: each microbatch's forward on the
+  reference's parameters before the step, run by both packages, routes
+  a token otherwise only at a near tie (``numerics.router_flips``: 2
+  ulps of the row's largest router logit at the first differing layer),
+  at most 1 in 32 tokens, and at least one such flip is found (dbrx-132b:
+  2.2e-3 at its third step, two flips at 0.78 and 0.15 ulps);
+* a state leaf beyond its bound must lie within the reference's own
+  bfloat16 error of it: its distance from the reference's bfloat16
+  state at most the distance between the reference's bfloat16 and
+  float32 states after the same three steps from the same state
+  (rwkv6-1.6b's first moment of ``u``, whose gradient is a long sum of
+  cancelling terms: 0.094 of its scale from the reference's bfloat16
+  state, which lies 0.145 from its own float32 state).
+
+The RG-LRU gates, the router's logits, RWKV6's decay LoRA and the loss's
+logits are products whose result the reference casts to float32 at
+once; rounded to bfloat16 first, recurrentgemma-9b's state lay 0.073
+(first moments) and 0.148 (second moments) of a leaf's scale from the
+reference's, beyond STATE_REL and 8x the reference's own bfloat16 error
+there (ROADMAP C.9); taken in float32, 0.025 and 0.058.
+
 A bfloat16 job failed at step 5 and resumed from its step-4 checkpoint
 equals 10 straight steps bit for bit on the CPU, every leaf.
 """
@@ -33,7 +60,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
+from _ref_router import record_reference_router
 from repro_torch.configs import registry as treg
 from repro_torch.configs.base import SHAPE_CELLS
 from repro_torch.models import model_zoo as tzoo
@@ -48,7 +77,8 @@ LOSS_ATOL = 1e-3
 STATE_REL = {"params": 5e-2, "m": 5e-2, "v": 1e-1}
 PARAM_ATOL = 6e-3
 OPT_KW = dict(lr=1e-3, warmup_steps=2, decay_steps=100, weight_decay=0.0)
-ARCHS = ["qwen3-1.7b", "granite-moe-1b-a400m"]
+ARCHS = list(treg.ARCH_IDS)
+MICROBATCH = {"dbrx-132b": 4, "internvl2-76b": 4}   # the others 2
 SEQ = 64
 BATCH = 4
 
@@ -63,7 +93,7 @@ def _runs(arch):
     j = jreg.default_run_config(
         arch, dataclasses.replace(JCELLS["train_4k"], seq_len=SEQ))
     assert (t.compute_dtype, t.microbatch, t.remat, t.q_chunk) == \
-        ("bfloat16", 2, "block", SEQ)
+        ("bfloat16", MICROBATCH.get(arch, 2), "block", SEQ)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     return j, t
 
@@ -82,33 +112,85 @@ def _walk(got, want, path=""):
         yield path, np.asarray(got), np.asarray(want)
 
 
+def _ref_steps(arch, jcfg, jrun, batches, key=4):
+    """The reference's jitted step from ``init_state(key)`` over
+    ``batches``: (the states before each step and after the last, as
+    numpy trees; the losses)."""
+    from repro.train import train_step as jts
+    from repro.train.optimizer import OptConfig as JOpt
+
+    jstep, jinit, _ = jts.build_train_step(jcfg, jrun, JOpt(**OPT_KW))
+    state = jinit(jax.random.key(key))
+    states, losses = [_np_tree(state)], []
+    for b in batches:
+        state, stats = jstep(state, {k: jnp.asarray(v) for k, v in b.items()})
+        states.append(_np_tree(state))
+        losses.append(float(stats["loss"]))
+    return states, losses
+
+
+def _step_flips(jcfg, jrun, tcfg, trun, params, batch, monkeypatch):
+    """router_flips of each microbatch's full forward on ``params`` (the
+    reference's, before a step), run by both packages."""
+    from repro.models.model_zoo import build_model as jbuild
+
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models import numerics
+
+    ref = record_reference_router(monkeypatch)
+    jm = jbuild(jcfg, jrun)
+    tm = tzoo.load_params(tzoo.build_model(tcfg, trun), params)
+    n, out = trun.microbatch, []
+    rows = BATCH // n
+    for i in range(n):
+        toks = batch["tokens"][i * rows:(i + 1) * rows]
+        ref.clear()
+        jm.hidden(jax.tree.map(jnp.asarray, params), jnp.asarray(toks),
+                  mode="train")
+        with tmoe.recording_router_logits() as log, torch.no_grad():
+            tm.hidden(torch.from_numpy(toks), mode="train")
+        out.append(numerics.router_flips(list(ref), log,
+                                         tcfg.experts_per_token))
+    monkeypatch.undo()
+    return out
+
+
 @pytest.mark.parametrize("arch", ARCHS)
-def test_bf16_steps_match_reference(arch):
+def test_bf16_steps_match_reference(arch, monkeypatch):
     """Three whole bfloat16 steps of the reference's jitted step and the
     port's from the same state: each loss within LOSS_ATOL, the final
     state within STATE_REL of each leaf's scale (by kind: params, m, v)
-    and the params within PARAM_ATOL."""
+    and the params within PARAM_ATOL; beyond them only what a near-tie
+    router flip or the reference's own bfloat16 error explains (module
+    docstring)."""
     from repro.configs import registry as jreg
-    from repro.train import train_step as jts
-    from repro.train.optimizer import OptConfig as JOpt
+
+    from repro_torch.models import numerics
 
     jrun, trun = _runs(arch)
     jcfg = jreg.get_config(arch, reduced=True)
     tcfg = treg.get_config(arch, reduced=True)
-    jstep, jinit, _ = jts.build_train_step(jcfg, jrun, JOpt(**OPT_KW))
     tstep, _, _ = tts.build_train_step(tcfg, trun, topt.OptConfig(**OPT_KW),
                                        device="cpu")
-    jstate = jinit(jax.random.key(4))
-    tstate = tzoo.load_state(_np_tree(jstate), tcfg, trun, "cpu")
     src = tdata.SyntheticLM(tcfg, BATCH, SEQ, seed=0)
-    for i in range(3):
-        b = src.batch_at(i)
-        jstate, jstats = jstep(jstate, {k: jnp.asarray(v)
-                                        for k, v in b.items()})
+    batches = [src.batch_at(i) for i in range(3)]
+    jstates, jlosses = _ref_steps(arch, jcfg, jrun, batches)
+    tstate = tzoo.load_state(jstates[0], tcfg, trun, "cpu")
+    for i, b in enumerate(batches):
         tstate, tstats = tstep(tstate, b)
-        assert abs(float(tstats["loss"]) - float(jstats["loss"])) \
-            <= LOSS_ATOL, (i, float(tstats["loss"]), float(jstats["loss"]))
-    for path, g, w in _walk(tzoo.export_state(tstate), _np_tree(jstate)):
+        diff = abs(float(tstats["loss"]) - jlosses[i])
+        if diff <= LOSS_ATOL:
+            continue
+        assert tcfg.moe, (i, float(tstats["loss"]), jlosses[i])
+        flips = _step_flips(jcfg, jrun, tcfg, trun, jstates[i]["params"],
+                            b, monkeypatch)
+        first = [f for f in flips if f["layer"] is not None]
+        n = sum(len(f["tokens"]) for f in first)
+        assert first and all(f["near_ties"] for f in first) \
+            and n <= numerics.MAX_FLIP_SHARE * b["tokens"].size, \
+            (i, diff, flips)
+    own = None                   # the reference's own bfloat16 error
+    for path, g, w in _walk(tzoo.export_state(tstate), jstates[-1]):
         assert g.shape == w.shape and g.dtype == w.dtype, path
         if not g.size:
             continue
@@ -119,9 +201,15 @@ def test_bf16_steps_match_reference(arch):
         scale = max(float(np.max(np.abs(w))), 1e-30)
         parts = path.split("/")
         kind = parts[2] if parts[1] == "opt" else "params"
-        assert err <= STATE_REL[kind] * scale, (path, err / scale)
-        if path.startswith("/params"):
-            assert err <= PARAM_ATOL, (path, err)
+        if err <= STATE_REL[kind] * scale and (
+                not path.startswith("/params") or err <= PARAM_ATOL):
+            continue
+        if own is None:
+            f32 = dataclasses.replace(jrun, compute_dtype="float32")
+            own = {p: np.asarray(w32, np.float64) for p, w32, _ in _walk(
+                _ref_steps(arch, jcfg, f32, batches)[0][-1], jstates[-1])}
+        assert err <= float(np.max(np.abs(own[path] - w))), \
+            (path, err / scale)
 
 
 def test_bf16_resume_bit_for_bit(tmp_path):
