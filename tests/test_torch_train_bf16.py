@@ -26,23 +26,28 @@ with its encoder frames, internvl2-76b with its patch embeddings, from
   steps; the step counters equal.  qwen3-1.7b measured within 1.5e-4,
   1.3e-2 and 1.4e-3 of these.
 
-Two rules hold what lies beyond those bounds, each shown by the test
-where it applies, and nothing else passes:
+Beyond those bounds, two named exceptions, each shown where it applies:
 
-* a MoE arch's loss beyond ``LOSS_ATOL`` at a step must come with a
-  router flip in that step: each microbatch's forward on the
-  reference's parameters before the step, run by both packages, routes
-  a token otherwise only at a near tie (``numerics.router_flips``: 2
-  ulps of the row's largest router logit at the first differing layer),
-  at most 1 in 32 tokens, and at least one such flip is found (dbrx-132b:
-  2.2e-3 at its third step, two flips at 0.78 and 0.15 ulps);
-* a state leaf beyond its bound must lie within the reference's own
-  bfloat16 error of it: its distance from the reference's bfloat16
-  state at most the distance between the reference's bfloat16 and
-  float32 states after the same three steps from the same state
-  (rwkv6-1.6b's first moment of ``u``, whose gradient is a long sum of
-  cancelling terms: 0.094 of its scale from the reference's bfloat16
-  state, which lies 0.145 from its own float32 state).
+* a MoE arch's loss beyond ``LOSS_ATOL`` at a step, within
+  ``FLIP_LOSS_ATOL = 3e-3`` (dbrx-132b's third step measured 2.23e-3):
+  each step's forward on the reference's parameters, run by both
+  packages, must route a token otherwise only at a near tie
+  (``numerics.router_flips``: 2 ulps of the row's largest router logit
+  at the first differing layer), at most 1 in 32 tokens, with at least
+  one such flip up to that step; and the three steps run again with the
+  reference's router logits forced onto the port's (their values, the
+  port's gradient: ``_ref_router.forcing_router``) must hold every loss
+  to ``LOSS_ATOL`` and the state to the bounds above (dbrx-132b:
+  1.0e-4, 9.4e-5, 2.6e-4: the flips in the first two steps' forwards,
+  at 0.75, 0.16 and 0.25 ulps, moved the experts' weights, and the third
+  step's loss with them);
+* ``LEAF_REL``: rwkv6-1.6b's first moment of ``u`` within 0.12 of its
+  scale (measured 0.094; ROADMAP C.10), the noisiest of rwkv6's first
+  moments in bfloat16 in both packages.  The second witness is asserted
+  beside it: the
+  float32 state after the same steps (the two packages within 1.3e-5 of
+  its scale there) lies nearer the port's bfloat16 state (0.117) than
+  the reference's (0.145; compiled without XLA's excess precision, 0.219).
 
 The RG-LRU gates, the router's logits, RWKV6's decay LoRA and the loss's
 logits are products whose result the reference casts to float32 at
@@ -62,7 +67,7 @@ import numpy as np
 import pytest
 import torch
 
-from _ref_router import record_reference_router
+from _ref_router import forcing_router, record_reference_router
 from repro_torch.configs import registry as treg
 from repro_torch.configs.base import SHAPE_CELLS
 from repro_torch.models import model_zoo as tzoo
@@ -76,6 +81,8 @@ from repro_torch.train.checkpoint import CheckpointManager
 LOSS_ATOL = 1e-3
 STATE_REL = {"params": 5e-2, "m": 5e-2, "v": 1e-1}
 PARAM_ATOL = 6e-3
+FLIP_LOSS_ATOL = 3e-3
+LEAF_REL = {("rwkv6-1.6b", "/opt/m/cycles/0K/rwkv/tmix/u"): 0.12}   # C.10
 OPT_KW = dict(lr=1e-3, warmup_steps=2, decay_steps=100, weight_decay=0.0)
 ARCHS = list(treg.ARCH_IDS)
 MICROBATCH = {"dbrx-132b": 4, "internvl2-76b": 4}   # the others 2
@@ -130,67 +137,58 @@ def _ref_steps(arch, jcfg, jrun, batches, key=4):
 
 
 def _step_flips(jcfg, jrun, tcfg, trun, params, batch, monkeypatch):
-    """router_flips of each microbatch's full forward on ``params`` (the
-    reference's, before a step), run by both packages."""
+    """(router_flips of each microbatch's full forward on ``params`` (the
+    reference's, before a step) run by both packages, the reference's
+    router logits of those forwards in call order)."""
     from repro.models.model_zoo import build_model as jbuild
 
     from repro_torch.models import moe as tmoe
     from repro_torch.models import numerics
 
-    ref = record_reference_router(monkeypatch)
     jm = jbuild(jcfg, jrun)
     tm = tzoo.load_params(tzoo.build_model(tcfg, trun), params)
-    n, out = trun.microbatch, []
+    n, out, logs = trun.microbatch, [], []
     rows = BATCH // n
     for i in range(n):
         toks = batch["tokens"][i * rows:(i + 1) * rows]
-        ref.clear()
-        jm.hidden(jax.tree.map(jnp.asarray, params), jnp.asarray(toks),
-                  mode="train")
+        with monkeypatch.context() as mp:
+            ref = record_reference_router(mp)
+            jm.hidden(jax.tree.map(jnp.asarray, params), jnp.asarray(toks),
+                      mode="train")
         with tmoe.recording_router_logits() as log, torch.no_grad():
             tm.hidden(torch.from_numpy(toks), mode="train")
         out.append(numerics.router_flips(list(ref), log,
                                          tcfg.experts_per_token))
-    monkeypatch.undo()
-    return out
+        logs += ref
+    return out, logs
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_bf16_steps_match_reference(arch, monkeypatch):
-    """Three whole bfloat16 steps of the reference's jitted step and the
-    port's from the same state: each loss within LOSS_ATOL, the final
-    state within STATE_REL of each leaf's scale (by kind: params, m, v)
-    and the params within PARAM_ATOL; beyond them only what a near-tie
-    router flip or the reference's own bfloat16 error explains (module
-    docstring)."""
-    from repro.configs import registry as jreg
-
-    from repro_torch.models import numerics
-
-    jrun, trun = _runs(arch)
-    jcfg = jreg.get_config(arch, reduced=True)
-    tcfg = treg.get_config(arch, reduced=True)
+def _port_steps(tcfg, trun, state, batches, monkeypatch, forced=None):
+    """The port's step from the reference's numpy ``state`` over
+    ``batches``: (its final state exported, the losses, and where
+    ``forced`` gives each step's reference router logits, forced onto the
+    port's router, the (nearest, second nearest) distance of each call's
+    match)."""
     tstep, _, _ = tts.build_train_step(tcfg, trun, topt.OptConfig(**OPT_KW),
                                        device="cpu")
-    src = tdata.SyntheticLM(tcfg, BATCH, SEQ, seed=0)
-    batches = [src.batch_at(i) for i in range(3)]
-    jstates, jlosses = _ref_steps(arch, jcfg, jrun, batches)
-    tstate = tzoo.load_state(jstates[0], tcfg, trun, "cpu")
+    tstate = tzoo.load_state(state, tcfg, trun, "cpu")
+    losses, matches = [], []
     for i, b in enumerate(batches):
-        tstate, tstats = tstep(tstate, b)
-        diff = abs(float(tstats["loss"]) - jlosses[i])
-        if diff <= LOSS_ATOL:
-            continue
-        assert tcfg.moe, (i, float(tstats["loss"]), jlosses[i])
-        flips = _step_flips(jcfg, jrun, tcfg, trun, jstates[i]["params"],
-                            b, monkeypatch)
-        first = [f for f in flips if f["layer"] is not None]
-        n = sum(len(f["tokens"]) for f in first)
-        assert first and all(f["near_ties"] for f in first) \
-            and n <= numerics.MAX_FLIP_SHARE * b["tokens"].size, \
-            (i, diff, flips)
-    own = None                   # the reference's own bfloat16 error
-    for path, g, w in _walk(tzoo.export_state(tstate), jstates[-1]):
+        with monkeypatch.context() as mp:
+            if forced is not None:
+                matches += forcing_router(mp, forced[i])
+            tstate, tstats = tstep(tstate, b)
+        losses.append(float(tstats["loss"]))
+    return tzoo.export_state(tstate), losses, matches
+
+
+def _check_state(arch, got, want):
+    """Every leaf of ``got`` against ``want`` (numpy trees): ints equal,
+    floats within STATE_REL of the leaf's scale by kind, or LEAF_REL
+    where it names the leaf, and params within PARAM_ATOL.  Returns the
+    LEAF_REL leaves' paths."""
+    named = []
+    for path, g, w in _walk(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype, path
         if not g.size:
             continue
@@ -201,15 +199,70 @@ def test_bf16_steps_match_reference(arch, monkeypatch):
         scale = max(float(np.max(np.abs(w))), 1e-30)
         parts = path.split("/")
         kind = parts[2] if parts[1] == "opt" else "params"
-        if err <= STATE_REL[kind] * scale and (
-                not path.startswith("/params") or err <= PARAM_ATOL):
-            continue
-        if own is None:
-            f32 = dataclasses.replace(jrun, compute_dtype="float32")
-            own = {p: np.asarray(w32, np.float64) for p, w32, _ in _walk(
-                _ref_steps(arch, jcfg, f32, batches)[0][-1], jstates[-1])}
-        assert err <= float(np.max(np.abs(own[path] - w))), \
-            (path, err / scale)
+        rel = LEAF_REL.get((arch, path))
+        if rel is not None:
+            named.append(path)
+        assert err <= (rel or STATE_REL[kind]) * scale, (path, err / scale)
+        if path.startswith("/params"):
+            assert err <= PARAM_ATOL, (path, err)
+    return named
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bf16_steps_match_reference(arch, monkeypatch):
+    """Three whole bfloat16 steps of the reference's jitted step and the
+    port's from the same state: each loss within LOSS_ATOL, the final
+    state within STATE_REL of each leaf's scale (by kind: params, m, v)
+    and the params within PARAM_ATOL; beyond them only a MoE loss that the
+    reference's routing, forced onto the port, brings within LOSS_ATOL,
+    and the LEAF_REL leaf with its witness (module docstring)."""
+    from repro.configs import registry as jreg
+
+    from repro_torch.models import numerics
+
+    jrun, trun = _runs(arch)
+    jcfg = jreg.get_config(arch, reduced=True)
+    tcfg = treg.get_config(arch, reduced=True)
+    src = tdata.SyntheticLM(tcfg, BATCH, SEQ, seed=0)
+    batches = [src.batch_at(i) for i in range(3)]
+    jstates, jlosses = _ref_steps(arch, jcfg, jrun, batches)
+    tstate, tlosses, _ = _port_steps(tcfg, trun, jstates[0], batches,
+                                     monkeypatch)
+    diffs = [abs(t - j) for t, j in zip(tlosses, jlosses)]
+    off = [i for i, d in enumerate(diffs) if d > LOSS_ATOL]
+    if off:
+        assert tcfg.moe and max(diffs) <= FLIP_LOSS_ATOL, \
+            (tlosses, jlosses)
+        flips, logs = zip(*[_step_flips(jcfg, jrun, tcfg, trun,
+                                        jstates[i]["params"], b, monkeypatch)
+                            for i, b in enumerate(batches)])
+        for i, step in enumerate(flips):
+            first = [f for f in step if f["layer"] is not None]
+            assert all(f["near_ties"] for f in first) \
+                and sum(len(f["tokens"]) for f in first) \
+                <= numerics.MAX_FLIP_SHARE * batches[i]["tokens"].size, \
+                (i, step)
+        assert any(f["layer"] is not None
+                   for step in flips[:max(off) + 1] for f in step), \
+            (diffs, flips)
+        forced, flosses, matches = _port_steps(tcfg, trun, jstates[0],
+                                               batches, monkeypatch, logs)
+        assert all(near < 0.25 * second for near, second in matches), \
+            matches
+        assert all(abs(t - j) <= LOSS_ATOL
+                   for t, j in zip(flosses, jlosses)), (flosses, jlosses)
+        _check_state(arch, forced, jstates[-1])
+    named = _check_state(arch, tstate, jstates[-1])
+    if named:
+        f32 = dataclasses.replace(jrun, compute_dtype="float32")
+        w32 = {p: w for p, w, _ in _walk(
+            _ref_steps(arch, jcfg, f32, batches)[0][-1], jstates[-1])}
+        got = {p: g for p, g, _ in _walk(tstate, jstates[-1])}
+        for path, w, _ in _walk(jstates[-1], jstates[-1]):
+            if path in named:
+                w32p = w32[path].astype(np.float64)
+                assert np.max(np.abs(got[path] - w32p)) \
+                    <= np.max(np.abs(w - w32p)), path
 
 
 def test_bf16_resume_bit_for_bit(tmp_path):
